@@ -1,0 +1,25 @@
+"""PyTorch/CUDA port of ``mm_training_tpu`` for NVIDIA Hopper (H100).
+
+A package of its own beside the JAX one, which stays the reference. It
+imports ``torch``, numpy and the standard library only: never ``jax``, flax
+or ``mm_training_tpu``. Slice 1 is the LiDAR / LiDAR+radar serving path
+(voxelize -> pillar encoder -> CenterPoint head -> decode + circle NMS) with
+its three hand-written kernels under ``csrc/``.
+
+Entry points run on the card (``device='cuda'``) unless the caller passes
+``device='cpu'``; without a card they raise rather than fall back.
+"""
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device, default CUDA; raises when CUDA is asked
+    for and there is no card."""
+    dev = torch.device('cuda' if device is None else device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is available; pass device="cpu" to '
+                           'run the plain PyTorch versions on the CPU')
+    return dev
+
+
+__all__ = ['resolve_device']

@@ -1,0 +1,227 @@
+"""Config surface of the PyTorch port (serving slice: LiDAR / LiDAR+radar).
+
+The port's own copy of ``mm_training_tpu/configs/base.py``: the same frozen
+dataclasses, knob names and derived values, cut to what the lidar predict
+path reads. The camera sub-configs (``BackboneConf`` and friends) arrive with
+the camera slice; ``use_cam=True`` is refused by the model until then.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class BEVBackboneConf:
+    """ResNet18-style BEV trunk (reference conf_aim.py:100-110)."""
+    in_channels: int = 336
+    base_channels: int = 160
+    num_stages: int = 3
+    strides: Tuple[int, ...] = (1, 2, 2)
+    out_indices: Tuple[int, ...] = (0, 1, 2)
+
+
+@dataclass(frozen=True)
+class BEVNeckConf:
+    """SECONDFPN BEV neck (reference conf_aim.py:112-115)."""
+    in_channels: Tuple[int, ...] = (160, 320, 640)
+    upsample_strides: Tuple[int, ...] = (8, 16, 32)
+    out_channels: Tuple[int, ...] = (64, 64, 64)
+
+
+@dataclass(frozen=True)
+class TaskConf:
+    num_class: int
+    class_names: Tuple[str, ...]
+
+
+@dataclass(frozen=True)
+class BBoxCoderConf:
+    """CenterPointBBoxCoder (reference conf_aim.py:138-148)."""
+    post_center_range: Tuple[float, ...] = (-214.8, -35.6, -10, 214.8, 35.6, 10)
+    max_num: int = 500
+    score_threshold: float = 0.0
+    out_size_factor: int = 4
+    voxel_size: Tuple[float, float, float] = (0.2, 0.2, 8.0)
+    pc_range: Tuple[float, ...] = (-204.8, -25.6, -5, 204.8, 25.6, 3)
+    code_size: int = 9
+
+
+@dataclass(frozen=True)
+class TrainCfg:
+    """Target-generation config (reference conf_aim.py:150-161)."""
+    point_cloud_range: Tuple[float, ...] = (-204.8, -25.6, -5, 204.8, 25.6, 3)
+    grid_size: Tuple[int, int, int] = (2048, 256, 1)  # (x, y, z)
+    voxel_size: Tuple[float, float, float] = (0.2, 0.2, 8.0)
+    out_size_factor: int = 4
+    dense_reg: int = 1
+    gaussian_overlap: float = 0.1
+    max_objs: int = 500
+    min_radius: int = 2
+    code_weights: Tuple[float, ...] = (1.0,) * 8 + (0.0, 0.0)
+
+
+@dataclass(frozen=True)
+class TestCfg:
+    """Decode/NMS config (reference conf_aim.py:163-175)."""
+    post_center_limit_range: Tuple[float, ...] = (-204.8, -25.6, -5, 204.8, 25.6, 3)
+    max_per_img: int = 500
+    min_radius: Tuple[float, ...] = (4, 10, 0.5, 0.25)
+    score_threshold: float = 0.1
+    out_size_factor: int = 4
+    voxel_size: Tuple[float, float, float] = (0.2, 0.2, 8.0)
+    nms_type: str = 'circle'
+    pre_max_size: int = 1000
+    post_max_size: int = 83
+    nms_thr: float = 0.2
+
+
+@dataclass(frozen=True)
+class HeadConf:
+    """BEVDepthHead config (reference conf_aim.py:177-190)."""
+    bev_backbone_conf: BEVBackboneConf = field(default_factory=BEVBackboneConf)
+    bev_neck_conf: BEVNeckConf = field(default_factory=BEVNeckConf)
+    tasks: Tuple[TaskConf, ...] = (
+        TaskConf(1, ('car',)),
+        TaskConf(1, ('truck/bus',)),
+        TaskConf(1, ('motorcycle',)),
+        TaskConf(1, ('pedestrian',)),
+    )
+    common_heads: Tuple[Tuple[str, Tuple[int, int]], ...] = (
+        ('reg', (2, 2)), ('height', (1, 2)), ('dim', (3, 2)),
+        ('rot', (2, 2)), ('vel', (2, 2)),
+    )
+    bbox_coder: BBoxCoderConf = field(default_factory=BBoxCoderConf)
+    train_cfg: TrainCfg = field(default_factory=TrainCfg)
+    test_cfg: TestCfg = field(default_factory=TestCfg)
+    in_channels: int = 192  # == sum(bev_neck.out_channels)
+    init_bias: float = -2.19
+    final_kernel: int = 3
+    gaussian_overlap: float = 0.1
+    min_radius: int = 2
+    loss_bbox_weight: float = 0.25
+
+
+@dataclass(frozen=True)
+class VoxelizationConf:
+    """Hard voxelization (reference conf_aim.py:194-197)."""
+    max_num_points: int = 15
+    max_voxels: int = 25000
+    num_features: int = 5  # HardSimpleVFE num_features (conf_aim.py:200)
+
+
+@dataclass(frozen=True)
+class LidarEncoderConf:
+    """Dense pillar encoder standing in for the mmdet3d SparseEncoder
+    (conf_aim.py:202-212): a 2D conv pyramid with the SparseEncoder's channel
+    progression at total stride 8, ending in the 256-channel BEV contract.
+
+    ``variant='sparse_import'`` (the checkpoint-import replica) is refused by
+    the port until the checkpoint-import slice.
+    """
+    in_channels: int = 5
+    encoder_channels: Tuple[Tuple[int, ...], ...] = (
+        (16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128))
+    out_channels: int = 256
+    voxelization: VoxelizationConf = field(default_factory=VoxelizationConf)
+    variant: str = 'dense'
+    # fold 2x2 pillar blocks into channels before the conv pyramid; the /8
+    # BEV output contract is unchanged (strides move inward one stage)
+    space_to_depth: bool = True
+
+
+@dataclass(frozen=True)
+class Config:
+    """Top-level experiment config — same knob names as exps/conf_aim.py."""
+    experiment_name: str = 'lidar_radar'
+    precision: str = 'bf16'  # 'fp32' | 'bf16'
+    batch_size: int = 1      # per-device batch size
+    seed: int = 0
+
+    # --- BEV grid (conf_aim.py:16-18)
+    voxel_size: Tuple[float, float, float] = (0.2, 0.2, 8.0)
+    out_size_factor: int = 4
+    point_cloud_range: Tuple[float, ...] = (-204.8, -25.6, -5.0, 204.8, 25.6, 3.0)
+
+    # --- modality switches (conf_aim.py:20-27)
+    use_cam: bool = False
+    use_lidar: bool = True
+    use_radar: bool = True
+    train_velocity: bool = False
+    look_back: int = 0
+    look_forward: int = 0
+
+    # --- fixed-shape capacities
+    max_points_per_frame: int = 0   # 0 => (1+look_back+look_forward)*100_000
+    max_objs: int = 500
+
+    head_conf: Optional[HeadConf] = None
+    lidar_conf: Optional[LidarEncoderConf] = None
+
+    # ------------------------------------------------------------------ derived
+    @property
+    def lidar_input_channels(self) -> int:
+        return 8 if self.use_radar else 5
+
+    @property
+    def lidar_feature_channels(self) -> int:
+        return 256 if self.use_lidar else 0
+
+    @property
+    def camera_feature_channels(self) -> int:
+        return 80 if self.use_cam else 0
+
+    @property
+    def fuse_layer_in_channels(self) -> int:
+        return self.camera_feature_channels + self.lidar_feature_channels
+
+    @property
+    def out_shape(self) -> Tuple[int, int]:
+        """(ny, nx) full-resolution BEV grid (conf_aim.py:39-40)."""
+        pc = self.point_cloud_range
+        # round(), not int(): 30.0/0.2 = 149.999... would lose a grid row
+        return (int(round((pc[4] - pc[1]) / self.voxel_size[1])),
+                int(round((pc[3] - pc[0]) / self.voxel_size[0])))
+
+    @property
+    def grid_size(self) -> Tuple[int, int, int]:
+        ny, nx = self.out_shape
+        return (nx, ny, 1)
+
+    @property
+    def max_points(self) -> int:
+        if self.max_points_per_frame:
+            return self.max_points_per_frame
+        return (1 + self.look_back + self.look_forward) * 100_000
+
+    # -------------------------------------------------------------- sub-configs
+    def get_head_conf(self) -> HeadConf:
+        if self.head_conf is not None:
+            return self.head_conf
+        pc, vs, osf = self.point_cloud_range, self.voxel_size, self.out_size_factor
+        vel_w = 0.3 if self.train_velocity else 0.0
+        return HeadConf(
+            bev_backbone_conf=BEVBackboneConf(in_channels=self.fuse_layer_in_channels),
+            bbox_coder=BBoxCoderConf(
+                post_center_range=(pc[0] - 10.0, pc[1] - 10.0, -10,
+                                   pc[3] + 10.0, pc[4] + 10.0, 10),
+                out_size_factor=osf, voxel_size=vs, pc_range=pc,
+            ),
+            train_cfg=TrainCfg(
+                point_cloud_range=pc, grid_size=self.grid_size, voxel_size=vs,
+                out_size_factor=osf, max_objs=self.max_objs,
+                code_weights=(1.0,) * 8 + (vel_w, vel_w),
+            ),
+            test_cfg=TestCfg(
+                post_center_limit_range=pc, out_size_factor=osf, voxel_size=vs,
+            ),
+        )
+
+    def get_lidar_conf(self) -> LidarEncoderConf:
+        if self.lidar_conf is not None:
+            return self.lidar_conf
+        return LidarEncoderConf()
+
+    def replace(self, **kw) -> 'Config':
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,110 @@
+"""ResNet pieces of the BEV head trunk (NCHW, channels_last memory).
+
+The port of ``mm_training_tpu/models/resnet.py``: ``ConvBN``,
+``BasicBlock``, the mmdet-style ``ResNet`` at depth 18 with the plain 7x7/2
+stem, and ``space_to_depth_2x2``. Module and parameter names are mmdet's
+(``conv1``/``bn1``, ``layer{i}.{j}.conv1``, ``downsample.0``/``.1``), so a
+reference state dict loads as is. Every BatchNorm tail (with its ReLU and,
+in a BasicBlock, the residual add) runs through kernel A. The ResNet-50
+image backbone and its space-to-depth stem arrive with the camera slice.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .bn_fold import BatchNorm2d
+
+__all__ = ['ConvBN', 'BasicBlock', 'ResNet', 'space_to_depth_2x2']
+
+_STAGE_BLOCKS = {18: (2, 2, 2, 2)}
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
+          bias: bool = False) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, stride, padding=kernel // 2, bias=bias)
+
+
+class ConvBN(nn.Module):
+    """conv -> BN (-> ReLU); mmcv ConvModule naming (``conv``, ``bn``)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 relu: bool = True, conv_bias: bool = False):
+        super().__init__()
+        self.conv = _conv(cin, cout, kernel, stride, conv_bias)
+        self.bn = BatchNorm2d(cout, relu=relu)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn(self.conv(x))
+
+
+class BasicBlock(nn.Module):
+    """mmdet BasicBlock (expansion 1): relu(bn2(conv2(relu(bn1(conv1 x))))
+    + identity), the add and the last ReLU inside bn2's kernel."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = _conv(cin, cout, 3, stride)
+        self.bn1 = BatchNorm2d(cout, relu=True)
+        self.conv2 = _conv(cout, cout, 3)
+        self.bn2 = BatchNorm2d(cout, relu=True)
+        self.downsample = None
+        if cin != cout or stride != 1:
+            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
+                                            BatchNorm2d(cout, relu=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn1(self.conv1(x))
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.bn2(self.conv2(out), identity)
+
+
+class ResNet(nn.Module):
+    """mmdet-style ResNet returning multi-scale features.
+
+    Stem: 7x7/2 conv + BN + ReLU + 3x3/2 max-pool (padding acts as -inf), so
+    stage i sits at total stride 4 * prod(strides[:i + 1])."""
+
+    def __init__(self, depth: int = 18, in_channels: int = 3,
+                 base_channels: int = 64, num_stages: int = 4,
+                 strides: Sequence[int] = (1, 2, 2, 2),
+                 out_indices: Sequence[int] = (0, 1, 2, 3)):
+        super().__init__()
+        if depth not in _STAGE_BLOCKS:
+            raise NotImplementedError(
+                f'ResNet-{depth}: the port has depth 18 (the BEV trunk); the '
+                'ResNet-50 image backbone arrives with the camera slice (slice 3)')
+        self.out_indices = tuple(out_indices)
+        self.conv1 = _conv(in_channels, base_channels, 7, 2)
+        self.bn1 = BatchNorm2d(base_channels, relu=True)
+        cin, width = base_channels, base_channels
+        self.stage_names = []
+        for i in range(num_stages):
+            blocks = [BasicBlock(cin if j == 0 else width, width,
+                                 strides[i] if j == 0 else 1)
+                      for j in range(_STAGE_BLOCKS[depth][i])]
+            self.add_module(f'layer{i + 1}', nn.Sequential(*blocks))
+            self.stage_names.append(f'layer{i + 1}')
+            cin, width = width, width * 2
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = F.max_pool2d(self.bn1(self.conv1(x)), 3, 2, 1)
+        outs = []
+        for i, name in enumerate(self.stage_names):
+            x = getattr(self, name)(x)
+            if i in self.out_indices:
+                outs.append(x)
+        return tuple(outs)
+
+
+def space_to_depth_2x2(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [B, H, W, C] -> [B, H/2, W/2, 4C]; the channel-group order is
+    (row-offset, col-offset) minor, as in the JAX package."""
+    b, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f'space_to_depth_2x2 needs even H and W, got {(h, w)}')
+    xb = x.reshape(b, h // 2, 2, w // 2, 2, c)
+    return xb.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)

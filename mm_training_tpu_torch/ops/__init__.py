@@ -1,0 +1,7 @@
+"""Device ops of the port: each kernel's wrapper beside its plain version.
+
+A wrapper given a CPU tensor runs the plain PyTorch version; given a CUDA
+tensor it launches its kernel (``csrc/``) or raises, and adds one to its
+``launches`` count. Modules: ``affine_act`` (kernel A), ``voxelize`` (K1),
+``circle_nms`` (K3), ``build`` (nvcc + ctypes).
+"""

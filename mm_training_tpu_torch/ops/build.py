@@ -1,0 +1,89 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
+library with a plain C interface, loaded with ``ctypes``. Libraries go to
+``mm_training_tpu_torch/_build/``, named by a hash of their source, so an
+edited source is rebuilt and an unchanged one is built once per checkout.
+:func:`build_kernels` starts one ``nvcc`` per source at once; :func:`load`
+builds on first use. Nothing is built at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+__all__ = ['KERNEL_SOURCES', 'build_kernels', 'check', 'load']
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / 'csrc'
+BUILD_DIR = PKG / '_build'
+KERNEL_SOURCES = ('affine_act', 'voxelize', 'circle_nms')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC')
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    for root in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if root and Path(root, 'bin', 'nvcc').is_file():
+            return str(Path(root, 'bin', 'nvcc'))
+    raise RuntimeError('nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): '
+                       'the CUDA kernels need the CUDA toolkit')
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes()
+                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f'lib{name}-{digest}.so'
+
+
+def build_kernels(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, Path]:
+    """Compile every missing library, one ``nvcc`` per source, all at once.
+
+    Returns {name: library path}. Raises with the compiler's output when a
+    build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: _library_path(n) for n in names}
+    procs = {}
+    for n, lib in paths.items():
+        if lib.is_file():
+            continue
+        tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{n}.cu')]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, lib)
+    failed = []
+    for n, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'{n}.cu:\n{out}')
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError('nvcc failed\n' + '\n'.join(failed))
+    return paths
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/{name}.cu``, built first if needed."""
+    lib = ctypes.CDLL(str(build_kernels((name,))[name]))
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f'{what}: CUDA error {code} '
+                           f'({lib.error_string(code).decode()})')

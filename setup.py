@@ -41,7 +41,8 @@ setup(
     description=('TPU-native multimodal BEV 3D-detection training framework '
                  '(JAX/XLA) with the capabilities of aimotive/mm_training'),
     packages=find_packages(include=['mm_training_tpu*']),
-    package_data={'mm_training_tpu.data': ['csrc/*.cpp']},
+    package_data={'mm_training_tpu.data': ['csrc/*.cpp'],
+                  'mm_training_tpu_torch': ['csrc/*.cu']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy', 'scipy',

@@ -1,0 +1,55 @@
+"""The port stands alone: no jax, flax or mm_training_tpu import anywhere in
+``mm_training_tpu_torch`` or ``chip_smoke.py``; and its entry points refuse
+to fall back to the CPU when no device is named and there is no card."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from mm_training_tpu_torch.configs import tiny_test_config
+from mm_training_tpu_torch.exps import inference
+from mm_training_tpu_torch.models import BEVDepthLiDAR
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for banned in ('jax', 'flax', 'mm_training_tpu'):
+    sys.modules[banned] = None        # any import of them raises ImportError
+import mm_training_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mm_training_tpu_torch.__path__,
+                                                'mm_training_tpu_torch.')]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+leaked = [m for m, v in sys.modules.items() if v is not None
+          and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mm_training_tpu')]
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20   # every module of the package
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        BEVDepthLiDAR(tiny_test_config())
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        inference.main(['--latency', '--config', 'tiny_test_config', '--iters', '1'])
+
+
+def test_latency_cli_on_cpu_when_asked(capsys):
+    stats = inference.main(['--latency', '--config', 'tiny_test_config',
+                            '--iters', '2', '--device', 'cpu'])
+    assert stats['batch_size'] == 1 and stats['p50_ms'] > 0
+    assert 'p50_ms=' in capsys.readouterr().out
