@@ -4,11 +4,11 @@
     python3 chip_smoke.py        # from the repository root, one NVIDIA H100
 
 Phases, each raising on failure:
-  1. build the three CUDA kernels from ``mm_training_tpu_torch/csrc`` (one
+  1. build the five CUDA kernels from ``mm_training_tpu_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time;
-  2. hold each kernel against its plain PyTorch version at the serving
-     path's shapes, and time kernel, plain version and, where one exists,
-     a single PyTorch call computing the same function;
+  2. hold each kernel against its plain PyTorch version at the serving and
+     training paths' shapes, and time kernel, plain version and, where one
+     exists, a single PyTorch call computing the same function;
   3. serve the full-width ``lidar_radar`` predict path (grid 256 x 2048,
      8-feature points, bf16, seeded random weights): distinct B=1 requests,
      one B=4 batch and a p50/p90/p99 latency run, with every kernel's launch
@@ -16,11 +16,19 @@ Phases, each raising on failure:
   4. check what came out: finite boxes of the expected shapes, pred maps
      equal to the same model run through the plain versions (bf16
      tolerance), and the fp32 tiny config on the card against the port's
-     CPU path (TF32 off; boxes to 1e-3, scores to 1e-4).
+     CPU path (TF32 off; boxes to 1e-3, scores to 1e-4);
+  5. train the full-width ``lidar_radar`` model at B=4 (bf16 compute over
+     float32 masters) on one fixed fake batch: warm-up, timed steps and one
+     eval step, with every kernel's launch count reset before and read
+     after; finite losses; one step's gradients through the kernels against
+     the same step through the plain versions;
+  6. the fp32 tiny config's train step on the card against the port's CPU
+     step (TF32 off): loss, updated parameters, BN statistics.
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
 """
+import contextlib
 import copy
 import json
 import subprocess
@@ -36,32 +44,29 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM (data sheet, 700 W)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 
 
-def _ms(fn, iters):
-    """Device time of one call: ``iters`` calls queued behind a device-side
-    sleep, so they run back to back however slowly the host enqueues them,
-    timed with CUDA events. A call whose launches overflow the launch queue
-    is timed with the gaps the host leaves."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)      # ~50 ms of device time
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def _wrappers():
+    """Every kernel wrapper of the port, by row name."""
+    from mm_training_tpu_torch.ops import affine_act, circle_nms, gaussian, voxelize
+    return {'affine_act': affine_act.affine_act,
+            'affine_act_backward': affine_act.affine_act_backward,
+            'voxelize_pillars_dense': voxelize.voxelize_pillars_dense,
+            'draw_heatmap': gaussian.draw_heatmap,
+            'circle_nms_mask': circle_nms.circle_nms_mask}
 
 
-def _call_ms(fn, iters):
-    """Host time of one call, enqueue to completion (what a caller waits)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
+@contextlib.contextmanager
+def _plain_versions():
+    """Every kernel wrapper swapped for its plain version."""
+    from mm_training_tpu_torch.ops import affine_act, circle_nms, gaussian, voxelize
+    swaps = ((affine_act, 'affine_act', affine_act.affine_act_plain),
+             (affine_act, 'affine_act_backward', affine_act.affine_act_backward_plain),
+             (voxelize, 'voxelize_pillars_dense', voxelize.voxelize_pillars_dense_plain),
+             (gaussian, 'draw_heatmap', gaussian.draw_heatmap_plain),
+             (circle_nms, 'circle_nms_mask', circle_nms.circle_nms_mask_plain))
+    with contextlib.ExitStack() as stack:
+        for mod, name, plain in swaps:
+            stack.enter_context(mock.patch.object(mod, name, plain))
+        yield
 
 
 def _randomize_bn(model, gen):
@@ -79,9 +84,11 @@ def _randomize_bn(model, gen):
 
 
 def check_kernels(cfg):
-    """Phase 2: each kernel against its plain version at the path's shapes."""
+    """Phase 2: each kernel against its plain version at the paths' shapes."""
     from mm_training_tpu_torch.data import make_fake_batch
-    from mm_training_tpu_torch.ops import affine_act, circle_nms, voxelize
+    from mm_training_tpu_torch.exps.timing import device_ms, host_ms
+    from mm_training_tpu_torch.models.centerpoint_head import heatmap_inputs
+    from mm_training_tpu_torch.ops import affine_act, circle_nms, gaussian, voxelize
 
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -107,9 +114,9 @@ def check_kernels(cfg):
     rows.append(dict(
         name='affine_act', route='cuda', source='mm_training_tpu_torch/csrc/affine_act.cu',
         replaces='scripts/bn_elementwise_probe.py:88', max_abs_err=err,
-        ms=_ms(lambda: affine_act.affine_act(x, s, t), 200),
-        call_ms=_call_ms(lambda: affine_act.affine_act(x, s, t), 200),
-        plain_ms=_ms(lambda: affine_act.affine_act_plain(x, s, t), 50),
+        ms=device_ms(lambda: affine_act.affine_act(x, s, t), 200),
+        call_ms=host_ms(lambda: affine_act.affine_act(x, s, t), 200),
+        plain_ms=device_ms(lambda: affine_act.affine_act_plain(x, s, t), 50),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes', library_ms=None,
         shape=list(x.shape), dtype='bfloat16'))
 
@@ -137,12 +144,12 @@ def check_kernels(cfg):
         source='mm_training_tpu_torch/csrc/voxelize.cu',
         replaces='mm_training_tpu/ops/voxelize.py:27',
         max_abs_err=(got - want).abs().max().item(),
-        ms=_ms(lambda: voxelize.voxelize_pillars_dense(pts, mask, *geo, num_features=nf), 100),
-        call_ms=_call_ms(lambda: voxelize.voxelize_pillars_dense(pts, mask, *geo,
+        ms=device_ms(lambda: voxelize.voxelize_pillars_dense(pts, mask, *geo, num_features=nf), 100),
+        call_ms=host_ms(lambda: voxelize.voxelize_pillars_dense(pts, mask, *geo,
                                                                  num_features=nf), 100),
-        plain_ms=_ms(lambda: voxelize.voxelize_pillars_dense_plain(pts, mask, *geo, num_features=nf), 20),
+        plain_ms=device_ms(lambda: voxelize.voxelize_pillars_dense_plain(pts, mask, *geo, num_features=nf), 20),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
-        library_ms=_ms(library, 20), library_max_abs_err=lib_err,
+        library_ms=device_ms(library, 20), library_max_abs_err=lib_err,
         shape=list(pts.shape), dtype='float32'))
 
     # --- K3 on one request's (batch, task) rows: 4 x K=500 candidates
@@ -166,23 +173,102 @@ def check_kernels(cfg):
         name='circle_nms_mask', route='cuda', source='mm_training_tpu_torch/csrc/circle_nms.cu',
         replaces='mm_training_tpu/ops/circle_nms.py:23',
         max_abs_err=(keep.int() - keep_plain.int()).abs().max().item(),
-        ms=_ms(lambda: circle_nms.circle_nms_mask(centers, scores, valid, thresh), 100),
-        call_ms=_call_ms(lambda: circle_nms.circle_nms_mask(centers, scores, valid, thresh), 100),
-        plain_ms=_ms(lambda: circle_nms.circle_nms_mask_plain(centers, scores, valid, thresh), 3),
+        ms=device_ms(lambda: circle_nms.circle_nms_mask(centers, scores, valid, thresh), 100),
+        call_ms=host_ms(lambda: circle_nms.circle_nms_mask(centers, scores, valid, thresh), 100),
+        plain_ms=device_ms(lambda: circle_nms.circle_nms_mask_plain(centers, scores, valid, thresh), 3),
         bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
         bound_by='operations' if flops / FP32_FLOPS > nbytes / HBM_BYTES_PER_S else 'bytes',
         library_ms=None, kept=int(keep.sum()), shape=[r, k], dtype='float32'))
+
+    # --- A' at the train path's dominant BN shape (B=4: 64 x 512 x 64 ch),
+    # without and with a residual
+    x4, g4, r4 = cl(4, 64, 64, 512), cl(4, 64, 64, 512), cl(4, 64, 64, 512)
+    for res in (None, r4):
+        got = affine_act.affine_act_backward(g4, x4, s, t, res, True)
+        want = affine_act.affine_act_backward_plain(g4, x4, s, t, res, True)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got[:2], want[:2]) if a is not None)
+        # ds, dt: fp32 sums over 2^19 terms in another order, against the
+        # sum of the terms' magnitudes
+        m = want[1].float() if res is not None else None
+        if m is None:
+            z = x4.float() * s.view(1, -1, 1, 1) + t.view(1, -1, 1, 1)
+            m = torch.where(z > 0, g4.float(), 0.0)
+        mags = ((m * x4.float()).abs().sum((0, 2, 3)), m.abs().sum((0, 2, 3)))
+        sum_err = max(((a - b).abs() / mag.clamp_min(1e-30)).max().item()
+                      for a, b, mag in zip(got[2:], want[2:], mags))
+        again = affine_act.affine_act_backward(g4, x4, s, t, res, True)
+        deterministic = all(torch.equal(a, b) for a, b in zip(got[2:], again[2:]))
+        nbytes = (3 + 2 * (res is not None)) * x4.numel() * x4.element_size()
+        rows.append(dict(
+            name='affine_act_backward' + ('' if res is None else '_residual'), route='cuda',
+            source='mm_training_tpu_torch/csrc/affine_act_backward.cu',
+            replaces='scripts/bn_elementwise_probe.py:88', max_abs_err=err,
+            sum_rel_err=sum_err, deterministic=deterministic,
+            ms=device_ms(lambda: affine_act.affine_act_backward(g4, x4, s, t, res, True), 100),
+            call_ms=host_ms(lambda: affine_act.affine_act_backward(g4, x4, s, t, res, True),
+                             100),
+            plain_ms=device_ms(lambda: affine_act.affine_act_backward_plain(g4, x4, s, t, res, True),
+                         20),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes', library_ms=None,
+            shape=list(x4.shape), dtype='bfloat16'))
+
+    # --- K2 on the train path's targets: a B=4 fake batch (500 object slots)
+    cfg4 = cfg.replace(batch_size=4)
+    tb = make_fake_batch(cfg4, seed=SEED)
+    centers, radii, valid, hw = heatmap_inputs(
+        cfg4.get_head_conf(), torch.as_tensor(tb['gt_boxes'], device=dev),
+        torch.as_tensor(tb['gt_labels'], device=dev).long(),
+        torch.as_tensor(tb['gt_mask'], device=dev))
+    got = gaussian.draw_heatmap(centers, radii, valid, hw)
+    want = gaussian.draw_heatmap_plain(centers, radii, valid, hw)
+    centres_equal = torch.equal(got == 1.0, want == 1.0)
+    # bytes: the maps written, the operands read; operations: ~8 a drawn
+    # cell (2 sub, 2 mul, add, div, exp, max) over the clipped windows
+    bsz, m_maps, k_obj = valid.shape
+    vb, vm, vk = valid.nonzero(as_tuple=True)
+    cx, cy, r = centers[vb, vk, 0], centers[vb, vk, 1], radii[vb, vk]
+    wx = (torch.clamp(cx + r, max=hw[1] - 1) - torch.clamp(cx - r, min=0) + 1).clamp_min(0)
+    wy = (torch.clamp(cy + r, max=hw[0] - 1) - torch.clamp(cy - r, min=0) + 1).clamp_min(0)
+    cells = int((wx * wy).sum())
+    nbytes = got.numel() * 4 + centers.numel() * 4 + radii.numel() * 4 + valid.numel()
+    flops = cells * 8
+    rows.append(dict(
+        name='draw_heatmap', route='cuda', source='mm_training_tpu_torch/csrc/gaussian_heatmap.cu',
+        replaces='mm_training_tpu/ops/gaussian.py:45',
+        max_abs_err=(got - want).abs().max().item(), centres_equal=centres_equal,
+        ms=device_ms(lambda: gaussian.draw_heatmap(centers, radii, valid, hw), 100),
+        call_ms=host_ms(lambda: gaussian.draw_heatmap(centers, radii, valid, hw), 100),
+        plain_ms=device_ms(lambda: gaussian.draw_heatmap_plain(centers, radii, valid, hw), 10),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+        bound_by='operations' if flops / FP32_FLOPS > nbytes / HBM_BYTES_PER_S else 'bytes',
+        library_ms=None, drawn_windows=int(vb.numel()), drawn_cells=cells,
+        shape=[bsz, m_maps, k_obj, *hw], dtype='float32'))
 
     for row in rows:
         print(f"kernel {row['name']}: max_abs_err={row['max_abs_err']} ms={row['ms']:.6f} "
               f"call_ms={row['call_ms']:.6f} plain_ms={row['plain_ms']:.6f} "
               f"bound_ms={row['bound_ms']:.6f} library_ms={row['library_ms']}", flush=True)
-    if rows[0]['max_abs_err'] != 0:       # same fp32 steps, one rounding
-        raise AssertionError(f'affine_act differs from its plain version: {rows[0]}')
-    if not rows[1]['max_abs_err'] <= 1e-4:  # atomics: fp32 sums in another order
-        raise AssertionError(f'voxelize differs from its plain version: {rows[1]}')
-    if rows[2]['max_abs_err'] != 0:
-        raise AssertionError(f'circle_nms differs from its plain version: {rows[2]}')
+    by = {row['name']: row for row in rows}
+    if by['affine_act']['max_abs_err'] != 0:       # same fp32 steps, one rounding
+        raise AssertionError(f"affine_act differs from its plain version: {by['affine_act']}")
+    if not by['voxelize_pillars_dense']['max_abs_err'] <= 1e-4:  # atomics: another order
+        raise AssertionError(f"voxelize differs from its plain version: "
+                             f"{by['voxelize_pillars_dense']}")
+    if by['circle_nms_mask']['max_abs_err'] != 0:
+        raise AssertionError(f"circle_nms differs from its plain version: "
+                             f"{by['circle_nms_mask']}")
+    for name in ('affine_act_backward', 'affine_act_backward_residual'):
+        row = by[name]
+        # dx, dr bit for bit; ds, dt to 1e-5 of the sum of |terms|; the
+        # same bits on a second launch
+        if row['max_abs_err'] != 0 or not row['sum_rel_err'] <= 1e-5 \
+                or not row['deterministic']:
+            raise AssertionError(f'{name} differs from its plain version: {row}')
+    row = by['draw_heatmap']
+    # expf may differ from torch.exp by an ulp; centres exactly 1.0 in both
+    if not (row['centres_equal'] and row['max_abs_err'] <= 1e-6 and row['drawn_windows']):
+        raise AssertionError(f'draw_heatmap differs from its plain version: {row}')
     return rows
 
 
@@ -191,7 +277,6 @@ def serve(cfg):
     from mm_training_tpu_torch.data import make_fake_batch
     from mm_training_tpu_torch.exps.inference import benchmark_latency
     from mm_training_tpu_torch.models import BEVDepthLiDAR
-    from mm_training_tpu_torch.ops import affine_act, circle_nms, voxelize
     from mm_training_tpu_torch.training import make_predict_step
 
     gen = torch.Generator().manual_seed(SEED)
@@ -200,9 +285,7 @@ def serve(cfg):
     predict = make_predict_step(cfg, model)
     requests = [make_fake_batch(cfg, batch_size=1, seed=SEED + i) for i in range(6)]
     big = make_fake_batch(cfg, batch_size=4, seed=SEED + 100)
-    wrappers = {'affine_act': affine_act.affine_act,
-                'voxelize_pillars_dense': voxelize.voxelize_pillars_dense,
-                'circle_nms_mask': circle_nms.circle_nms_mask}
+    wrappers = _wrappers()
 
     for w in wrappers.values():
         w.launches = 0
@@ -224,7 +307,8 @@ def serve(cfg):
     print('serve latency B=1: ' + json.dumps(stats), flush=True)
     print('serve latency B=4: ' + json.dumps(stats_b4), flush=True)
     print(f'serve: launches over {calls} predict calls {json.dumps(counts)}', flush=True)
-    missing = [n for n, c in counts.items() if c == 0]
+    missing = [n for n in ('affine_act', 'voxelize_pillars_dense', 'circle_nms_mask')
+               if counts[n] == 0]
     if missing:
         raise AssertionError(f'kernels never launched on the main path: {missing}')
 
@@ -303,6 +387,135 @@ def compare_cpu_reference():
         raise AssertionError(f'tiny fp32 boxes differ from the CPU path by {worst}')
 
 
+def train(cfg):
+    """Phase 5: the full-width train path through its entry points (B=4,
+    bf16 compute over float32 masters, one fixed fake batch)."""
+    from mm_training_tpu_torch.data import make_fake_batch
+    from mm_training_tpu_torch.exps.profile_train import benchmark_train
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import (create_train_state, make_eval_step,
+                                                make_train_step)
+
+    cfg = cfg.replace(batch_size=4)
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=torch.Generator().manual_seed(SEED + 3))
+    state = create_train_state(cfg, model)
+    train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
+    batch = make_fake_batch(cfg, seed=SEED + 4)
+    wrappers = _wrappers()
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(2):
+        state, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    stats = benchmark_train(train_step, state, batch, steps=10)
+    ev_metrics, (boxes, scores, _, _), _ = eval_step(state, batch)
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in wrappers.items()}
+
+    print(f'train: 2 warm-up steps {warm_ms:.3f} ms; B=4 step p50 {stats["p50_ms"]:.3f} ms '
+          f'p90 {stats["p90_ms"]:.3f} ms, {stats["samples_per_s"]:.3f} samples/s, '
+          f'max_memory_allocated {stats["max_memory_allocated_gb"]:.3f} GiB', flush=True)
+    print('train: losses ' + json.dumps([round(v, 4) for v in stats['losses']])
+          + f'; eval loss {float(ev_metrics["loss"]):.4f}', flush=True)
+    print(f'train: launches over 12 train steps and 1 eval step {json.dumps(counts)}',
+          flush=True)
+    missing = [n for n in ('affine_act', 'affine_act_backward', 'voxelize_pillars_dense',
+                           'draw_heatmap', 'circle_nms_mask') if counts[n] == 0]
+    if missing:
+        raise AssertionError(f'kernels never launched on the train path: {missing}')
+    if not all(np.isfinite(stats['losses'])) or not torch.isfinite(ev_metrics['loss']):
+        raise AssertionError('non-finite train or eval loss')
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+        raise AssertionError('non-finite eval boxes')
+    if not stats['losses'][-1] < stats['losses'][0]:
+        raise AssertionError(f'the train loss did not fall on one batch: {stats["losses"]}')
+    return cfg, state, batch, counts, stats
+
+
+def compare_plain_gradients(cfg, state, batch):
+    """Phase 5b: one step's gradients through the kernels against the same
+    step with every kernel swapped for its plain version (float32 masters,
+    bf16 compute)."""
+    from mm_training_tpu_torch.training import loss_and_grads
+
+    names = [n for n, _ in state.model.named_parameters()]
+    buffers = {n: b.clone() for n, b in state.model.named_buffers()}
+    loss, got = loss_and_grads(cfg, state, batch)
+    state.model.load_state_dict(buffers, strict=False)    # the same BN statistics
+    before = {n: w.launches for n, w in _wrappers().items()}
+    with _plain_versions():
+        loss_p, want = loss_and_grads(cfg, state, batch)
+    if {n: w.launches for n, w in _wrappers().items()} != before:
+        raise AssertionError('the plain run launched a kernel')
+    state.model.load_state_dict(buffers, strict=False)
+    def l2(ts):
+        return torch.sqrt(sum((t.double() ** 2).sum() for t in ts))
+    rel = (l2([a - b for a, b in zip(got, want)]) / l2(want)).item()
+    per = sorted(((((a - b).norm() / b.norm().clamp_min(1e-30)).item(), n)
+                  for a, b, n in zip(got, want, names)), reverse=True)
+    loss_rel = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+    print(f'train gradients kernels vs plain (bf16): loss rel diff {loss_rel:.3g}, '
+          f'|g_k - g_p| / |g_p| over all parameters {rel:.4g}; worst tensors '
+          + json.dumps([(n, round(v, 5)) for v, n in per[:4]]), flush=True)
+    # kernel A and A' agree bit for bit on the elementwise terms; K1's
+    # atomics and A''s per-channel sums round in another order, which
+    # flips bf16 roundings downstream: allow 1/32 over all parameters
+    if not (rel <= 1 / 32 and loss_rel <= 1 / 32):
+        raise AssertionError(f'kernel and plain gradients differ: {rel}, loss {loss_rel}')
+    return rel
+
+
+def compare_cpu_train():
+    """Phase 6: the fp32 tiny config's train step on the card against the
+    port's CPU step (TF32 off)."""
+    from mm_training_tpu_torch.configs import tiny_test_config
+    from mm_training_tpu_torch.data import make_fake_batch
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False        # fp32 comparison: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tiny_test_config(use_cam=False)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    cpu_model = BEVDepthLiDAR(cfg, device='cpu', generator=gen)
+    _randomize_bn(cpu_model, gen)
+    gpu_model = copy.deepcopy(cpu_model).to('cuda')
+    old = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    batch = make_fake_batch(cfg, seed=SEED + 6)
+    step = make_train_step(cfg)
+    _, gm = step(create_train_state(cfg, gpu_model), batch)
+    ws, wm = step(create_train_state(cfg, cpu_model), batch)
+    lr = cfg.learning_rate
+    loss_rel = abs(float(gm['train_loss']) - float(wm['train_loss'])) / float(wm['train_loss'])
+    worst_all = worst_strong = stats_err = 0.0
+    for (n, p_gpu), p_cpu, mu in zip(gpu_model.named_parameters(), cpu_model.parameters(),
+                                     ws.optimizer.mu):
+        d = ((p_gpu.detach().cpu() - old[n]) - (p_cpu.detach() - old[n])).abs()
+        worst_all = max(worst_all, d.max().item())
+        # fp32 gradients of a random init are ill-conditioned (BN subtracts a
+        # near-constant gradient, so sums in another order move small entries
+        # by up to ~10% of a tensor's largest): hold the update to 1e-3 lr
+        # only where |g| is a quarter of its tensor's largest or more and
+        # 400 x Adam's eps or more, where Adam's step is sign(g) to 1e-3
+        g = mu.abs() / 0.1
+        strong = (g >= 0.25 * g.max()) & (g >= 400 * 1e-8)
+        worst_strong = max(worst_strong, torch.where(strong, d, 0.0).max().item())
+    for (n, b_gpu), b_cpu in zip(gpu_model.named_buffers(), cpu_model.buffers()):
+        if n.endswith(('running_mean', 'running_var')):
+            stats_err = max(stats_err, ((b_gpu.cpu() - b_cpu).abs()
+                                        / (1 + b_cpu.abs())).max().item())
+    print(f'tiny fp32 train step card vs CPU: loss rel diff {loss_rel:.3g}, update diff '
+          f'{worst_all / lr:.4g} lr everywhere, {worst_strong / lr:.4g} lr where |g| is '
+          f'strong; BN stats {stats_err:.3g}', flush=True)
+    # everywhere: two opposite Adam steps of lr (1 + weight decay) at most
+    if not (loss_rel <= 1e-5 and worst_all <= 2.001 * lr and worst_strong <= 1e-3 * lr
+            and stats_err <= 1e-5):
+        raise AssertionError('tiny fp32 train step on the card differs from the CPU step')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -324,10 +537,17 @@ def main() -> int:
     model, request, counts, calls = serve(cfg)
     compare_plain(model, request)
     compare_cpu_reference()
+    del model
+    cfg4, state, batch, train_counts, _ = train(cfg)
+    compare_plain_gradients(cfg4, state, batch)
+    del state
+    compare_cpu_train()
 
     for row in rows:
-        row['launches'] = counts[row['name']]
-        row['launches_per_request'] = counts[row['name']] / calls
+        name = row['name'].replace('_residual', '')
+        row['launches'] = counts[name] + train_counts[name]
+        row['launches_by_path'] = {'serve': counts[name], 'train': train_counts[name]}
+        row['launches_per_request'] = counts[name] / calls
     print(json.dumps({'kernels': rows}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -1,9 +1,10 @@
-"""Config surface of the PyTorch port (serving slice: LiDAR / LiDAR+radar).
+"""Config surface of the PyTorch port (LiDAR / LiDAR+radar serving and training).
 
 The port's own copy of ``mm_training_tpu/configs/base.py``: the same frozen
-dataclasses, knob names and derived values, cut to what the lidar predict
-path reads. The camera sub-configs (``BackboneConf`` and friends) arrive with
-the camera slice; ``use_cam=True`` is refused by the model until then.
+dataclasses, knob names and derived values, cut to what the lidar predict,
+train and eval steps read. The camera sub-configs (``BackboneConf`` and
+friends) arrive with the camera slice; ``use_cam=True`` is refused by the
+model until then.
 """
 from __future__ import annotations
 
@@ -138,6 +139,7 @@ class Config:
     precision: str = 'bf16'  # 'fp32' | 'bf16'
     batch_size: int = 1      # per-device batch size
     seed: int = 0
+    base_learning_rate: float = 1e-3  # lr = base/64*global_batch (conf_aim.py:14)
 
     # --- BEV grid (conf_aim.py:16-18)
     voxel_size: Tuple[float, float, float] = (0.2, 0.2, 8.0)
@@ -152,6 +154,13 @@ class Config:
     look_back: int = 0
     look_forward: int = 0
 
+    # --- optimizer (conf_aim.py:29-32 + Lightning defaults, mm_training_aim.py:524-531)
+    gradient_clip_val: float = 2.0
+    weight_decay: float = 1e-7
+    lr_milestones: Tuple[int, ...] = (19, 23)  # MultiStepLR epochs
+    lr_gamma: float = 0.1
+    use_ema: bool = False     # EMA weights arrive with the runtime slice (refused)
+
     # --- fixed-shape capacities
     max_points_per_frame: int = 0   # 0 => (1+look_back+look_forward)*100_000
     max_objs: int = 500
@@ -160,6 +169,10 @@ class Config:
     lidar_conf: Optional[LidarEncoderConf] = None
 
     # ------------------------------------------------------------------ derived
+    @property
+    def learning_rate(self) -> float:
+        return self.base_learning_rate / 64 * self.batch_size
+
     @property
     def lidar_input_channels(self) -> int:
         return 8 if self.use_radar else 5

@@ -50,13 +50,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 class BEVDepthLiDAR(nn.Module):
-    """LiDAR(+radar) pillar encoder + CenterPoint head, in eval mode.
+    """LiDAR(+radar) pillar encoder + CenterPoint head, built in eval mode.
 
     Built on ``device`` (default CUDA; raises without a card unless
     ``device='cpu'``) with weights drawn from ``generator`` (default: a CPU
     generator seeded with ``cfg.seed``). Parameters are float32 and 4-D ones
-    channels_last; the predict step makes the bf16 copy when
-    ``cfg.precision == 'bf16'``, and activations follow the weights' dtype."""
+    channels_last; the steps make the bf16 copies when ``cfg.precision ==
+    'bf16'``, and activations follow the weights' dtype. ``model.train()``
+    switches every BatchNorm to batch statistics, the only layers whose
+    behaviour depends on the mode (the JAX modules' ``train`` flag)."""
 
     def __init__(self, cfg: Config, device=None,
                  generator: Optional[torch.Generator] = None):

@@ -1,12 +1,22 @@
-"""Eval-mode BatchNorm applied through kernel A.
+"""BatchNorm applied through kernel A, in eval and in train mode.
 
-The port of ``mm_training_tpu/models/bn_fold.py::batch_norm`` on its unfolded
-eval path: with frozen running statistics a BatchNorm is the per-channel
-affine ``y = x * s + t``, ``s = weight / sqrt(running_var + eps)``,
-``t = bias - running_mean * s``, computed here in float32 and applied by
-:func:`mm_training_tpu_torch.ops.affine_act.affine_act` together with the
-ReLU and, in a BasicBlock, the residual add that follow it. Folding BN into
-the conv weights (``fold_conv_bn``) arrives with the checkpoint-import slice.
+The port of ``mm_training_tpu/models/bn_fold.py::batch_norm`` (flax
+``nn.BatchNorm``, momentum 0.9, eps 1e-5) on its unfolded path. Either mode
+is the per-channel affine ``y = x * s + t`` applied by kernel A together with
+the ReLU and, in a BasicBlock, the residual add that follow it:
+
+* eval: ``s = weight / sqrt(running_var + eps)``, ``t = bias - running_mean
+  * s`` from the frozen statistics, in float32;
+* train: the same with the batch's float32 mean and biased variance over
+  (N, H, W), computed with torch ops so that autograd carries their
+  gradient, and the running statistics updated as flax does,
+  ``0.9 * old + 0.1 * batch`` (no ``num_batches_tracked``, the biased
+  variance).
+
+With gradients on, the affine goes through :class:`~mm_training_tpu_torch.
+ops.affine_act.AffineAct` (kernel A forward, kernel A' backward). Folding BN
+into the conv weights (``fold_conv_bn``) arrives with the checkpoint-import
+slice.
 """
 from __future__ import annotations
 
@@ -22,11 +32,12 @@ __all__ = ['BatchNorm2d']
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (same parameters, buffers and state-dict names)
-    whose eval forward is ``act(x * s + t [+ residual])`` in one kernel.
+    whose forward is ``act(x * s + t [+ residual])`` in one kernel.
 
     ``relu`` is fixed per site: False for a downsample BN, True for a
     ConvBN and for a BasicBlock's second BN, whose residual add comes before
-    the ReLU. Training mode is refused: this slice serves only."""
+    the ReLU. ``momentum`` keeps nn.BatchNorm2d's meaning (the weight of the
+    batch), so the default 0.1 is flax's momentum 0.9."""
 
     def __init__(self, num_features: int, relu: bool = False,
                  eps: float = 1e-5, **kw):
@@ -38,25 +49,50 @@ class BatchNorm2d(nn.BatchNorm2d):
     def scale_shift(self):
         """(s, t) float32 [C] from the (possibly bf16) parameters/stats.
 
-        Computed once per state of the four tensors (storage and in-place
-        version), not per call: recomputing costs ten small launches per BN,
-        which at batch 1 is host time the request waits for."""
+        Computed once per state of the four tensors (the tensor objects and
+        their in-place versions), not per call: recomputing costs ten small
+        launches per BN, which at batch 1 is host time the request waits
+        for. The key holds the tensors themselves, so a freed tensor's
+        memory reused by a new one cannot pass for it."""
         tensors = (self.weight, self.bias, self.running_mean, self.running_var)
-        key = tuple((v.data_ptr(), v._version) for v in tensors)
-        if key != self._scale_shift_key:
+        key = self._scale_shift_key
+        if key is None or any(v is not k or v._version != ver
+                              for v, (k, ver) in zip(tensors, key)):
             with torch.no_grad():
                 s = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
                 t = self.bias.float() - self.running_mean.float() * s
-            self._scale_shift, self._scale_shift_key = (s, t), key
+            self._scale_shift = (s, t)
+            self._scale_shift_key = tuple((v, v._version) for v in tensors)
         return self._scale_shift
+
+    def batch_scale_shift(self, x: torch.Tensor):
+        """(s, t) [C] from the batch statistics of ``x``, in float32 (float64
+        for a float64 ``x``), with autograd history; updates the running
+        statistics in place.
+
+        As in the JAX train step, whose bf16 path casts the statistics to
+        bf16 before the update, the old statistics are first rounded to
+        ``x``'s dtype; the new ones are float32."""
+        if self.momentum is None or not self.track_running_stats:
+            raise RuntimeError('BatchNorm2d trains with flax semantics, an exponential '
+                               'running average: momentum=None or '
+                               'track_running_stats=False has no counterpart')
+        ct = torch.promote_types(x.dtype, torch.float32)   # flax: at least fp32
+        var, mean = torch.var_mean(x.to(ct), dim=(0, 2, 3), correction=0)
+        s = self.weight.to(ct) * torch.rsqrt(var + self.eps)
+        t = self.bias.to(ct) - mean * s
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            for buf, batch in ((self.running_mean, mean), (self.running_var, var)):
+                buf.copy_(buf.to(x.dtype) * keep + batch * self.momentum)
+        return s, t
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.training:
-            raise RuntimeError('BatchNorm2d of the serving slice runs in eval '
-                               'mode only (call model.eval())')
-        s, t = self.scale_shift()
         x = x.contiguous(memory_format=torch.channels_last)
         if residual is not None:
             residual = residual.contiguous(memory_format=torch.channels_last)
+        s, t = self.batch_scale_shift(x) if self.training else self.scale_shift()
+        if torch.is_grad_enabled():
+            return affine_act.AffineAct.apply(x, s, t, residual, self.relu)
         return affine_act.affine_act(x, s, t, residual, self.relu)

@@ -1,26 +1,30 @@
-"""CenterPoint-style BEV detection head and box decode.
+"""CenterPoint-style BEV detection head, targets, losses and box decode.
 
-The port of ``mm_training_tpu/models/centerpoint_head.py`` for serving:
+The port of ``mm_training_tpu/models/centerpoint_head.py``:
 ``SeparateHead`` and ``BEVDepthHead`` (ResNet-18 trunk -> SECONDFPN ->
-shared conv -> per-task branches), and ``decode_boxes`` (top-k, box
-decode, post-centre range, circle NMS through kernel K3, top
-``post_max_size`` survivors). Targets and losses arrive with the training
-slice. Names follow mmdet3d (``trunk``, ``neck``, ``shared_conv``,
-``task_heads.{t}.{head}.{i}``).
+shared conv -> per-task branches); ``get_targets`` (heatmaps through kernel
+K2, the per-task ``[max_objs, 10]`` box targets by a cumsum slot scatter),
+batched over samples where the JAX function is vmapped;
+``gaussian_focal_loss`` and ``detection_loss``; and ``decode_boxes`` (top-k,
+box decode, post-centre range, circle NMS through kernel K3, top
+``post_max_size`` survivors). Names follow mmdet3d (``trunk``, ``neck``,
+``shared_conv``, ``task_heads.{t}.{head}.{i}``). The head has no layer that
+changes in train mode other than its BatchNorms (``model.train()``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..configs import HeadConf
-from ..ops import circle_nms
+from ..ops import circle_nms, gaussian
 from .resnet import ConvBN, ResNet
 from .second_fpn import SECONDFPN
 
-__all__ = ['SeparateHead', 'BEVDepthHead', 'decode_boxes']
+__all__ = ['SeparateHead', 'BEVDepthHead', 'decode_boxes', 'clip_sigmoid',
+           'heatmap_inputs', 'get_targets', 'gaussian_focal_loss', 'detection_loss']
 
 
 class SeparateHead(nn.Module):
@@ -84,6 +88,166 @@ def _task_class_offsets(conf: HeadConf) -> List[int]:
         offs.append(flag)
         flag += t.num_class
     return offs
+
+
+# ------------------------------------------------------------------ targets
+
+def clip_sigmoid(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """mmdet3d clip_sigmoid."""
+    return torch.clamp(torch.sigmoid(x), eps, 1.0 - eps)
+
+
+def _object_geometry(conf: HeadConf, gt_boxes: torch.Tensor):
+    """Feature-map geometry of every padded object [B, K]: the float
+    coordinates, their int32 cells (truncated toward zero, as
+    ``astype(int32)``), the int32 radii, and whether the box has a size and
+    its cell lies on the map."""
+    tc = conf.train_cfg
+    osf = tc.out_size_factor
+    vx, vy = tc.voxel_size[0], tc.voxel_size[1]
+    w, h = tc.grid_size[0] // osf, tc.grid_size[1] // osf
+    div = gaussian.true_div
+    coor_x = div(div(gt_boxes[..., 0] - tc.point_cloud_range[0], vx), osf)
+    coor_y = div(div(gt_boxes[..., 1] - tc.point_cloud_range[1], vy), osf)
+    cx, cy = coor_x.to(torch.int32), coor_y.to(torch.int32)
+    width_f = div(div(gt_boxes[..., 3], vx), osf)
+    length_f = div(div(gt_boxes[..., 4], vy), osf)
+    radius_f = gaussian.gaussian_radius((length_f, width_f), tc.gaussian_overlap)
+    radius = torch.clamp_min(radius_f.to(torch.int32), tc.min_radius)
+    ok = ((width_f > 0) & (length_f > 0)
+          & (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h))
+    return coor_x, coor_y, cx, cy, radius, ok
+
+
+def heatmap_inputs(conf: HeadConf, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                   gt_mask: torch.Tensor, geometry=None):
+    """Kernel K2's operands for a batch: centres [B, K, 2] int32, radii
+    [B, K] int32 and validity [B, M, K] bool over the ``M`` class maps of
+    every task (map ``m`` is global class ``m``); and the maps' (H, W).
+    ``geometry``: :func:`_object_geometry` of ``gt_boxes``, if at hand."""
+    tc = conf.train_cfg
+    _, _, cx, cy, radius, ok = geometry or _object_geometry(conf, gt_boxes)
+    m = sum(t.num_class for t in conf.tasks)
+    classes = torch.arange(m, device=gt_labels.device)
+    valid = (gt_mask & ok)[:, None, :] & (gt_labels[:, None, :] == classes[None, :, None])
+    hw = (tc.grid_size[1] // tc.out_size_factor, tc.grid_size[0] // tc.out_size_factor)
+    return torch.stack([cx, cy], -1), radius, valid, hw
+
+
+@torch.no_grad()
+def get_targets(conf: HeadConf, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                gt_mask: torch.Tensor):
+    """Training targets of a batch (``get_targets_batch`` of the JAX package).
+
+    Args:
+      gt_boxes: [B, K, 9] float32 padded boxes (x, y, z, dx, dy, dz, yaw,
+        vx, vy); gt_labels: [B, K] integer global class ids; gt_mask: [B, K]
+        bool.
+
+    Returns per-task lists: heatmaps [B, C_t, H, W] float32, anno_boxes
+    [B, max_objs, 10] float32, inds [B, max_objs] int64, masks
+    [B, max_objs] float32. Classes no task covers produce no targets; the
+    objects of a task take slots in input order, and an object that is not
+    drawn (no size, off the map) or past ``max_objs`` lands in a dump slot
+    that is cut off.
+    """
+    tc = conf.train_cfg
+    max_objs = tc.max_objs * tc.dense_reg
+    geometry = _object_geometry(conf, gt_boxes)
+    coor_x, coor_y, cx, cy, _, ok = geometry
+    centers, radii, valid, hw = heatmap_inputs(conf, gt_boxes, gt_labels, gt_mask, geometry)
+    maps = gaussian.draw_heatmap(centers, radii, valid, hw)
+
+    yaw = gt_boxes[..., 6]
+    anno_all = torch.stack([
+        coor_x - cx.float(), coor_y - cy.float(), gt_boxes[..., 2],
+        torch.log(torch.clamp_min(gt_boxes[..., 3], 1e-12)),
+        torch.log(torch.clamp_min(gt_boxes[..., 4], 1e-12)),
+        torch.log(torch.clamp_min(gt_boxes[..., 5], 1e-12)),
+        torch.sin(yaw), torch.cos(yaw), gt_boxes[..., 7], gt_boxes[..., 8],
+    ], dim=-1)                                                    # [B, K, 10]
+    ind_all = cy.long() * hw[1] + cx.long()
+
+    b = gt_boxes.shape[0]
+    heatmaps, anno_boxes, inds, masks = [], [], [], []
+    for t, off in zip(conf.tasks, _task_class_offsets(conf)):
+        heatmaps.append(maps[:, off:off + t.num_class])
+        member = gt_mask & (gt_labels >= off) & (gt_labels < off + t.num_class)
+        slot = torch.cumsum(member.long(), dim=1) - 1
+        slot = torch.where(member & ok & (slot < max_objs), slot,
+                           torch.full_like(slot, max_objs))
+        anno = anno_all.new_zeros(b, max_objs + 1, 10).scatter_(
+            1, slot[..., None].expand(-1, -1, 10), anno_all)
+        ind = ind_all.new_zeros(b, max_objs + 1).scatter_(1, slot, ind_all)
+        msk = anno_all.new_zeros(b, max_objs + 1).scatter_(
+            1, slot, torch.ones_like(anno_all[..., 0]))
+        anno_boxes.append(anno[:, :max_objs])
+        inds.append(ind[:, :max_objs])
+        masks.append(msk[:, :max_objs])
+    return heatmaps, anno_boxes, inds, masks
+
+
+# -------------------------------------------------------------------- losses
+
+def gaussian_focal_loss(pred: torch.Tensor, target: torch.Tensor, avg_factor,
+                        alpha: float = 2.0, gamma: float = 4.0,
+                        weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mmdet GaussianFocalLoss, reduction 'mean' with ``avg_factor``;
+    positives are the cells where ``target == 1``. ``weight``
+    (broadcastable to ``pred``) masks eval-padding samples."""
+    eps = 1e-12
+    pos = (target == 1.0).to(pred.dtype)
+    neg_weights = torch.pow(1.0 - target, gamma)
+    pos_loss = -torch.log(pred + eps) * torch.pow(1 - pred, alpha) * pos
+    neg_loss = -torch.log(1 - pred + eps) * torch.pow(pred, alpha) * neg_weights * (1 - pos)
+    loss = pos_loss + neg_loss
+    if weight is not None:
+        loss = loss * weight
+    return loss.sum() / avg_factor
+
+
+def detection_loss(conf: HeadConf, targets, preds: List[Dict[str, torch.Tensor]],
+                   sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Total detection loss: per task the gaussian focal loss of the
+    heatmap plus ``loss_bbox_weight`` x the code-weighted L1 of the 10-dim
+    box at the target cells.
+
+    targets: :func:`get_targets`'s lists; preds: list over tasks of dicts of
+    NHWC float32 maps. ``sample_mask`` [B] drops padded eval samples from
+    every sum and normalizer, so a padded batch's loss equals that of its
+    valid prefix. The normalizers are this process's sums (the JAX
+    package's ``pmean`` over devices becomes an all-reduce under data
+    parallelism, which the port does not run yet).
+    """
+    heatmaps, anno_boxes, inds, masks = targets
+    sm = None if sample_mask is None else sample_mask.to(torch.float32)
+    cw = torch.tensor(conf.train_cfg.code_weights, dtype=torch.float32,
+                      device=anno_boxes[0].device)
+    total = 0.0
+    for t, pred in enumerate(preds):
+        hm_pred = clip_sigmoid(pred['heatmap'])                  # [B, H, W, C]
+        hm_tgt = heatmaps[t].permute(0, 2, 3, 1)                 # NCHW -> NHWC
+        pos = (hm_tgt == 1.0).to(torch.float32)
+        hm_w = None if sm is None else sm[:, None, None, None]
+        num_pos = (pos if hm_w is None else pos * hm_w).sum()
+        loss_hm = gaussian_focal_loss(hm_pred, hm_tgt, torch.clamp_min(num_pos, 1.0),
+                                      weight=hm_w)
+
+        anno_pred = torch.cat([pred['reg'], pred['height'], pred['dim'], pred['rot'],
+                               pred['vel']], dim=-1)             # [B, H, W, 10]
+        b = anno_pred.shape[0]
+        flat = anno_pred.reshape(b, -1, anno_pred.shape[-1])     # [B, HW, 10]
+        gathered = torch.gather(flat, 1, inds[t][..., None].expand(-1, -1, flat.shape[-1]))
+
+        tgt = anno_boxes[t]                                      # [B, K, 10]
+        obj_m = masks[t] if sm is None else masks[t] * sm[:, None]
+        finite = torch.isfinite(tgt)
+        m = obj_m[..., None] * finite.to(torch.float32)
+        avg = torch.clamp_min(obj_m.sum(), 1e-4)
+        tgt_safe = torch.where(finite, tgt, 0.0)
+        loss_bbox = (torch.abs(gathered - tgt_safe) * m * cw).sum() / avg
+        total = total + loss_hm + conf.loss_bbox_weight * loss_bbox
+    return total
 
 
 def _decode_task(conf: HeadConf, pred: Dict[str, torch.Tensor]):

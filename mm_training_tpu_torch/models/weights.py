@@ -2,7 +2,9 @@
 
 The port's own copy of the rules in ``mm_training_tpu/models/torch_export.py``
 (:48-116, :175-206). It takes the flax ``params`` and ``batch_stats`` trees
-as numpy arrays and returns tensors keyed by the port's module names:
+(the BN running means and variances) as numpy arrays and returns tensors
+keyed by the port's module names; any tree shaped like ``params`` (an
+optimizer moment, say) maps the same way:
 
   * trunk, neck and head use the reference's mmdet/mmdet3d names, so the
     same dict also loads into the reference head;
@@ -10,8 +12,10 @@ as numpy arrays and returns tensors keyed by the port's module names:
   * a ConvTranspose kernel [kH, kW, I, O] is un-flipped spatially
     (``k[::-1, ::-1]``, second_fpn.py:49) and goes to [I, O, kH, kW];
   * a SeparateHead branch conv's flax bias is folded into the following
-    BN's running mean (mean' = mean - bias; exact in eval), because the
-    reference's ConvModule has no conv bias under BN;
+    BN's running mean (mean' = mean - bias), because the reference's
+    ConvModule has no conv bias under BN. Exact in eval; in train mode the
+    batch statistics cancel the bias anyway, and the running mean a train
+    step leaves carries over with the bias the step started from;
   * the reference's shared conv has a bias the flax ConvBN lacks: zeros;
   * the dense lidar encoder has no reference counterpart: its names mirror
     the flax scopes (``stage{si}_conv{ci}``, ``out_conv``), each a ConvBN

@@ -2,6 +2,7 @@
 
 A wrapper given a CPU tensor runs the plain PyTorch version; given a CUDA
 tensor it launches its kernel (``csrc/``) or raises, and adds one to its
-``launches`` count. Modules: ``affine_act`` (kernel A), ``voxelize`` (K1),
-``circle_nms`` (K3), ``build`` (nvcc + ctypes).
+``launches`` count. Modules: ``affine_act`` (kernel A and its backward A'),
+``voxelize`` (K1), ``gaussian`` (K2), ``circle_nms`` (K3), ``build`` (nvcc +
+ctypes).
 """

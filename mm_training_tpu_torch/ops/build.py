@@ -23,7 +23,8 @@ __all__ = ['KERNEL_SOURCES', 'build_kernels', 'check', 'load']
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / 'csrc'
 BUILD_DIR = PKG / '_build'
-KERNEL_SOURCES = ('affine_act', 'voxelize', 'circle_nms')
+KERNEL_SOURCES = ('affine_act', 'affine_act_backward', 'voxelize', 'gaussian_heatmap',
+                  'circle_nms')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 

@@ -1,0 +1,141 @@
+"""Kernel K2: gaussian heatmap targets (with the CornerNet radius rule).
+
+The port of ``mm_training_tpu/ops/gaussian.py``: ``gaussian_radius`` (plain
+PyTorch, per object) and ``draw_heatmap``, the elementwise max over objects
+of windowed gaussians, sigma = (2r+1)/6, drawn inside the (2r+1)^2 window
+around each centre and clipped to the map. The CUDA source is
+``csrc/gaussian_heatmap.cu`` (one block per (sample, map, object) window,
+combined with ``atomicMax``); it is bound by the bytes of the maps it
+writes, see the note there.
+
+The interface is batched where the JAX function draws one map: centres
+``[B, K, 2]`` and radii ``[B, K]`` are shared by the ``M`` maps of a sample
+(``M`` = every class of every task), and ``valid [B, M, K]`` says which
+objects each map draws, so one launch serves a whole batch of targets.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import torch
+
+from . import build
+
+__all__ = ['gaussian_radius', 'draw_heatmap', 'draw_heatmap_plain', 'true_div']
+
+
+def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` with true division: the divisor is a tensor on ``a``'s
+    device, because dividing a CUDA tensor by a Python number multiplies by
+    its reciprocal, which rounds differently from the JAX package."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
+def gaussian_radius(det_size: Sequence[torch.Tensor], min_overlap: float) -> torch.Tensor:
+    """CornerNet radius rule (mmdet3d ``gaussian_radius``): the smallest of
+    three quadratic roots. ``det_size = (height, width)`` in feature cells,
+    float32 tensors; each step rounds as the JAX function's does."""
+    height, width = det_size
+    b1 = height + width
+    c1 = true_div(width * height * (1 - min_overlap), 1 + min_overlap)
+    sq1 = torch.sqrt(torch.clamp_min(b1 * b1 - 4.0 * c1, 0.0))
+    r1 = true_div(b1 + sq1, 2.0)
+
+    b2 = 2 * (height + width)
+    c2 = (1 - min_overlap) * width * height
+    sq2 = torch.sqrt(torch.clamp_min(b2 * b2 - 16.0 * c2, 0.0))
+    r2 = true_div(b2 + sq2, 2.0)
+
+    a3 = 4 * min_overlap
+    b3 = -2 * min_overlap * (height + width)
+    c3 = (min_overlap - 1) * width * height
+    sq3 = torch.sqrt(torch.clamp_min(b3 * b3 - (4 * a3) * c3, 0.0))
+    r3 = true_div(b3 + sq3, 2.0)
+    return torch.minimum(torch.minimum(r1, r2), r3)
+
+
+def _check(centers: torch.Tensor, radii: torch.Tensor, valid: torch.Tensor) -> None:
+    if (centers.dim() != 3 or centers.shape[2] != 2 or centers.dtype != torch.int32
+            or radii.shape != centers.shape[:2] or radii.dtype != torch.int32
+            or valid.dim() != 3 or valid.shape[0] != centers.shape[0]
+            or valid.shape[2] != centers.shape[1] or valid.dtype != torch.bool):
+        raise ValueError(f'draw_heatmap: centers [B, K, 2] int32, radii [B, K] int32, '
+                         f'valid [B, M, K] bool; got {tuple(centers.shape)} '
+                         f'{centers.dtype}, {tuple(radii.shape)} {radii.dtype}, '
+                         f'{tuple(valid.shape)} {valid.dtype}')
+    if not centers.device == radii.device == valid.device:
+        raise ValueError('draw_heatmap: centers, radii and valid on different devices')
+
+
+def draw_heatmap_plain(centers: torch.Tensor, radii: torch.Tensor,
+                       valid: torch.Tensor, hw: Tuple[int, int],
+                       chunk: int = 32) -> torch.Tensor:
+    """Plain PyTorch version, the JAX formulation batched: each chunk of
+    ``chunk`` objects is rendered over the whole map and max-combined."""
+    _check(centers, radii, valid)
+    h, w = hw
+    b, k, _ = centers.shape
+    dev = centers.device
+    ys = torch.arange(h, dtype=torch.int32, device=dev).view(1, 1, h, 1)
+    xs = torch.arange(w, dtype=torch.int32, device=dev).view(1, 1, 1, w)
+    out = torch.zeros(b, valid.shape[1], h, w, dtype=torch.float32, device=dev)
+    for k0 in range(0, k, chunk):
+        c, r = centers[:, k0:k0 + chunk], radii[:, k0:k0 + chunk]
+        dx = xs - c[..., 0, None, None]                        # [B, c, 1, W]
+        dy = ys - c[..., 1, None, None]                        # [B, c, H, 1]
+        sigma = true_div(2.0 * r.float() + 1.0, 6.0)[..., None, None]
+        dxf, dyf = dx.float(), dy.float()
+        g = torch.exp(-(dxf * dxf + dyf * dyf) / (2.0 * (sigma * sigma)))
+        rr = r[..., None, None]
+        inside = (dx.abs() <= rr) & (dy.abs() <= rr)
+        g = torch.where(inside, g, 0.0)                        # [B, c, H, W]
+        v = valid[:, :, k0:k0 + chunk, None, None]             # [B, M, c, 1, 1]
+        out = torch.maximum(out, torch.where(v, g[:, None], 0.0).amax(2))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load('gaussian_heatmap')
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.draw_heatmap.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, p]
+    lib.draw_heatmap.restype = ctypes.c_int
+    return lib
+
+
+def draw_heatmap(centers: torch.Tensor, radii: torch.Tensor, valid: torch.Tensor,
+                 hw: Tuple[int, int]) -> torch.Tensor:
+    """Max-combined gaussians on ``M`` maps per sample.
+
+    Args:
+      centers: [B, K, 2] int32 (x, y) feature-map centres.
+      radii: [B, K] int32 radii.
+      valid: [B, M, K] bool, which objects map ``m`` of sample ``b`` draws.
+      hw: (H, W) of the maps.
+
+    Returns [B, M, H, W] float32. CPU tensors take :func:`draw_heatmap_plain`;
+    CUDA tensors launch the kernel.
+    """
+    _check(centers, radii, valid)
+    if centers.device.type == 'cpu':
+        return draw_heatmap_plain(centers, radii, valid, hw)
+    if centers.device.type != 'cuda':
+        raise ValueError(f'draw_heatmap: unsupported device {centers.device}')
+    h, w = hw
+    b, k, _ = centers.shape
+    m = valid.shape[1]
+    centers, radii, valid = centers.contiguous(), radii.contiguous(), valid.contiguous()
+    out = torch.zeros(b, m, h, w, dtype=torch.float32, device=centers.device)
+    lib = _lib()
+    with torch.cuda.device(centers.device):
+        code = lib.draw_heatmap(centers.data_ptr(), radii.data_ptr(), valid.data_ptr(),
+                                out.data_ptr(), b, k, m, h, w,
+                                torch.cuda.current_stream(centers.device).cuda_stream)
+    build.check(lib, code, 'draw_heatmap')
+    draw_heatmap.launches += 1
+    return out
+
+
+draw_heatmap.launches = 0

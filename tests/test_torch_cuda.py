@@ -8,7 +8,7 @@ false. No JAX here, so the file runs on the card's machine:
 import pytest
 import torch
 
-from mm_training_tpu_torch.ops import affine_act, circle_nms, voxelize
+from mm_training_tpu_torch.ops import affine_act, circle_nms, gaussian, voxelize
 
 pytestmark = pytest.mark.cuda
 
@@ -61,3 +61,55 @@ def test_circle_nms_kernel_equals_plain(gen):
     with pytest.raises(ValueError, match='K <= 1024'):
         circle_nms.circle_nms_mask(c.repeat(1, 30, 1), sc.repeat(1, 30),
                                    va.repeat(1, 30), th)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [(4, 64, 64, 512), (2, 3, 5, 7), (2, 160, 16, 32)])
+def test_affine_act_backward_kernel_matches_plain(gen, dtype, shape):
+    def rand(*s):
+        return torch.randn(*s, generator=gen, device='cuda')
+    def cl(t):
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+    x, r, g = cl(rand(*shape)), cl(rand(*shape)), cl(rand(*shape))
+    s, t = rand(shape[1]), rand(shape[1])
+    for res in (None, r):
+        for relu in (True, False):
+            got = affine_act.affine_act_backward(g, x, s, t, res, relu)
+            want = affine_act.affine_act_backward_plain(g, x, s, t, res, relu)
+            # dx, dr: the same products, one rounding: bit for bit
+            assert torch.equal(got[0], want[0])
+            if res is not None:
+                assert torch.equal(got[1], want[1])
+            # ds, dt: fp32 sums over N*H*W in another order
+            n = x.numel() // shape[1]
+            for a, b in zip(got[2:], want[2:]):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * n)
+            # deterministic: a second launch gives the same bits
+            again = affine_act.affine_act_backward(g, x, s, t, res, relu)
+            assert all(torch.equal(a, b) for a, b in zip(got[2:], again[2:]))
+
+
+def test_affine_act_autograd_reaches_the_backward_kernel(gen):
+    x = torch.randn(2, 64, 8, 16, generator=gen, device='cuda').to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    s = torch.randn(64, generator=gen, device='cuda', requires_grad=True)
+    t = torch.randn(64, generator=gen, device='cuda', requires_grad=True)
+    before = affine_act.affine_act_backward.launches
+    affine_act.AffineAct.apply(x, s, t, None, True).float().sum().backward()
+    assert affine_act.affine_act_backward.launches == before + 1
+    assert x.grad is not None and s.grad is not None and t.grad is not None
+
+
+def test_draw_heatmap_kernel_matches_plain(gen):
+    for b, m, k, hw in ((4, 4, 500, (64, 512)), (2, 3, 37, (24, 40))):
+        h, w = hw
+        cx = torch.randint(-3, w + 3, (b, k), generator=gen, device='cuda')
+        cy = torch.randint(-3, h + 3, (b, k), generator=gen, device='cuda')
+        centers = torch.stack([cx, cy], -1).int()
+        radii = torch.randint(0, 12, (b, k), generator=gen, device='cuda').int()
+        valid = torch.rand(b, m, k, generator=gen, device='cuda') < 0.5
+        got = gaussian.draw_heatmap(centers, radii, valid, hw)
+        want = gaussian.draw_heatmap_plain(centers, radii, valid, hw)
+        # expf and torch.exp may differ by an ulp; centres are exactly 1.0
+        assert torch.equal(got == 1.0, want == 1.0)
+        assert (got - want).abs().max().item() <= 1e-6

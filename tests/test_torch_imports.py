@@ -10,13 +10,16 @@ import pytest
 import torch
 
 from mm_training_tpu_torch.configs import tiny_test_config
-from mm_training_tpu_torch.exps import inference
+from mm_training_tpu_torch.exps import inference, profile_kernels, profile_train
 from mm_training_tpu_torch.models import BEVDepthLiDAR
 
 ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
+for name in ('mm_training_tpu_torch.ops.gaussian', 'mm_training_tpu_torch.training.optim',
+             'mm_training_tpu_torch.exps.profile_train'):
+    assert importlib.util.find_spec(name) is not None, name
 for banned in ('jax', 'flax', 'mm_training_tpu'):
     sys.modules[banned] = None        # any import of them raises ImportError
 import mm_training_tpu_torch
@@ -37,7 +40,8 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20   # every module of the package
+    # every module of the package, the training slice's included
+    assert int(out.stdout.split()[-1]) >= 28
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -46,6 +50,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         BEVDepthLiDAR(tiny_test_config())
     with pytest.raises(RuntimeError, match='no CUDA device'):
         inference.main(['--latency', '--config', 'tiny_test_config', '--iters', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        profile_train.main(['--steps', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        profile_kernels.main()
 
 
 def test_latency_cli_on_cpu_when_asked(capsys):

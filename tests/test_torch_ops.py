@@ -87,8 +87,12 @@ def test_batchnorm_residual_no_relu():
 
 
 def test_batchnorm_refuses_training_mode():
-    with pytest.raises(RuntimeError, match='eval mode'):
-        BatchNorm2d(4).train()(torch.zeros(1, 4, 2, 2))
+    """Training mode runs now (batch statistics, flax's running average);
+    what it refuses is a BatchNorm it cannot train with flax's semantics."""
+    with pytest.raises(RuntimeError, match='momentum=None'):
+        BatchNorm2d(4, momentum=None).train()(torch.zeros(1, 4, 2, 2))
+    y = BatchNorm2d(4).train()(torch.ones(2, 4, 2, 2))
+    assert torch.equal(y, torch.zeros_like(y))   # normalized by its own mean
 
 
 # ------------------------------------------------------------------------ K1

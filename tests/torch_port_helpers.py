@@ -116,3 +116,185 @@ def check_predict_parity(use_radar: bool) -> None:
         same = gv[b] & (gl[b] == wl[b, i]) & (np.abs(gs[b] - ws[b, i]) <= 1e-4)
         err = np.abs(gb[b, same] - wb[b, i]).max(-1)
         assert err.min() <= 1e-3, (b, i, gb[b, i], wb[b, i])
+
+
+# The one parameter whose exact gradient is zero on both sides and is left
+# out of the gradient comparison: the port's shared-conv bias (the flax
+# ConvBN has none; weights.py carries zeros) sits right before a train-mode
+# BatchNorm, which subtracts it again. Each framework's value is rounding
+# residue, which Adam's first step scales up to about lr. (The JAX package's
+# SeparateHead branch convs carry such biases too; the port folds them into
+# the BN running mean and has no parameter for them.)
+ZERO_GRAD_BIASES = ('head.shared_conv.conv.bias',)
+
+
+def train_parity_case(use_radar: bool, dtype=np.float32) -> dict:
+    """One train step of both packages on ``tiny_test_config(use_cam=False)``
+    at narrow widths from the same random flax variables (carried over by
+    ``state_dict_from_flax``) and the same fake batch, with the weights in
+    ``dtype``; in float32 also one eval step on the batch padded with
+    ``sample_valid`` [True, False]. Returns what the checks below compare.
+
+    Why float64 too: at a random init the heatmap loss pushes every logit
+    the same way, so the gradient reaching each train-mode BatchNorm is
+    nearly constant over (N, H, W), and BN's backward subtracts its mean.
+    That difference of near-equal sums turns float32 rounding (sums taken
+    in another order, flax's one-pass variance E[x^2] - E[x]^2 against
+    ``var_mean``) into gradient differences of up to ~10% of a tensor's
+    largest entry, in either package alike. In float64 (JAX with x64, the
+    port's plain versions computing in float64) the same step agrees to
+    ~1e-7, the float32 heatmap targets' rounding; that is where the
+    gradients and the update are held to their tolerances."""
+    import jax.numpy as jnp
+
+    import mm_training_tpu.configs as jcfg
+    from mm_training_tpu.data.fake_batch import make_fake_batch as j_fake_batch
+    from mm_training_tpu.models import BEVDepthLiDAR as JModel
+    from mm_training_tpu.training.optim import make_optimizer as j_make_optimizer
+    from mm_training_tpu.training.train_step import TrainState as JState
+    from mm_training_tpu.training.train_step import make_eval_step as j_eval_step
+    from mm_training_tpu.training.train_step import make_train_step as j_train_step
+    import mm_training_tpu_torch.configs as tcfg
+    from mm_training_tpu_torch.data import make_fake_batch
+    from mm_training_tpu_torch.models import BEVDepthLiDAR, state_dict_from_flax
+    from mm_training_tpu_torch.training import (create_train_state, make_eval_step,
+                                                make_train_step)
+
+    jc = narrow(jcfg, jcfg.tiny_test_config(use_cam=False, use_radar=use_radar))
+    tc = narrow(tcfg, tcfg.tiny_test_config(use_cam=False, use_radar=use_radar))
+    jbatch = j_fake_batch(jc, seed=3)
+    batch = make_fake_batch(tc, seed=3)
+    for k in batch:
+        if k in jbatch:
+            np.testing.assert_array_equal(batch[k], jbatch[k])
+    jm = JModel(jc)
+    jb = {k: jnp.asarray(v) for k, v in jbatch.items()}
+    v = random_variables(jm.init, dict(jb, flipped=jnp.zeros((jc.batch_size,), bool)),
+                         seed=4)
+    v = jax.tree_util.tree_map(lambda a: a.astype(dtype), v)
+    fp64 = dtype == np.float64
+    x64 = jax.config.jax_enable_x64
+    jax.config.update('jax_enable_x64', fp64)
+    try:
+        tx = j_make_optimizer(jc, steps_per_epoch=10)
+        jstate = JState(step=jnp.zeros((), jnp.int32), params=v['params'],
+                        batch_stats=v['batch_stats'], opt_state=tx.init(v['params']))
+        j_eval = None
+        if not fp64:
+            pad = jnp.asarray([True, False])
+            j_eval = jax.tree_util.tree_map(
+                np.asarray, j_eval_step(jc, jm)(jstate, dict(jb, sample_valid=pad))[:2])
+        new, j_met = j_train_step(jc, jm, tx)(jstate, jb, jax.random.PRNGKey(0))
+        j_met = {k: float(x) for k, x in j_met.items()}
+        new = jax.tree_util.tree_map(np.asarray, (new.params, new.batch_stats,
+                                                  new.opt_state[1][0].mu))
+    finally:
+        jax.config.update('jax_enable_x64', x64)
+    new_params, new_stats, new_mu = new
+
+    def carry(params, stats):
+        return {k: t.numpy() for k, t in state_dict_from_flax(params, stats, tc).items()}
+
+    model = BEVDepthLiDAR(tc, device='cpu').to(torch.float64 if fp64 else torch.float32)
+    model.load_state_dict(state_dict_from_flax(v['params'], v['batch_stats'], tc))
+    state = create_train_state(tc, model, steps_per_epoch=10)
+    p_eval = None
+    if not fp64:
+        p_eval = make_eval_step(tc)(state, dict(batch, sample_valid=np.array([True, False])))
+        p_eval = jax.tree_util.tree_map(lambda t: t.numpy(), p_eval[:2])
+    old = {n: p.detach().clone().numpy() for n, p in model.named_parameters()}
+    state, p_met = make_train_step(tc)(state, batch)
+    names = [n for n, _ in model.named_parameters()]
+    return {
+        'lr': tc.learning_rate,
+        'j_metrics': j_met,
+        'p_metrics': {k: float(x) for k, x in p_met.items()},
+        # Adam's first moment after one step is 0.1 x the clipped gradient
+        'j_mu': carry(new_mu, v['batch_stats']),
+        'p_mu': {n: m.numpy() for n, m in zip(names, state.optimizer.mu)},
+        'j_old': carry(v['params'], v['batch_stats']),
+        'j_new': carry(new_params, v['batch_stats']),
+        'p_old': old,
+        'p_new': {n: p.detach().numpy() for n, p in model.named_parameters()},
+        # new statistics folded with the step's input biases: the batch mean
+        # the JAX step took included them (see ZERO_GRAD_BIASES)
+        'j_stats': carry(v['params'], new_stats),
+        'p_stats': {n: b.numpy() for n, b in model.named_buffers()},
+        'j_eval': j_eval,
+        'p_eval': p_eval,
+    }
+
+
+def check_train_metrics(case, case64) -> None:
+    """Loss to 1e-5 relative in float32 (sums in another order) and 1e-6 in
+    float64; the gradient norm to 1e-6 in float64 and 1e-2 in float32 (the
+    cancellation described in :func:`train_parity_case`)."""
+    for c, tol_loss, tol_norm in ((case, 1e-5, 1e-2), (case64, 1e-6, 1e-6)):
+        j, p = c['j_metrics'], c['p_metrics']
+        assert j['train_loss'] > 1.0 and p['train_depth_loss'] == j['train_depth_loss'] == 0
+        assert abs(p['train_loss'] - j['train_loss']) <= tol_loss * j['train_loss']
+        assert p['train_detection_loss'] == p['train_loss']
+        assert abs(p['grad_norm'] - j['grad_norm']) <= tol_norm * j['grad_norm']
+
+
+def check_train_gradients(case64) -> None:
+    """Every clipped gradient (Adam's first moment / 0.1; float64) within
+    1e-4 of its tensor's largest |g|; the zero-gradient biases within 1e-5
+    of the model's largest."""
+    j_mu, p_mu = case64['j_mu'], case64['p_mu']
+    top = max(np.abs(m).max() for n, m in j_mu.items() if n in p_mu)
+    assert set(p_mu) <= set(j_mu)
+    for name, g in p_mu.items():
+        if name in ZERO_GRAD_BIASES:
+            assert np.abs(g).max() <= 1e-5 * top, name
+            continue
+        want = j_mu[name]
+        assert np.abs(g - want).max() <= 1e-4 * np.abs(want).max(), name
+
+
+def check_train_update(case, case64) -> None:
+    """Adam's first step is about lr * sign(g): the update (new - old)
+    within 2.001 lr everywhere (a sign of g at rounding level may flip; the
+    weight decay adds lr * 1e-7 * |p|) and,
+    in float64, within 1e-3 lr where |g| exceeds 1e-4 of its tensor's
+    largest."""
+    for c in (case, case64):
+        lr = c['lr']
+        for name, p_new in c['p_new'].items():
+            got = p_new - c['p_old'][name]
+            want = c['j_new'][name] - c['j_old'][name]
+            assert np.abs(got - want).max() <= 2.001 * lr, name
+            if c is case64:
+                g = np.abs(c['j_mu'][name])
+                strong = g > 1e-4 * g.max()
+                assert np.abs(got - want)[strong].max(initial=0) <= 1e-3 * lr, name
+        moved = sum(np.abs(p - c['p_old'][n]).sum() for n, p in c['p_new'].items())
+        assert moved > 0
+
+
+def check_train_bn_stats(case, case64) -> None:
+    """New running means and variances to 1e-5, in float32 and float64."""
+    for c in (case, case64):
+        n = 0
+        for name, got in c['p_stats'].items():
+            if name.endswith(('running_mean', 'running_var')):
+                np.testing.assert_allclose(got, c['j_stats'][name], rtol=1e-5, atol=1e-5,
+                                           err_msg=name)
+                n += 1
+        assert n > 20
+
+
+def check_eval_step(case) -> None:
+    """Eval loss on the padded batch to 1e-5 relative; boxes as the predict
+    parity holds them (valid and labels equal, scores 1e-4, boxes 1e-3)."""
+    (jm, (wb, ws, wl, wv)), (pm, (gb, gs, gl, gv)) = case['j_eval'], case['p_eval']
+    for k in ('detection_loss', 'loss'):
+        assert abs(float(pm[k]) - float(jm[k])) <= 1e-5 * abs(float(jm[k])), k
+    assert float(pm['depth_loss']) == 0.0
+    np.testing.assert_array_equal(gv, wv)
+    assert wv.sum() > 50
+    np.testing.assert_array_equal(gl[wv], wl[wv])
+    np.testing.assert_allclose(gs, ws, atol=1e-4)
+    for b, i in zip(*np.nonzero(wv)):
+        same = gv[b] & (gl[b] == wl[b, i]) & (np.abs(gs[b] - ws[b, i]) <= 1e-4)
+        assert np.abs(gb[b, same] - wb[b, i]).max(-1).min() <= 1e-3, (b, i)
