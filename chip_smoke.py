@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # from the repository root, one NVIDIA H100
 
 Phases, each raising on failure:
-  1. build the five CUDA kernels from ``mm_training_tpu_torch/csrc`` (one
+  1. build the nine CUDA kernels from ``mm_training_tpu_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time;
   2. hold each kernel against its plain PyTorch version at the serving and
      training paths' shapes, and time kernel, plain version and, where one
@@ -23,7 +23,21 @@ Phases, each raising on failure:
      after; finite losses; one step's gradients through the kernels against
      the same step through the plain versions;
   6. the fp32 tiny config's train step on the card against the port's CPU
-     step (TF32 off): loss, updated parameters, BN statistics.
+     step (TF32 off): loss, updated parameters, BN statistics;
+  7. the camera kernels K4-K7 against their plain versions at the
+     ``lidar_cam_radar`` serving path's shapes, timed as in phase 2 (K7 also
+     against ``F.grid_sample``, timed and used nowhere in the port);
+  8. serve the full-width ``lidar_cam_radar`` predict path (ResNet-50 over
+     4 cameras of 704 x 1280, DepthNet with the deformable conv, 409 depth
+     bins, the LiDAR depth oracle, the BEV warp and fusion; bf16, seeded
+     random weights): distinct B=1 requests, one B=4 batch, p50/p90 latency
+     at B=1 and B=4 and peak memory, with every kernel's launch count reset
+     before and read after; the fused BEV must be bf16;
+  9. pred maps of one camera request through the kernels against the plain
+     versions (bf16), with a rotated, flipped and scaled BEV augmentation
+     and with ``use_depth_loss=False`` (the DCN's depth reaches the splat);
+     the fp32 tiny camera config on the card against the port's CPU path
+     (TF32 off; boxes to 1e-3, scores to 1e-4).
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
@@ -42,31 +56,51 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (data sheet, 700 W)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+
+
+def _swaps():
+    """(module, wrapper name, plain version) of every kernel of the port."""
+    from mm_training_tpu_torch.ops import (affine_act, circle_nms, deform_conv, depth_labels,
+                                           gaussian, voxel_pooling, voxelize, warp)
+    return ((affine_act, 'affine_act', affine_act.affine_act_plain),
+            (affine_act, 'affine_act_backward', affine_act.affine_act_backward_plain),
+            (voxelize, 'voxelize_pillars_dense', voxelize.voxelize_pillars_dense_plain),
+            (gaussian, 'draw_heatmap', gaussian.draw_heatmap_plain),
+            (circle_nms, 'circle_nms_mask', circle_nms.circle_nms_mask_plain),
+            (voxel_pooling, 'lift_splat_factorized',
+             voxel_pooling.lift_splat_factorized_plain),
+            (deform_conv, 'deform_sample', deform_conv.deform_sample_plain),
+            (depth_labels, 'depth_labels', depth_labels.depth_labels_plain),
+            (warp, 'warp_affine_nhwc', warp.warp_affine_nhwc_plain))
 
 
 def _wrappers():
     """Every kernel wrapper of the port, by row name."""
-    from mm_training_tpu_torch.ops import affine_act, circle_nms, gaussian, voxelize
-    return {'affine_act': affine_act.affine_act,
-            'affine_act_backward': affine_act.affine_act_backward,
-            'voxelize_pillars_dense': voxelize.voxelize_pillars_dense,
-            'draw_heatmap': gaussian.draw_heatmap,
-            'circle_nms_mask': circle_nms.circle_nms_mask}
+    return {name: getattr(mod, name) for mod, name, _ in _swaps()}
 
 
 @contextlib.contextmanager
 def _plain_versions():
     """Every kernel wrapper swapped for its plain version."""
-    from mm_training_tpu_torch.ops import affine_act, circle_nms, gaussian, voxelize
-    swaps = ((affine_act, 'affine_act', affine_act.affine_act_plain),
-             (affine_act, 'affine_act_backward', affine_act.affine_act_backward_plain),
-             (voxelize, 'voxelize_pillars_dense', voxelize.voxelize_pillars_dense_plain),
-             (gaussian, 'draw_heatmap', gaussian.draw_heatmap_plain),
-             (circle_nms, 'circle_nms_mask', circle_nms.circle_nms_mask_plain))
+    swaps = _swaps()
     with contextlib.ExitStack() as stack:
         for mod, name, plain in swaps:
             stack.enter_context(mock.patch.object(mod, name, plain))
         yield
+
+
+def _randomize_offsets(model, gen):
+    """A random offset conv in every deformable conv (the JAX init is zero,
+    which samples the taps at whole pixels): offsets of about 1-2 px, so
+    kernel K5 interpolates."""
+    from mm_training_tpu_torch.models.depth_net import DeformConv2d
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DeformConv2d):
+                w = m.conv_offset.weight
+                w.copy_(torch.randn(w.shape, generator=gen).to(w.device)
+                        / (w.shape[1] * 9) ** 0.5)
 
 
 def _randomize_bn(model, gen):
@@ -357,8 +391,10 @@ def compare_plain(model, request):
     return worst
 
 
-def compare_cpu_reference():
-    """Phase 4b: the fp32 tiny config on the card vs the port's CPU path."""
+def compare_cpu_reference(cfg=None, bda=None):
+    """Phase 4b (and 9b with a camera config): the fp32 tiny config on the
+    card vs the port's CPU path; ``bda`` replaces the batch's identity
+    ``bda_mat``."""
     from mm_training_tpu_torch.configs import tiny_test_config
     from mm_training_tpu_torch.data import make_fake_batch
     from mm_training_tpu_torch.models import BEVDepthLiDAR
@@ -366,12 +402,15 @@ def compare_cpu_reference():
 
     torch.backends.cudnn.allow_tf32 = False        # fp32 comparison: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = tiny_test_config(use_cam=False)
+    cfg = cfg or tiny_test_config(use_cam=False)
     gen = torch.Generator().manual_seed(SEED + 1)
     cpu_model = BEVDepthLiDAR(cfg, device='cpu', generator=gen)
     _randomize_bn(cpu_model, gen)
+    _randomize_offsets(cpu_model, gen)
     gpu_model = copy.deepcopy(cpu_model).to('cuda')
     batch = make_fake_batch(cfg, seed=SEED + 2)
+    if bda is not None:
+        batch['bda_mat'] = bda
     gb, gs, gl, gv = (o.cpu().numpy() for o in make_predict_step(cfg, gpu_model)(batch))
     wb, ws, wl, wv = (o.numpy() for o in make_predict_step(cfg, cpu_model)(batch))
     if not (np.array_equal(gv, wv) and np.array_equal(gl[wv], wl[wv])
@@ -381,8 +420,9 @@ def compare_cpu_reference():
     for b, i in zip(*np.nonzero(wv)):   # near-tied scores may trade slots
         same = gv[b] & (gl[b] == wl[b, i]) & (np.abs(gs[b] - ws[b, i]) <= 1e-4)
         worst = max(worst, float(np.abs(gb[b, same] - wb[b, i]).max(-1).min()))
-    print(f'tiny fp32 card vs CPU: {int(wv.sum())} kept boxes, worst box err {worst:.3g}',
-          flush=True)
+    print(f'tiny fp32 card vs CPU (camera {cfg.use_cam}, depth oracle '
+          f'{cfg.use_cam and cfg.use_depth_loss}): {int(wv.sum())} kept boxes, worst box err '
+          f'{worst:.3g}', flush=True)
     if not worst <= 1e-3:
         raise AssertionError(f'tiny fp32 boxes differ from the CPU path by {worst}')
 
@@ -516,11 +556,258 @@ def compare_cpu_train():
         raise AssertionError('tiny fp32 train step on the card differs from the CPU step')
 
 
+def _bound(nbytes, flops, rate):
+    """(bound ms, what bounds it): bytes over the memory rate against
+    operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, 'operations' if t_ops > t_bytes else 'bytes'
+
+
+def check_camera_kernels(cfg):
+    """Phase 7: K4-K7 against their plain versions at the camera serving
+    path's shapes (one B=1 request: 4 cameras, 409 bins, 44 x 80 features,
+    an 8192-cell camera BEV), K6 on the request's own points."""
+    from mm_training_tpu_torch.data import make_fake_batch, random_bda_matrices
+    from mm_training_tpu_torch.exps.timing import device_ms, host_ms
+    from mm_training_tpu_torch.models.lss_fpn import LSSFPN
+    from mm_training_tpu_torch.ops import deform_conv, depth_labels, voxel_pooling, warp
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bb = cfg.get_backbone_conf()
+    batch = make_fake_batch(cfg, batch_size=1, seed=SEED + 8)
+    d, (fh, fw), c = bb.depth_channels, bb.feat_hw, bb.output_channels
+    rows = []
+
+    def row(name, source, replaces, fn, plain, nbytes, flops, rate, plain_iters, **extra):
+        bound_ms, bound_by = _bound(nbytes, flops, rate)
+        rows.append(dict(name=name, route='cuda', source=f'mm_training_tpu_torch/csrc/{source}',
+                         replaces=replaces, ms=device_ms(fn, 50), call_ms=host_ms(fn, 50),
+                         plain_ms=device_ms(plain, plain_iters), bound_ms=bound_ms,
+                         bound_by=bound_by, **extra))
+
+    # --- K4 on the request's own splat indices (4 cameras of the fake rig)
+    with torch.device('meta'):
+        lss = LSSFPN(bb)
+    s2e = torch.as_tensor(batch['sensor2ego'][:, 0], device=dev)
+    intr = torch.as_tensor(batch['intrin'][:, 0], device=dev)
+    idx, zvalid = lss.splat_indices(s2e, intr)
+    m, n_cells = idx.shape[0], int(np.prod(bb.bev_hw))
+    depth = torch.randn(m, d, fh, fw, generator=gen, device=dev).softmax(1).bfloat16()
+    ctx = torch.randn(m, fh, fw, c, generator=gen, device=dev).bfloat16()
+    args = (depth, ctx, idx, zvalid, n_cells)
+    got = voxel_pooling.lift_splat_factorized(*args)
+    want = voxel_pooling.lift_splat_factorized_plain(*args)
+    # the fp32 sums of the same inputs (kernel and plain), and each entry's
+    # sum of |terms|, which bounds what another order of fp32 atomics moves
+    args32 = (depth.float(), ctx.float(), idx, zvalid, n_cells)
+    got32 = voxel_pooling.lift_splat_factorized(*args32)
+    want32 = voxel_pooling.lift_splat_factorized_plain(*args32)
+    mag = voxel_pooling.lift_splat_factorized_plain(depth.float(), ctx.float().abs(), idx,
+                                                    zvalid, n_cells)
+    fp32_err = ((got32 - want32).abs() / mag.clamp_min(1e-30)).max().item()
+    w = want.float()
+    ulp = torch.where(w == 0, 0.0, torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
+    diff = (got.float() - w).abs()
+    ulps = torch.where(diff == 0, 0.0, diff / ulp).max().item()
+    # one bf16 ulp, plus the fp32 order bound where a cell's sum cancels
+    outside = int((diff > ulp + 1e-5 * mag).sum())
+    rows_kept = int((idx < n_cells).sum())
+    nbytes = (depth.numel() * 2 + zvalid.numel() + ctx.numel() * 2 + idx.numel() * 4
+              + got.numel() * 2)
+    row('lift_splat_factorized', 'lift_splat.cu', 'mm_training_tpu/ops/voxel_pooling.py:127',
+        lambda: voxel_pooling.lift_splat_factorized(*args),
+        lambda: voxel_pooling.lift_splat_factorized_plain(*args),
+        nbytes, 2 * fh * c * rows_kept, BF16_FLOPS, 10,
+        max_abs_err=diff.max().item(), bf16_ulps=ulps, fp32_err_of_magnitude=fp32_err,
+        bf16_outside_tolerance=outside, library_ms=None,
+        rows_off_the_grid=int(idx.numel() - rows_kept),
+        shape=[m, d, fh, fw, c], dtype='bfloat16')
+
+    # --- K5 at the DepthNet's width (512 channels), offsets up to 3 px
+    x = torch.randn(m, fh, fw, 512, generator=gen, device=dev).bfloat16()
+    off = torch.rand(m, fh, fw, 18, generator=gen, device=dev) * 6 - 3
+    off = torch.where(torch.rand(off.shape, generator=gen, device=dev) < 0.25, off.round(), off)
+    got = deform_conv.deform_sample(x, off)
+    want = deform_conv.deform_sample_plain(x, off)
+    # read x and the offsets once, write the columns; ~8 operations an output
+    row('deform_sample', 'deform_conv.cu', 'mm_training_tpu/models/depth_net.py:30',
+        lambda: deform_conv.deform_sample(x, off), lambda: deform_conv.deform_sample_plain(x, off),
+        x.numel() * 2 + off.numel() * 4 + got.numel() * 2, 8 * got.numel(), FP32_FLOPS, 5,
+        max_abs_err=(got.float() - want.float()).abs().max().item(), library_ms=None,
+        shape=list(x.shape), dtype='bfloat16')
+
+    # --- K6 on the request's 100k points, its 4 cameras
+    pts = torch.as_tensor(batch['points'], device=dev)
+    mask = torch.as_tensor(batch['point_mask'], device=dev)
+    extr = torch.as_tensor(batch['extrinsics'][:, 0], device=dev)
+    largs = (pts, mask, extr, intr, cfg.final_dim, bb.downsample_factor, bb.d_bound, d)
+    got = depth_labels.depth_labels(*largs)
+    want = depth_labels.depth_labels_plain(*largs)
+    kept = int(mask.sum())
+    # the mask, x y z of the masked-in points and the matrices read, the
+    # labels written; ~60 operations to project a point into a camera
+    row('depth_labels', 'depth_labels.cu', 'mm_training_tpu/ops/depth_labels.py:30',
+        lambda: depth_labels.depth_labels(*largs), lambda: depth_labels.depth_labels_plain(*largs),
+        mask.numel() + kept * 12 + 2 * extr.numel() * 4 + got.numel() * 4,
+        60 * kept * extr.shape[1], FP32_FLOPS, 20,
+        max_abs_err=(got - want).abs().max().item(), library_ms=None,
+        cells_with_depth=int((got.argmax(-1) > 0).sum()), shape=[kept, extr.shape[1], d],
+        dtype='float32')
+
+    # --- K7 on the camera BEV (32 x 256 x 80 bf16) with a rotated, flipped
+    # and scaled augmentation; the yardstick is F.grid_sample on a float32
+    # copy with the same source pixels (align_corners=True: pixel centres)
+    bev = torch.randn(1, *bb.bev_hw, c, generator=gen, device=dev).bfloat16()
+    mat = warp.bda_pixel_matrix(torch.as_tensor(random_bda_matrices(1, SEED + 9), device=dev),
+                                bb.bev_hw)
+    got = warp.warp_affine_nhwc(bev, mat)
+    want = warp.warp_affine_nhwc_plain(bev, mat)
+    h, wd = bb.bev_hw
+    minv = torch.linalg.inv(mat)
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                            torch.arange(wd, device=dev, dtype=torch.float32), indexing='ij')
+    q = torch.stack([xs, ys, torch.ones_like(xs)], -1) @ minv[0].T
+    grid = torch.stack([q[..., 0] / q[..., 2] / (wd - 1), q[..., 1] / q[..., 2] / (h - 1)],
+                       -1)[None] * 2 - 1
+    src = bev.float().permute(0, 3, 1, 2)
+
+    def library():
+        return torch.nn.functional.grid_sample(src, grid, mode='bilinear', padding_mode='zeros',
+                                               align_corners=True)
+    lib_err = (library().permute(0, 2, 3, 1) - want.float()).abs().max().item()
+    row('warp_affine_nhwc', 'bev_warp.cu', 'mm_training_tpu/ops/warp.py:56',
+        lambda: warp.warp_affine_nhwc(bev, mat), lambda: warp.warp_affine_nhwc_plain(bev, mat),
+        2 * bev.numel() * 2, 0, FP32_FLOPS, 20,
+        max_abs_err=(got.float() - want.float()).abs().max().item(),
+        library_ms=device_ms(library, 50), library_max_abs_err=lib_err,
+        inverse_ms=device_ms(lambda: torch.linalg.inv_ex(mat), 50),   # part of ms
+        shape=list(bev.shape), dtype='bfloat16')
+
+    for r in rows:
+        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']} ms={r['ms']:.6f} "
+              f"call_ms={r['call_ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']}",
+              flush=True)
+    by = {r['name']: r for r in rows}
+    # K4: fp32 atomics add in another order (1e-5 of the sum of |terms|);
+    # after the cast, one bf16 ulp plus that where a cell's sum cancels
+    k4 = by['lift_splat_factorized']
+    if not (k4['fp32_err_of_magnitude'] <= 1e-5 and k4['bf16_outside_tolerance'] == 0):
+        raise AssertionError(f"lift_splat differs from its plain version: "
+                             f"{by['lift_splat_factorized']}")
+    for name in ('deform_sample', 'depth_labels', 'warp_affine_nhwc'):   # bit for bit
+        if by[name]['max_abs_err'] != 0:
+            raise AssertionError(f'{name} differs from its plain version: {by[name]}')
+    if not by['depth_labels']['cells_with_depth'] > 0:
+        raise AssertionError('no LiDAR point reached a camera')
+    return rows
+
+
+def serve_camera(cfg):
+    """Phase 8: the full-width camera + LiDAR + radar predict path."""
+    from mm_training_tpu_torch.data import make_fake_batch
+    from mm_training_tpu_torch.exps.inference import benchmark_latency
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import make_predict_step
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=gen)
+    _randomize_bn(model, gen)
+    _randomize_offsets(model, gen)
+    fused_dtypes = set()
+    model.head.register_forward_pre_hook(lambda mod, args: fused_dtypes.add(args[0].dtype))
+    predict = make_predict_step(cfg, model)
+    requests = [make_fake_batch(cfg, batch_size=1, seed=SEED + 11 + i) for i in range(3)]
+    big = make_fake_batch(cfg, batch_size=4, seed=SEED + 20)
+    wrappers = _wrappers()
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    outs, lat = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append([o.cpu() for o in predict(req)])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    out_big = [o.cpu() for o in predict(big)]
+    lat_big = (time.perf_counter() - t0) * 1e3
+    stats = benchmark_latency(predict, requests[0], iters=60)
+    stats_b4 = benchmark_latency(predict, big, iters=20)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {n: w.launches for n, w in wrappers.items()}
+    calls = len(requests) + 1 + (stats['samples'] + 1) + (stats_b4['samples'] + 1)
+
+    print(f'serve camera: {len(requests)} B=1 requests {[round(v, 3) for v in lat]} ms '
+          f'(first includes warm-up), B=4 batch {lat_big:.3f} ms; '
+          f'max_memory_allocated {peak_gib:.3f} GiB', flush=True)
+    print('serve camera latency B=1: ' + json.dumps(stats), flush=True)
+    print('serve camera latency B=4: ' + json.dumps(stats_b4), flush=True)
+    print(f'serve camera: launches over {calls} predict calls {json.dumps(counts)}; '
+          f'fused BEV dtypes {sorted(map(str, fused_dtypes))}', flush=True)
+    missing = [n for n in ('affine_act', 'voxelize_pillars_dense', 'circle_nms_mask',
+                           'lift_splat_factorized', 'deform_sample', 'depth_labels',
+                           'warp_affine_nhwc') if counts[n] == 0]
+    if missing:
+        raise AssertionError(f'kernels never launched on the camera path: {missing}')
+    if fused_dtypes != {torch.bfloat16}:
+        raise AssertionError(f'the fused BEV entering the head is {fused_dtypes}, not bf16')
+    n_out = len(cfg.get_head_conf().tasks) * cfg.get_head_conf().test_cfg.post_max_size
+    for o, b in [(o, 1) for o in outs] + [(out_big, 4)]:
+        boxes, scores, labels, valid = o
+        if boxes.shape != (b, n_out, 9) or scores.shape != (b, n_out):
+            raise AssertionError(f'unexpected output shapes {boxes.shape} {scores.shape}')
+        if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+            raise AssertionError('non-finite boxes or scores')
+        if not valid.any(1).all():
+            raise AssertionError('a request decoded no box')
+    stats['max_memory_allocated_gib'] = peak_gib
+    return model, requests[0], counts, calls, (stats, stats_b4)
+
+
+def compare_plain_camera(model, cfg, request):
+    """Phase 9a: pred maps of one camera request through the kernels vs the
+    plain versions (bf16), once with the depth oracle and a rotated,
+    flipped and scaled BEV augmentation, once without the oracle (the DCN's
+    softmax depth reaches the splat)."""
+    from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.training import camera_inputs, cast_floating
+
+    net = cast_floating(model, torch.bfloat16)
+    pts = torch.as_tensor(request['points'], device='cuda')
+    mask = torch.as_tensor(request['point_mask'], device='cuda')
+    worst = {}
+    for label, c, req in (
+            ('oracle, rotated BDA', cfg,
+             dict(request, bda_mat=random_bda_matrices(1, SEED + 12))),
+            ('no oracle', cfg.replace(use_depth_loss=False), request)):
+        with torch.inference_mode():
+            got = net(pts, mask, **camera_inputs(c, req, 'cuda', pts, mask))
+            before = {n: w.launches for n, w in _wrappers().items()}
+            with _plain_versions():
+                want = net(pts, mask, **camera_inputs(c, req, 'cuda', pts, mask))
+            if {n: w.launches for n, w in _wrappers().items()} != before:
+                raise AssertionError('the plain run launched a kernel')
+        # K5, K6, K7 and A match bit for bit; the atomics of K1 and K4 move
+        # sums by fp32 ulps, which can flip a bf16 rounding and travel
+        # through the bf16 layers after them: allow 1/32 of the map's scale
+        worst[label] = max(((g[k].float() - w[k].float()).abs().max()
+                            / w[k].float().abs().max().clamp_min(1.0)).item()
+                           for g, w in zip(got, want) for k in w)
+    print('camera plain-path pred maps (bf16): worst max|diff| / max|map| '
+          + json.dumps(worst), flush=True)
+    if not all(v <= 1 / 32 for v in worst.values()):
+        raise AssertionError(f'kernel and plain camera pred maps differ: {worst}')
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
-    from mm_training_tpu_torch.configs import lidar_radar
+    from mm_training_tpu_torch.configs import lidar_cam_radar, lidar_radar, tiny_test_config
+    from mm_training_tpu_torch.data import random_bda_matrices
     from mm_training_tpu_torch.ops import build
 
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -543,11 +830,23 @@ def main() -> int:
     del state
     compare_cpu_train()
 
+    cam_cfg = lidar_cam_radar(batch_size=1, max_points_per_frame=100_000)
+    rows += check_camera_kernels(cam_cfg)
+    cam_model, cam_request, cam_counts, cam_calls, _ = serve_camera(cam_cfg)
+    compare_plain_camera(cam_model, cam_cfg, cam_request)
+    del cam_model
+    for kw in (dict(), dict(use_depth_loss=False)):
+        compare_cpu_reference(tiny_test_config(use_cam=True, **kw),
+                              bda=random_bda_matrices(2, SEED + 13))
+
     for row in rows:
         name = row['name'].replace('_residual', '')
-        row['launches'] = counts[name] + train_counts[name]
-        row['launches_by_path'] = {'serve': counts[name], 'train': train_counts[name]}
-        row['launches_per_request'] = counts[name] / calls
+        by_path = {'serve': counts[name], 'train': train_counts[name],
+                   'serve_camera': cam_counts[name]}
+        row['launches'] = sum(by_path.values())
+        row['launches_by_path'] = by_path
+        row['launches_per_request'] = {'serve': counts[name] / calls,
+                                       'serve_camera': cam_counts[name] / cam_calls}
     print(json.dumps({'kernels': rows}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

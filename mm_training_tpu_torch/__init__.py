@@ -5,7 +5,10 @@ imports ``torch``, numpy and the standard library only: never ``jax``, flax
 or ``mm_training_tpu``. Slice 1 is the LiDAR / LiDAR+radar serving path
 (voxelize -> pillar encoder -> CenterPoint head -> decode + circle NMS),
 slice 2 its train and eval steps (targets, train-mode BatchNorm, focal + L1
-loss, clipped AdamW), with their hand-written kernels under ``csrc/``.
+loss, clipped AdamW), slice 3 the camera branch and fusion on the serving
+path (ResNet-50, DepthNet with the deformable conv, the LiDAR depth oracle,
+the factorized lift-splat, the BEV warp), with their hand-written kernels
+under ``csrc/``.
 
 Entry points run on the card (``device='cuda'``) unless the caller passes
 ``device='cpu'``; without a card they raise rather than fall back.

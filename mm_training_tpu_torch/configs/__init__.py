@@ -1,8 +1,9 @@
-from .base import (BBoxCoderConf, BEVBackboneConf, BEVNeckConf, Config,
-                   HeadConf, LidarEncoderConf, TaskConf, TestCfg, TrainCfg,
-                   VoxelizationConf)
-from .variants import lidar_only, lidar_radar, tiny_test_config
+from .base import (BBoxCoderConf, BDAAugConf, BEVBackboneConf, BEVNeckConf, BackboneConf,
+                   Config, DepthNetConf, HeadConf, ImageBackboneConf, ImageNeckConf,
+                   LidarEncoderConf, TaskConf, TestCfg, TrainCfg, VoxelizationConf)
+from .variants import lidar_cam, lidar_cam_radar, lidar_only, lidar_radar, tiny_test_config
 
-__all__ = ['BBoxCoderConf', 'BEVBackboneConf', 'BEVNeckConf', 'Config',
-           'HeadConf', 'LidarEncoderConf', 'TaskConf', 'TestCfg', 'TrainCfg',
-           'VoxelizationConf', 'lidar_only', 'lidar_radar', 'tiny_test_config']
+__all__ = ['BBoxCoderConf', 'BDAAugConf', 'BEVBackboneConf', 'BEVNeckConf', 'BackboneConf',
+           'Config', 'DepthNetConf', 'HeadConf', 'ImageBackboneConf', 'ImageNeckConf',
+           'LidarEncoderConf', 'TaskConf', 'TestCfg', 'TrainCfg', 'VoxelizationConf',
+           'lidar_cam', 'lidar_cam_radar', 'lidar_only', 'lidar_radar', 'tiny_test_config']

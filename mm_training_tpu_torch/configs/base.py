@@ -1,16 +1,83 @@
-"""Config surface of the PyTorch port (LiDAR / LiDAR+radar serving and training).
+"""Config surface of the PyTorch port (serving and lidar training).
 
 The port's own copy of ``mm_training_tpu/configs/base.py``: the same frozen
-dataclasses, knob names and derived values, cut to what the lidar predict,
-train and eval steps read. The camera sub-configs (``BackboneConf`` and
-friends) arrive with the camera slice; ``use_cam=True`` is refused by the
-model until then.
+dataclasses, knob names and derived values, cut to what the predict, train
+and eval steps read, the camera branch's sub-configs (``BackboneConf`` and
+friends, :27-97 there) included.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ImageBackboneConf:
+    """ResNet image backbone (reference conf_aim.py:53-61). ``stem_s2d``:
+    the JAX package runs the stem as its exact space-to-depth form and
+    stores the [4, 4, 12, 64] kernel; the port carries it across as the
+    reference's 7x7/2 ``conv1`` (``models/weights.py``)."""
+    depth: int = 50
+    out_indices: Tuple[int, ...] = (0, 1, 2, 3)
+    stem_s2d: bool = True
+
+
+@dataclass(frozen=True)
+class ImageNeckConf:
+    """SECONDFPN image neck (reference conf_aim.py:62-68)."""
+    in_channels: Tuple[int, ...] = (256, 512, 1024, 2048)
+    upsample_strides: Tuple[float, ...] = (0.25, 0.5, 1, 2)
+    out_channels: Tuple[int, ...] = (128, 128, 128, 128)
+
+
+@dataclass(frozen=True)
+class DepthNetConf:
+    """DepthNet (reference conf_aim.py:69-70, lss_fpn.py:160-248)."""
+    in_channels: int = 512
+    mid_channels: int = 512
+    use_dcn: bool = True      # deformable conv in the depth branch (kernel K5)
+    num_blocks: int = 3       # BasicBlocks in the depth branch
+
+
+@dataclass(frozen=True)
+class BackboneConf:
+    """Camera->BEV backbone (LSSFPN) config (reference conf_aim.py:42-71)."""
+    x_bound: Tuple[float, float, float] = (-204.8, 204.8, 0.8)
+    y_bound: Tuple[float, float, float] = (-25.6, 25.6, 0.8)
+    z_bound: Tuple[float, float, float] = (-5.0, 3.0, 8.0)
+    d_bound: Tuple[float, float, float] = (2.0, 206.4, 0.5)
+    final_dim: Tuple[int, int] = (704, 1280)
+    output_channels: int = 80
+    downsample_factor: int = 16
+    img_backbone_conf: ImageBackboneConf = field(default_factory=ImageBackboneConf)
+    img_neck_conf: ImageNeckConf = field(default_factory=ImageNeckConf)
+    depth_net_conf: DepthNetConf = field(default_factory=DepthNetConf)
+    # extra BEV downsample at splat time, so the camera BEV lands on the
+    # head-input grid (grid/8): 1.6 m cells for the default geometry
+    bev_pool_downsample: int = 2
+    # the row-factorized splat (kernel K4), exact for the virtualized
+    # zero-roll/pitch rig; False (raw rigs) is not ported yet
+    factorized_splat: bool = True
+
+    @property
+    def depth_channels(self) -> int:
+        """Number of depth bins == len(arange(*d_bound))."""
+        return int(math.ceil((self.d_bound[1] - self.d_bound[0]) / self.d_bound[2] - 1e-9))
+
+    @property
+    def feat_hw(self) -> Tuple[int, int]:
+        return (self.final_dim[0] // self.downsample_factor,
+                self.final_dim[1] // self.downsample_factor)
+
+    @property
+    def bev_hw(self) -> Tuple[int, int]:
+        """Camera BEV (H=y, W=x) after splatting, on the head-input grid."""
+        sx = self.x_bound[2] * self.bev_pool_downsample
+        sy = self.y_bound[2] * self.bev_pool_downsample
+        return (int(round((self.y_bound[1] - self.y_bound[0]) / sy)),
+                int(round((self.x_bound[1] - self.x_bound[0]) / sx)))
 
 
 @dataclass(frozen=True)
@@ -133,8 +200,19 @@ class LidarEncoderConf:
 
 
 @dataclass(frozen=True)
+class BDAAugConf:
+    """BEV data augmentation (reference conf_aim.py:93-98)."""
+    rot_lim: Tuple[float, float] = (-5.0, 5.0)
+    scale_lim: Tuple[float, float] = (0.95, 1.05)
+    flip_dx_ratio: float = 0.5
+    flip_dy_ratio: float = 0.5
+
+
+@dataclass(frozen=True)
 class Config:
     """Top-level experiment config — same knob names as exps/conf_aim.py."""
+    H: int = 704
+    W: int = 1280
     experiment_name: str = 'lidar_radar'
     precision: str = 'bf16'  # 'fp32' | 'bf16'
     batch_size: int = 1      # per-device batch size
@@ -150,6 +228,7 @@ class Config:
     use_cam: bool = False
     use_lidar: bool = True
     use_radar: bool = True
+    use_depth_loss: bool = True   # gates the depth-oracle input of the lift
     train_velocity: bool = False
     look_back: int = 0
     look_forward: int = 0
@@ -164,11 +243,18 @@ class Config:
     # --- fixed-shape capacities
     max_points_per_frame: int = 0   # 0 => (1+look_back+look_forward)*100_000
     max_objs: int = 500
+    num_cameras: int = 4
+    num_sweeps: int = 1
 
+    backbone_conf: Optional[BackboneConf] = None
     head_conf: Optional[HeadConf] = None
     lidar_conf: Optional[LidarEncoderConf] = None
 
     # ------------------------------------------------------------------ derived
+    @property
+    def final_dim(self) -> Tuple[int, int]:
+        return (self.H, self.W)
+
     @property
     def learning_rate(self) -> float:
         return self.base_learning_rate / 64 * self.batch_size
@@ -183,7 +269,8 @@ class Config:
 
     @property
     def camera_feature_channels(self) -> int:
-        return 80 if self.use_cam else 0
+        """80 per sweep: the sweeps' BEVs are concatenated on channels."""
+        return 80 * self.num_sweeps if self.use_cam else 0
 
     @property
     def fuse_layer_in_channels(self) -> int:
@@ -208,7 +295,24 @@ class Config:
             return self.max_points_per_frame
         return (1 + self.look_back + self.look_forward) * 100_000
 
+    @property
+    def depth_channels(self) -> int:
+        return self.get_backbone_conf().depth_channels
+
     # -------------------------------------------------------------- sub-configs
+    def get_backbone_conf(self) -> BackboneConf:
+        if self.backbone_conf is not None:
+            return self.backbone_conf
+        pc, vs, osf = self.point_cloud_range, self.voxel_size, self.out_size_factor
+        return BackboneConf(
+            x_bound=(pc[0], pc[3], vs[0] * osf),
+            y_bound=(pc[1], pc[4], vs[1] * osf),
+            z_bound=(pc[2], pc[5], vs[2]),
+            d_bound=(2.0, pc[3] + 1.6, 0.5),
+            final_dim=self.final_dim,
+            output_channels=80,    # per sweep (camera_feature_channels is the total)
+        )
+
     def get_head_conf(self) -> HeadConf:
         if self.head_conf is not None:
             return self.head_conf

@@ -1,3 +1,3 @@
-from .fake_batch import make_fake_batch
+from .fake_batch import make_fake_batch, random_bda_matrices
 
-__all__ = ['make_fake_batch']
+__all__ = ['make_fake_batch', 'random_bda_matrices']

@@ -4,10 +4,14 @@ The port of ``mm_training_tpu/exps/inference.py --latency`` (:18-37):
 repeated predict calls (forward + decode + NMS), each ending in a host
 fetch of its outputs, reported as p50/p90/p99 in milliseconds. Requests come
 from ``make_fake_batch`` until the loaders are ported; the trainer,
-checkpoints and JSON export arrive with slice 4.
+checkpoints and JSON export arrive with the runtime slice (slice 5).
 
     python -m mm_training_tpu_torch.exps.inference --latency [--config lidar_radar]
         [--batch-size 1] [--iters 50] [--device cuda] [key=value ...]
+
+``--config`` is any variant: ``lidar_only``, ``lidar_radar``, ``lidar_cam``,
+``lidar_cam_radar`` or ``tiny_test_config`` (camera off; ``use_cam=True``
+as an override turns it on).
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ def benchmark_latency(predict_step: Callable, batch: Dict[str, Any],
     return {'p50_ms': float(np.percentile(lat, 50)),
             'p90_ms': float(np.percentile(lat, 90)),
             'p99_ms': float(np.percentile(lat, 99)),
-            'samples': iters, 'batch_size': int(batch['points'].shape[0])}
+            'samples': iters, 'batch_size': int(batch['bda_mat'].shape[0])}
 
 
 def _parse_value(v: str):
@@ -59,7 +63,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument('--latency', action='store_true',
                    help='benchmark predict latency (the only mode of this slice)')
     p.add_argument('--config', default='lidar_radar',
-                   choices=('lidar_only', 'lidar_radar', 'tiny_test_config'))
+                   choices=('lidar_only', 'lidar_radar', 'lidar_cam', 'lidar_cam_radar',
+                            'tiny_test_config'))
     p.add_argument('--batch-size', type=int, default=1)
     p.add_argument('--iters', type=int, default=50)
     p.add_argument('--seed', type=int, default=0)
@@ -68,7 +73,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = p.parse_args(argv)
     if not args.latency:
         raise SystemExit('only --latency is ported; prediction export arrives '
-                         'with the trainer (slice 4)')
+                         'with the trainer (slice 5)')
     kw = {}
     for ov in args.overrides:
         if '=' not in ov:

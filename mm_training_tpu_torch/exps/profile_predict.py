@@ -1,13 +1,15 @@
 """Where a predict request's time goes on the card (torch.profiler).
 
-Builds the full-width ``lidar_radar`` model with seeded random weights,
-warms the predict step up, then profiles ``--requests`` B-sized requests
-and prints: host wall time per request, device time per request summed
-over kernels, the device's busy share (device time / wall time), launches
-per request, and the kernels and host ops that take the most time.
+Builds a full-width model (``--config lidar_radar``, or ``lidar_only``,
+``lidar_cam``, ``lidar_cam_radar``) with seeded random weights, warms the
+predict step up, then profiles ``--requests`` B-sized requests and prints:
+host wall time per request, device time per request summed over kernels,
+the device's busy share (device time / wall time), launches per request,
+the share of the host-to-device copies, and the kernels and host ops that
+take the most time.
 
-    python -m mm_training_tpu_torch.exps.profile_predict [--batch-size 1]
-        [--requests 20] [--trace predict_trace.json]
+    python -m mm_training_tpu_torch.exps.profile_predict [--config lidar_radar]
+        [--batch-size 1] [--requests 20] [--trace predict_trace.json]
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Optional, Sequence
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs import lidar_radar
+from ..configs import variants
 from ..data import make_fake_batch
 from ..models import BEVDepthLiDAR
 from ..training import make_predict_step
@@ -29,13 +31,16 @@ __all__ = ['main']
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument('--config', default='lidar_radar',
+                   choices=('lidar_only', 'lidar_radar', 'lidar_cam', 'lidar_cam_radar'))
     p.add_argument('--batch-size', type=int, default=1)
     p.add_argument('--requests', type=int, default=20)
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--trace', default=None, help='write a Chrome trace here')
     args = p.parse_args(argv)
 
-    cfg = lidar_radar(batch_size=args.batch_size, max_points_per_frame=100_000)
+    cfg = getattr(variants, args.config)(batch_size=args.batch_size,
+                                         max_points_per_frame=100_000)
     model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(args.seed))
     predict = make_predict_step(cfg, model)
     batch = make_fake_batch(cfg, seed=args.seed)
@@ -59,15 +64,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     kernels = [e for e in events if e.device_type.name == 'CUDA' and device_us(e) > 0]
     device_ms = sum(device_us(e) for e in kernels) / 1e3 / args.requests
     launches = sum(e.count for e in kernels) / args.requests
-    top_dev = sorted(kernels, key=device_us, reverse=True)[:12]
+    top_dev = sorted(kernels, key=device_us, reverse=True)[:16]
+    h2d_ms = sum(device_us(e) for e in kernels
+                 if 'HtoD' in e.key) / 1e3 / args.requests
     host = [e for e in events if e.device_type.name == 'CPU']
     top_host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     result = {
-        'device': torch.cuda.get_device_name(0), 'batch_size': args.batch_size,
+        'device': torch.cuda.get_device_name(0), 'config': args.config,
+        'batch_size': args.batch_size,
         'requests': args.requests, 'wall_ms_per_request': wall_ms,
         'device_ms_per_request': device_ms,
         'device_busy_share': device_ms / wall_ms,
         'device_ops_per_request': launches,
+        'h2d_copy_ms_per_request': h2d_ms,
+        'h2d_share_of_device_time': h2d_ms / device_ms,
         'top_device_ms_per_request': [
             (e.key[:80], device_us(e) / 1e3 / args.requests, e.count / args.requests)
             for e in top_dev],

@@ -1,10 +1,14 @@
-"""Top-level BEV detector, LiDAR / LiDAR+radar branch.
+"""Top-level multimodal BEV detector.
 
-The port of ``mm_training_tpu/models/bev_depth.py::BEVDepthLiDAR`` without
-the camera branch: the dense pillar encoder feeds the CenterPoint head
-directly (the lidar BEV already sits on the head's grid/8 input). The
-camera branch and fusion arrive in slice 3, the checkpoint-import
-``sparse_import`` encoder in slice 5; both raise until then.
+The port of ``mm_training_tpu/models/bev_depth.py::BEVDepthLiDAR``: the
+camera branch (``LSSFPN``, whose BEV the BEV augmentation warps, kernel K7)
+and the dense pillar encoder of the LiDAR (+radar) points, concatenated
+``[camera, lidar]`` on channels and gated by ``BEVFuseLayer``, feed the
+CenterPoint head. Either branch alone feeds the head directly. Both BEVs
+sit on the head's grid/8 input by construction; the JAX package's bilinear
+resize for other grids is not ported and shapes that differ raise. The
+checkpoint-import ``sparse_import`` encoder arrives with its own slice and
+raises until then.
 """
 from __future__ import annotations
 
@@ -16,9 +20,13 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import Config
+from ..ops.warp import bda_bev_warp
 from .bn_fold import BatchNorm2d
 from .centerpoint_head import BEVDepthHead, SeparateHead
+from .depth_net import DeformConv2d
+from .fusion import BEVFuseLayer
 from .lidar_encoder import LidarBEVEncoder
+from .lss_fpn import LSSFPN
 
 __all__ = ['BEVDepthLiDAR', 'init_weights']
 
@@ -27,7 +35,8 @@ __all__ = ['BEVDepthLiDAR', 'init_weights']
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in place: conv kernels normal with std
     1/sqrt(fan_in) (flax's lecun scale), biases zero except each heatmap's
-    final bias (``init_bias``), BatchNorm as a fresh one."""
+    final bias (``init_bias``), BatchNorm as a fresh one, the deformable
+    conv as the JAX package inits it (He, zero offsets)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             # fan_in = input channels x taps for both layouts
@@ -47,10 +56,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     for m in model.modules():
         if isinstance(m, SeparateHead) and 'heatmap' in m.head_names:
             m.heatmap[-1].bias.fill_(m.init_bias)
+        elif isinstance(m, DeformConv2d):
+            m.reset_parameters(generator)
 
 
 class BEVDepthLiDAR(nn.Module):
-    """LiDAR(+radar) pillar encoder + CenterPoint head, built in eval mode.
+    """Camera and/or LiDAR(+radar) branches, fusion and the CenterPoint
+    head, built in eval mode.
 
     Built on ``device`` (default CUDA; raises without a card unless
     ``device='cpu'``) with weights drawn from ``generator`` (default: a CPU
@@ -58,26 +70,30 @@ class BEVDepthLiDAR(nn.Module):
     channels_last; the steps make the bf16 copies when ``cfg.precision ==
     'bf16'``, and activations follow the weights' dtype. ``model.train()``
     switches every BatchNorm to batch statistics, the only layers whose
-    behaviour depends on the mode (the JAX modules' ``train`` flag)."""
+    behaviour depends on the mode (the JAX modules' ``train`` flag) besides
+    ASPP's dropout."""
 
     def __init__(self, cfg: Config, device=None,
                  generator: Optional[torch.Generator] = None):
         dev = resolve_device(device)
         super().__init__()
-        if cfg.use_cam:
-            raise NotImplementedError('the camera branch and fusion arrive in '
-                                      'slice 3 of the port')
-        if not cfg.use_lidar:
-            raise ValueError('the lidar slice needs use_lidar=True')
+        if not (cfg.use_cam or cfg.use_lidar):
+            raise ValueError('the model needs use_cam or use_lidar')
         lconf = cfg.get_lidar_conf()
-        if lconf.variant != 'dense':
+        if cfg.use_lidar and lconf.variant != 'dense':
             raise NotImplementedError(f'lidar encoder variant {lconf.variant!r} '
-                                      'arrives in slice 5 (checkpoint import)')
+                                      'arrives with the checkpoint-import slice (slice 6)')
         self.cfg = cfg
         with torch.device('meta'):   # no init work, no global RNG draws
-            self.lidar_encoder = LidarBEVEncoder(
-                lconf, pc_range=cfg.point_cloud_range,
-                voxel_size=cfg.voxel_size, grid_hw=cfg.out_shape)
+            if cfg.use_cam:
+                self.backbone = LSSFPN(cfg.get_backbone_conf())
+            if cfg.use_lidar:
+                self.lidar_encoder = LidarBEVEncoder(
+                    lconf, pc_range=cfg.point_cloud_range,
+                    voxel_size=cfg.voxel_size, grid_hw=cfg.out_shape)
+            if cfg.use_cam and cfg.use_lidar:
+                self.bev_fuse = BEVFuseLayer(cfg.camera_feature_channels + lconf.out_channels,
+                                             cfg.fuse_layer_in_channels)
             self.head = BEVDepthHead(cfg.get_head_conf())
         self.to_empty(device='cpu')
         if generator is None:
@@ -86,11 +102,37 @@ class BEVDepthLiDAR(nn.Module):
         self.to(dev, memory_format=torch.channels_last)
         self.eval()
 
-    def forward(self, points: torch.Tensor,
-                point_mask: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
-        """points [B, P, F] float32, point_mask [B, P] bool -> list over tasks
-        of dicts of NHWC pred maps [B, H/4, W/4, ch] in the weights' dtype
-        (float32, or bfloat16 after ``cast_floating``)."""
+    def forward(self, points: Optional[torch.Tensor] = None,
+                point_mask: Optional[torch.Tensor] = None, *,
+                imgs: Optional[torch.Tensor] = None,
+                sensor2ego: Optional[torch.Tensor] = None,
+                intrin: Optional[torch.Tensor] = None,
+                bda_mat: Optional[torch.Tensor] = None,
+                flipped: Optional[torch.Tensor] = None,
+                depth_oracle: Optional[torch.Tensor] = None) -> List[Dict[str, torch.Tensor]]:
+        """-> list over tasks of dicts of NHWC pred maps [B, H/4, W/4, ch]
+        in the weights' dtype (float32, or bfloat16 after ``cast_floating``).
+
+        LiDAR: points [B, P, F] float32, point_mask [B, P] bool. Camera:
+        imgs [B, S, N, H, W, 3] normalised float (cast to the weights'
+        dtype here), sensor2ego and intrin [B, S, N, 4, 4] and bda_mat
+        [B, 4, 4] float32, flipped [B*S*N] bool or None (no image flipped),
+        depth_oracle [B*N, fH, fW, D] float32 or None."""
         dtype = self.head.shared_conv.conv.weight.dtype
-        bev = self.lidar_encoder(points, point_mask, dtype)
-        return self.head(bev)
+        bevs = []
+        if self.cfg.use_cam:
+            cam, _ = self.backbone(imgs.to(dtype), sensor2ego, intrin, flipped, depth_oracle)
+            bevs.append(bda_bev_warp(cam, bda_mat).permute(0, 3, 1, 2))
+        if self.cfg.use_lidar:
+            bevs.append(self.lidar_encoder(points, point_mask, dtype))
+        if len(bevs) == 2:
+            if bevs[0].shape[2:] != bevs[1].shape[2:]:
+                raise ValueError(f'camera BEV {tuple(bevs[0].shape[2:])} and lidar BEV '
+                                 f'{tuple(bevs[1].shape[2:])} differ: the bilinear resize '
+                                 'between them is not ported')
+            fused = self.bev_fuse(torch.cat(bevs, dim=1))
+        else:
+            fused = bevs[0]
+        if fused.dtype != dtype:
+            raise TypeError(f'the fused BEV is {fused.dtype}, not the compute dtype {dtype}')
+        return self.head(fused)

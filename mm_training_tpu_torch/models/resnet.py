@@ -1,12 +1,17 @@
-"""ResNet pieces of the BEV head trunk (NCHW, channels_last memory).
+"""ResNets of the BEV head trunk and the image backbone (NCHW, channels_last).
 
 The port of ``mm_training_tpu/models/resnet.py``: ``ConvBN``,
-``BasicBlock``, the mmdet-style ``ResNet`` at depth 18 with the plain 7x7/2
-stem, and ``space_to_depth_2x2``. Module and parameter names are mmdet's
-(``conv1``/``bn1``, ``layer{i}.{j}.conv1``, ``downsample.0``/``.1``), so a
-reference state dict loads as is. Every BatchNorm tail (with its ReLU and,
-in a BasicBlock, the residual add) runs through kernel A. The ResNet-50
-image backbone and its space-to-depth stem arrive with the camera slice.
+``BasicBlock``, ``Bottleneck`` (:70-87), the mmdet-style ``ResNet`` at
+depths 10, 18, 34, 50 and 101, and ``space_to_depth_2x2``. Module and
+parameter names are mmdet's (``conv1``/``bn1``, ``layer{i}.{j}.conv1``,
+``downsample.0``/``.1``), so a reference state dict loads as is. Every
+BatchNorm tail (with its ReLU and, in a block, the residual add) runs
+through kernel A.
+
+The stem is the reference's 7x7/2 conv. The JAX image backbone runs the
+same map as its exact space-to-depth form (``_S2DStem``, a masked 4x4 conv
+on the 2x2-blocked image); ``models/weights.py`` turns that kernel back into
+the 7x7 one (``stem_7x7_from_s2d``), so the port needs no second stem.
 """
 from __future__ import annotations
 
@@ -18,9 +23,7 @@ from torch import nn
 
 from .bn_fold import BatchNorm2d
 
-__all__ = ['ConvBN', 'BasicBlock', 'ResNet', 'space_to_depth_2x2']
-
-_STAGE_BLOCKS = {18: (2, 2, 2, 2)}
+__all__ = ['ConvBN', 'BasicBlock', 'Bottleneck', 'DEPTH_CFG', 'ResNet', 'space_to_depth_2x2']
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
@@ -44,6 +47,7 @@ class ConvBN(nn.Module):
 class BasicBlock(nn.Module):
     """mmdet BasicBlock (expansion 1): relu(bn2(conv2(relu(bn1(conv1 x))))
     + identity), the add and the last ReLU inside bn2's kernel."""
+    expansion = 1
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
@@ -62,6 +66,41 @@ class BasicBlock(nn.Module):
         return self.bn2(self.conv2(out), identity)
 
 
+class Bottleneck(nn.Module):
+    """mmdet Bottleneck (expansion 4, stride on the 3x3): relu(bn3(conv3(
+    relu(bn2(conv2(relu(bn1(conv1 x))))))) + identity), the add and the last
+    ReLU inside bn3's kernel. ``width`` is the bottleneck width."""
+    expansion = 4
+
+    def __init__(self, cin: int, width: int, stride: int = 1):
+        super().__init__()
+        cout = width * self.expansion
+        self.conv1 = _conv(cin, width, 1)
+        self.bn1 = BatchNorm2d(width, relu=True)
+        self.conv2 = _conv(width, width, 3, stride)
+        self.bn2 = BatchNorm2d(width, relu=True)
+        self.conv3 = _conv(width, cout, 1)
+        self.bn3 = BatchNorm2d(cout, relu=True)
+        self.downsample = None
+        if cin != cout or stride != 1:
+            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
+                                            BatchNorm2d(cout, relu=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn2(self.conv2(self.bn1(self.conv1(x))))
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.bn3(self.conv3(out), identity)
+
+
+DEPTH_CFG = {
+    10: (BasicBlock, (1, 1, 1, 1)),   # the JAX package's smoke tier
+    18: (BasicBlock, (2, 2, 2, 2)),
+    34: (BasicBlock, (3, 4, 6, 3)),
+    50: (Bottleneck, (3, 4, 6, 3)),
+    101: (Bottleneck, (3, 4, 23, 3)),
+}
+
+
 class ResNet(nn.Module):
     """mmdet-style ResNet returning multi-scale features.
 
@@ -73,22 +112,22 @@ class ResNet(nn.Module):
                  strides: Sequence[int] = (1, 2, 2, 2),
                  out_indices: Sequence[int] = (0, 1, 2, 3)):
         super().__init__()
-        if depth not in _STAGE_BLOCKS:
-            raise NotImplementedError(
-                f'ResNet-{depth}: the port has depth 18 (the BEV trunk); the '
-                'ResNet-50 image backbone arrives with the camera slice (slice 3)')
+        if depth not in DEPTH_CFG:
+            raise ValueError(f'ResNet-{depth}: depths {sorted(DEPTH_CFG)}')
+        block, stage_blocks = DEPTH_CFG[depth]
         self.out_indices = tuple(out_indices)
         self.conv1 = _conv(in_channels, base_channels, 7, 2)
         self.bn1 = BatchNorm2d(base_channels, relu=True)
         cin, width = base_channels, base_channels
         self.stage_names = []
         for i in range(num_stages):
-            blocks = [BasicBlock(cin if j == 0 else width, width,
-                                 strides[i] if j == 0 else 1)
-                      for j in range(_STAGE_BLOCKS[depth][i])]
+            blocks = []
+            for j in range(stage_blocks[i]):
+                blocks.append(block(cin, width, strides[i] if j == 0 else 1))
+                cin = width * block.expansion
             self.add_module(f'layer{i + 1}', nn.Sequential(*blocks))
             self.stage_names.append(f'layer{i + 1}')
-            cin, width = width, width * 2
+            width *= 2
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = F.max_pool2d(self.bn1(self.conv1(x)), 3, 2, 1)

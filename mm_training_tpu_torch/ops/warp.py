@@ -1,0 +1,152 @@
+"""Kernel K7: the affine BEV warp, and the image flip.
+
+The port of ``mm_training_tpu/ops/warp.py``: ``warp_affine_nhwc`` (:56-72,
+kornia's ``warp_affine``, ``dst(q) = src(inv(M) q)`` in pixel coordinates,
+bilinear, zero padding), ``bda_bev_warp`` (:75-106, the BEV augmentation's
+rotation, flip and scale applied to the camera BEV about its centre pixel,
+the JAX package's documented deviation from the reference, which scales
+about pixel (0, 0)) and ``hflip``. The CUDA source is
+``csrc/bev_warp.cu``; it is bound by the bytes of the map, see the note
+there. ``resize_bilinear`` is not ported: both BEVs sit on the grid/8 by
+construction, and the model raises where they would not.
+
+The bilinear blend is float32 in the JAX order (``top = v00 (1 - wx) + v01
+wx``, ``bot`` alike, ``top (1 - wy) + bot wy``) and is rounded once to the
+map's dtype, so the warp keeps a bf16 map bf16 (an fp32 result would
+promote the fuse layer and the head).
+
+There is no backward yet (serving runs under ``inference_mode``): the
+training slice adds one. Until then a CUDA call that needs a gradient
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+
+__all__ = ['warp_affine_nhwc', 'warp_affine_nhwc_plain', 'bda_bev_warp',
+           'bda_pixel_matrix', 'hflip']
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _inverse(mat: torch.Tensor) -> torch.Tensor:
+    # inv_ex: no host wait on the error flag
+    return torch.linalg.inv_ex(mat.float())[0].contiguous()
+
+
+def _warp_plain(img: torch.Tensor, minv: torch.Tensor) -> torch.Tensor:
+    b, h, w, c = img.shape
+    dev = img.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+
+    def coord(i):     # (x, y, 1) @ minv^T, left to right
+        m = [minv[:, i, j, None, None] for j in range(3)]
+        return (xs * m[0] + ys * m[1]) + m[2]
+
+    p0, p1, p2 = coord(0), coord(1), coord(2)
+    sx, sy = p0 / p2, p1 / p2
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    wx, wy = (sx - x0)[..., None], (sy - y0)[..., None]
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    flat = img.reshape(b, h * w, c)
+    batch = torch.arange(b, device=dev)[:, None]
+
+    def tap(xi, yi):
+        inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        at = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, h * w)
+        val = flat[batch, at].reshape(b, h, w, c)
+        return torch.where(inb[..., None], val, 0.0).float()
+
+    v00, v01 = tap(x0i, y0i), tap(x0i + 1, y0i)
+    v10, v11 = tap(x0i, y0i + 1), tap(x0i + 1, y0i + 1)
+    top = v00 * (1 - wx) + v01 * wx
+    bot = v10 * (1 - wx) + v11 * wx
+    return (top * (1 - wy) + bot * wy).to(img.dtype)
+
+
+def warp_affine_nhwc_plain(img: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`warp_affine_nhwc`."""
+    return _warp_plain(img, _inverse(mat))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load('bev_warp')
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.bev_warp.argtypes = [i32, p, p, p, ctypes.c_longlong, i32, i32, i32, i32, p]
+    lib.bev_warp.restype = ctypes.c_int
+    return lib
+
+
+def warp_affine_nhwc(img: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """``dst(q) = src(inv(M) q)``: img [B, H, W, C] float32 or bfloat16, mat
+    [B, 3, 3] float32 src->dst pixel transform -> [B, H, W, C] in img's
+    dtype.
+
+    A CPU tensor takes :func:`warp_affine_nhwc_plain`; a CUDA tensor
+    launches kernel K7 or raises (also when a gradient is asked for: no
+    backward yet)."""
+    if img.dim() != 4 or mat.shape != (img.shape[0], 3, 3):
+        raise ValueError(f'warp_affine_nhwc: img [B, H, W, C] and mat [B, 3, 3], got '
+                         f'{tuple(img.shape)} and {tuple(mat.shape)}')
+    if not img.is_floating_point():
+        raise TypeError(f'bilinear sampling needs a float map, got {img.dtype}')
+    if img.device.type == 'cpu':
+        return warp_affine_nhwc_plain(img, mat)
+    if img.device.type != 'cuda' or img.dtype not in _DTYPES or mat.device != img.device:
+        raise ValueError(f'warp_affine_nhwc takes a float32/bfloat16 CUDA or CPU map and '
+                         f'a matrix on its device, got {img.dtype} on {img.device}, '
+                         f'mat on {mat.device}')
+    if torch.is_grad_enabled() and img.requires_grad:
+        raise NotImplementedError('warp_affine_nhwc: kernel K7 has no backward yet; it '
+                                  'arrives with the camera training slice (slice 4)')
+    img = img.contiguous()
+    minv = _inverse(mat)
+    b, h, w, c = img.shape
+    out = torch.empty_like(img)
+    vec = int(c % (16 // img.element_size()) == 0 and img.data_ptr() % 16 == 0)
+    lib = _lib()
+    with torch.cuda.device(img.device):
+        code = lib.bev_warp(_DTYPES[img.dtype], img.data_ptr(), minv.data_ptr(),
+                            out.data_ptr(), b, h, w, c, vec,
+                            torch.cuda.current_stream(img.device).cuda_stream)
+    build.check(lib, code, 'warp_affine_nhwc')
+    warp_affine_nhwc.launches += 1
+    return out
+
+
+warp_affine_nhwc.launches = 0
+
+
+def bda_pixel_matrix(bda_mat: torch.Tensor, hw) -> torch.Tensor:
+    """[B, 3, 3] float32 pixel transform of the BEV augmentation: the xy
+    block of ``bda_mat`` ([B, 4, 4] or [B, 3, 3]) about the centre pixel
+    c = ((W-1)/2, (H-1)/2), ``M = [lin | c - lin @ c]``."""
+    h, w = hw
+    r = bda_mat[:, :3, :3] if bda_mat.shape[-1] == 4 else bda_mat
+    lin = r[:, :2, :2].float()
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    c = torch.tensor([cx, cy], dtype=torch.float32, device=lin.device)
+    t = c - (lin[..., 0] * cx + lin[..., 1] * cy)
+    mat = torch.zeros(lin.shape[0], 3, 3, dtype=torch.float32, device=lin.device)
+    mat[:, :2, :2] = lin
+    mat[:, :2, 2] = t
+    mat[:, 2, 2] = 1.0
+    return mat
+
+
+def bda_bev_warp(bev: torch.Tensor, bda_mat: torch.Tensor) -> torch.Tensor:
+    """The BEV augmentation applied to a BEV map [B, H, W, C] (rotate, flip
+    and scale about the centre pixel) through :func:`warp_affine_nhwc`."""
+    return warp_affine_nhwc(bev, bda_pixel_matrix(bda_mat, bev.shape[1:3]))
+
+
+def hflip(img: torch.Tensor) -> torch.Tensor:
+    """Horizontal flip of [..., H, W, C]."""
+    return torch.flip(img, dims=(-2,))

@@ -1,7 +1,8 @@
 from .optim import AdamW, make_optimizer, multistep_schedule
-from .train_step import (TrainState, cast_floating, create_train_state, loss_and_grads,
-                         make_eval_step, make_predict_step, make_train_step)
+from .train_step import (TrainState, camera_inputs, cast_floating, create_train_state,
+                         loss_and_grads, make_eval_step, make_predict_step, make_train_step,
+                         normalize_images)
 
-__all__ = ['AdamW', 'make_optimizer', 'multistep_schedule', 'TrainState', 'cast_floating',
-           'create_train_state', 'loss_and_grads', 'make_eval_step', 'make_predict_step',
-           'make_train_step']
+__all__ = ['AdamW', 'make_optimizer', 'multistep_schedule', 'TrainState', 'camera_inputs',
+           'cast_floating', 'create_train_state', 'loss_and_grads', 'make_eval_step',
+           'make_predict_step', 'make_train_step', 'normalize_images']

@@ -1,9 +1,14 @@
-"""Train, eval and predict steps of the LiDAR / LiDAR+radar model.
+"""Train, eval and predict steps.
 
-The port of ``mm_training_tpu/training/train_step.py`` without the camera:
-``TrainState`` and ``create_train_state``, ``make_train_step`` (JAX
-:183-257), ``make_eval_step`` (:311-367), ``make_predict_step`` (:369-398)
-and ``cast_floating`` (:148-154).
+The port of ``mm_training_tpu/training/train_step.py``: ``TrainState`` and
+``create_train_state``, ``make_train_step`` (JAX :183-257),
+``make_eval_step`` (:311-367), ``make_predict_step`` (:369-398),
+``cast_floating`` (:148-154), ``normalize_images`` (:74-81) and the eval
+half of ``_prepare_camera_inputs`` (:84-145: depth labels from a
+precomputed ``depth_gt`` or from kernel K6 on the un-augmented points, no
+flips, the key frame's labels as the depth oracle when ``use_depth_loss``).
+The predict step serves every modality; the train and eval steps serve the
+LiDAR / LiDAR+radar models.
 
 Mixed precision is the JAX step's cast, not autocast: with
 ``cfg.precision == 'bf16'`` the float32 master parameters are cast to bf16
@@ -15,8 +20,9 @@ ones to bf16 first, as the JAX step's cast of ``batch_stats`` does). Eval
 and predict cast the statistics too.
 
 EMA weights (``use_ema``) and ``make_train_step_multi`` (K steps a dispatch)
-arrive with the runtime slice, the camera inputs (``use_cam``) with the
-camera slice; both are refused until then.
+arrive with the runtime slice, the camera's train and eval steps (the
+random flip, the depth loss, the backward kernels) with the camera training
+slice; both are refused until then.
 """
 from __future__ import annotations
 
@@ -30,10 +36,15 @@ from torch import nn
 from ..configs import Config
 from ..models import BEVDepthLiDAR, decode_boxes
 from ..models.centerpoint_head import detection_loss, get_targets
+from ..ops import depth_labels as depth_label_ops
 from .optim import AdamW, make_optimizer
 
-__all__ = ['TrainState', 'cast_floating', 'create_train_state', 'loss_and_grads',
-           'make_eval_step', 'make_predict_step', 'make_train_step']
+__all__ = ['IMAGENET_MEAN', 'IMAGENET_STD', 'TrainState', 'cast_floating',
+           'camera_inputs', 'create_train_state', 'loss_and_grads', 'make_eval_step',
+           'make_predict_step', 'make_train_step', 'normalize_images']
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
@@ -65,7 +76,7 @@ def create_train_state(cfg: Config, model: BEVDepthLiDAR, steps_per_epoch: int =
     over the model's parameters (in ``named_parameters`` order)."""
     if cfg.use_ema:
         raise NotImplementedError('EMA weights (use_ema) arrive with the runtime '
-                                  'slice (slice 4) of the port')
+                                  'slice (slice 5) of the port')
     opt = make_optimizer(cfg, model.parameters(), steps_per_epoch, global_batch_scale)
     return TrainState(step=0, model=model, optimizer=opt)
 
@@ -128,11 +139,11 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Dict[str, Any]],
     the camera) and ``grad_norm`` (before clipping) as 0-dim tensors on the
     device, read without a host wait."""
     if cfg.use_cam:
-        raise NotImplementedError('the camera inputs of the train step arrive with '
-                                  'slice 3 of the port')
+        raise NotImplementedError('the camera train step arrives with the camera '
+                                  'training slice (slice 4) of the port')
     if cfg.use_ema:
         raise NotImplementedError('EMA weights (use_ema) arrive with the runtime '
-                                  'slice (slice 4) of the port')
+                                  'slice (slice 5) of the port')
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         det, grads = loss_and_grads(cfg, state, batch)
@@ -155,8 +166,8 @@ def make_eval_step(cfg: Config) -> Callable:
     ``heatmaps`` [T, H, W], each task's max-class heatmap of the first
     sample in sigmoid space."""
     if cfg.use_cam:
-        raise NotImplementedError('the camera inputs of the eval step arrive with '
-                                  'slice 3 of the port')
+        raise NotImplementedError('the camera eval step arrives with the camera '
+                                  'training slice (slice 4) of the port')
     head_conf = cfg.get_head_conf()
 
     @torch.no_grad()     # not inference_mode: BatchNorm's s, t cache reads versions
@@ -183,13 +194,63 @@ def make_eval_step(cfg: Config) -> Callable:
     return eval_step
 
 
+def normalize_images(imgs: torch.Tensor) -> torch.Tensor:
+    """ImageNet-normalise uint8 (or float 0-255) images [..., 3+] ->
+    float32 [..., 3]. The divisions are by tensors: PyTorch's CUDA path
+    divides by a Python number through its reciprocal, which rounds
+    differently from the JAX package's true division."""
+    x = imgs[..., :3].float()
+    scale, mean, std = (torch.tensor(v, dtype=torch.float32, device=x.device)
+                        for v in (255.0, IMAGENET_MEAN, IMAGENET_STD))
+    return (x / scale - mean) / std
+
+
+def camera_inputs(cfg: Config, batch: Dict[str, Any], device,
+                  points: Optional[torch.Tensor] = None,
+                  point_mask: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """The camera keyword arguments of :class:`BEVDepthLiDAR` for an eval or
+    predict batch (no image flipped): the images copied as they come
+    (uint8) and normalised on the device, the float32 matrices, and with
+    ``use_depth_loss`` the key frame's one-hot depth labels as the oracle,
+    from ``depth_gt`` [B, N, fH, fW] when the batch carries it, else from
+    kernel K6 on the points (``points``/``point_mask`` when the caller has
+    them on the device already) un-rotated by ``inv(bda_mat)``."""
+    bb = cfg.get_backbone_conf()
+    imgs = normalize_images(torch.as_tensor(batch['imgs'], device=device))
+    mats = {k: _as(batch, k, torch.float32, device) for k in ('sensor2ego', 'intrin')}
+    bda = _as(batch, 'bda_mat', torch.float32, device)
+    oracle = None
+    if cfg.use_depth_loss:
+        b, _, n = imgs.shape[:3]
+        if 'depth_gt' in batch:
+            grid = _as(batch, 'depth_gt', torch.float32, device)
+            oracle = depth_label_ops.depth_grid_to_onehot(grid, bb.d_bound, bb.depth_channels)
+        else:
+            # only the key frame's labels are read: project into sweep 0's
+            # cameras (inv_ex: no host wait on the error flag)
+            inv_bda = torch.linalg.inv_ex(bda)[0][:, :3, :3]
+            if points is None:
+                points = _as(batch, 'points', torch.float32, device)
+                point_mask = _as(batch, 'point_mask', torch.bool, device)
+            xyz = points[..., :3] @ inv_bda.transpose(1, 2)
+            oracle = depth_label_ops.depth_labels(
+                xyz, point_mask, _as(batch, 'extrinsics', torch.float32, device)[:, 0],
+                mats['intrin'][:, 0], cfg.final_dim, bb.downsample_factor, bb.d_bound,
+                bb.depth_channels)
+        oracle = oracle.reshape(b * n, *oracle.shape[-3:])
+    return dict(imgs=imgs, bda_mat=bda, depth_oracle=oracle, **mats)
+
+
 def make_predict_step(cfg: Config, model: BEVDepthLiDAR
                       ) -> Callable[[Dict[str, Any]], Tuple[torch.Tensor, ...]]:
     """Forward + decode only (predict_step, mm_training_aim.py:344-369).
 
     The returned ``predict_step(batch)`` takes a request batch (numpy arrays
-    or tensors: ``points`` [B, P, F], ``point_mask`` [B, P]) and returns
-    (boxes [B, T*83, 9], scores, labels, valid) on the model's device."""
+    or tensors: ``points`` [B, P, F] and ``point_mask`` [B, P] with the
+    LiDAR; ``imgs`` uint8 [B, S, N, H, W, 3], ``sensor2ego``, ``intrin``,
+    ``extrinsics`` [B, S, N, 4, 4] and ``bda_mat`` [B, 4, 4] with the
+    camera) and returns (boxes [B, T*83, 9], scores, labels, valid) on the
+    model's device."""
     head_conf = cfg.get_head_conf()
     net = cast_floating(model, torch.bfloat16) if cfg.precision == 'bf16' else model
     net.eval()
@@ -197,9 +258,12 @@ def make_predict_step(cfg: Config, model: BEVDepthLiDAR
 
     @torch.inference_mode()
     def predict_step(batch: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
-        points = torch.as_tensor(batch['points'], dtype=torch.float32, device=device)
-        mask = torch.as_tensor(batch['point_mask'], dtype=torch.bool, device=device)
-        preds = net(points, mask)
+        points = mask = None
+        if cfg.use_lidar:
+            points = _as(batch, 'points', torch.float32, device)
+            mask = _as(batch, 'point_mask', torch.bool, device)
+        cam = camera_inputs(cfg, batch, device, points, mask) if cfg.use_cam else {}
+        preds = net(points, mask, **cam)
         return decode_boxes(head_conf, cast_floating(preds, torch.float32))
 
     return predict_step

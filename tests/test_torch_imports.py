@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from mm_training_tpu_torch.configs import tiny_test_config
-from mm_training_tpu_torch.exps import inference, profile_kernels, profile_train
+from mm_training_tpu_torch.exps import inference, profile_convs, profile_kernels, profile_train
 from mm_training_tpu_torch.models import BEVDepthLiDAR
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -18,7 +18,12 @@ ROOT = Path(__file__).resolve().parent.parent
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
 for name in ('mm_training_tpu_torch.ops.gaussian', 'mm_training_tpu_torch.training.optim',
-             'mm_training_tpu_torch.exps.profile_train'):
+             'mm_training_tpu_torch.exps.profile_train', 'mm_training_tpu_torch.core.geometry',
+             'mm_training_tpu_torch.ops.voxel_pooling', 'mm_training_tpu_torch.ops.deform_conv',
+             'mm_training_tpu_torch.ops.depth_labels', 'mm_training_tpu_torch.ops.warp',
+             'mm_training_tpu_torch.models.depth_net', 'mm_training_tpu_torch.models.lss_fpn',
+             'mm_training_tpu_torch.models.fusion',
+             'mm_training_tpu_torch.exps.profile_convs'):
     assert importlib.util.find_spec(name) is not None, name
 for banned in ('jax', 'flax', 'mm_training_tpu'):
     sys.modules[banned] = None        # any import of them raises ImportError
@@ -40,8 +45,8 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # every module of the package, the training slice's included
-    assert int(out.stdout.split()[-1]) >= 28
+    # every module of the package, the camera slice's included
+    assert int(out.stdout.split()[-1]) >= 38
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -49,15 +54,22 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         BEVDepthLiDAR(tiny_test_config())
     with pytest.raises(RuntimeError, match='no CUDA device'):
+        BEVDepthLiDAR(tiny_test_config(use_cam=True))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        inference.main(['--latency', '--config', 'lidar_cam_radar', '--iters', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
         inference.main(['--latency', '--config', 'tiny_test_config', '--iters', '1'])
     with pytest.raises(RuntimeError, match='no CUDA device'):
         profile_train.main(['--steps', '1'])
     with pytest.raises(RuntimeError, match='no CUDA device'):
         profile_kernels.main()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        profile_convs.main([])
 
 
-def test_latency_cli_on_cpu_when_asked(capsys):
-    stats = inference.main(['--latency', '--config', 'tiny_test_config',
-                            '--iters', '2', '--device', 'cpu'])
+@pytest.mark.parametrize('camera', [False, True])
+def test_latency_cli_on_cpu_when_asked(capsys, camera):
+    stats = inference.main(['--latency', '--config', 'tiny_test_config', '--iters', '2',
+                            '--device', 'cpu'] + ['use_cam=True'] * camera)
     assert stats['batch_size'] == 1 and stats['p50_ms'] > 0
     assert 'p50_ms=' in capsys.readouterr().out

@@ -64,17 +64,92 @@ def narrow(cfgmod, cfg):
     return cfg.replace(lidar_conf=lconf, head_conf=head)
 
 
+def narrow_cam(cfgmod, cfg):
+    """:func:`narrow` plus a narrow camera branch: image ResNet-10, DepthNet
+    ``mid_channels`` 32; the head trunk takes what the fuse layer (or the
+    camera BEV alone) emits."""
+    out = narrow(cfgmod, cfg)
+    bb = dataclasses.replace(
+        cfg.get_backbone_conf(), img_backbone_conf=cfgmod.ImageBackboneConf(depth=10),
+        depth_net_conf=cfgmod.DepthNetConf(in_channels=512, mid_channels=32))
+    head = out.get_head_conf()
+    cin = cfg.fuse_layer_in_channels if cfg.use_lidar else cfg.camera_feature_channels
+    head = dataclasses.replace(head, bev_backbone_conf=dataclasses.replace(
+        head.bev_backbone_conf, in_channels=cin))
+    return out.replace(backbone_conf=bb, head_conf=head)
+
+
+def _compare_boxes(got, want) -> None:
+    """Valid flags and labels equal, scores within 1e-4 and each kept box
+    within 1e-3 (m, rad, m/s), more than 50 kept boxes compared. Two kept
+    boxes whose scores tie to rounding may trade slots, so a box is looked
+    up among the kept boxes of its row with the same label and score."""
+    (gb, gs, gl, gv), (wb, ws, wl, wv) = got, want
+    assert gb.shape == wb.shape == (2, 4 * 83, 9)
+    np.testing.assert_array_equal(gv, wv)
+    assert wv.sum() > 50                       # the comparison has substance
+    np.testing.assert_array_equal(gl[wv], wl[wv])
+    np.testing.assert_allclose(gs, ws, atol=1e-4)
+    for b, i in zip(*np.nonzero(wv)):
+        same = gv[b] & (gl[b] == wl[b, i]) & (np.abs(gs[b] - ws[b, i]) <= 1e-4)
+        err = np.abs(gb[b, same] - wb[b, i]).max(-1)
+        assert err.min() <= 1e-3, (b, i, gb[b, i], wb[b, i])
+
+
+def check_camera_predict_parity(use_radar: bool, use_depth_loss: bool,
+                                rotated_bda: bool, seed: int = 4) -> None:
+    """The port's predict step against the JAX package's on
+    ``tiny_test_config(use_cam=True)`` (camera + LiDAR, 2 cameras of 64 x
+    128, 50 depth bins) at narrow widths, fp32, with random flax variables
+    carried over by ``state_dict_from_flax`` (the DCN's offset conv random
+    too, so the deformable taps leave the pixel grid) and the tolerances of
+    :func:`check_predict_parity`. ``rotated_bda`` replaces the identity
+    ``bda_mat`` with the port's ``random_bda_matrices``; with ``use_depth_loss`` the
+    LiDAR depth labels replace the predicted depth in the lift."""
+    import jax.numpy as jnp
+
+    import mm_training_tpu.configs as jcfg
+    from mm_training_tpu.data.fake_batch import make_fake_batch as j_fake_batch
+    from mm_training_tpu.models import BEVDepthLiDAR as JModel
+    from mm_training_tpu.training.train_step import TrainState
+    from mm_training_tpu.training.train_step import make_predict_step as j_predict
+    import mm_training_tpu_torch.configs as tcfg
+    from mm_training_tpu_torch.data import make_fake_batch, random_bda_matrices
+    from mm_training_tpu_torch.models import BEVDepthLiDAR, state_dict_from_flax
+    from mm_training_tpu_torch.training import make_predict_step
+
+    kw = dict(use_cam=True, use_radar=use_radar, use_depth_loss=use_depth_loss)
+    jc = narrow_cam(jcfg, jcfg.tiny_test_config(**kw))
+    tc = narrow_cam(tcfg, tcfg.tiny_test_config(**kw))
+    jbatch = j_fake_batch(jc, seed=3)
+    batch = make_fake_batch(tc, seed=3)
+    assert set(batch) == set(jbatch)
+    for k in batch:
+        np.testing.assert_array_equal(batch[k], jbatch[k])
+    if rotated_bda:
+        batch['bda_mat'] = jbatch['bda_mat'] = random_bda_matrices(2, seed=5)
+
+    jm = JModel(jc)
+    jb = {k: jnp.asarray(v) for k, v in jbatch.items()}
+    v = random_variables(jm.init, dict(jb, flipped=jnp.zeros((2 * jc.num_cameras,), bool)),
+                         seed=seed)
+    want = [np.asarray(a) for a in j_predict(jc, jm)(
+        TrainState(step=jnp.zeros((), jnp.int32), params=v['params'],
+                   batch_stats=v['batch_stats'], opt_state=None), jb)]
+
+    model = BEVDepthLiDAR(tc, device='cpu')
+    model.load_state_dict(state_dict_from_flax(v['params'], v['batch_stats'], tc))
+    _compare_boxes([a.numpy() for a in make_predict_step(tc, model)(batch)], want)
+
+
 def check_predict_parity(use_radar: bool) -> None:
     """The port's predict step against the JAX package's ``make_predict_step``
     on ``tiny_test_config(use_cam=False)`` at narrow widths, fp32.
 
     Random flax variables are carried over by ``state_dict_from_flax``; the
-    request batch comes from both packages' ``make_fake_batch``. Valid flags
-    and labels must be equal, scores within 1e-4 and each kept box within
-    1e-3 (m, rad, m/s) (tests/test_models/test_full_pipeline_parity.py's
-    tolerances). Two kept boxes whose scores tie to rounding may trade
-    slots, so a box is looked up among the kept boxes of its row with the
-    same label and score."""
+    request batch comes from both packages' ``make_fake_batch``. Boxes are
+    compared by :func:`_compare_boxes`
+    (tests/test_models/test_full_pipeline_parity.py's tolerances)."""
     import jax.numpy as jnp
 
     import mm_training_tpu.configs as jcfg
@@ -104,18 +179,7 @@ def check_predict_parity(use_radar: bool) -> None:
 
     model = BEVDepthLiDAR(tc, device='cpu')
     model.load_state_dict(state_dict_from_flax(v['params'], v['batch_stats'], tc))
-    got = [a.numpy() for a in make_predict_step(tc, model)(batch)]
-
-    (gb, gs, gl, gv), (wb, ws, wl, wv) = got, want
-    assert gb.shape == wb.shape == (2, 4 * 83, 9)
-    np.testing.assert_array_equal(gv, wv)
-    assert wv.sum() > 50                       # the comparison has substance
-    np.testing.assert_array_equal(gl[wv], wl[wv])
-    np.testing.assert_allclose(gs, ws, atol=1e-4)
-    for b, i in zip(*np.nonzero(wv)):
-        same = gv[b] & (gl[b] == wl[b, i]) & (np.abs(gs[b] - ws[b, i]) <= 1e-4)
-        err = np.abs(gb[b, same] - wb[b, i]).max(-1)
-        assert err.min() <= 1e-3, (b, i, gb[b, i], wb[b, i])
+    _compare_boxes([a.numpy() for a in make_predict_step(tc, model)(batch)], want)
 
 
 # The one parameter whose exact gradient is zero on both sides and is left
