@@ -5,10 +5,13 @@
 
 Phases, each raising on failure:
   1. build the nine CUDA kernels from ``mm_training_tpu_torch/csrc`` (one
-     nvcc per source, in parallel) and print the build time;
+     nvcc per source, in parallel) and print the build time; then count
+     the device operations of one K3 and one K7 call (torch.profiler):
+     one kernel each, no copy;
   2. hold each kernel against its plain PyTorch version at the serving and
-     training paths' shapes, and time kernel, plain version and, where one
-     exists, a single PyTorch call computing the same function;
+     training paths' shapes (K3 also on dense rows), and time kernel,
+     plain version and, where one exists, a single PyTorch call computing
+     the same function;
   3. serve the full-width ``lidar_radar`` predict path (grid 256 x 2048,
      8-feature points, bf16, seeded random weights): distinct B=1 requests,
      one B=4 batch and a p50/p90/p99 latency run, with every kernel's launch
@@ -25,8 +28,10 @@ Phases, each raising on failure:
   6. the fp32 tiny config's train step on the card against the port's CPU
      step (TF32 off): loss, updated parameters, BN statistics;
   7. the camera kernels K4-K7 against their plain versions at the
-     ``lidar_cam_radar`` serving path's shapes, timed as in phase 2 (K7 also
-     against ``F.grid_sample``, timed and used nowhere in the port);
+     ``lidar_cam_radar`` serving path's shapes, timed as in phase 2 (K7 as
+     the path calls it, ``bda_bev_warp`` from the BDA matrix to the warped
+     map, and against ``F.grid_sample``, timed and used nowhere in the
+     port);
   8. serve the full-width ``lidar_cam_radar`` predict path (ResNet-50 over
      4 cameras of 704 x 1280, DepthNet with the deformable conv, 409 depth
      bins, the LiDAR depth oracle, the BEV warp and fusion; bf16, seeded
@@ -57,6 +62,8 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (data sheet, 700 W)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+SM_CLOCK_HZ = 1.98e9        # H100 SXM boost clock (data sheet)
+INT_LATENCY_CYCLES = 4      # one dependent integer operation on an SM (assumed)
 
 
 def _swaps():
@@ -72,7 +79,8 @@ def _swaps():
              voxel_pooling.lift_splat_factorized_plain),
             (deform_conv, 'deform_sample', deform_conv.deform_sample_plain),
             (depth_labels, 'depth_labels', depth_labels.depth_labels_plain),
-            (warp, 'warp_affine_nhwc', warp.warp_affine_nhwc_plain))
+            (warp, 'warp_affine_nhwc', warp.warp_affine_nhwc_plain),
+            (warp, 'bda_bev_warp', warp.bda_bev_warp_plain))
 
 
 def _wrappers():
@@ -117,9 +125,44 @@ def _randomize_bn(model, gen):
                 m.running_var.copy_(0.5 + torch.rand(c, generator=gen))
 
 
+def count_device_ops(cfg, cam_cfg):
+    """Phase 1b: the device operations of one K3 and one K7 call as the
+    paths make them (4 x 500 NMS rows with the per-task thresholds by
+    value; the [1, 32, 256, 80] bf16 camera BEV and a BDA matrix), in one
+    torch.profiler session, before any other work of the process (a
+    session that records no device operation is taken again, see
+    ``device_ops``). Each kernel is known by its name; any other device op
+    (a copy, a fill) counts against both. Returns {wrapper: device ops a
+    call}."""
+    from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.ops import circle_nms, warp
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    head, bb = cfg.get_head_conf(), cam_cfg.get_backbone_conf()
+    r, k = len(head.tasks), head.bbox_coder.max_num
+    centers = torch.rand(r, k, 2, generator=gen, device=dev) * 50
+    scores = torch.rand(r, k, generator=gen, device=dev)
+    valid = torch.rand(r, k, generator=gen, device=dev) < 0.9
+    thresh = tuple(head.test_cfg.min_radius[:r])
+    bev = torch.randn(1, *bb.bev_hw, bb.output_channels, generator=gen, device=dev).bfloat16()
+    bda = torch.as_tensor(random_bda_matrices(1, SEED + 15), device=dev)
+    ops = device_ops(lambda: (circle_nms.circle_nms_mask(centers, scores, valid, thresh),
+                              warp.bda_bev_warp(bev, bda)))
+    other = sum(n for name, n in ops.items() if 'circle_nms' not in name and 'bev_warp' not in name)
+    per_call = {'circle_nms_mask': other + sum(n for name, n in ops.items() if 'circle_nms' in name),
+                'bda_bev_warp': other + sum(n for name, n in ops.items() if 'bev_warp' in name)}
+    print(f'device ops of one K3 and one K7 call (torch.profiler): {json.dumps(ops)}', flush=True)
+    if per_call != {'circle_nms_mask': 1, 'bda_bev_warp': 1}:
+        raise AssertionError(f'K3 and K7 must each be one device kernel a call: {per_call}')
+    return per_call
+
+
 def check_kernels(cfg):
     """Phase 2: each kernel against its plain version at the paths' shapes."""
     from mm_training_tpu_torch.data import make_fake_batch
+    from mm_training_tpu_torch.exps.profile_nms import nms_rows
     from mm_training_tpu_torch.exps.timing import device_ms, host_ms
     from mm_training_tpu_torch.models.centerpoint_head import heatmap_inputs
     from mm_training_tpu_torch.ops import affine_act, circle_nms, gaussian, voxelize
@@ -186,7 +229,8 @@ def check_kernels(cfg):
         library_ms=device_ms(library, 20), library_max_abs_err=lib_err,
         shape=list(pts.shape), dtype='float32'))
 
-    # --- K3 on one request's (batch, task) rows: 4 x K=500 candidates
+    # --- K3 on one request's (batch, task) rows: 4 x K=500 candidates, the
+    # per-task thresholds by value as the decode passes them
     head = cfg.get_head_conf()
     r, k = len(head.tasks), head.bbox_coder.max_num
     pc = cfg.point_cloud_range
@@ -195,10 +239,17 @@ def check_kernels(cfg):
     centers = lo + torch.rand(r, k, 2, generator=gen, device=dev) * (hi - lo)
     scores = torch.rand(r, k, generator=gen, device=dev)
     valid = torch.rand(r, k, generator=gen, device=dev) < 0.9
-    thresh = torch.tensor(head.test_cfg.min_radius[:r], dtype=torch.float32, device=dev)
+    thresh = tuple(head.test_cfg.min_radius[:r])
     keep = circle_nms.circle_nms_mask(centers, scores, valid, thresh)
     keep_plain = circle_nms.circle_nms_mask_plain(centers, scores, valid, thresh)
-    nbytes = r * k * (8 + 4 + 1 + 1) + r * 4
+    keep_rows = circle_nms.circle_nms_mask(centers, scores, valid,
+                                           torch.tensor(thresh, device=dev))
+    # the dense side: a chain of boxes, each close to its neighbours only,
+    # whose diagonal blocks the sweep resolves in its unrolled steps
+    dense = nms_rows('chain', k, pc, thresh, gen)
+    dense_err = (circle_nms.circle_nms_mask(*dense, thresh).int()
+                 - circle_nms.circle_nms_mask_plain(*dense, thresh).int()).abs().max().item()
+    nbytes = r * k * (8 + 4 + 1 + 1)
     n_valid = valid.sum(1).long()
     # 2 sub, 2 mul, 1 add for each pair of valid boxes (invalid ones never
     # suppress and are never kept)
@@ -206,13 +257,20 @@ def check_kernels(cfg):
     rows.append(dict(
         name='circle_nms_mask', route='cuda', source='mm_training_tpu_torch/csrc/circle_nms.cu',
         replaces='mm_training_tpu/ops/circle_nms.py:23',
-        max_abs_err=(keep.int() - keep_plain.int()).abs().max().item(),
+        max_abs_err=max((keep.int() - keep_plain.int()).abs().max().item(),
+                        (keep_rows.int() - keep_plain.int()).abs().max().item(), dense_err),
         ms=device_ms(lambda: circle_nms.circle_nms_mask(centers, scores, valid, thresh), 100),
         call_ms=host_ms(lambda: circle_nms.circle_nms_mask(centers, scores, valid, thresh), 100),
         plain_ms=device_ms(lambda: circle_nms.circle_nms_mask_plain(centers, scores, valid, thresh), 3),
         bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
         bound_by='operations' if flops / FP32_FLOPS > nbytes / HBM_BYTES_PER_S else 'bytes',
-        library_ms=None, kept=int(keep.sum()), shape=[r, k], dtype='float32'))
+        library_ms=None, kept=int(keep.sum()), shape=[r, k], dtype='float32',
+        dense_ms=device_ms(lambda: circle_nms.circle_nms_mask(*dense, thresh), 100)))
+    # the greedy sweep: K dependent steps of at least one integer operation,
+    # from the two assumed constants above; nothing here measures it
+    print(f'K3 sequential floor (computed, not measured: {k} steps x {INT_LATENCY_CYCLES} '
+          f'cycles at {SM_CLOCK_HZ / 1e9} GHz): {k * INT_LATENCY_CYCLES / SM_CLOCK_HZ * 1e3} ms',
+          flush=True)
 
     # --- A' at the train path's dominant BN shape (B=4: 64 x 512 x 64 ch),
     # without and with a residual
@@ -656,13 +714,18 @@ def check_camera_kernels(cfg):
         dtype='float32')
 
     # --- K7 on the camera BEV (32 x 256 x 80 bf16) with a rotated, flipped
-    # and scaled augmentation; the yardstick is F.grid_sample on a float32
-    # copy with the same source pixels (align_corners=True: pixel centres)
+    # and scaled augmentation, as the path calls it (the BDA matrix in, the
+    # warped map out), and warp_affine_nhwc on a projective matrix; the
+    # yardstick is F.grid_sample on a float32 copy with the same source
+    # pixels (align_corners=True: pixel centres)
     bev = torch.randn(1, *bb.bev_hw, c, generator=gen, device=dev).bfloat16()
-    mat = warp.bda_pixel_matrix(torch.as_tensor(random_bda_matrices(1, SEED + 9), device=dev),
-                                bb.bev_hw)
-    got = warp.warp_affine_nhwc(bev, mat)
-    want = warp.warp_affine_nhwc_plain(bev, mat)
+    bda = torch.as_tensor(random_bda_matrices(1, SEED + 9), device=dev)
+    got = warp.bda_bev_warp(bev, bda)
+    want = warp.bda_bev_warp_plain(bev, bda)
+    mat = warp.bda_pixel_matrix(bda, bb.bev_hw)
+    proj = mat + torch.tensor([[0, 0, 0], [0, 0, 0], [2e-4, -1e-4, 0]], device=dev)
+    proj_err = (warp.warp_affine_nhwc(bev, proj).float()
+                - warp.warp_affine_nhwc_plain(bev, proj).float()).abs().max().item()
     h, wd = bb.bev_hw
     minv = torch.linalg.inv(mat)
     ys, xs = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
@@ -676,12 +739,12 @@ def check_camera_kernels(cfg):
         return torch.nn.functional.grid_sample(src, grid, mode='bilinear', padding_mode='zeros',
                                                align_corners=True)
     lib_err = (library().permute(0, 2, 3, 1) - want.float()).abs().max().item()
-    row('warp_affine_nhwc', 'bev_warp.cu', 'mm_training_tpu/ops/warp.py:56',
-        lambda: warp.warp_affine_nhwc(bev, mat), lambda: warp.warp_affine_nhwc_plain(bev, mat),
-        2 * bev.numel() * 2, 0, FP32_FLOPS, 20,
+    row('bda_bev_warp', 'bev_warp.cu', 'mm_training_tpu/ops/warp.py:75',
+        lambda: warp.bda_bev_warp(bev, bda), lambda: warp.bda_bev_warp_plain(bev, bda),
+        2 * bev.numel() * 2 + bda.numel() * 4, 0, FP32_FLOPS, 20,
         max_abs_err=(got.float() - want.float()).abs().max().item(),
+        projective_max_abs_err=proj_err,
         library_ms=device_ms(library, 50), library_max_abs_err=lib_err,
-        inverse_ms=device_ms(lambda: torch.linalg.inv_ex(mat), 50),   # part of ms
         shape=list(bev.shape), dtype='bfloat16')
 
     for r in rows:
@@ -696,9 +759,12 @@ def check_camera_kernels(cfg):
     if not (k4['fp32_err_of_magnitude'] <= 1e-5 and k4['bf16_outside_tolerance'] == 0):
         raise AssertionError(f"lift_splat differs from its plain version: "
                              f"{by['lift_splat_factorized']}")
-    for name in ('deform_sample', 'depth_labels', 'warp_affine_nhwc'):   # bit for bit
+    for name in ('deform_sample', 'depth_labels', 'bda_bev_warp'):   # bit for bit
         if by[name]['max_abs_err'] != 0:
             raise AssertionError(f'{name} differs from its plain version: {by[name]}')
+    k7 = by['bda_bev_warp']
+    if k7['projective_max_abs_err'] != 0:
+        raise AssertionError(f'warp_affine_nhwc differs from its plain version: {k7}')
     if not by['depth_labels']['cells_with_depth'] > 0:
         raise AssertionError('no LiDAR point reached a camera')
     return rows
@@ -748,7 +814,7 @@ def serve_camera(cfg):
           f'fused BEV dtypes {sorted(map(str, fused_dtypes))}', flush=True)
     missing = [n for n in ('affine_act', 'voxelize_pillars_dense', 'circle_nms_mask',
                            'lift_splat_factorized', 'deform_sample', 'depth_labels',
-                           'warp_affine_nhwc') if counts[n] == 0]
+                           'bda_bev_warp') if counts[n] == 0]
     if missing:
         raise AssertionError(f'kernels never launched on the camera path: {missing}')
     if fused_dtypes != {torch.bfloat16}:
@@ -820,6 +886,8 @@ def main() -> int:
           'kernels (parallel nvcc)', flush=True)
 
     cfg = lidar_radar(batch_size=1, max_points_per_frame=100_000)
+    cam_cfg = lidar_cam_radar(batch_size=1, max_points_per_frame=100_000)
+    ops_per_call = count_device_ops(cfg, cam_cfg)
     rows = check_kernels(cfg)
     model, request, counts, calls = serve(cfg)
     compare_plain(model, request)
@@ -830,7 +898,6 @@ def main() -> int:
     del state
     compare_cpu_train()
 
-    cam_cfg = lidar_cam_radar(batch_size=1, max_points_per_frame=100_000)
     rows += check_camera_kernels(cam_cfg)
     cam_model, cam_request, cam_counts, cam_calls, _ = serve_camera(cam_cfg)
     compare_plain_camera(cam_model, cam_cfg, cam_request)
@@ -847,6 +914,8 @@ def main() -> int:
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,
                                        'serve_camera': cam_counts[name] / cam_calls}
+        if name in ops_per_call:
+            row['device_kernels_per_call'] = ops_per_call[name]
     print(json.dumps({'kernels': rows}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -1,20 +1,30 @@
 // Kernel K7: the affine BEV warp of the camera BEV (the BEV augmentation).
 //
-//   dst[b, y, x, :] = bilinear sample of src[b] at minv[b] @ (x, y, 1),
+//   dst[b, y, x, :] = bilinear sample of src[b] at inv(M[b]) @ (x, y, 1),
 //                     zero outside the map
 //
 // Replaces the JAX package's device formulation
-// mm_training_tpu/ops/warp.py::warp_affine_nhwc (via bda_bev_warp) and its
-// _bilinear_sample: the pixel map q @ minv^T with a true homogeneous
-// divide, floor, four taps with zero padding, the blend in fp32 and one
-// rounding to the map's dtype.
+// mm_training_tpu/ops/warp.py::bda_bev_warp and warp_affine_nhwc with its
+// _bilinear_sample: the pixel matrix about the centre pixel, its inverse,
+// the pixel map q @ minv^T with a true homogeneous divide, floor, four taps
+// with zero padding, the blend in fp32 and one rounding to the map's dtype.
+//
+// One launch a call, from the matrix the caller holds to the warped map:
+//   * a general src->dst pixel matrix M [B, 3, 3] (warp_affine_nhwc), or
+//   * the BEV augmentation's matrix [B, n, n] (n = 3 or 4, bda_bev_warp):
+//     the kernel forms M = [lin | c - lin c; 0 0 1] from its xy block about
+//     the centre pixel c = ((W-1)/2, (H-1)/2), in the JAX order
+//     t = c - (lin[:, 0] cx + lin[:, 1] cy).
+// Thread 0 of each block inverts M in closed form (the adjugate over the
+// determinant, ~40 flops and 9 divisions) into shared memory; a block
+// covers one batch entry (blockIdx.y), so one inverse serves all of it.
 //
 // Bound: device-memory bytes (the map read once, the warped map written
 // once: 2.6 MB at B=1 for a 32 x 256 x 80 bf16 BEV). One thread per (pixel,
 // 16-byte channel vector): a warp's taps read contiguous 16-byte pieces of
-// rows. The products and sums are __fmul_rn / __fadd_rn in the JAX order
-// (no FMA contraction), as the plain version computes them, so both agree
-// bit for bit.
+// rows. Every product, sum and quotient is __fmul_rn / __fadd_rn /
+// __fsub_rn / __fdiv_rn in one fixed order (no FMA contraction), the order
+// the plain version's separate torch ops take, so both agree bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,12 +45,58 @@ struct alignas(sizeof(T) * V) Pack {
   T v[V];
 };
 
+__device__ __forceinline__ float diff_of_products(float a, float b, float c, float d) {
+  return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));   // a b - c d
+}
+
+// m row-major [a b c; d e f; g h i] -> its inverse, row-major: each entry of
+// the adjugate over det = (a A + b B) + c C, expanded along the first row
+__device__ void inverse3(const float* m, float* inv) {
+  float adj[9];
+  adj[0] = diff_of_products(m[4], m[8], m[5], m[7]);   // e i - f h
+  adj[1] = diff_of_products(m[2], m[7], m[1], m[8]);   // c h - b i
+  adj[2] = diff_of_products(m[1], m[5], m[2], m[4]);   // b f - c e
+  adj[3] = diff_of_products(m[5], m[6], m[3], m[8]);   // f g - d i
+  adj[4] = diff_of_products(m[0], m[8], m[2], m[6]);   // a i - c g
+  adj[5] = diff_of_products(m[2], m[3], m[0], m[5]);   // c d - a f
+  adj[6] = diff_of_products(m[3], m[7], m[4], m[6]);   // d h - e g
+  adj[7] = diff_of_products(m[1], m[6], m[0], m[7]);   // b g - a h
+  adj[8] = diff_of_products(m[0], m[4], m[1], m[3]);   // a e - b d
+  const float det = __fadd_rn(__fadd_rn(__fmul_rn(m[0], adj[0]), __fmul_rn(m[1], adj[3])),
+                              __fmul_rn(m[2], adj[6]));
+#pragma unroll
+  for (int e = 0; e < 9; ++e) inv[e] = __fdiv_rn(adj[e], det);
+}
+
+// the src->dst pixel matrix of batch entry b: mat [B, 3, 3] as it is
+// (bda_n = 0), or from the BEV augmentation's [B, n, n] (bda_n = n)
+__device__ void pixel_matrix(const float* mat, int bda_n, int64_t b, int h, int w, float* m) {
+  if (bda_n == 0) {
+    const float* a = mat + b * 9;
+#pragma unroll
+    for (int e = 0; e < 9; ++e) m[e] = a[e];
+    return;
+  }
+  const float* r = mat + b * bda_n * bda_n;
+  const float cx = (float)(w - 1) * 0.5f, cy = (float)(h - 1) * 0.5f;   // exact
+  const float l00 = r[0], l01 = r[1], l10 = r[bda_n], l11 = r[bda_n + 1];
+  m[0] = l00;
+  m[1] = l01;
+  m[2] = __fsub_rn(cx, __fadd_rn(__fmul_rn(l00, cx), __fmul_rn(l01, cy)));
+  m[3] = l10;
+  m[4] = l11;
+  m[5] = __fsub_rn(cy, __fadd_rn(__fmul_rn(l10, cx), __fmul_rn(l11, cy)));
+  m[6] = 0.f;
+  m[7] = 0.f;
+  m[8] = 1.f;
+}
+
 template <typename T, int V>
-__device__ __forceinline__ Pack<T, V> tap(const T* src, int64_t b, int yi, int xi, int h,
-                                          int w, int c, int j) {
+__device__ __forceinline__ Pack<T, V> tap(const T* src, int yi, int xi, int h, int w, int c,
+                                          int j) {
   Pack<T, V> r;
   if (yi >= 0 && yi < h && xi >= 0 && xi < w) {
-    r = *reinterpret_cast<const Pack<T, V>*>(src + ((b * h + yi) * w + xi) * c +
+    r = *reinterpret_cast<const Pack<T, V>*>(src + ((int64_t)yi * w + xi) * c +
                                              (int64_t)j * V);
   } else {
 #pragma unroll
@@ -50,31 +106,37 @@ __device__ __forceinline__ Pack<T, V> tap(const T* src, int64_t b, int yi, int x
 }
 
 template <typename T, int V>
-__global__ void bev_warp_kernel(const T* __restrict__ src, const float* __restrict__ minv,
-                                T* __restrict__ dst, int64_t n_items, int h, int w, int c) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_items) return;
+__global__ void bev_warp_kernel(const T* __restrict__ src, const float* __restrict__ mat,
+                                int bda_n, T* __restrict__ dst, int h, int w, int c) {
+  __shared__ float minv[9];
+  const int64_t b = blockIdx.y;
+  if (threadIdx.x == 0) {
+    float m[9];
+    pixel_matrix(mat, bda_n, b, h, w, m);
+    inverse3(m, minv);
+  }
+  __syncthreads();
+
   const int nvec = c / V;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)h * w * nvec) return;
   const int j = (int)(i % nvec);
-  const int64_t pix = i / nvec;
-  const int64_t hw = (int64_t)h * w;
-  const int64_t b = pix / hw;
-  const int q = (int)(pix - b * hw);
+  const int q = (int)(i / nvec);
   const float yf = (float)(q / w), xf = (float)(q - (q / w) * w);
-  const float* m = minv + b * 9;
   // p = (x, y, 1) @ minv^T, left to right
-  const float p0 = __fadd_rn(__fadd_rn(__fmul_rn(xf, m[0]), __fmul_rn(yf, m[1])), m[2]);
-  const float p1 = __fadd_rn(__fadd_rn(__fmul_rn(xf, m[3]), __fmul_rn(yf, m[4])), m[5]);
-  const float p2 = __fadd_rn(__fadd_rn(__fmul_rn(xf, m[6]), __fmul_rn(yf, m[7])), m[8]);
+  const float p0 = __fadd_rn(__fadd_rn(__fmul_rn(xf, minv[0]), __fmul_rn(yf, minv[1])), minv[2]);
+  const float p1 = __fadd_rn(__fadd_rn(__fmul_rn(xf, minv[3]), __fmul_rn(yf, minv[4])), minv[5]);
+  const float p2 = __fadd_rn(__fadd_rn(__fmul_rn(xf, minv[6]), __fmul_rn(yf, minv[7])), minv[8]);
   const float sx = __fdiv_rn(p0, p2), sy = __fdiv_rn(p1, p2);
   const float x0 = floorf(sx), y0 = floorf(sy);
   const float wx = __fsub_rn(sx, x0), wy = __fsub_rn(sy, y0);
   const float omx = __fsub_rn(1.f, wx), omy = __fsub_rn(1.f, wy);
   const int x0i = (int)x0, y0i = (int)y0;
-  const Pack<T, V> v00 = tap<T, V>(src, b, y0i, x0i, h, w, c, j);
-  const Pack<T, V> v01 = tap<T, V>(src, b, y0i, x0i + 1, h, w, c, j);
-  const Pack<T, V> v10 = tap<T, V>(src, b, y0i + 1, x0i, h, w, c, j);
-  const Pack<T, V> v11 = tap<T, V>(src, b, y0i + 1, x0i + 1, h, w, c, j);
+  const T* img = src + b * h * w * c;
+  const Pack<T, V> v00 = tap<T, V>(img, y0i, x0i, h, w, c, j);
+  const Pack<T, V> v01 = tap<T, V>(img, y0i, x0i + 1, h, w, c, j);
+  const Pack<T, V> v10 = tap<T, V>(img, y0i + 1, x0i, h, w, c, j);
+  const Pack<T, V> v11 = tap<T, V>(img, y0i + 1, x0i + 1, h, w, c, j);
   Pack<T, V> out;
 #pragma unroll
   for (int e = 0; e < V; ++e) {
@@ -84,34 +146,37 @@ __global__ void bev_warp_kernel(const T* __restrict__ src, const float* __restri
                                 __fmul_rn(to_float(v11.v[e]), wx));
     out.v[e] = from_float<T>(__fadd_rn(__fmul_rn(top, omy), __fmul_rn(bot, wy)));
   }
-  *reinterpret_cast<Pack<T, V>*>(dst + pix * c + (int64_t)j * V) = out;
+  *reinterpret_cast<Pack<T, V>*>(dst + (b * h * w + q) * c + (int64_t)j * V) = out;
 }
 
 template <typename T, int V>
-void launch(const void* src, const float* minv, void* dst, int64_t pixels, int h, int w, int c,
+void launch(const void* src, const float* mat, int bda_n, void* dst, int b, int h, int w, int c,
             cudaStream_t st) {
-  const int64_t n_items = pixels * (c / V);
+  const int64_t n_items = (int64_t)h * w * (c / V);
   const int threads = 256;
-  bev_warp_kernel<T, V><<<(unsigned)((n_items + threads - 1) / threads), threads, 0, st>>>(
-      static_cast<const T*>(src), minv, static_cast<T*>(dst), n_items, h, w, c);
+  const dim3 grid((unsigned)((n_items + threads - 1) / threads), (unsigned)b);
+  bev_warp_kernel<T, V><<<grid, threads, 0, st>>>(static_cast<const T*>(src), mat, bda_n,
+                                                  static_cast<T*>(dst), h, w, c);
 }
 
 }  // namespace
 
-// src, dst [B, H, W, C] (dtype 0 = float32, 1 = bfloat16), minv [B, 3, 3]
-// fp32 row-major (dst pixel -> src pixel). vec = 1: src and dst 16-byte
-// aligned and C a multiple of 16 bytes' worth. Returns the cudaError_t.
-extern "C" int bev_warp(int dtype, const void* src, const float* minv, void* dst, long long b,
+// src, dst [B, H, W, C] (dtype 0 = float32, 1 = bfloat16). mat: fp32,
+// contiguous, [B, 3, 3] src->dst pixel matrices (bda_n = 0) or [B, n, n]
+// BEV augmentation matrices (bda_n = n, 3 or 4). vec = 1: src and dst
+// 16-byte aligned and C a multiple of 16 bytes' worth. B <= 65535. Returns
+// the cudaError_t.
+extern "C" int bev_warp(int dtype, const void* src, const float* mat, int bda_n, void* dst, int b,
                         int h, int w, int c, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t pixels = b * (int64_t)h * w;
-  if (pixels == 0 || c == 0) return 0;
+  if (b == 0 || h == 0 || w == 0 || c == 0) return 0;
+  if (b > 65535 || (bda_n != 0 && bda_n != 3 && bda_n != 4)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (vec) launch<float, 4>(src, minv, dst, pixels, h, w, c, st);
-    else launch<float, 1>(src, minv, dst, pixels, h, w, c, st);
+    if (vec) launch<float, 4>(src, mat, bda_n, dst, b, h, w, c, st);
+    else launch<float, 1>(src, mat, bda_n, dst, b, h, w, c, st);
   } else if (dtype == 1) {
-    if (vec) launch<__nv_bfloat16, 8>(src, minv, dst, pixels, h, w, c, st);
-    else launch<__nv_bfloat16, 1>(src, minv, dst, pixels, h, w, c, st);
+    if (vec) launch<__nv_bfloat16, 8>(src, mat, bda_n, dst, b, h, w, c, st);
+    else launch<__nv_bfloat16, 1>(src, mat, bda_n, dst, b, h, w, c, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -6,7 +6,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ['device_ms', 'host_ms']
+__all__ = ['device_ms', 'device_ops', 'host_ms']
 
 
 def device_ms(fn: Callable[[], object], iters: int) -> float:
@@ -35,3 +35,24 @@ def host_ms(fn: Callable[[], object], iters: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_ops(fn: Callable[[], object], sessions: int = 3) -> dict:
+    """{name: count} of the device operations (kernels, copies, fills) of
+    one call, after a warm-up call, as torch.profiler records them.
+
+    A profiler session that records no device operation at all is no
+    measurement (a session in a process has come back without device
+    events): the call is profiled again, up to ``sessions`` sessions, and
+    RuntimeError is raised when every one came back empty."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages() if e.device_type.name == 'CUDA'}
+        if ops:
+            return ops
+    raise RuntimeError(f'torch.profiler recorded no device operation in {sessions} sessions')

@@ -20,7 +20,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import Config
-from ..ops.warp import bda_bev_warp
+from ..ops import warp
 from .bn_fold import BatchNorm2d
 from .centerpoint_head import BEVDepthHead, SeparateHead
 from .depth_net import DeformConv2d
@@ -122,7 +122,7 @@ class BEVDepthLiDAR(nn.Module):
         bevs = []
         if self.cfg.use_cam:
             cam, _ = self.backbone(imgs.to(dtype), sensor2ego, intrin, flipped, depth_oracle)
-            bevs.append(bda_bev_warp(cam, bda_mat).permute(0, 3, 1, 2))
+            bevs.append(warp.bda_bev_warp(cam, bda_mat).permute(0, 3, 1, 2))
         if self.cfg.use_lidar:
             bevs.append(self.lidar_encoder(points, point_mask, dtype))
         if len(bevs) == 2:

@@ -299,11 +299,10 @@ def decode_boxes(conf: HeadConf, preds: List[Dict[str, torch.Tensor]]):
                          '(max_num <= H * W * C of each task)')
     boxes, scores, cls, valid = (torch.stack(z, dim=1) for z in zip(*parts))
     b, t, k, _ = boxes.shape                                   # [B, T, K, 9]
-    thresh = torch.tensor([tc.min_radius[i] for i in range(t)],
-                          dtype=torch.float32, device=boxes.device).repeat(b)
+    # rows (batch, task); each task's min_radius goes to the kernel by value
     keep = circle_nms.circle_nms_mask(
-        boxes[..., :2].reshape(b * t, k, 2).contiguous(), scores.reshape(b * t, k),
-        valid.reshape(b * t, k), thresh).view(b, t, k)
+        boxes[..., :2].reshape(b * t, k, 2), scores.reshape(b * t, k),
+        valid.reshape(b * t, k), tuple(tc.min_radius[:t])).view(b, t, k)
 
     # top post_max_size kept, in score order (candidates are already sorted)
     sel = torch.where(keep, scores, torch.full_like(scores, -float('inf')))

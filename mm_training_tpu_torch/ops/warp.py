@@ -6,14 +6,19 @@ bilinear, zero padding), ``bda_bev_warp`` (:75-106, the BEV augmentation's
 rotation, flip and scale applied to the camera BEV about its centre pixel,
 the JAX package's documented deviation from the reference, which scales
 about pixel (0, 0)) and ``hflip``. The CUDA source is
-``csrc/bev_warp.cu``; it is bound by the bytes of the map, see the note
-there. ``resize_bilinear`` is not ported: both BEVs sit on the grid/8 by
-construction, and the model raises where they would not.
+``csrc/bev_warp.cu``: one launch a call, which forms the pixel matrix (for
+``bda_bev_warp``) and inverts it in closed form itself, so the path's warp
+needs no other device op and no host-to-device copy. ``resize_bilinear``
+is not ported: both BEVs sit on the grid/8 by construction, and the model
+raises where they would not.
 
-The bilinear blend is float32 in the JAX order (``top = v00 (1 - wx) + v01
-wx``, ``bot`` alike, ``top (1 - wy) + bot wy``) and is rounded once to the
-map's dtype, so the warp keeps a bf16 map bf16 (an fp32 result would
-promote the fuse layer and the head).
+The inverse is the adjugate over the determinant, each product and sum
+rounded in one fixed order, and the bilinear blend is float32 in the JAX
+order (``top = v00 (1 - wx) + v01 wx``, ``bot`` alike, ``top (1 - wy) + bot
+wy``), rounded once to the map's dtype, so the warp keeps a bf16 map bf16
+(an fp32 result would promote the fuse layer and the head). The plain
+versions take the same steps as separate torch ops, so kernel and plain
+version agree bit for bit on the card.
 
 There is no backward yet (serving runs under ``inference_mode``): the
 training slice adds one. Until then a CUDA call that needs a gradient
@@ -29,14 +34,21 @@ import torch
 from . import build
 
 __all__ = ['warp_affine_nhwc', 'warp_affine_nhwc_plain', 'bda_bev_warp',
-           'bda_pixel_matrix', 'hflip']
+           'bda_bev_warp_plain', 'bda_pixel_matrix', 'hflip']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _inverse(mat: torch.Tensor) -> torch.Tensor:
-    # inv_ex: no host wait on the error flag
-    return torch.linalg.inv_ex(mat.float())[0].contiguous()
+    """[B, 3, 3] inverse in closed form, the kernel's order: the adjugate
+    over det = (a A + b B) + c C, each product, difference and sum rounded."""
+    m = mat.float()
+    a, b, c, d, e, f, g, h, i = (m[:, r, k] for r in range(3) for k in range(3))
+    adj = (e * i - f * h, c * h - b * i, b * f - c * e,
+           f * g - d * i, a * i - c * g, c * d - a * f,
+           d * h - e * g, b * g - a * h, a * e - b * d)
+    det = (a * adj[0] + b * adj[3]) + c * adj[6]
+    return torch.stack(adj, -1).view(-1, 3, 3) / det[:, None, None]
 
 
 def _warp_plain(img: torch.Tensor, minv: torch.Tensor) -> torch.Tensor:
@@ -75,13 +87,65 @@ def warp_affine_nhwc_plain(img: torch.Tensor, mat: torch.Tensor) -> torch.Tensor
     return _warp_plain(img, _inverse(mat))
 
 
+def bda_pixel_matrix(bda_mat: torch.Tensor, hw) -> torch.Tensor:
+    """[B, 3, 3] float32 pixel transform of the BEV augmentation: the xy
+    block of ``bda_mat`` ([B, 4, 4] or [B, 3, 3]) about the centre pixel
+    c = ((W-1)/2, (H-1)/2), ``M = [lin | c - lin @ c]``, with
+    ``t = c - (lin[:, 0] cx + lin[:, 1] cy)`` in that order (the kernel's)."""
+    h, w = hw
+    lin = bda_mat[:, :2, :2].float()
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    tx = cx - (lin[:, 0, 0] * cx + lin[:, 0, 1] * cy)
+    ty = cy - (lin[:, 1, 0] * cx + lin[:, 1, 1] * cy)
+    zero = torch.zeros_like(tx)
+    return torch.stack([lin[:, 0, 0], lin[:, 0, 1], tx, lin[:, 1, 0], lin[:, 1, 1], ty,
+                        zero, zero, zero + 1.0], -1).view(-1, 3, 3)
+
+
+def bda_bev_warp_plain(bev: torch.Tensor, bda_mat: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bda_bev_warp`."""
+    return warp_affine_nhwc_plain(bev, bda_pixel_matrix(bda_mat, bev.shape[1:3]))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load('bev_warp')
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bev_warp.argtypes = [i32, p, p, p, ctypes.c_longlong, i32, i32, i32, i32, p]
+    lib.bev_warp.argtypes = [i32, p, p, i32, p, i32, i32, i32, i32, i32, p]
     lib.bev_warp.restype = ctypes.c_int
     return lib
+
+
+def _launch(img: torch.Tensor, mat: torch.Tensor, bda_n: int, what: str) -> torch.Tensor:
+    """One launch of kernel K7 on a CUDA map; ``mat`` is the [B, 3, 3]
+    pixel matrix (``bda_n`` 0) or the [B, n, n] BDA matrix (``bda_n`` n)."""
+    if img.device.type != 'cuda' or img.dtype not in _DTYPES or mat.device != img.device:
+        raise ValueError(f'{what} takes a float32/bfloat16 CUDA or CPU map and a matrix on '
+                         f'its device, got {img.dtype} on {img.device}, matrix on {mat.device}')
+    if torch.is_grad_enabled() and img.requires_grad:
+        raise NotImplementedError(f'{what}: kernel K7 has no backward yet; it arrives with '
+                                  'the camera training slice (slice 4)')
+    if img.shape[0] > 65535:
+        raise ValueError(f'{what}: the kernel takes B <= 65535, got {img.shape[0]}')
+    img = img.contiguous()
+    mat = mat.float().contiguous()
+    b, h, w, c = img.shape
+    out = torch.empty_like(img)
+    vec = int(c % (16 // img.element_size()) == 0 and img.data_ptr() % 16 == 0)
+    lib = _lib()
+    with torch.cuda.device(img.device):
+        code = lib.bev_warp(_DTYPES[img.dtype], img.data_ptr(), mat.data_ptr(), bda_n,
+                            out.data_ptr(), b, h, w, c, vec,
+                            torch.cuda.current_stream(img.device).cuda_stream)
+    build.check(lib, code, what)
+    return out
+
+
+def _check_map(img: torch.Tensor, what: str) -> None:
+    if img.dim() != 4:
+        raise ValueError(f'{what}: a map [B, H, W, C], got {tuple(img.shape)}')
+    if not img.is_floating_point():
+        raise TypeError(f'bilinear sampling needs a float map, got {img.dtype}')
 
 
 def warp_affine_nhwc(img: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
@@ -92,31 +156,13 @@ def warp_affine_nhwc(img: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     A CPU tensor takes :func:`warp_affine_nhwc_plain`; a CUDA tensor
     launches kernel K7 or raises (also when a gradient is asked for: no
     backward yet)."""
-    if img.dim() != 4 or mat.shape != (img.shape[0], 3, 3):
-        raise ValueError(f'warp_affine_nhwc: img [B, H, W, C] and mat [B, 3, 3], got '
-                         f'{tuple(img.shape)} and {tuple(mat.shape)}')
-    if not img.is_floating_point():
-        raise TypeError(f'bilinear sampling needs a float map, got {img.dtype}')
+    _check_map(img, 'warp_affine_nhwc')
+    if mat.shape != (img.shape[0], 3, 3):
+        raise ValueError(f'warp_affine_nhwc: mat [B, 3, 3] for B = {img.shape[0]}, got '
+                         f'{tuple(mat.shape)}')
     if img.device.type == 'cpu':
         return warp_affine_nhwc_plain(img, mat)
-    if img.device.type != 'cuda' or img.dtype not in _DTYPES or mat.device != img.device:
-        raise ValueError(f'warp_affine_nhwc takes a float32/bfloat16 CUDA or CPU map and '
-                         f'a matrix on its device, got {img.dtype} on {img.device}, '
-                         f'mat on {mat.device}')
-    if torch.is_grad_enabled() and img.requires_grad:
-        raise NotImplementedError('warp_affine_nhwc: kernel K7 has no backward yet; it '
-                                  'arrives with the camera training slice (slice 4)')
-    img = img.contiguous()
-    minv = _inverse(mat)
-    b, h, w, c = img.shape
-    out = torch.empty_like(img)
-    vec = int(c % (16 // img.element_size()) == 0 and img.data_ptr() % 16 == 0)
-    lib = _lib()
-    with torch.cuda.device(img.device):
-        code = lib.bev_warp(_DTYPES[img.dtype], img.data_ptr(), minv.data_ptr(),
-                            out.data_ptr(), b, h, w, c, vec,
-                            torch.cuda.current_stream(img.device).cuda_stream)
-    build.check(lib, code, 'warp_affine_nhwc')
+    out = _launch(img, mat, 0, 'warp_affine_nhwc')
     warp_affine_nhwc.launches += 1
     return out
 
@@ -124,27 +170,27 @@ def warp_affine_nhwc(img: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
 warp_affine_nhwc.launches = 0
 
 
-def bda_pixel_matrix(bda_mat: torch.Tensor, hw) -> torch.Tensor:
-    """[B, 3, 3] float32 pixel transform of the BEV augmentation: the xy
-    block of ``bda_mat`` ([B, 4, 4] or [B, 3, 3]) about the centre pixel
-    c = ((W-1)/2, (H-1)/2), ``M = [lin | c - lin @ c]``."""
-    h, w = hw
-    r = bda_mat[:, :3, :3] if bda_mat.shape[-1] == 4 else bda_mat
-    lin = r[:, :2, :2].float()
-    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
-    c = torch.tensor([cx, cy], dtype=torch.float32, device=lin.device)
-    t = c - (lin[..., 0] * cx + lin[..., 1] * cy)
-    mat = torch.zeros(lin.shape[0], 3, 3, dtype=torch.float32, device=lin.device)
-    mat[:, :2, :2] = lin
-    mat[:, :2, 2] = t
-    mat[:, 2, 2] = 1.0
-    return mat
-
-
 def bda_bev_warp(bev: torch.Tensor, bda_mat: torch.Tensor) -> torch.Tensor:
     """The BEV augmentation applied to a BEV map [B, H, W, C] (rotate, flip
-    and scale about the centre pixel) through :func:`warp_affine_nhwc`."""
-    return warp_affine_nhwc(bev, bda_pixel_matrix(bda_mat, bev.shape[1:3]))
+    and scale about the centre pixel): ``bda_mat`` [B, 4, 4] or [B, 3, 3]
+    float32, whose xy block is used.
+
+    A CPU tensor takes :func:`bda_bev_warp_plain`; a CUDA tensor launches
+    kernel K7 once (the pixel matrix and its inverse are formed in the
+    kernel) or raises."""
+    _check_map(bev, 'bda_bev_warp')
+    n = bda_mat.shape[-1]
+    if n not in (3, 4) or bda_mat.shape != (bev.shape[0], n, n):
+        raise ValueError(f'bda_bev_warp: bda_mat [B, 4, 4] or [B, 3, 3] for B = '
+                         f'{bev.shape[0]}, got {tuple(bda_mat.shape)}')
+    if bev.device.type == 'cpu':
+        return bda_bev_warp_plain(bev, bda_mat)
+    out = _launch(bev, bda_mat, n, 'bda_bev_warp')
+    bda_bev_warp.launches += 1
+    return out
+
+
+bda_bev_warp.launches = 0
 
 
 def hflip(img: torch.Tensor) -> torch.Tensor:

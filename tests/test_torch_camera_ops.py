@@ -7,7 +7,8 @@ Inputs come from numpy with a seed and are built so that a shortcut would
 show: K4 gets trash-bin rows and a row-dependent z mask, K5 offsets of up to
 3 px (some taps off the map, some on exact integers), K6 points behind the
 cameras, inside the 1-px border and two in one 16 x 16 cell, K7 a rotated,
-flipped and scaled BEV augmentation.
+flipped and scaled BEV augmentation and projective matrices (its
+closed-form inverse against float64).
 """
 import importlib
 
@@ -333,6 +334,61 @@ def test_bda_bev_warp_plain_matches_jax(shape):
     mat = np.asarray(warp.bda_pixel_matrix(torch.from_numpy(bda), shape[1:3]))
     _rel_close(warp.warp_affine_nhwc(torch.from_numpy(img), torch.from_numpy(mat)).numpy(),
                jwarp.warp_affine_nhwc(jnp.asarray(img), jnp.asarray(mat)))
+
+
+def _projective_mats(b, seed):
+    """[B, 3, 3] src->dst pixel matrices near a rotation about a 16 x 32
+    map: a random linear part, a shift of a few pixels and a small
+    perspective row."""
+    rng = np.random.default_rng(seed)
+    m = np.eye(3) + rng.normal(0.0, 0.15, (b, 3, 3))
+    m[:, :2, 2] = rng.normal(0.0, 3.0, (b, 2))
+    m[:, 2] = [*rng.uniform(-4e-3, 4e-3, (2,)), 1.0]
+    return m.astype(np.float32)
+
+
+def test_closed_form_inverse_matches_numpy_and_jax():
+    """The closed-form inverse (the adjugate over the determinant in fp32,
+    the kernel's order) against ``np.linalg.inv`` in float64 and the JAX
+    package's ``jnp.linalg.inv``; exact for the identity."""
+    bda = random_bda_matrices(3, seed=33)
+    mats = np.concatenate([_projective_mats(5, seed=32),
+                           np.asarray(warp.bda_pixel_matrix(torch.from_numpy(bda), (16, 32))),
+                           np.eye(3, dtype=np.float32)[None]])
+    got = warp._inverse(torch.from_numpy(mats)).numpy()
+    for g, m in zip(got, mats):
+        _rel_close(g, np.linalg.inv(m.astype(np.float64)), tol=1e-6)
+        _rel_close(g, np.asarray(jnp.linalg.inv(jnp.asarray(m))))
+    np.testing.assert_array_equal(got[-1], np.eye(3))
+
+
+def test_warp_affine_projective_plain_matches_jax():
+    """A general projective matrix (a true homogeneous divide) through the
+    closed-form inverse against the JAX warp and its ``jnp.linalg.inv``."""
+    img = np.random.default_rng(34).normal(size=(5, 16, 32, 6)).astype(np.float32)
+    mats = _projective_mats(5, seed=32)
+    _rel_close(warp.warp_affine_nhwc(torch.from_numpy(img), torch.from_numpy(mats)).numpy(),
+               jwarp.warp_affine_nhwc(jnp.asarray(img), jnp.asarray(mats)))
+
+
+@pytest.mark.parametrize('n', [4, 3])
+def test_bda_bev_warp_matrix_forms_match_jax(n):
+    """``bda_bev_warp`` takes the [B, 4, 4] BDA matrix or its [B, 3, 3]
+    block; the pixel matrix is the JAX one (``M = [lin | c - lin c]`` about
+    the centre pixel, exact for the identity, which leaves the map as it
+    is)."""
+    img = np.random.default_rng(35).normal(size=(3, 12, 20, 5)).astype(np.float32)
+    bda = random_bda_matrices(3, seed=36)[:, :n, :n]
+    want = jwarp.bda_bev_warp(jnp.asarray(img), jnp.asarray(bda))
+    _rel_close(warp.bda_bev_warp(torch.from_numpy(img), torch.from_numpy(bda)).numpy(), want)
+    lin = bda[:, :2, :2].astype(np.float64)
+    c = np.array([(20 - 1) / 2.0, (12 - 1) / 2.0])
+    mat = np.asarray(warp.bda_pixel_matrix(torch.from_numpy(bda), (12, 20)))
+    np.testing.assert_allclose(mat[:, :2, :2], lin, rtol=0, atol=0)
+    np.testing.assert_allclose(mat[:, :2, 2], c - lin @ c, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(mat[:, 2], np.tile([0.0, 0.0, 1.0], (3, 1)))
+    eye = torch.eye(n)[None].expand(3, n, n)
+    np.testing.assert_array_equal(warp.bda_bev_warp(torch.from_numpy(img), eye).numpy(), img)
 
 
 def test_warp_keeps_bf16_and_flip_matches_jax():

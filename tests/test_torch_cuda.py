@@ -63,6 +63,49 @@ def test_circle_nms_kernel_equals_plain(gen):
                                    va.repeat(1, 30), th)
 
 
+def _nms_rows(gen, rows, k):
+    """Unsorted random rows, with (where there are enough rows) one row of
+    equal scores, one of identical centres, one with no valid slot, and
+    centres on a 0.5 m grid in the rest so that distances tie with the
+    thresholds."""
+    c = torch.rand(rows, k, 2, generator=gen, device='cuda') * 30
+    sc = torch.rand(rows, k, generator=gen, device='cuda')
+    va = torch.rand(rows, k, generator=gen, device='cuda') < 0.9
+    if rows > 1:
+        sc[1] = 0.5
+    if rows > 2:
+        c[2] = c[2, :1]
+    if rows > 3:
+        va[3] = False
+    if rows > 4:
+        c[4:] = (c[4:] * 2).round() / 2
+    return c, sc, va
+
+
+@pytest.mark.parametrize('k', [1, 31, 32, 33, 500, 1000, 1024])
+def test_circle_nms_cluster_kernel_equals_plain(gen, k):
+    """K3 (one cluster launch a call: sort, bitmask, sweep, scatter) against
+    the plain version at row lengths around the 32-box chunks and up to
+    1024, 1-16 rows, with float, per-task tuple and [R] tensor thresholds."""
+    for rows in (1, 4, 16):
+        c, sc, va = _nms_rows(gen, rows, k)
+        per_task = (4.0, 10.0, 0.5, 0.25)[:rows]
+        for th in (1.0, per_task, torch.rand(rows, generator=gen, device='cuda') * 10):
+            before = circle_nms.circle_nms_mask.launches
+            got = circle_nms.circle_nms_mask(c, sc, va, th)
+            assert circle_nms.circle_nms_mask.launches == before + 1
+            assert torch.equal(got, circle_nms.circle_nms_mask_plain(c, sc, va, th))
+    # a strided view of the boxes, as the decode passes it
+    boxes = torch.rand(4, k, 9, generator=gen, device='cuda') * 30
+    assert torch.equal(circle_nms.circle_nms_mask(boxes[..., :2], sc[:4], va[:4], per_task),
+                       circle_nms.circle_nms_mask_plain(boxes[..., :2].contiguous(), sc[:4],
+                                                        va[:4], per_task))
+    with pytest.raises(ValueError, match='K <= 1024'):
+        circle_nms.circle_nms_mask(torch.zeros(1, 1025, 2, device='cuda'),
+                                   torch.zeros(1, 1025, device='cuda'),
+                                   torch.ones(1, 1025, dtype=torch.bool, device='cuda'), 1.0)
+
+
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('shape', [(4, 64, 64, 512), (2, 3, 5, 7), (2, 160, 16, 32)])
 def test_affine_act_backward_kernel_matches_plain(gen, dtype, shape):
@@ -208,3 +251,46 @@ def test_bev_warp_kernel_equals_plain(gen, dtype, c):
     mat = warp.bda_pixel_matrix(bda, (32, 256))
     assert got.dtype == dtype
     assert torch.equal(got, warp.warp_affine_nhwc_plain(img, mat))
+
+
+@pytest.mark.parametrize('dtype,c', [(torch.bfloat16, 80), (torch.float32, 80),
+                                     (torch.float32, 3), (torch.bfloat16, 3)])
+def test_bev_warp_one_launch_forms_equal_plain(gen, dtype, c):
+    """K7 at B=4 x 32 x 256: ``bda_bev_warp`` from a [B, 4, 4] and a
+    [B, 3, 3] BDA matrix and ``warp_affine_nhwc`` at the identity and a
+    projective matrix, each one launch, bit for bit with the plain versions
+    (the closed-form inverse and the blend take the same rounded steps);
+    the identity returns the map itself."""
+    from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.ops import warp
+    img = torch.randn(4, 32, 256, c, generator=gen, device='cuda').to(dtype)
+    bda = torch.as_tensor(random_bda_matrices(4, seed=2), device='cuda')
+    for m in (bda, bda[:, :3, :3]):
+        before = warp.bda_bev_warp.launches
+        got = warp.bda_bev_warp(img, m)
+        assert warp.bda_bev_warp.launches == before + 1
+        assert torch.equal(got, warp.bda_bev_warp_plain(img, m))
+    eye = torch.eye(3, device='cuda').expand(4, 3, 3)
+    proj = warp.bda_pixel_matrix(bda, (32, 256))
+    proj[:, 2, :2] = torch.rand(4, 2, generator=gen, device='cuda') * 4e-4 - 2e-4
+    for m in (eye, proj):
+        assert torch.equal(warp.warp_affine_nhwc(img, m), warp.warp_affine_nhwc_plain(img, m))
+    assert torch.equal(warp.warp_affine_nhwc(img, eye), img)
+    with pytest.raises(NotImplementedError, match='backward'):
+        warp.bda_bev_warp(img.float().requires_grad_(), bda)
+
+
+def test_k3_and_k7_are_one_device_kernel_a_call(gen):
+    """torch.profiler sees one device operation (no copy, no fill) in a call
+    of each redesigned wrapper, at the paths' shapes: two kernels, one of
+    each name, in a profiler session over one call of each."""
+    from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.ops import warp
+    c, sc, va = _nms_rows(gen, 4, 500)
+    bev = torch.randn(1, 32, 256, 80, generator=gen, device='cuda').bfloat16()
+    bda = torch.as_tensor(random_bda_matrices(1, seed=3), device='cuda')
+    ops = device_ops(lambda: (circle_nms.circle_nms_mask(c, sc, va, (4, 10, 0.5, 0.25)),
+                              warp.bda_bev_warp(bev, bda)))
+    assert sorted(ops.values()) == [1, 1], ops
+    assert any('circle_nms' in n for n in ops) and any('bev_warp' in n for n in ops), ops

@@ -6,7 +6,9 @@ the plain versions (the card's oracle) to:
     in Pallas interpret mode, the probe's own XLA reference
     ``jnp.maximum(x*s + t [+ r], 0)``, and flax ``nn.BatchNorm`` eval + ReLU;
   * K1: ``mm_training_tpu.ops.voxelize_pillars_dense`` (vmapped);
-  * K3: ``mm_training_tpu.ops.circle_nms_mask`` (per row).
+  * K3: ``mm_training_tpu.ops.circle_nms_mask`` (per row), with each of the
+    threshold forms the wrapper takes, and the decode that calls it
+    (``mm_training_tpu.models.centerpoint_head.decode_boxes``).
 Inputs come from numpy with a seed; fp32 throughout.
 """
 import flax.linen as fnn
@@ -208,6 +210,89 @@ def test_circle_nms_all_invalid_keeps_nothing():
     scores = np.ones((2, 10), np.float32)
     valid = np.zeros((2, 10), bool)
     assert not _port_nms(centers, scores, valid, [1.0, 1.0]).any()
+
+
+def _nms_inputs(rows, k, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-10, 10, (rows, k, 2)).astype(np.float32),
+            rng.random((rows, k)).astype(np.float32), rng.random((rows, k)) > 0.2)
+
+
+def test_circle_nms_per_task_tuple_matches_jax():
+    """The decode's form: rows ordered (batch, task), one threshold a task
+    given as a tuple of floats, row r using thresh[r % T]."""
+    b, t, k = 3, 4, 120
+    centers, scores, valid = _nms_inputs(b * t, k, seed=9)
+    per_task = (4.0, 10.0, 0.5, 0.25)
+    want = _jax_nms_rows(centers, scores, valid, [per_task[r % t] for r in range(b * t)])
+    got = circle_nms.circle_nms_mask(torch.from_numpy(centers), torch.from_numpy(scores),
+                                     torch.from_numpy(valid), per_task)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize('form', ['float', 'one_tuple', 'scalar_tensor', 'row_tensor'])
+def test_circle_nms_threshold_forms_match_jax(form):
+    """A float, a one-element tuple, a 0-dim and an [R] tensor: each row's
+    threshold is the JAX call's scalar."""
+    centers, scores, valid = _nms_inputs(3, 90, seed=10)
+    per_row = [2.0, 2.0, 2.0] if form != 'row_tensor' else [2.0, 6.0, 0.5]
+    thresh = {'float': 2.0, 'one_tuple': (2.0,), 'scalar_tensor': torch.tensor(2.0),
+              'row_tensor': torch.tensor(per_row)}[form]
+    got = circle_nms.circle_nms_mask(torch.from_numpy(centers), torch.from_numpy(scores),
+                                     torch.from_numpy(valid), thresh)
+    np.testing.assert_array_equal(got.numpy(), _jax_nms_rows(centers, scores, valid, per_row))
+
+
+def test_circle_nms_strided_centres_and_threshold_refusals():
+    """Centres may be a view of the boxes (the decode passes one); per-task
+    thresholds that do not divide the rows are refused."""
+    rng = np.random.default_rng(11)
+    boxes = torch.from_numpy(rng.uniform(-10, 10, (4, 60, 9)).astype(np.float32))
+    _, scores, valid = (torch.from_numpy(a) for a in _nms_inputs(4, 60, seed=12))
+    per_task = (4.0, 10.0)
+    np.testing.assert_array_equal(
+        circle_nms.circle_nms_mask(boxes[..., :2], scores, valid, per_task).numpy(),
+        _jax_nms_rows(boxes[..., :2].numpy(), scores.numpy(), valid.numpy(), per_task * 2))
+    with pytest.raises(ValueError, match='divide'):
+        circle_nms.circle_nms_mask(boxes[..., :2], scores, valid, (1.0, 2.0, 3.0))
+
+
+def test_decode_boxes_passes_thresholds_by_value_and_matches_jax(monkeypatch):
+    """``decode_boxes`` on random head maps of ``tiny_test_config`` (4 tasks
+    of 32 x 64, top 500, circle NMS with min_radius (4, 10, 0.5, 0.25))
+    against the JAX decode: boxes to 1e-3, scores to 1e-4, labels and valid
+    flags equal. The NMS gets the per-task thresholds as a tuple of floats
+    (no tensor built per call) in one call for all (batch, task) rows."""
+    import mm_training_tpu.configs as jcfg
+    from mm_training_tpu.models.centerpoint_head import decode_boxes as j_decode
+    import mm_training_tpu_torch.configs as tcfg
+    from mm_training_tpu_torch.models import decode_boxes
+    from tests.torch_port_helpers import _compare_boxes
+
+    jconf = jcfg.tiny_test_config(use_cam=False).get_head_conf()
+    tconf = tcfg.tiny_test_config(use_cam=False).get_head_conf()
+    rng = np.random.default_rng(13)
+    preds = []
+    for task in tconf.tasks:
+        p = {'heatmap': rng.normal(-1.0, 1.5, (2, 32, 64, task.num_class))}
+        for name, (ch, _) in tconf.common_heads:
+            p[name] = rng.normal(0.0, 0.5, (2, 32, 64, ch))
+        preds.append({n: v.astype(np.float32) for n, v in p.items()})
+    want = [np.asarray(a) for a in j_decode(
+        jconf, [{n: jnp.asarray(v) for n, v in p.items()} for p in preds])]
+
+    seen = []
+    nms = circle_nms.circle_nms_mask
+
+    def spy(centers, scores, valid, thresh):
+        seen.append((tuple(scores.shape), thresh))
+        return nms(centers, scores, valid, thresh)
+
+    monkeypatch.setattr(circle_nms, 'circle_nms_mask', spy)
+    got = [a.numpy() for a in decode_boxes(
+        tconf, [{n: torch.from_numpy(v) for n, v in p.items()} for p in preds])]
+    assert seen == [((8, 500), (4, 10, 0.5, 0.25))]
+    _compare_boxes(got, want)
 
 
 def test_batchnorm_scale_shift_follows_weight_updates():
