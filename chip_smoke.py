@@ -6,12 +6,13 @@
 Phases, each raising on failure:
   1. build the nine CUDA kernels from ``mm_training_tpu_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time; then count
-     the device operations of one K3 and one K7 call (torch.profiler):
-     one kernel each, no copy;
+     the device operations of one K3, K7 and A' call (torch.profiler): one
+     kernel each, no copy; and of one K4 call at the B=1 and the B=4
+     camera request's shapes: at most two;
   2. hold each kernel against its plain PyTorch version at the serving and
-     training paths' shapes (K3 also on dense rows), and time kernel,
-     plain version and, where one exists, a single PyTorch call computing
-     the same function;
+     training paths' shapes (K3 also on dense rows, A' also at ResNet-50's
+     2048-channel shape), and time kernel, plain version and, where one
+     exists, a single PyTorch call computing the same function;
   3. serve the full-width ``lidar_radar`` predict path (grid 256 x 2048,
      8-feature points, bf16, seeded random weights): distinct B=1 requests,
      one B=4 batch and a p50/p90/p99 latency run, with every kernel's launch
@@ -28,7 +29,9 @@ Phases, each raising on failure:
   6. the fp32 tiny config's train step on the card against the port's CPU
      step (TF32 off): loss, updated parameters, BN statistics;
   7. the camera kernels K4-K7 against their plain versions at the
-     ``lidar_cam_radar`` serving path's shapes, timed as in phase 2 (K7 as
+     ``lidar_cam_radar`` serving path's shapes, timed as in phase 2 (K4 at
+     the B=1 and the B=4 request's splat indices, with the atomic adds a
+     launch counts on the card before and after merging runs of bins; K7 as
      the path calls it, ``bda_bev_warp`` from the BDA matrix to the warped
      map, and against ``F.grid_sample``, timed and used nowhere in the
      port);
@@ -126,17 +129,20 @@ def _randomize_bn(model, gen):
 
 
 def count_device_ops(cfg, cam_cfg):
-    """Phase 1b: the device operations of one K3 and one K7 call as the
-    paths make them (4 x 500 NMS rows with the per-task thresholds by
-    value; the [1, 32, 256, 80] bf16 camera BEV and a BDA matrix), in one
-    torch.profiler session, before any other work of the process (a
-    session that records no device operation is taken again, see
-    ``device_ops``). Each kernel is known by its name; any other device op
-    (a copy, a fill) counts against both. Returns {wrapper: device ops a
-    call}."""
+    """Phase 1b: the device operations of one call of each redesigned
+    kernel as the paths make it, in torch.profiler sessions before any
+    other work of the process (a session that records no device operation
+    is taken again, see ``device_ops``): K3 (4 x 500 NMS rows with the
+    per-task thresholds by value), K7 (the [1, 32, 256, 80] bf16 camera BEV
+    and a BDA matrix), A' ([4, 64, 64, 512] bf16 with a residual) and K4
+    (the B=1 camera request) in one session; A' at ResNet-50's [4, 2048,
+    22, 40] and K4 at the B=4 request in a second. Each kernel is known by
+    its name; any other device op (a copy, a fill) counts against every
+    call of its session. Returns {kernel row name: device ops a call}."""
     from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.exps.kernel_inputs import splat_inputs
     from mm_training_tpu_torch.exps.timing import device_ops
-    from mm_training_tpu_torch.ops import circle_nms, warp
+    from mm_training_tpu_torch.ops import affine_act, circle_nms, voxel_pooling, warp
 
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -148,14 +154,42 @@ def count_device_ops(cfg, cam_cfg):
     thresh = tuple(head.test_cfg.min_radius[:r])
     bev = torch.randn(1, *bb.bev_hw, bb.output_channels, generator=gen, device=dev).bfloat16()
     bda = torch.as_tensor(random_bda_matrices(1, SEED + 15), device=dev)
-    ops = device_ops(lambda: (circle_nms.circle_nms_mask(centers, scores, valid, thresh),
-                              warp.bda_bev_warp(bev, bda)))
-    other = sum(n for name, n in ops.items() if 'circle_nms' not in name and 'bev_warp' not in name)
-    per_call = {'circle_nms_mask': other + sum(n for name, n in ops.items() if 'circle_nms' in name),
-                'bda_bev_warp': other + sum(n for name, n in ops.items() if 'bev_warp' in name)}
-    print(f'device ops of one K3 and one K7 call (torch.profiler): {json.dumps(ops)}', flush=True)
-    if per_call != {'circle_nms_mask': 1, 'bda_bev_warp': 1}:
-        raise AssertionError(f'K3 and K7 must each be one device kernel a call: {per_call}')
+
+    def bn_case(*shape):
+        t = [torch.randn(*shape, generator=gen, device=dev).bfloat16().contiguous(
+            memory_format=torch.channels_last) for _ in range(3)]
+        return (*t, torch.randn(shape[1], generator=gen, device=dev),
+                torch.randn(shape[1], generator=gen, device=dev))
+    bn, bn50 = bn_case(4, 64, 64, 512), bn_case(4, 2048, 22, 40)
+    splat1 = splat_inputs(cam_cfg, gen, seed=SEED + 8)
+    splat4 = splat_inputs(cam_cfg.replace(batch_size=4), gen, seed=SEED + 8)
+
+    def backward(g, x, r, s, t):
+        return affine_act.affine_act_backward(g, x, s, t, r, True)
+    kernels = {'circle_nms_mask': 'circle_nms', 'bda_bev_warp': 'bev_warp',
+               'affine_act_backward': 'affine_act_bwd', 'lift_splat_factorized': 'splat'}
+    per_call = {}
+    for rows, fn in (
+            (('circle_nms_mask', 'bda_bev_warp', 'affine_act_backward_residual',
+              'lift_splat_factorized'),
+             lambda: (circle_nms.circle_nms_mask(centers, scores, valid, thresh),
+                      warp.bda_bev_warp(bev, bda), backward(*bn),
+                      voxel_pooling.lift_splat_factorized(*splat1))),
+            (('affine_act_backward_resnet50', 'lift_splat_factorized_b4'),
+             lambda: (backward(*bn50), voxel_pooling.lift_splat_factorized(*splat4)))):
+        ops = device_ops(fn)
+        print(f'device ops of one call each of {list(rows)} (torch.profiler): '
+              f'{json.dumps(ops)}', flush=True)
+        keys = {row: next(v for w, v in kernels.items() if row.startswith(w)) for row in rows}
+        other = sum(n for name, n in ops.items() if not any(v in name for v in keys.values()))
+        for row, key in keys.items():
+            per_call[row] = other + sum(n for name, n in ops.items() if key in name)
+    one = ('circle_nms_mask', 'bda_bev_warp', 'affine_act_backward_residual',
+           'affine_act_backward_resnet50')
+    if any(per_call[n] != 1 for n in one) or not all(
+            1 <= per_call[n] <= 2 for n in ('lift_splat_factorized', 'lift_splat_factorized_b4')):
+        raise AssertionError(f"K3, K7 and A' must each be one device kernel a call, K4 at "
+                             f'most two: {per_call}')
     return per_call
 
 
@@ -273,37 +307,46 @@ def check_kernels(cfg):
           flush=True)
 
     # --- A' at the train path's dominant BN shape (B=4: 64 x 512 x 64 ch),
-    # without and with a residual
+    # without and with a residual, and at ResNet-50's last stage (2048
+    # channels, 22 x 40, 4 cameras) with the Bottleneck's residual
     x4, g4, r4 = cl(4, 64, 64, 512), cl(4, 64, 64, 512), cl(4, 64, 64, 512)
-    for res in (None, r4):
-        got = affine_act.affine_act_backward(g4, x4, s, t, res, True)
-        want = affine_act.affine_act_backward_plain(g4, x4, s, t, res, True)
+    x50, g50, r50 = cl(4, 2048, 22, 40), cl(4, 2048, 22, 40), cl(4, 2048, 22, 40)
+    s50 = torch.randn(2048, generator=gen, device=dev)
+    t50 = torch.randn(2048, generator=gen, device=dev)
+    for name, (g, x, res, sb, tb) in (
+            ('affine_act_backward', (g4, x4, None, s, t)),
+            ('affine_act_backward_residual', (g4, x4, r4, s, t)),
+            ('affine_act_backward_resnet50', (g50, x50, r50, s50, t50))):
+        got = affine_act.affine_act_backward(g, x, sb, tb, res, True)
+        want = affine_act.affine_act_backward_plain(g, x, sb, tb, res, True)
         err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(got[:2], want[:2]) if a is not None)
-        # ds, dt: fp32 sums over 2^19 terms in another order, against the
+        # ds, dt: fp32 sums over N*H*W terms in another order, against the
         # sum of the terms' magnitudes
         m = want[1].float() if res is not None else None
         if m is None:
-            z = x4.float() * s.view(1, -1, 1, 1) + t.view(1, -1, 1, 1)
-            m = torch.where(z > 0, g4.float(), 0.0)
-        mags = ((m * x4.float()).abs().sum((0, 2, 3)), m.abs().sum((0, 2, 3)))
+            z = x.float() * sb.view(1, -1, 1, 1) + tb.view(1, -1, 1, 1)
+            m = torch.where(z > 0, g.float(), 0.0)
+        mags = ((m * x.float()).abs().sum((0, 2, 3)), m.abs().sum((0, 2, 3)))
         sum_err = max(((a - b).abs() / mag.clamp_min(1e-30)).max().item()
                       for a, b, mag in zip(got[2:], want[2:], mags))
-        again = affine_act.affine_act_backward(g4, x4, s, t, res, True)
+        again = affine_act.affine_act_backward(g, x, sb, tb, res, True)
         deterministic = all(torch.equal(a, b) for a, b in zip(got[2:], again[2:]))
-        nbytes = (3 + 2 * (res is not None)) * x4.numel() * x4.element_size()
+        nbytes = (3 + 2 * (res is not None)) * x.numel() * x.element_size()
+
+        def kernel(g=g, x=x, res=res, sb=sb, tb=tb):
+            return affine_act.affine_act_backward(g, x, sb, tb, res, True)
+
+        def plain(g=g, x=x, res=res, sb=sb, tb=tb):
+            return affine_act.affine_act_backward_plain(g, x, sb, tb, res, True)
         rows.append(dict(
-            name='affine_act_backward' + ('' if res is None else '_residual'), route='cuda',
-            source='mm_training_tpu_torch/csrc/affine_act_backward.cu',
+            name=name, route='cuda', source='mm_training_tpu_torch/csrc/affine_act_backward.cu',
             replaces='scripts/bn_elementwise_probe.py:88', max_abs_err=err,
             sum_rel_err=sum_err, deterministic=deterministic,
-            ms=device_ms(lambda: affine_act.affine_act_backward(g4, x4, s, t, res, True), 100),
-            call_ms=host_ms(lambda: affine_act.affine_act_backward(g4, x4, s, t, res, True),
-                             100),
-            plain_ms=device_ms(lambda: affine_act.affine_act_backward_plain(g4, x4, s, t, res, True),
-                         20),
+            ms=device_ms(kernel, 100), call_ms=host_ms(kernel, 100),
+            plain_ms=device_ms(plain, 20),
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes', library_ms=None,
-            shape=list(x4.shape), dtype='bfloat16'))
+            shape=list(x.shape), dtype='bfloat16'))
 
     # --- K2 on the train path's targets: a B=4 fake batch (500 object slots)
     cfg4 = cfg.replace(batch_size=4)
@@ -350,7 +393,8 @@ def check_kernels(cfg):
     if by['circle_nms_mask']['max_abs_err'] != 0:
         raise AssertionError(f"circle_nms differs from its plain version: "
                              f"{by['circle_nms_mask']}")
-    for name in ('affine_act_backward', 'affine_act_backward_residual'):
+    for name in ('affine_act_backward', 'affine_act_backward_residual',
+                 'affine_act_backward_resnet50'):
         row = by[name]
         # dx, dr bit for bit; ds, dt to 1e-5 of the sum of |terms|; the
         # same bits on a second launch
@@ -626,8 +670,8 @@ def check_camera_kernels(cfg):
     path's shapes (one B=1 request: 4 cameras, 409 bins, 44 x 80 features,
     an 8192-cell camera BEV), K6 on the request's own points."""
     from mm_training_tpu_torch.data import make_fake_batch, random_bda_matrices
+    from mm_training_tpu_torch.exps.kernel_inputs import splat_inputs
     from mm_training_tpu_torch.exps.timing import device_ms, host_ms
-    from mm_training_tpu_torch.models.lss_fpn import LSSFPN
     from mm_training_tpu_torch.ops import deform_conv, depth_labels, voxel_pooling, warp
 
     dev = torch.device('cuda')
@@ -644,43 +688,51 @@ def check_camera_kernels(cfg):
                          plain_ms=device_ms(plain, plain_iters), bound_ms=bound_ms,
                          bound_by=bound_by, **extra))
 
-    # --- K4 on the request's own splat indices (4 cameras of the fake rig)
-    with torch.device('meta'):
-        lss = LSSFPN(bb)
-    s2e = torch.as_tensor(batch['sensor2ego'][:, 0], device=dev)
+    # --- K4 on the B=1 and the B=4 request's own splat indices (4 and 16
+    # cameras of the fake rig), depth and ctx in the layouts the path hands
+    # over under the depth oracle (a channels-last softmax, a permuted
+    # channels-last slice)
     intr = torch.as_tensor(batch['intrin'][:, 0], device=dev)
-    idx, zvalid = lss.splat_indices(s2e, intr)
-    m, n_cells = idx.shape[0], int(np.prod(bb.bev_hw))
-    depth = torch.randn(m, d, fh, fw, generator=gen, device=dev).softmax(1).bfloat16()
-    ctx = torch.randn(m, fh, fw, c, generator=gen, device=dev).bfloat16()
-    args = (depth, ctx, idx, zvalid, n_cells)
-    got = voxel_pooling.lift_splat_factorized(*args)
-    want = voxel_pooling.lift_splat_factorized_plain(*args)
-    # the fp32 sums of the same inputs (kernel and plain), and each entry's
-    # sum of |terms|, which bounds what another order of fp32 atomics moves
-    args32 = (depth.float(), ctx.float(), idx, zvalid, n_cells)
-    got32 = voxel_pooling.lift_splat_factorized(*args32)
-    want32 = voxel_pooling.lift_splat_factorized_plain(*args32)
-    mag = voxel_pooling.lift_splat_factorized_plain(depth.float(), ctx.float().abs(), idx,
-                                                    zvalid, n_cells)
-    fp32_err = ((got32 - want32).abs() / mag.clamp_min(1e-30)).max().item()
-    w = want.float()
-    ulp = torch.where(w == 0, 0.0, torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
-    diff = (got.float() - w).abs()
-    ulps = torch.where(diff == 0, 0.0, diff / ulp).max().item()
-    # one bf16 ulp, plus the fp32 order bound where a cell's sum cancels
-    outside = int((diff > ulp + 1e-5 * mag).sum())
-    rows_kept = int((idx < n_cells).sum())
-    nbytes = (depth.numel() * 2 + zvalid.numel() + ctx.numel() * 2 + idx.numel() * 4
-              + got.numel() * 2)
-    row('lift_splat_factorized', 'lift_splat.cu', 'mm_training_tpu/ops/voxel_pooling.py:127',
-        lambda: voxel_pooling.lift_splat_factorized(*args),
-        lambda: voxel_pooling.lift_splat_factorized_plain(*args),
-        nbytes, 2 * fh * c * rows_kept, BF16_FLOPS, 10,
-        max_abs_err=diff.max().item(), bf16_ulps=ulps, fp32_err_of_magnitude=fp32_err,
-        bf16_outside_tolerance=outside, library_ms=None,
-        rows_off_the_grid=int(idx.numel() - rows_kept),
-        shape=[m, d, fh, fw, c], dtype='bfloat16')
+    for name, bsz in (('lift_splat_factorized', 1), ('lift_splat_factorized_b4', 4)):
+        depth, ctx, idx, zvalid, n_cells = args = splat_inputs(
+            cfg.replace(batch_size=bsz), gen, seed=SEED + 8)
+        m = idx.shape[0]
+        got = voxel_pooling.lift_splat_factorized(*args)
+        want = voxel_pooling.lift_splat_factorized_plain(*args)
+        # the fp32 sums of the same inputs (kernel and plain), and each
+        # entry's sum of |terms|, which bounds what another order of fp32
+        # atomics moves
+        args32 = (depth.float(), ctx.float(), idx, zvalid, n_cells)
+        got32 = voxel_pooling.lift_splat_factorized(*args32)
+        want32 = voxel_pooling.lift_splat_factorized_plain(*args32)
+        mag = voxel_pooling.lift_splat_factorized_plain(depth.float(), ctx.float().abs(), idx,
+                                                        zvalid, n_cells)
+        fp32_err = ((got32 - want32).abs() / mag.clamp_min(1e-30)).max().item()
+        w = want.float()
+        ulp = torch.where(w == 0, 0.0, torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
+        diff = (got.float() - w).abs()
+        ulps = torch.where(diff == 0, 0.0, diff / ulp).max().item()
+        # one bf16 ulp, plus the fp32 order bound where a cell's sum cancels
+        outside = int((diff > ulp + 1e-5 * mag).sum())
+        rows_kept = int((idx < n_cells).sum())
+        # counted by the kernel on the card, in a launch of its own
+        before, after = voxel_pooling.splat_atomic_adds(*args)
+        nbytes = (depth.numel() * 2 + zvalid.numel() + ctx.numel() * 2 + idx.numel() * 4
+                  + got.numel() * 2)
+        row(name, 'lift_splat.cu', 'mm_training_tpu/ops/voxel_pooling.py:127',
+            lambda: voxel_pooling.lift_splat_factorized(*args),
+            lambda: voxel_pooling.lift_splat_factorized_plain(*args),
+            nbytes, 2 * fh * c * rows_kept, BF16_FLOPS, 10,
+            max_abs_err=diff.max().item(), bf16_ulps=ulps, fp32_err_of_magnitude=fp32_err,
+            bf16_outside_tolerance=outside, library_ms=None,
+            rows_off_the_grid=int(idx.numel() - rows_kept),
+            atomic_adds={'before_merge': before, 'after_merge': after,
+                         'before': 'kept rows x C scalar fp32 adds the runs stand for',
+                         'after': '16-byte adds issued (a run of bins x 4 channels)',
+                         'counted_by': 'the kernel, on the card'},
+            kept_rows_x_c=rows_kept * c,
+            shape=[m, d, fh, fw, c], dtype='bfloat16')
+    m = intr.shape[0] * intr.shape[1]     # the B=1 request's cameras
 
     # --- K5 at the DepthNet's width (512 channels), offsets up to 3 px
     x = torch.randn(m, fh, fw, 512, generator=gen, device=dev).bfloat16()
@@ -755,10 +807,14 @@ def check_camera_kernels(cfg):
     by = {r['name']: r for r in rows}
     # K4: fp32 atomics add in another order (1e-5 of the sum of |terms|);
     # after the cast, one bf16 ulp plus that where a cell's sum cancels
-    k4 = by['lift_splat_factorized']
-    if not (k4['fp32_err_of_magnitude'] <= 1e-5 and k4['bf16_outside_tolerance'] == 0):
-        raise AssertionError(f"lift_splat differs from its plain version: "
-                             f"{by['lift_splat_factorized']}")
+    for name in ('lift_splat_factorized', 'lift_splat_factorized_b4'):
+        k4 = by[name]
+        # every kept row added once, in fewer 16-byte adds than rows x C / 4
+        adds = k4['atomic_adds']
+        if not (k4['fp32_err_of_magnitude'] <= 1e-5 and k4['bf16_outside_tolerance'] == 0
+                and adds['before_merge'] == k4['kept_rows_x_c']
+                and 0 < 4 * adds['after_merge'] < adds['before_merge']):
+            raise AssertionError(f'{name} differs from its plain version: {k4}')
     for name in ('deform_sample', 'depth_labels', 'bda_bev_warp'):   # bit for bit
         if by[name]['max_abs_err'] != 0:
             raise AssertionError(f'{name} differs from its plain version: {by[name]}')
@@ -906,16 +962,17 @@ def main() -> int:
         compare_cpu_reference(tiny_test_config(use_cam=True, **kw),
                               bda=random_bda_matrices(2, SEED + 13))
 
+    wrappers = _wrappers()
     for row in rows:
-        name = row['name'].replace('_residual', '')
+        name = max((w for w in wrappers if row['name'].startswith(w)), key=len)
         by_path = {'serve': counts[name], 'train': train_counts[name],
                    'serve_camera': cam_counts[name]}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,
                                        'serve_camera': cam_counts[name] / cam_calls}
-        if name in ops_per_call:
-            row['device_kernels_per_call'] = ops_per_call[name]
+        if row['name'] in ops_per_call:
+            row['device_kernels_per_call'] = ops_per_call[row['name']]
     print(json.dumps({'kernels': rows}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

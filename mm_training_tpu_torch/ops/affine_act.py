@@ -140,12 +140,19 @@ def affine_act_backward_plain(g: torch.Tensor, x: torch.Tensor, scale: torch.Ten
 def _lib_backward() -> ctypes.CDLL:
     lib = build.load('affine_act_backward')
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.affine_act_backward.argtypes = [i32, p, p, p, p, p, p, p, p, p, p, i64, i32,
-                                        i32, i32, p]
+    lib.affine_act_backward.argtypes = [i32, p, p, p, p, p, p, p, p, p, p, i64, p, i64,
+                                        i32, i32, i32, p]
     lib.affine_act_backward.restype = ctypes.c_int
-    lib.affine_act_backward_blocks.argtypes = [i32, i64, i32, i32]
-    lib.affine_act_backward_blocks.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _partials_floats(device: int) -> int:
+    """Float32 partials kernel A' may write on this card at any shape: 8
+    values for each thread the SMs hold (csrc/affine_act_backward.cu says
+    why)."""
+    props = torch.cuda.get_device_properties(device)
+    return 8 * props.max_threads_per_multi_processor * props.multi_processor_count
 
 
 def affine_act_backward(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
@@ -156,16 +163,15 @@ def affine_act_backward(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
 
     A CPU tensor takes :func:`affine_act_backward_plain`; a CUDA tensor
     launches kernel A' (operands as :func:`affine_act` takes them, ``g`` of
-    x's shape and dtype, channels_last, C <= 1024) or raises. The
-    per-channel sums are deterministic (fixed-order partials)."""
+    x's shape and dtype, channels_last, any C) or raises. One launch a call;
+    the per-channel sums are deterministic (fixed-order partials), and the
+    scratch they pass through is kept per device and stream."""
     if x.device.type == 'cpu':
         return affine_act_backward_plain(g, x, scale, shift, residual, relu)
     if x.device.type != 'cuda' or x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f'affine_act_backward takes a 4-D float32/bfloat16 CUDA or '
                          f'CPU tensor, got {tuple(x.shape)} {x.dtype} on {x.device}')
     c = x.shape[1]
-    if c > 1024:
-        raise ValueError(f'affine_act_backward: the kernel takes C <= 1024, got {c}')
     _check_operand('x', x, x)
     _check_operand('g', g, x)
     if residual is not None:
@@ -177,24 +183,25 @@ def affine_act_backward(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
                              f'[{c}] tensor on {x.device}')
     dx = torch.empty_like(x)
     dr = None if residual is None else torch.empty_like(x)
-    ds = torch.empty(c, dtype=torch.float32, device=x.device)
-    dt = torch.empty(c, dtype=torch.float32, device=x.device)
+    sums = torch.empty(2, c, dtype=torch.float32, device=x.device)
     lib = _lib_backward()
-    npix = x.numel() // c
+    npix = x.numel() // c if c else 0
+    dtype = _DTYPES[x.dtype]
     vector = int(c % (16 // x.element_size()) == 0)   # operands are 16-byte aligned
-    blocks = lib.affine_act_backward_blocks(_DTYPES[x.dtype], npix, c, vector)
-    part = torch.empty(blocks, 2, c, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    part, barrier = build.scratch('affine_act_backward', x.device, stream,
+                                  _partials_floats(x.device.index), 2)
     with torch.cuda.device(x.device):
         code = lib.affine_act_backward(
-            _DTYPES[x.dtype], g.data_ptr(), x.data_ptr(),
+            dtype, g.data_ptr(), x.data_ptr(),
             None if residual is None else residual.data_ptr(),
             scale.data_ptr(), shift.data_ptr(), dx.data_ptr(),
-            None if dr is None else dr.data_ptr(), ds.data_ptr(), dt.data_ptr(),
-            part.data_ptr(), npix, c, int(relu), vector,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            None if dr is None else dr.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
+            part.data_ptr(), part.numel(), barrier.data_ptr(), npix, c, int(relu), vector,
+            stream)
     build.check(lib, code, 'affine_act_backward')
     affine_act_backward.launches += 1
-    return dx, dr, ds, dt
+    return dx, dr, sums[0], sums[1]
 
 
 affine_act_backward.launches = 0

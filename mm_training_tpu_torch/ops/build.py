@@ -18,7 +18,9 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ['KERNEL_SOURCES', 'build_kernels', 'check', 'load']
+import torch
+
+__all__ = ['KERNEL_SOURCES', 'build_kernels', 'check', 'load', 'scratch']
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / 'csrc'
@@ -81,6 +83,27 @@ def load(name: str) -> ctypes.CDLL:
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
+
+
+# (kernel, device index, stream) -> (float32 scratch, int32 barrier words):
+# allocated once, the scratch grown for a larger shape; the words start at
+# zero and every launch leaves them so. Calls on one stream run in order,
+# so they may share them.
+_SCRATCH = {}
+
+
+def scratch(kernel: str, device, stream: int, floats: int, words: int):
+    """(float32 tensor of at least ``floats`` values, int32 tensor of at
+    least ``words`` zeros) kept for ``kernel``'s launches on this device
+    and stream, so a warm call allocates nothing."""
+    key = (kernel, device.index, stream)
+    buf, barrier = _SCRATCH.get(key, (None, None))
+    if buf is None or buf.numel() < floats:
+        buf = torch.empty(floats, dtype=torch.float32, device=device)
+    if barrier is None or barrier.numel() < words:
+        barrier = torch.zeros(words, dtype=torch.int32, device=device)
+    _SCRATCH[key] = (buf, barrier)
+    return buf, barrier
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -26,7 +26,7 @@ import torch
 
 from . import build
 
-__all__ = ['lift_splat_factorized', 'lift_splat_factorized_plain']
+__all__ = ['lift_splat_factorized', 'lift_splat_factorized_plain', 'splat_atomic_adds']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,8 +50,9 @@ def lift_splat_factorized_plain(depth: torch.Tensor, ctx: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load('lift_splat')
-    p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lift_splat.argtypes = [i32, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p, p]
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lift_splat.argtypes = [i32, p, i64, i64, i64, i64, p, i64, i64, i64, i64, p, p,
+                               i32, i32, i32, i32, i32, i32, p, p, p, p, p]
     lib.lift_splat.restype = ctypes.c_int
     return lib
 
@@ -71,7 +72,28 @@ def lift_splat_factorized(depth: torch.Tensor, ctx: torch.Tensor,
 
     Returns [M, n_cells, C] in ctx's dtype. A CPU tensor takes
     :func:`lift_splat_factorized_plain`; a CUDA tensor launches kernel K4
-    or raises (also when a gradient is asked for: no backward yet)."""
+    (one launch; depth and ctx in any strides, C a multiple of 8 up to 128,
+    fH up to 64, and for float32 not both at their largest: the tile then
+    outgrows shared memory) or raises (also when a gradient is asked for: no
+    backward yet)."""
+    return _splat(depth, ctx, flat_idx_xy, zvalid, n_cells)
+
+
+def splat_atomic_adds(depth: torch.Tensor, ctx: torch.Tensor, flat_idx_xy: torch.Tensor,
+                      zvalid: torch.Tensor, n_cells: int):
+    """Launch kernel K4 as :func:`lift_splat_factorized` does, on CUDA
+    tensors, and count its float atomics on the card. Returns (scalar adds
+    the merged runs stand for: kept (camera, bin, column) rows x C, 16-byte
+    adds issued)."""
+    if depth.device.type != 'cuda':
+        raise ValueError('splat_atomic_adds: kernel K4 counts its adds on a CUDA device')
+    adds = torch.zeros(2, dtype=torch.int64, device=depth.device)
+    _splat(depth, ctx, flat_idx_xy, zvalid, n_cells, adds)
+    before, after = adds.tolist()
+    return before, after
+
+
+def _splat(depth, ctx, flat_idx_xy, zvalid, n_cells, adds=None):
     m, d, fh, fw = depth.shape
     c = ctx.shape[-1]
     if (ctx.shape != (m, fh, fw, c) or flat_idx_xy.shape != (m, d, fw)
@@ -90,18 +112,26 @@ def lift_splat_factorized(depth: torch.Tensor, ctx: torch.Tensor,
             or any(t.device != depth.device for t in tensors)):
         raise ValueError('lift_splat_factorized: float32/bfloat16 depth and ctx, int32 '
                          'indices and bool zvalid, all on one CUDA device or the CPU')
+    if c % 8 or not 8 <= c <= 128 or fh > 64:
+        raise ValueError(f'lift_splat_factorized: kernel K4 takes C a multiple of 8 up to '
+                         f'128 and fH up to 64, got C={c}, fH={fh}')
     if torch.is_grad_enabled() and (depth.requires_grad or ctx.requires_grad):
         raise NotImplementedError('lift_splat_factorized: kernel K4 has no backward yet; '
                                   'it arrives with the camera training slice (slice 4)')
-    depth, ctx, flat_idx_xy, zvalid = (t.contiguous() for t in tensors)
-    acc = torch.zeros(m, n_cells, c, dtype=torch.float32, device=depth.device)
     out = torch.empty(m, n_cells, c, dtype=ctx.dtype, device=depth.device)
+    if out.numel() == 0:
+        return out
+    # the path's own indices and mask are contiguous already: no copy there
+    flat_idx_xy, zvalid = flat_idx_xy.contiguous(), zvalid.contiguous()
+    stream = torch.cuda.current_stream(depth.device).cuda_stream
+    acc, barrier = build.scratch('lift_splat', depth.device, stream, out.numel(), 2)
     lib = _lib()
     with torch.cuda.device(depth.device):
-        code = lib.lift_splat(_DTYPES[depth.dtype], depth.data_ptr(), ctx.data_ptr(),
-                              flat_idx_xy.data_ptr(), zvalid.data_ptr(), m, d, fh, fw, c,
-                              n_cells, acc.data_ptr(), out.data_ptr(),
-                              torch.cuda.current_stream(depth.device).cuda_stream)
+        code = lib.lift_splat(_DTYPES[depth.dtype], depth.data_ptr(), *depth.stride(),
+                              ctx.data_ptr(), *ctx.stride(), flat_idx_xy.data_ptr(),
+                              zvalid.data_ptr(), m, d, fh, fw, c, n_cells, acc.data_ptr(),
+                              barrier.data_ptr(), out.data_ptr(),
+                              None if adds is None else adds.data_ptr(), stream)
     build.check(lib, code, 'lift_splat_factorized')
     lift_splat_factorized.launches += 1
     return out

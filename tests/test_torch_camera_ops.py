@@ -150,6 +150,41 @@ def test_lift_splat_factorized_keeps_the_compute_dtype():
     assert (got.float() - want).abs().max() <= 2 ** -6 * want.abs().max()
 
 
+@pytest.mark.parametrize('layout', ['channels_last', 'slice', 'nchw', 'contiguous'])
+def test_splat_inputs_layouts(layout):
+    """K4's shared test inputs (``exps/kernel_inputs.py``) at the tiny camera
+    config, on the CPU: the same values in every layout, laid out as the
+    layout says (ctx a permuted channels-last slice of the DepthNet output,
+    pixel stride D + C; depth with d innermost, a slice of that output, or
+    NCHW), depth a softmax over the bins, the rig's indices in [0, n_cells],
+    and the plain splat the same as on contiguous copies."""
+    from mm_training_tpu_torch.configs import tiny_test_config
+    from mm_training_tpu_torch.exps.kernel_inputs import splat_inputs
+    cfg = tiny_test_config(use_cam=True)
+    got = splat_inputs(cfg, torch.Generator().manual_seed(3), layout, torch.float32)
+    want = splat_inputs(cfg, torch.Generator().manual_seed(3), 'contiguous', torch.float32)
+    depth, ctx, idx, zvalid, n_cells = got
+    m, d, fh, fw = depth.shape
+    c = ctx.shape[-1]
+    assert n_cells == want[4] and torch.equal(idx, want[2]) and torch.equal(zvalid, want[3])
+    assert idx.dtype == torch.int32 and 0 <= idx.min() and idx.max() <= n_cells
+    assert (idx < n_cells).any() and zvalid.any()
+    torch.testing.assert_close(depth, want[0], rtol=1e-6, atol=0)
+    assert torch.equal(ctx, want[1])
+    torch.testing.assert_close(depth.sum(1), torch.ones(m, fh, fw))
+    strides = {'channels_last': (d * fh * fw, 1, fw * d, d),
+               'slice': ((d + c) * fh * fw, 1, fw * (d + c), d + c),
+               'nchw': (d * fh * fw, fh * fw, fw, 1),
+               'contiguous': (d * fh * fw, fh * fw, fw, 1)}[layout]
+    assert depth.stride() == strides
+    if layout == 'contiguous':
+        assert ctx.is_contiguous()
+    else:
+        assert ctx.stride() == ((d + c) * fh * fw, fw * (d + c), d + c, 1)
+    torch.testing.assert_close(voxel_pooling.lift_splat_factorized(*got),
+                               voxel_pooling.lift_splat_factorized(*want), rtol=1e-5, atol=1e-6)
+
+
 # ------------------------------------------------------------------ K5
 
 def _offsets(seed, b, h, w):

@@ -5,6 +5,7 @@ false. No JAX here, so the file runs on the card's machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -132,6 +133,46 @@ def test_affine_act_backward_kernel_matches_plain(gen, dtype, shape):
             assert all(torch.equal(a, b) for a, b in zip(got[2:], again[2:]))
 
 
+def _backward_case(gen, shape, dtype):
+    def cl():
+        return torch.randn(*shape, generator=gen, device='cuda').to(dtype).contiguous(
+            memory_format=torch.channels_last)
+    s = torch.randn(shape[1], generator=gen, device='cuda')
+    t = torch.randn(shape[1], generator=gen, device='cuda')
+    return cl(), cl(), cl(), s, t
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [(4, 2048, 22, 40), (3, 1024, 5, 7), (2, 12, 9, 11),
+                                   (2, 7, 3, 5), (1, 2048, 1, 1), (1, 64, 1, 1),
+                                   (2, 64, 9, 11)])
+def test_affine_act_backward_any_channel_count(gen, dtype, shape):
+    """A' at ResNet-50's last-stage shape (C = 2048) and at C = 1024, 12, 7
+    (below or not a multiple of a 16-byte vector), at a single pixel and at
+    pixel counts that are no multiple of a block's rows (C = 64: 32 rows a
+    block, 198 pixels): one launch a call; dx, dr bit for bit, ds, dt to
+    fp32 order; the sums bit-equal on a second call, also after a call of
+    another shape has used the partials' scratch and the barrier words."""
+    x, r, g, s, t = _backward_case(gen, shape, dtype)
+    other = _backward_case(gen, (4, 96, 33, 40), dtype)
+    n = x.numel() // shape[1]
+    for res in (None, r):
+        for relu in (True, False):
+            before = affine_act.affine_act_backward.launches
+            got = affine_act.affine_act_backward(g, x, s, t, res, relu)
+            assert affine_act.affine_act_backward.launches == before + 1
+            want = affine_act.affine_act_backward_plain(g, x, s, t, res, relu)
+            assert torch.equal(got[0], want[0])
+            if res is not None:
+                assert torch.equal(got[1], want[1])
+            for a, b in zip(got[2:], want[2:]):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * n)
+            affine_act.affine_act_backward(other[2], other[0], other[3], other[4],
+                                           other[1] if res is not None else None, relu)
+            again = affine_act.affine_act_backward(g, x, s, t, res, relu)
+            assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+
+
 def test_affine_act_autograd_reaches_the_backward_kernel(gen):
     x = torch.randn(2, 64, 8, 16, generator=gen, device='cuda').to(
         torch.bfloat16).contiguous(memory_format=torch.channels_last).requires_grad_(True)
@@ -193,6 +234,95 @@ def test_lift_splat_kernel_matches_plain(gen, dtype):
     with pytest.raises(NotImplementedError, match='backward'):
         voxel_pooling.lift_splat_factorized(depth.float().requires_grad_(), ctx.float(),
                                             idx, zvalid, g)
+
+
+def _check_splat(got, depth, ctx, idx, zvalid, g):
+    """K4 against its plain version: a cell sums up to hundreds of rows in
+    fp32 atomics of no fixed order, so fp32 is held to 1e-5 of each entry's
+    sum of |terms|, and bf16 to one ulp plus that."""
+    from mm_training_tpu_torch.ops import voxel_pooling
+    want = voxel_pooling.lift_splat_factorized_plain(depth, ctx, idx, zvalid, g)
+    assert got.dtype == depth.dtype and got.shape == want.shape
+    mag = voxel_pooling.lift_splat_factorized_plain(depth.float(), ctx.float().abs(), idx,
+                                                    zvalid, g)
+    if depth.dtype == torch.float32:
+        assert int(((got - want).abs() > 1e-5 * mag).sum()) == 0
+    else:
+        assert _splat_outside_tolerance(got, want, mag) == 0
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('layout', ['channels_last', 'slice', 'nchw'])
+@pytest.mark.parametrize('batch_size', [1, 4])
+def test_lift_splat_kernel_on_the_rig_indices(gen, dtype, layout, batch_size):
+    """K4 on the fake rig's own splat indices at the B=1 and B=4 requests'
+    shapes (4 and 16 cameras), depth and ctx handed over as the path hands
+    them (strided views, read in place): one launch, within the atomic-order
+    bound of the plain version. The adds the kernel counts on the card: each
+    kept row x C once, and one 16-byte add per 4 channels of each run of
+    consecutive bins bound for one cell within a 64-bin task tile, fewer
+    than a quarter of the scalar adds."""
+    from mm_training_tpu_torch.configs import lidar_cam_radar
+    from mm_training_tpu_torch.exps.kernel_inputs import splat_inputs
+    from mm_training_tpu_torch.ops import voxel_pooling
+    depth, ctx, idx, zvalid, g = splat_inputs(lidar_cam_radar(batch_size=batch_size), gen,
+                                              layout, dtype)
+    assert not ctx.is_contiguous()
+    before = voxel_pooling.lift_splat_factorized.launches
+    got = voxel_pooling.lift_splat_factorized(depth, ctx, idx, zvalid, g)
+    assert voxel_pooling.lift_splat_factorized.launches == before + 1
+    _check_splat(got, depth, ctx, idx, zvalid, g)
+    c = ctx.shape[-1]
+    cells = idx.cpu().numpy()
+    kept = cells < g
+    start = kept.copy()
+    start[:, 1:] &= (cells[:, 1:] != cells[:, :-1]) | (np.arange(1, cells.shape[1]) % 64 == 0
+                                                       )[None, :, None]
+    scalar, vector = voxel_pooling.splat_atomic_adds(depth, ctx, idx, zvalid, g)
+    assert (scalar, vector) == (int(kept.sum()) * c, int(start.sum()) * c // 4)
+    assert 0 < vector * 4 < scalar
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('m,d,fh,fw,c', [(2, 70, 13, 11, 16), (1, 5, 44, 3, 80),
+                                         (3, 129, 64, 17, 96), (2, 20, 30, 9, 128),
+                                         (1, 1, 1, 1, 8)])
+def test_lift_splat_kernel_ragged_tiles(gen, dtype, m, d, fh, fw, c):
+    """K4 where D, fW and fH are no multiple of the 64-bin, 4-column and
+    16-row tiles, with runs of equal cells along the bins (crossing a tile
+    edge), a non-contiguous ctx and an NCHW depth; then every row in the
+    trash cell: zeros."""
+    from mm_training_tpu_torch.ops import voxel_pooling
+    n_cells = 50
+    depth = torch.randn(m, d, fh, fw, generator=gen, device='cuda').softmax(1).to(dtype)
+    ctx = torch.randn(m, fw, fh, c, generator=gen, device='cuda').to(dtype).transpose(1, 2)
+    runs = torch.randint(0, n_cells + 1, (m, (d + 2) // 3, fw), generator=gen, device='cuda')
+    idx = runs.repeat_interleave(3, dim=1)[:, :d].int().contiguous()
+    zvalid = torch.rand(m, d, fh, fw, generator=gen, device='cuda') < 0.7
+    got = voxel_pooling.lift_splat_factorized(depth, ctx, idx, zvalid, n_cells)
+    _check_splat(got, depth, ctx, idx, zvalid, n_cells)
+    trash = torch.full_like(idx, n_cells)
+    out = voxel_pooling.lift_splat_factorized(depth, ctx, trash, zvalid, n_cells)
+    assert out.shape == (m, n_cells, c) and not out.float().abs().max().item()
+
+
+def test_lift_splat_kernel_refusals(gen):
+    """K4 raises for what it does not take: a gradient request, C not a
+    multiple of 8, fH above 64."""
+    from mm_training_tpu_torch.ops import voxel_pooling
+    depth = torch.rand(1, 4, 8, 8, generator=gen, device='cuda')
+    idx = torch.zeros(1, 4, 8, dtype=torch.int32, device='cuda')
+    zvalid = torch.ones(1, 4, 8, 8, dtype=torch.bool, device='cuda')
+    with pytest.raises(NotImplementedError, match='backward'):
+        voxel_pooling.lift_splat_factorized(depth.requires_grad_(), torch.rand(
+            1, 8, 8, 16, device='cuda'), idx, zvalid, 10)
+    with pytest.raises(ValueError, match='multiple of 8'):
+        voxel_pooling.lift_splat_factorized(depth.detach(), torch.rand(1, 8, 8, 12, device='cuda'),
+                                            idx, zvalid, 10)
+    tall = torch.rand(1, 4, 65, 8, device='cuda')
+    with pytest.raises(ValueError, match='fH up to 64'):
+        voxel_pooling.lift_splat_factorized(tall, torch.rand(1, 65, 8, 16, device='cuda'), idx,
+                                            torch.ones_like(tall, dtype=torch.bool), 10)
 
 
 @pytest.mark.parametrize('dtype,c', [(torch.bfloat16, 512), (torch.float32, 512),
@@ -294,3 +424,21 @@ def test_k3_and_k7_are_one_device_kernel_a_call(gen):
                               warp.bda_bev_warp(bev, bda)))
     assert sorted(ops.values()) == [1, 1], ops
     assert any('circle_nms' in n for n in ops) and any('bev_warp' in n for n in ops), ops
+
+
+def test_affine_act_backward_and_lift_splat_device_ops(gen):
+    """torch.profiler over one A' call ([4,64,64,512] bf16 with a residual)
+    and one K4 call (the B=1 camera request's shapes): A' is one device
+    kernel, K4 at most two, with no copy or fill beside them."""
+    from mm_training_tpu_torch.configs import lidar_cam_radar
+    from mm_training_tpu_torch.exps.kernel_inputs import splat_inputs
+    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.ops import voxel_pooling
+    x, r, g, s, t = _backward_case(gen, (4, 64, 64, 512), torch.bfloat16)
+    splat = splat_inputs(lidar_cam_radar(batch_size=1), gen)
+    ops = device_ops(lambda: (affine_act.affine_act_backward(g, x, s, t, r, True),
+                              voxel_pooling.lift_splat_factorized(*splat)))
+    backward = sum(n for name, n in ops.items() if 'affine_act_bwd' in name)
+    k4 = sum(n for name, n in ops.items() if 'splat' in name)
+    other = sum(ops.values()) - backward - k4
+    assert backward == 1 and other == 0 and 1 <= k4 <= 2, ops
