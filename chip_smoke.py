@@ -6,17 +6,18 @@
 Phases, each raising on failure:
   1. build the nine CUDA kernels from ``mm_training_tpu_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time; then count
-     the device operations of one K3, K7 and A' call (torch.profiler): one
-     kernel each, no copy; and of one K4 call at the B=1 and the B=4
-     camera request's shapes: at most two;
+     the device operations of one K3, K7, A', fused K5 and K1 encoder-input
+     call (torch.profiler): one kernel each, no copy; and of one K4 call at
+     the B=1 and the B=4 camera request's shapes: at most two;
   2. hold each kernel against its plain PyTorch version at the serving and
      training paths' shapes (K3 also on dense rows, A' also at ResNet-50's
-     2048-channel shape), and time kernel, plain version and, where one
-     exists, a single PyTorch call computing the same function;
+     2048-channel shape, K1 also into the encoder's input at B=1 and B=4),
+     and time kernel, plain version and, where one exists, a single
+     PyTorch call computing the same function;
   3. serve the full-width ``lidar_radar`` predict path (grid 256 x 2048,
      8-feature points, bf16, seeded random weights): distinct B=1 requests,
      one B=4 batch and a p50/p90/p99 latency run, with every kernel's launch
-     count reset before and read after;
+     count reset before and read after; the device ops of one request;
   4. check what came out: finite boxes of the expected shapes, pred maps
      equal to the same model run through the plain versions (bf16
      tolerance), and the fp32 tiny config on the card against the port's
@@ -24,28 +25,35 @@ Phases, each raising on failure:
   5. train the full-width ``lidar_radar`` model at B=4 (bf16 compute over
      float32 masters) on one fixed fake batch: warm-up, timed steps and one
      eval step, with every kernel's launch count reset before and read
-     after; finite losses; one step's gradients through the kernels against
-     the same step through the plain versions;
+     after; finite losses; the device ops of one step; one step's gradients
+     through the kernels against the same step through the plain versions;
   6. the fp32 tiny config's train step on the card against the port's CPU
      step (TF32 off): loss, updated parameters, BN statistics;
   7. the camera kernels K4-K7 against their plain versions at the
-     ``lidar_cam_radar`` serving path's shapes, timed as in phase 2 (K4 at
-     the B=1 and the B=4 request's splat indices, with the atomic adds a
-     launch counts on the card before and after merging runs of bins; K7 as
+     ``lidar_cam_radar`` serving path's shapes, timed as in phase 2 (K4 and
+     the fused K5 at the B=1 and the B=4 request, K4 with the atomic adds a
+     launch counts on the card before and after merging runs of bins, K5
+     with the corners it reads beyond its halo and against ``F.grid_sample``
+     plus ``torch.bmm``; the K5 columns kernel, off the serving path; K7 as
      the path calls it, ``bda_bev_warp`` from the BDA matrix to the warped
-     map, and against ``F.grid_sample``, timed and used nowhere in the
-     port);
+     map, and against ``F.grid_sample``; the yardsticks are timed and used
+     nowhere in the port);
   8. serve the full-width ``lidar_cam_radar`` predict path (ResNet-50 over
      4 cameras of 704 x 1280, DepthNet with the deformable conv, 409 depth
      bins, the LiDAR depth oracle, the BEV warp and fusion; bf16, seeded
      random weights): distinct B=1 requests, one B=4 batch, p50/p90 latency
-     at B=1 and B=4 and peak memory, with every kernel's launch count reset
-     before and read after; the fused BEV must be bf16;
+     at B=1 and B=4 and peak memory (also of one B=4 request alone), with
+     every kernel's launch count reset before and read after (the fused K5,
+     no column kernel and no ``torch.bmm``); the fused BEV must be bf16; the
+     share of corners the fused K5 reads beyond its halo on the path's own
+     offsets; the device ops of one B=1 request;
   9. pred maps of one camera request through the kernels against the plain
      versions (bf16), with a rotated, flipped and scaled BEV augmentation
      and with ``use_depth_loss=False`` (the DCN's depth reaches the splat);
      the fp32 tiny camera config on the card against the port's CPU path
      (TF32 off; boxes to 1e-3, scores to 1e-4).
+Each path's device-op count is printed beside the count before the fused
+K5 and K1's encoder input (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
@@ -61,10 +69,19 @@ from unittest import mock
 import numpy as np
 import torch
 
+from mm_training_tpu_torch.exps.timing import BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S
+
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM (data sheet, 700 W)
-FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+# device ops of one call of each path before the fused K5 and K1's encoder
+# input, on the tree they replaced (torch.profiler; exps/profile_predict.py
+# and exps/profile_train.py, PERF.md section 5)
+BEFORE_DEVICE_OPS = {'lidar_radar B=1 request': 512, 'lidar_radar B=4 train step': 4227,
+                  'lidar_cam_radar B=1 request': 930}
+# GiB one B=4 lidar_cam_radar request holds at its peak above what is held
+# between requests, on the tree before the fused K5 and K1 (exps/ab_kernels.py,
+# same process as this tree's; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 5)
+BEFORE_CAMERA_B4_ABOVE_GIB = 1.8437
 SM_CLOCK_HZ = 1.98e9        # H100 SXM boost clock (data sheet)
 INT_LATENCY_CYCLES = 4      # one dependent integer operation on an SM (assumed)
 
@@ -76,11 +93,13 @@ def _swaps():
     return ((affine_act, 'affine_act', affine_act.affine_act_plain),
             (affine_act, 'affine_act_backward', affine_act.affine_act_backward_plain),
             (voxelize, 'voxelize_pillars_dense', voxelize.voxelize_pillars_dense_plain),
+            (voxelize, 'pillar_encoder_input', voxelize.pillar_encoder_input_plain),
             (gaussian, 'draw_heatmap', gaussian.draw_heatmap_plain),
             (circle_nms, 'circle_nms_mask', circle_nms.circle_nms_mask_plain),
             (voxel_pooling, 'lift_splat_factorized',
              voxel_pooling.lift_splat_factorized_plain),
             (deform_conv, 'deform_sample', deform_conv.deform_sample_plain),
+            (deform_conv, 'deform_conv3x3', deform_conv.deform_conv3x3_plain),
             (depth_labels, 'depth_labels', depth_labels.depth_labels_plain),
             (warp, 'warp_affine_nhwc', warp.warp_affine_nhwc_plain),
             (warp, 'bda_bev_warp', warp.bda_bev_warp_plain))
@@ -128,21 +147,51 @@ def _randomize_bn(model, gen):
                 m.running_var.copy_(0.5 + torch.rand(c, generator=gen))
 
 
+def _points(cfg, batch_size, seed):
+    """(points, mask) of a fake ``cfg`` batch on the card."""
+    from mm_training_tpu_torch.data import make_fake_batch
+    batch = make_fake_batch(cfg, batch_size=batch_size, seed=seed)
+    return (torch.as_tensor(batch['points'], device='cuda'),
+            torch.as_tensor(batch['point_mask'], device='cuda'))
+
+
+def _encoder_channels(cfg):
+    """The channels K1 writes for the LiDAR encoder's first conv."""
+    from mm_training_tpu_torch.models import LidarBEVEncoder
+    with torch.device('meta'):
+        enc = LidarBEVEncoder(cfg.get_lidar_conf(), cfg.point_cloud_range, cfg.voxel_size,
+                              cfg.out_shape)
+    return enc.input_channels
+
+
+def _path_device_ops(label, fn):
+    """Print and return the device operations of one call of a path,
+    beside the count before the fused K5 and K1 (``BEFORE_DEVICE_OPS``)."""
+    from mm_training_tpu_torch.exps.timing import device_ops
+    n = sum(device_ops(fn).values())
+    print(f'device ops of one {label}: {n} (before the fused K5 and K1: '
+          f'{BEFORE_DEVICE_OPS[label]})', flush=True)
+    return n
+
+
 def count_device_ops(cfg, cam_cfg):
     """Phase 1b: the device operations of one call of each redesigned
     kernel as the paths make it, in torch.profiler sessions before any
     other work of the process (a session that records no device operation
     is taken again, see ``device_ops``): K3 (4 x 500 NMS rows with the
     per-task thresholds by value), K7 (the [1, 32, 256, 80] bf16 camera BEV
-    and a BDA matrix), A' ([4, 64, 64, 512] bf16 with a residual) and K4
-    (the B=1 camera request) in one session; A' at ResNet-50's [4, 2048,
-    22, 40] and K4 at the B=4 request in a second. Each kernel is known by
-    its name; any other device op (a copy, a fill) counts against every
-    call of its session. Returns {kernel row name: device ops a call}."""
+    and a BDA matrix), A' ([4, 64, 64, 512] bf16 with a residual), K4 (the
+    B=1 camera request), the fused K5 (the B=1 request's DCN, [4, 44, 80,
+    512] bf16) and K1's encoder input (a B=1 lidar request) in one session;
+    A' at ResNet-50's [4, 2048, 22, 40], K4, K5 and K1 at the B=4 requests
+    in a second. Each kernel is known by its name; any other device op (a
+    copy, a fill) counts against every call of its session. Returns
+    {kernel row name: device ops a call}."""
     from mm_training_tpu_torch.data import random_bda_matrices
-    from mm_training_tpu_torch.exps.kernel_inputs import splat_inputs
+    from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs, deform_shape, splat_inputs
     from mm_training_tpu_torch.exps.timing import device_ops
-    from mm_training_tpu_torch.ops import affine_act, circle_nms, voxel_pooling, warp
+    from mm_training_tpu_torch.ops import (affine_act, circle_nms, deform_conv, voxel_pooling,
+                                           voxelize, warp)
 
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -167,16 +216,29 @@ def count_device_ops(cfg, cam_cfg):
     def backward(g, x, r, s, t):
         return affine_act.affine_act_backward(g, x, s, t, r, True)
     kernels = {'circle_nms_mask': 'circle_nms', 'bda_bev_warp': 'bev_warp',
-               'affine_act_backward': 'affine_act_bwd', 'lift_splat_factorized': 'splat'}
+               'affine_act_backward': 'affine_act_bwd', 'lift_splat_factorized': 'splat',
+               'deform_conv3x3': 'deform_conv_kernel', 'pillar_encoder_input': 'pillar_kernel'}
+    dcn1 = deform_inputs(deform_shape(cam_cfg), 4, gen)
+    dcn4 = deform_inputs(deform_shape(cam_cfg.replace(batch_size=4)), 4, gen)
+    pts1, pts4 = (_points(cfg, b, SEED) for b in (1, 4))
+    geo = (cfg.point_cloud_range, cfg.voxel_size, cfg.out_shape)
+    channels = _encoder_channels(cfg)
+
+    def encoder_input(pts, mask):
+        return voxelize.pillar_encoder_input(pts, mask, *geo, dtype=torch.bfloat16,
+                                             channels=channels)
     per_call = {}
     for rows, fn in (
             (('circle_nms_mask', 'bda_bev_warp', 'affine_act_backward_residual',
-              'lift_splat_factorized'),
+              'lift_splat_factorized', 'deform_conv3x3', 'pillar_encoder_input'),
              lambda: (circle_nms.circle_nms_mask(centers, scores, valid, thresh),
                       warp.bda_bev_warp(bev, bda), backward(*bn),
-                      voxel_pooling.lift_splat_factorized(*splat1))),
-            (('affine_act_backward_resnet50', 'lift_splat_factorized_b4'),
-             lambda: (backward(*bn50), voxel_pooling.lift_splat_factorized(*splat4)))):
+                      voxel_pooling.lift_splat_factorized(*splat1),
+                      deform_conv.deform_conv3x3(*dcn1, 4), encoder_input(*pts1))),
+            (('affine_act_backward_resnet50', 'lift_splat_factorized_b4', 'deform_conv3x3_b4',
+              'pillar_encoder_input_b4'),
+             lambda: (backward(*bn50), voxel_pooling.lift_splat_factorized(*splat4),
+                      deform_conv.deform_conv3x3(*dcn4, 4), encoder_input(*pts4)))):
         ops = device_ops(fn)
         print(f'device ops of one call each of {list(rows)} (torch.profiler): '
               f'{json.dumps(ops)}', flush=True)
@@ -185,11 +247,12 @@ def count_device_ops(cfg, cam_cfg):
         for row, key in keys.items():
             per_call[row] = other + sum(n for name, n in ops.items() if key in name)
     one = ('circle_nms_mask', 'bda_bev_warp', 'affine_act_backward_residual',
-           'affine_act_backward_resnet50')
+           'affine_act_backward_resnet50', 'deform_conv3x3', 'deform_conv3x3_b4',
+           'pillar_encoder_input', 'pillar_encoder_input_b4')
     if any(per_call[n] != 1 for n in one) or not all(
             1 <= per_call[n] <= 2 for n in ('lift_splat_factorized', 'lift_splat_factorized_b4')):
-        raise AssertionError(f"K3, K7 and A' must each be one device kernel a call, K4 at "
-                             f'most two: {per_call}')
+        raise AssertionError(f"K1's encoder input, K3, K5, K7 and A' must each be one device "
+                             f'kernel a call, K4 at most two: {per_call}')
     return per_call
 
 
@@ -262,6 +325,32 @@ def check_kernels(cfg):
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
         library_ms=device_ms(library, 20), library_max_abs_err=lib_err,
         shape=list(pts.shape), dtype='float32'))
+
+    # --- K1 into the encoder's input, as the lidar encoder asks for it (bf16,
+    # space-to-depth, zero channels up to its first conv's padded input), at
+    # a B=1 request and at the train step's B=4 batch
+    channels = _encoder_channels(cfg)
+    for name, bsz in (('pillar_encoder_input', 1), ('pillar_encoder_input_b4', 4)):
+        pts, mask = _points(cfg, bsz, SEED)
+        enc_args = (pts, mask, *geo, nf, torch.bfloat16, True, channels)
+        got = voxelize.pillar_encoder_input(*enc_args)
+        want = voxelize.pillar_encoder_input_plain(*enc_args)
+        w = want.float()
+        ulp = torch.where(w == 0, 0.0, torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
+        diff = (got.float() - w).abs()
+        nbytes = mask.numel() + int(mask.sum()) * nf * 4 + got.numel() * 2
+        rows.append(dict(
+            name=name, route='cuda', source='mm_training_tpu_torch/csrc/voxelize.cu',
+            replaces='mm_training_tpu/ops/voxelize.py:27',
+            max_abs_err=diff.max().item(),
+            # one bf16 ulp plus the atomic-order slack of the fp32 means
+            outside_tolerance=int((diff > ulp + 1e-5 * (1 + w.abs())).sum()),
+            pad_zero=bool(torch.equal(got[..., 4 * nf:], torch.zeros_like(got[..., 4 * nf:]))),
+            ms=device_ms(lambda: voxelize.pillar_encoder_input(*enc_args), 100),
+            call_ms=host_ms(lambda: voxelize.pillar_encoder_input(*enc_args), 100),
+            plain_ms=device_ms(lambda: voxelize.pillar_encoder_input_plain(*enc_args), 10),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes', library_ms=None,
+            shape=list(pts.shape), out_shape=list(got.shape), dtype='bfloat16'))
 
     # --- K3 on one request's (batch, task) rows: 4 x K=500 candidates, the
     # per-task thresholds by value as the decode passes them
@@ -390,6 +479,9 @@ def check_kernels(cfg):
     if not by['voxelize_pillars_dense']['max_abs_err'] <= 1e-4:  # atomics: another order
         raise AssertionError(f"voxelize differs from its plain version: "
                              f"{by['voxelize_pillars_dense']}")
+    for name in ('pillar_encoder_input', 'pillar_encoder_input_b4'):
+        if by[name]['outside_tolerance'] or not by[name]['pad_zero']:
+            raise AssertionError(f'{name} differs from its plain version: {by[name]}')
     if by['circle_nms_mask']['max_abs_err'] != 0:
         raise AssertionError(f"circle_nms differs from its plain version: "
                              f"{by['circle_nms_mask']}")
@@ -443,10 +535,13 @@ def serve(cfg):
     print('serve latency B=1: ' + json.dumps(stats), flush=True)
     print('serve latency B=4: ' + json.dumps(stats_b4), flush=True)
     print(f'serve: launches over {calls} predict calls {json.dumps(counts)}', flush=True)
-    missing = [n for n in ('affine_act', 'voxelize_pillars_dense', 'circle_nms_mask')
+    missing = [n for n in ('affine_act', 'pillar_encoder_input', 'circle_nms_mask')
                if counts[n] == 0]
     if missing:
         raise AssertionError(f'kernels never launched on the main path: {missing}')
+    if counts['voxelize_pillars_dense']:    # the encoder takes K1's own layout now
+        raise AssertionError('the lidar path launched K1 in its plain layout')
+    _path_device_ops('lidar_radar B=1 request', lambda: [o.cpu() for o in predict(requests[0])])
 
     n_out = len(cfg.get_head_conf().tasks) * cfg.get_head_conf().test_cfg.post_max_size
     for o, b in [(o, 1) for o in outs] + [(out_big, 4)]:
@@ -463,7 +558,6 @@ def serve(cfg):
 def compare_plain(model, request):
     """Phase 4a: pred maps through the kernels vs the plain versions (bf16);
     the forward runs A and K1 (K3 is decode's, held in phase 2)."""
-    from mm_training_tpu_torch.ops import affine_act, voxelize
     from mm_training_tpu_torch.training import cast_floating
 
     net = cast_floating(model, torch.bfloat16)
@@ -471,12 +565,10 @@ def compare_plain(model, request):
     mask = torch.as_tensor(request['point_mask'], device='cuda')
     with torch.inference_mode():
         got = net(pts, mask)
-        before = (affine_act.affine_act.launches, voxelize.voxelize_pillars_dense.launches)
-        with mock.patch.object(affine_act, 'affine_act', affine_act.affine_act_plain), \
-                mock.patch.object(voxelize, 'voxelize_pillars_dense',
-                                  voxelize.voxelize_pillars_dense_plain):
+        before = {n: w.launches for n, w in _wrappers().items()}
+        with _plain_versions():
             want = net(pts, mask)
-        if (affine_act.affine_act.launches, voxelize.voxelize_pillars_dense.launches) != before:
+        if {n: w.launches for n, w in _wrappers().items()} != before:
             raise AssertionError('the plain run launched a kernel')
     worst = 0.0
     for g, w in zip(got, want):
@@ -564,17 +656,25 @@ def train(cfg):
           + f'; eval loss {float(ev_metrics["loss"]):.4f}', flush=True)
     print(f'train: launches over 12 train steps and 1 eval step {json.dumps(counts)}',
           flush=True)
-    missing = [n for n in ('affine_act', 'affine_act_backward', 'voxelize_pillars_dense',
+    missing = [n for n in ('affine_act', 'affine_act_backward', 'pillar_encoder_input',
                            'draw_heatmap', 'circle_nms_mask') if counts[n] == 0]
     if missing:
         raise AssertionError(f'kernels never launched on the train path: {missing}')
+    if counts['voxelize_pillars_dense']:
+        raise AssertionError('the train path launched K1 in its plain layout')
     if not all(np.isfinite(stats['losses'])) or not torch.isfinite(ev_metrics['loss']):
         raise AssertionError('non-finite train or eval loss')
     if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
         raise AssertionError('non-finite eval boxes')
     if not stats['losses'][-1] < stats['losses'][0]:
         raise AssertionError(f'the train loss did not fall on one batch: {stats["losses"]}')
-    return cfg, state, batch, counts, stats
+    box = [state]
+
+    def step():
+        box[0], _ = train_step(box[0], batch)
+        torch.cuda.synchronize()
+    _path_device_ops('lidar_radar B=4 train step', step)
+    return cfg, box[0], batch, counts, stats
 
 
 def compare_plain_gradients(cfg, state, batch):
@@ -668,9 +768,11 @@ def _bound(nbytes, flops, rate):
 def check_camera_kernels(cfg):
     """Phase 7: K4-K7 against their plain versions at the camera serving
     path's shapes (one B=1 request: 4 cameras, 409 bins, 44 x 80 features,
-    an 8192-cell camera BEV), K6 on the request's own points."""
+    an 8192-cell camera BEV; K4 and the fused K5 also at the B=4 request),
+    K6 on the request's own points."""
     from mm_training_tpu_torch.data import make_fake_batch, random_bda_matrices
-    from mm_training_tpu_torch.exps.kernel_inputs import splat_inputs
+    from mm_training_tpu_torch.exps.kernel_inputs import (deform_inputs, deform_outside_tolerance,
+                                                          deform_shape, splat_inputs)
     from mm_training_tpu_torch.exps.timing import device_ms, host_ms
     from mm_training_tpu_torch.ops import deform_conv, depth_labels, voxel_pooling, warp
 
@@ -732,20 +834,71 @@ def check_camera_kernels(cfg):
                          'counted_by': 'the kernel, on the card'},
             kept_rows_x_c=rows_kept * c,
             shape=[m, d, fh, fw, c], dtype='bfloat16')
-    m = intr.shape[0] * intr.shape[1]     # the B=1 request's cameras
 
-    # --- K5 at the DepthNet's width (512 channels), offsets up to 3 px
-    x = torch.randn(m, fh, fw, 512, generator=gen, device=dev).bfloat16()
-    off = torch.rand(m, fh, fw, 18, generator=gen, device=dev) * 6 - 3
-    off = torch.where(torch.rand(off.shape, generator=gen, device=dev) < 0.25, off.round(), off)
-    got = deform_conv.deform_sample(x, off)
-    want = deform_conv.deform_sample_plain(x, off)
-    # read x and the offsets once, write the columns; ~8 operations an output
-    row('deform_sample', 'deform_conv.cu', 'mm_training_tpu/models/depth_net.py:30',
-        lambda: deform_conv.deform_sample(x, off), lambda: deform_conv.deform_sample_plain(x, off),
-        x.numel() * 2 + off.numel() * 4 + got.numel() * 2, 8 * got.numel(), FP32_FLOPS, 5,
-        max_abs_err=(got.float() - want.float()).abs().max().item(), library_ms=None,
-        shape=list(x.shape), dtype='bfloat16')
+    # --- K5 at the DepthNet's DCN (512 channels, 4 groups), offsets up to 3
+    # px: the fused op at the B=1 and the B=4 request, and the columns
+    # kernel (off the serving path since the fused op) at B=1. The yardsticks, timed
+    # and used nowhere in the port: F.grid_sample (bilinear, zero padding,
+    # align_corners=True) computing the same samples from a float32 NCHW
+    # copy, one rounding and not corner by corner; torch.bmm on the bf16
+    # columns, the product the fused op folds in
+    for name, bsz in (('deform_conv3x3', 1), ('deform_conv3x3_b4', 4)):
+        x, off, wgt, bias = dcn = deform_inputs(deform_shape(cfg.replace(batch_size=bsz)), 4,
+                                                gen)
+        got = deform_conv.deform_conv3x3(*dcn, 4)
+        outside, err = deform_outside_tolerance(got, *dcn, 4)
+        from_l2, corners = deform_conv.halo_corners(*dcn, 4)
+        bm, hh, ww, cc = x.shape
+        cols = deform_conv.deform_sample(x, off)
+        gcols = cols.reshape(bm * hh * ww, 9, 4, cc // 4).permute(2, 0, 1, 3)
+        gcols = gcols.reshape(4, -1, 9 * cc // 4)
+        src = x.float().permute(0, 3, 1, 2)
+        ys = torch.arange(hh, device=dev, dtype=torch.float32).view(1, hh, 1, 1)
+        xs = torch.arange(ww, device=dev, dtype=torch.float32).view(1, 1, ww, 1)
+        k = torch.arange(9, device=dev)
+        o5 = off.view(bm, hh, ww, 9, 2)
+        gy = ys + (k // 3 - 1).float() + o5[..., 0]
+        gx = xs + (k % 3 - 1).float() + o5[..., 1]
+        grid = torch.stack([gx / (ww - 1), gy / (hh - 1)], -1).view(bm, hh, ww * 9, 2) * 2 - 1
+
+        def sample(src=src, grid=grid):
+            return torch.nn.functional.grid_sample(src, grid, mode='bilinear',
+                                                   padding_mode='zeros', align_corners=True)
+
+        def product(gcols=gcols, wgt=wgt):
+            return torch.bmm(gcols, wgt)
+        sample_ms, bmm_ms = device_ms(sample, 20), device_ms(product, 20)
+        sampled = sample().view(bm, cc, hh, ww, 9).permute(0, 2, 3, 4, 1)
+        sampled = sampled.reshape(bm, hh * ww, 9, cc)
+        grid_err = (sampled - cols.float()).abs().max().item()
+        flops = 2 * bm * hh * ww * wgt.shape[0] * wgt.shape[2] * wgt.shape[1]
+        nbytes = (x.numel() * 2 + off.numel() * 4 + wgt.numel() * 2 + bias.numel() * 2
+                  + got.numel() * 2)
+        row(name, 'deform_conv.cu', 'mm_training_tpu/models/depth_net.py:46',
+            lambda dcn=dcn: deform_conv.deform_conv3x3(*dcn, 4),
+            lambda dcn=dcn: deform_conv.deform_conv3x3_plain(*dcn, 4),
+            nbytes, flops, BF16_FLOPS, 3,
+            max_abs_err=err, outside_tolerance=outside,
+            library_ms=sample_ms + bmm_ms, library='F.grid_sample + torch.bmm',
+            grid_sample_ms=sample_ms, bmm_ms=bmm_ms, grid_sample_max_abs_err=grid_err,
+            corners_from_l2=from_l2, corners=corners,
+            corners_share_beyond_halo=from_l2 / corners,
+            replaces_lines='depth_net.py:46-110 without the offset conv',
+            shape=list(x.shape), dtype='bfloat16')
+        if bsz == 1:
+            row('deform_sample', 'deform_conv.cu', 'mm_training_tpu/models/depth_net.py:56',
+                lambda: deform_conv.deform_sample(x, off),
+                lambda: deform_conv.deform_sample_plain(x, off),
+                x.numel() * 2 + off.numel() * 4 + cols.numel() * 2, 8 * cols.numel(),
+                FP32_FLOPS, 5,
+                max_abs_err=(cols.float() - deform_conv.deform_sample_plain(x, off).float()
+                             ).abs().max().item(),
+                library_ms=sample_ms, library='F.grid_sample', library_max_abs_err=grid_err,
+                note='the columns; off the serving path since the fused op',
+                shape=list(x.shape), dtype='bfloat16')
+        del cols, gcols, src, grid, sampled
+        print(f'K5 {name}: {from_l2} of {corners} corners beyond the halo '
+              f'({from_l2 / corners:.6f}), offsets up to 3 px', flush=True)
 
     # --- K6 on the request's 100k points, its 4 cameras
     pts = torch.as_tensor(batch['points'], device=dev)
@@ -815,6 +968,14 @@ def check_camera_kernels(cfg):
                 and adds['before_merge'] == k4['kept_rows_x_c']
                 and 0 < 4 * adds['after_merge'] < adds['before_merge']):
             raise AssertionError(f'{name} differs from its plain version: {k4}')
+    for name in ('deform_conv3x3', 'deform_conv3x3_b4'):
+        # the samples bit for bit, the fp32 sums in another order than the
+        # plain version's: kernel and plain outputs each the op's rounding
+        # (sum, then bias) of a sum within 1e-5 of the sum of |terms| of the
+        # exact sum; the check offsets (3 px) stay inside the halo
+        k5 = by[name]
+        if k5['outside_tolerance'] or k5['corners_from_l2']:
+            raise AssertionError(f'{name} differs from its plain version: {k5}')
     for name in ('deform_sample', 'depth_labels', 'bda_bev_warp'):   # bit for bit
         if by[name]['max_abs_err'] != 0:
             raise AssertionError(f'{name} differs from its plain version: {by[name]}')
@@ -831,6 +992,8 @@ def serve_camera(cfg):
     from mm_training_tpu_torch.data import make_fake_batch
     from mm_training_tpu_torch.exps.inference import benchmark_latency
     from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.models.depth_net import DeformConv2d
+    from mm_training_tpu_torch.ops import deform_conv
     from mm_training_tpu_torch.training import make_predict_step
 
     gen = torch.Generator().manual_seed(SEED + 10)
@@ -839,27 +1002,68 @@ def serve_camera(cfg):
     _randomize_offsets(model, gen)
     fused_dtypes = set()
     model.head.register_forward_pre_hook(lambda mod, args: fused_dtypes.add(args[0].dtype))
+    dcn_inputs = []   # (the predict step's DCN, its input), first call only
+
+    def keep_dcn_input(mod, args):
+        if not dcn_inputs:
+            dcn_inputs.append((mod, args[0]))
+    next(m for m in model.modules() if isinstance(m, DeformConv2d)).register_forward_pre_hook(
+        keep_dcn_input)
     predict = make_predict_step(cfg, model)
     requests = [make_fake_batch(cfg, batch_size=1, seed=SEED + 11 + i) for i in range(3)]
     big = make_fake_batch(cfg, batch_size=4, seed=SEED + 20)
     wrappers = _wrappers()
 
+    bmm_calls = []
+    bmm = torch.bmm
+
+    def counted_bmm(*a, **k):
+        bmm_calls.append(1)
+        return bmm(*a, **k)
+
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
     outs, lat = [], []
-    for req in requests:
+    with mock.patch.object(torch, 'bmm', counted_bmm):
+        for req in requests:
+            t0 = time.perf_counter()
+            outs.append([o.cpu() for o in predict(req)])
+            lat.append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
-        outs.append([o.cpu() for o in predict(req)])
-        lat.append((time.perf_counter() - t0) * 1e3)
-    t0 = time.perf_counter()
-    out_big = [o.cpu() for o in predict(big)]
-    lat_big = (time.perf_counter() - t0) * 1e3
+        out_big = [o.cpu() for o in predict(big)]
+        lat_big = (time.perf_counter() - t0) * 1e3
     stats = benchmark_latency(predict, requests[0], iters=60)
     stats_b4 = benchmark_latency(predict, big, iters=20)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = {n: w.launches for n, w in wrappers.items()}
     calls = len(requests) + 1 + (stats['samples'] + 1) + (stats_b4['samples'] + 1)
+    # the peak of one B=4 request alone, after the warm ones above
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    [o.cpu() for o in predict(big)]
+    peak_b4_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'serve camera: peak device memory of one B=4 request {peak_b4_gib:.4f} GiB, '
+          f'{peak_b4_gib - base_gib:.4f} GiB above the {base_gib:.4f} GiB held between '
+          f'requests (before the fused K5: {BEFORE_CAMERA_B4_ABOVE_GIB} GiB above); torch.bmm '
+          f'calls on the '
+          f'path {len(bmm_calls)}', flush=True)
+    # the share of bilinear corners the fused K5 read from L2 on the path's
+    # own offsets (the DepthNet's input of the first request)
+    with torch.inference_mode():
+        dcn, x = dcn_inputs[0]
+        offsets = dcn.conv_offset(x).permute(0, 2, 3, 1).float()
+        from_l2, corners = deform_conv.halo_corners(
+            x.permute(0, 2, 3, 1), offsets, dcn.packed_weight(x.dtype), dcn.bias.to(x.dtype),
+            dcn.groups)
+        off_abs = offsets.abs()
+    print(f'K5 on the path: {from_l2} of {corners} corners beyond the halo '
+          f'({from_l2 / corners:.6f}); |offset| mean {off_abs.mean().item():.4f} px, '
+          f'99.9th percentile {off_abs.flatten().float().quantile(0.999).item():.4f} px, '
+          f'max {off_abs.max().item():.4f} px', flush=True)
+    _path_device_ops('lidar_cam_radar B=1 request',
+                     lambda: [o.cpu() for o in predict(requests[0])])
 
     print(f'serve camera: {len(requests)} B=1 requests {[round(v, 3) for v in lat]} ms '
           f'(first includes warm-up), B=4 batch {lat_big:.3f} ms; '
@@ -868,11 +1072,16 @@ def serve_camera(cfg):
     print('serve camera latency B=4: ' + json.dumps(stats_b4), flush=True)
     print(f'serve camera: launches over {calls} predict calls {json.dumps(counts)}; '
           f'fused BEV dtypes {sorted(map(str, fused_dtypes))}', flush=True)
-    missing = [n for n in ('affine_act', 'voxelize_pillars_dense', 'circle_nms_mask',
-                           'lift_splat_factorized', 'deform_sample', 'depth_labels',
+    missing = [n for n in ('affine_act', 'pillar_encoder_input', 'circle_nms_mask',
+                           'lift_splat_factorized', 'deform_conv3x3', 'depth_labels',
                            'bda_bev_warp') if counts[n] == 0]
     if missing:
         raise AssertionError(f'kernels never launched on the camera path: {missing}')
+    # the fused K5 holds no column tensor: no columns kernel, no batched
+    # product; the encoder takes K1's own layout
+    if counts['deform_sample'] or counts['voxelize_pillars_dense'] or bmm_calls:
+        raise AssertionError(f'the camera path launched the columns kernel, K1 in its plain '
+                             f'layout or torch.bmm: {counts}, {len(bmm_calls)} bmm calls')
     if fused_dtypes != {torch.bfloat16}:
         raise AssertionError(f'the fused BEV entering the head is {fused_dtypes}, not bf16')
     n_out = len(cfg.get_head_conf().tasks) * cfg.get_head_conf().test_cfg.post_max_size
@@ -885,6 +1094,8 @@ def serve_camera(cfg):
         if not valid.any(1).all():
             raise AssertionError('a request decoded no box')
     stats['max_memory_allocated_gib'] = peak_gib
+    stats_b4['max_memory_allocated_one_request_gib'] = peak_b4_gib
+    stats_b4['one_request_above_held_gib'] = peak_b4_gib - base_gib
     return model, requests[0], counts, calls, (stats, stats_b4)
 
 
@@ -911,9 +1122,10 @@ def compare_plain_camera(model, cfg, request):
                 want = net(pts, mask, **camera_inputs(c, req, 'cuda', pts, mask))
             if {n: w.launches for n, w in _wrappers().items()} != before:
                 raise AssertionError('the plain run launched a kernel')
-        # K5, K6, K7 and A match bit for bit; the atomics of K1 and K4 move
-        # sums by fp32 ulps, which can flip a bf16 rounding and travel
-        # through the bf16 layers after them: allow 1/32 of the map's scale
+        # K6, K7 and A match bit for bit; the atomics of K1 and K4 and K5's
+        # fp32 sums in another order move sums by fp32 ulps, which can flip
+        # a bf16 rounding and travel through the bf16 layers after them:
+        # allow 1/32 of the map's scale
         worst[label] = max(((g[k].float() - w[k].float()).abs().max()
                             / w[k].float().abs().max().clamp_min(1.0)).item()
                            for g, w in zip(got, want) for k in w)

@@ -1,4 +1,5 @@
-"""Kernel A' and K4 of this package against another copy of it, in one process.
+"""Kernels A', K4, K5 and K1 of this package against another copy of it, in
+one process.
 
 The other copy (for example an earlier commit unpacked with ``git archive``
 into a git-ignored directory) is imported under another module name and
@@ -13,11 +14,26 @@ this, this, other, on the same inputs:
 - K4 at the B=1 and the B=4 ``lidar_cam_radar`` request's splat indices,
   bf16, in every layout of ``exps/kernel_inputs.py``: the strided views the
   camera path hands over (depth channels-last, a slice read in place or
-  NCHW; ctx a permuted channels-last slice) and contiguous copies.
+  NCHW; ctx a permuted channels-last slice) and contiguous copies;
+- K5 as ``DeformConv2d.forward`` (offset conv included) under
+  ``inference_mode`` at the B=1 and the B=4 ``lidar_cam_radar`` request's
+  DCN input ([4 or 16, 512, 44, 80] bf16), the same weights and a random
+  offset conv in both copies, with each forward's peak device memory above
+  what it was handed;
+- K1 as the LiDAR encoder's input stage at a B=1 and a B=4 ``lidar_radar``
+  batch (100k points a frame): each copy's voxelization, cast and
+  space-to-depth as its ``LidarBEVEncoder.forward`` runs them, in bf16, and
+  the first conv's forward and backward (a weight gradient) on that input,
+  each copy at its own input channels;
+- the peak device memory of one B=4 ``lidar_cam_radar`` predict request,
+  each copy's full-width model (seeded random weights) built in turn.
 
-Prints one JSON object with the card's name and power limit.
+``--only`` takes a subset of {backward, lift_splat, deform_conv,
+encoder_input, camera_memory}. Prints one JSON object with the card's name
+and power limit.
 
     python -m mm_training_tpu_torch.exps.ab_kernels --other path/to/mm_training_tpu_torch
+        [--only deform_conv encoder_input camera_memory]
 """
 from __future__ import annotations
 
@@ -31,29 +47,34 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from ..configs import lidar_cam_radar, lidar_radar
 from ..data import make_fake_batch
 from ..models import BEVDepthLiDAR
-from ..ops import affine_act, voxel_pooling
+from ..models.depth_net import DeformConv2d
+from ..models.lidar_encoder import LidarBEVEncoder
+from ..ops import affine_act, voxel_pooling, voxelize
 from ..training import create_train_state, make_train_step
 from .kernel_inputs import SPLAT_LAYOUTS, splat_inputs
-from .profile_kernels import HBM_BYTES_PER_S, record
-from .timing import device_ms
+from .profile_kernels import record
+from .timing import HBM_BYTES_PER_S, device_ms
 
 __all__ = ['main']
 
+SECTIONS = ('backward', 'lift_splat', 'deform_conv', 'encoder_input', 'camera_memory')
+
 
 def load_copy(path: str, name: str = 'mm_training_tpu_torch_other'):
-    """(ops.affine_act, ops.voxel_pooling) of the package copy at ``path``."""
+    """The package copy at ``path``, imported as ``name``; its submodules
+    by ``importlib.import_module(f'{name}.ops.affine_act')`` and so on."""
     path = Path(path).resolve()
     spec = importlib.util.spec_from_file_location(name, path / '__init__.py',
                                                   submodule_search_locations=[str(path)])
     pkg = importlib.util.module_from_spec(spec)
     sys.modules[name] = pkg
     spec.loader.exec_module(pkg)
-    return (importlib.import_module(f'{name}.ops.affine_act'),
-            importlib.import_module(f'{name}.ops.voxel_pooling'))
+    return name
 
 
 def _alternate(other, this, iters: int) -> dict:
@@ -81,23 +102,147 @@ def backward_shapes() -> list:
     return sorted((list(k[1]), k[3], k[4], n) for k, n in calls.items() if k[0] == 'backward')
 
 
+def _peak_above(fn) -> float:
+    """GiB of device memory ``fn()`` held at its peak above what was
+    allocated before it (after a warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def deform_conv_rows(other: str, gen: torch.Generator) -> list:
+    """K5: ``DeformConv2d.forward`` of both copies at the B=1 and B=4
+    requests' DCN input, the same weights and offset conv."""
+    other_dcn = importlib.import_module(f'{other}.models.depth_net').DeformConv2d
+    rows = []
+    for batch_size in (1, 4):
+        cfg = lidar_cam_radar(batch_size=batch_size)
+        bb = cfg.get_backbone_conf()
+        c = bb.depth_net_conf.mid_channels
+        this = DeformConv2d(c, c, groups=4)
+        this.reset_parameters(torch.Generator().manual_seed(0))
+        with torch.no_grad():   # offsets of about 1-2 px, as chip_smoke.py draws them
+            w = this.conv_offset.weight
+            w.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(1))
+                    / (w.shape[1] * 9) ** 0.5)
+        that = other_dcn(c, c, groups=4)
+        that.load_state_dict(this.state_dict())
+        mods = [m.to('cuda', torch.bfloat16).to(memory_format=torch.channels_last).eval()
+                for m in (this, that)]
+        x = torch.randn(batch_size * cfg.num_cameras, c, *bb.feat_hw, generator=gen,
+                        device='cuda').bfloat16().contiguous(memory_format=torch.channels_last)
+        row = {'batch_size': batch_size, 'input': list(x.shape)}
+        with torch.inference_mode():
+            row.update(_alternate(lambda: mods[1](x), lambda: mods[0](x), 20))
+            row['this_peak_gib'] = _peak_above(lambda: mods[0](x))
+            row['other_peak_gib'] = _peak_above(lambda: mods[1](x))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def encoder_input_rows(other: str, gen: torch.Generator) -> list:
+    """K1: the LiDAR encoder's input stage of both copies, and its first
+    conv's forward and backward on that input."""
+    other_vox = importlib.import_module(f'{other}.ops.voxelize')
+    other_s2d = importlib.import_module(f'{other}.models.resnet').space_to_depth_2x2
+    rows = []
+    for batch_size in (1, 4):
+        cfg = lidar_radar(batch_size=batch_size, max_points_per_frame=100_000)
+        batch = make_fake_batch(cfg, seed=0)
+        pts = torch.as_tensor(batch['points'], device='cuda')
+        mask = torch.as_tensor(batch['point_mask'], device='cuda')
+        geo = (cfg.point_cloud_range, cfg.voxel_size, cfg.out_shape)
+        enc = LidarBEVEncoder(cfg.get_lidar_conf(), *geo).to(
+            'cuda', torch.bfloat16).to(memory_format=torch.channels_last)
+        nf = cfg.get_lidar_conf().voxelization.num_features
+
+        def that_stage():
+            x = other_vox.voxelize_pillars_dense(pts, mask, *geo, num_features=nf)
+            return other_s2d(x.to(torch.bfloat16)).permute(0, 3, 1, 2)
+
+        def this_stage():
+            return voxelize.pillar_encoder_input(
+                pts, mask, *geo, num_features=nf, dtype=torch.bfloat16,
+                space_to_depth=enc.conf.space_to_depth,
+                channels=enc.input_channels).permute(0, 3, 1, 2)
+        row = {'batch_size': batch_size, 'points': list(pts.shape),
+               'this_channels': enc.input_channels}
+        row.update(_alternate(that_stage, this_stage, 50))
+        conv = enc.stage0_conv0.conv
+        x_that, x_this = that_stage(), this_stage()
+        g = torch.randn(x_this.shape[0], conv.out_channels, *x_this.shape[2:], generator=gen,
+                        device='cuda').bfloat16().contiguous(memory_format=torch.channels_last)
+
+        def that_conv():
+            conv.weight.grad = None
+            F.conv2d(x_that, conv.weight, None, 1, 1).backward(g)
+
+        def this_conv():
+            conv.weight.grad = None
+            F.conv2d(x_this, enc.first_conv_weight(), None, 1, 1).backward(g)
+        conv_ab = _alternate(that_conv, this_conv, 20)
+        row['conv_other_ms'], row['conv_this_ms'] = conv_ab['other_ms'], conv_ab['this_ms']
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def camera_memory(other: str) -> dict:
+    """GiB of device memory one B=4 ``lidar_cam_radar`` predict request held
+    at its peak above the model, for each copy's own model."""
+    out = {}
+    for label, pkg in (('other', other), ('this', __package__.split('.')[0])):
+        cfg = lidar_cam_radar(batch_size=4)
+        model = importlib.import_module(f'{pkg}.models').BEVDepthLiDAR(
+            cfg, generator=torch.Generator().manual_seed(0))
+        predict = importlib.import_module(f'{pkg}.training').make_predict_step(cfg, model)
+        batch = make_fake_batch(cfg, seed=0)
+        out[f'{label}_request_peak_gib'] = _peak_above(lambda: [o.cpu() for o in predict(batch)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[f'{label}_held_gib'] = torch.cuda.memory_allocated() / 2 ** 30
+        [o.cpu() for o in predict(batch)]
+        out[f'{label}_peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model, predict
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--other', required=True, help='directory of the other package copy')
+    ap.add_argument('--only', nargs='+', choices=SECTIONS, default=SECTIONS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('ab_kernels: needs a CUDA device')
-    other_aa, other_vp = load_copy(args.other)
+    other = load_copy(args.other)
     gen = torch.Generator(device='cuda').manual_seed(0)
     result = {'device': torch.cuda.get_device_name(0),
               'card': subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                                       '--format=csv,noheader'], capture_output=True,
                                      text=True).stdout.strip(),
               'backward': [], 'lift_splat': []}
+    if 'deform_conv' in args.only:
+        result['deform_conv'] = deform_conv_rows(other, gen)
+    if 'encoder_input' in args.only:
+        result['encoder_input'] = encoder_input_rows(other, gen)
+    if 'camera_memory' in args.only:
+        result['camera_memory'] = camera_memory(other)
+    other_aa = importlib.import_module(f'{other}.ops.affine_act')
+    other_vp = importlib.import_module(f'{other}.ops.voxel_pooling')
 
-    cases = [(shape, res, relu, {'train B=4': n}) for shape, res, relu, n in backward_shapes()]
-    cases += [([4, 64, 64, 512], False, True, {}), ([4, 64, 64, 512], True, True, {}),
-              ([4, 2048, 22, 40], True, True, {})]
+    cases = []
+    if 'backward' in args.only:
+        cases = [(shape, res, relu, {'train B=4': n})
+                 for shape, res, relu, n in backward_shapes()]
+        cases += [([4, 64, 64, 512], False, True, {}), ([4, 64, 64, 512], True, True, {}),
+                  ([4, 2048, 22, 40], True, True, {})]
     for shape, res, relu, launches in cases:
         def cl():
             return torch.randn(*shape, generator=gen, device='cuda').bfloat16().contiguous(
@@ -112,7 +257,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         result['backward'].append(row)
         print(json.dumps(row), flush=True)
 
-    for batch_size in (1, 4):
+    for batch_size in ((1, 4) if 'lift_splat' in args.only else ()):
         for layout in SPLAT_LAYOUTS:
             a = splat_inputs(lidar_cam_radar(batch_size=batch_size), gen, layout)
             depth, ctx, idx, zvalid, n_cells = a

@@ -11,8 +11,21 @@ kernels. ASPP's ``AtrousConv2d`` rows also give both of its forms,
 plain 3x3 conv over the phase sub-images, which it runs from dilation 12
 on).
 
+``--lidar-stem`` instead times the LiDAR encoder's first conv
+(``stage0_conv0``: 3x3, 16 out, stride 1, bf16 channels_last) at the B=4
+train step's input [4, C, 128, 1024] for C = 20 (the space-to-depth of 5
+features) and the zero-padded 24 and 32: its forward, and its forward and
+backward as the train step runs it (a weight gradient; the input comes from
+kernel K1 and needs none). ``--train`` times every conv module of one B=4
+``lidar_radar`` train step alone, forward and backward with the gradients
+the step takes (the weight's, and the input's where the input carries one),
+on the input the step gave it, slowest first (the encoder's first conv, run
+with its padded kernel, is ``--lidar-stem``'s).
+
     python -m mm_training_tpu_torch.exps.profile_convs [--config lidar_cam_radar]
         [--batch-size 1] [--iters 5] [--top 20]
+    python -m mm_training_tpu_torch.exps.profile_convs --lidar-stem [--iters 20]
+    python -m mm_training_tpu_torch.exps.profile_convs --train [--iters 5] [--top 20]
 """
 from __future__ import annotations
 
@@ -23,14 +36,73 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..configs import variants
+from ..configs import lidar_radar, variants
 from ..data import make_fake_batch
 from ..models import BEVDepthLiDAR
 from ..models.depth_net import AtrousConv2d, phase_split_conv3x3
-from ..training import make_predict_step
+from ..training import create_train_state, make_predict_step, make_train_step
 from .timing import device_ms
 
-__all__ = ['main']
+__all__ = ['lidar_stem', 'main', 'train_convs']
+
+
+def lidar_stem(iters: int, channels=(20, 24, 32), batch_size: int = 4) -> list:
+    """[{channels, forward_ms, forward_backward_ms}] of the LiDAR encoder's
+    first conv at [batch_size, C, 128, 1024] bf16 for each C."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    rows = []
+    for c in channels:
+        conv = nn.Conv2d(c, 16, 3, 1, 1, bias=False).to(
+            'cuda', torch.bfloat16, memory_format=torch.channels_last)
+        x = torch.randn(batch_size, c, 128, 1024, generator=gen, device='cuda').bfloat16()
+        x = x.contiguous(memory_format=torch.channels_last)
+        g = torch.randn(batch_size, 16, 128, 1024, generator=gen, device='cuda').bfloat16()
+        g = g.contiguous(memory_format=torch.channels_last)
+
+        def train():
+            conv.weight.grad = None
+            conv(x).backward(g)
+        with torch.inference_mode():
+            fwd = device_ms(lambda: conv(x), iters)
+        rows.append(dict(channels=c, input=list(x.shape), forward_ms=fwd,
+                         forward_backward_ms=device_ms(train, iters)))
+    return rows
+
+
+def train_convs(iters: int, batch_size: int = 4) -> list:
+    """[{module, input, out_channels, conv, input_grad, ms}] of every conv
+    module one ``lidar_radar`` train step at ``batch_size`` runs, each
+    timed alone forward and backward on the input and with the weights'
+    dtype the step gave it, slowest first."""
+    cfg = lidar_radar(batch_size=batch_size, max_points_per_frame=100_000)
+    model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(cfg, model)
+    inputs = {}
+
+    def keep_input(name):
+        def hook(mod, inp):
+            inputs.setdefault(name, (mod, inp[0].detach(), inp[0].requires_grad))
+        return hook
+    for name, m in model.named_modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            m.register_forward_pre_hook(keep_input(name))
+    make_train_step(cfg)(state, make_fake_batch(cfg, seed=0))
+
+    rows = []
+    for name, (mod, x, input_grad) in inputs.items():
+        params = {k: v.detach().to(x.dtype).requires_grad_() for k, v in mod.named_parameters()}
+        x = x.clone().requires_grad_(input_grad)
+        g = torch.randn_like(torch.func.functional_call(mod, params, (x,)))
+
+        def step():
+            for t in (x, *params.values()):
+                t.grad = None
+            torch.func.functional_call(mod, params, (x,)).backward(g)
+        (kh, kw), (sh, _), (dh, _) = mod.kernel_size, mod.stride, mod.dilation
+        rows.append(dict(module=name, input=list(x.shape), out_channels=mod.out_channels,
+                         conv=f'{type(mod).__name__} {kh}x{kw}/{sh} d{dh}',
+                         input_grad=input_grad, ms=device_ms(step, iters)))
+    return sorted(rows, key=lambda r: r['ms'], reverse=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -41,7 +113,23 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument('--iters', type=int, default=5)
     p.add_argument('--top', type=int, default=20)
     p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--lidar-stem', action='store_true',
+                   help="time the LiDAR encoder's first conv at 20, 24 and 32 input channels")
+    p.add_argument('--train', action='store_true',
+                   help='time each conv of a B=4 lidar_radar train step, forward and backward')
     args = p.parse_args(argv)
+    if args.lidar_stem:
+        result = {'device': torch.cuda.get_device_name(0), 'lidar_stem': lidar_stem(args.iters)}
+        print(json.dumps(result))
+        return result
+    if args.train:
+        rows = train_convs(args.iters)
+        result = {'device': torch.cuda.get_device_name(0), 'convs': len(rows),
+                  'sum_ms': sum(r['ms'] for r in rows), 'top': rows[:args.top]}
+        print(json.dumps({k: v for k, v in result.items() if k != 'top'}))
+        for r in result['top']:
+            print(json.dumps(r))
+        return result
 
     cfg = getattr(variants, args.config)(batch_size=args.batch_size,
                                          max_points_per_frame=100_000)

@@ -24,11 +24,9 @@ from ..data import make_fake_batch
 from ..models import BEVDepthLiDAR
 from ..ops import affine_act
 from ..training import create_train_state, make_predict_step, make_train_step
-from .timing import device_ms
+from .timing import HBM_BYTES_PER_S, device_ms
 
 __all__ = ['main']
-
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM (data sheet, 700 W)
 
 
 def _recording(calls: collections.Counter, op: str, fn):

@@ -1,4 +1,6 @@
-"""Timing helpers for the card (CUDA events and the host clock)."""
+"""Timing helpers for the card (CUDA events and the host clock), and the
+card's published peak rates that every bound of this package is taken
+against."""
 from __future__ import annotations
 
 import time
@@ -6,7 +8,13 @@ from typing import Callable
 
 import torch
 
-__all__ = ['device_ms', 'device_ops', 'host_ms']
+__all__ = ['BF16_FLOPS', 'FP32_FLOPS', 'HBM_BYTES_PER_S', 'device_ms', 'device_ops',
+           'host_ms']
+
+# NVIDIA H100 SXM, data sheet, dense, at the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12   # device memory
+FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # bf16 on the tensor cores
 
 
 def device_ms(fn: Callable[[], object], iters: int) -> float:

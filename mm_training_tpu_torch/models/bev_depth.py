@@ -20,7 +20,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import Config
-from ..ops import warp
+from ..ops import circle_nms, warp
 from .bn_fold import BatchNorm2d
 from .centerpoint_head import BEVDepthHead, SeparateHead
 from .depth_net import DeformConv2d
@@ -28,7 +28,7 @@ from .fusion import BEVFuseLayer
 from .lidar_encoder import LidarBEVEncoder
 from .lss_fpn import LSSFPN
 
-__all__ = ['BEVDepthLiDAR', 'init_weights']
+__all__ = ['BEVDepthLiDAR', 'check_card_limits', 'init_weights']
 
 
 @torch.no_grad()
@@ -60,6 +60,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters(generator)
 
 
+def check_card_limits(cfg: Config, device) -> None:
+    """Raise ValueError, naming the knob, when ``cfg`` asks a kernel for more
+    than it takes on ``device``: the decode's circle NMS (kernel K3) takes at
+    most ``ops/circle_nms.py::MAX_SLOTS`` candidates a row on the card,
+    while the CPU path, like the JAX package, takes any number. Refused where
+    the model is built, so a model that builds serves."""
+    max_num = cfg.get_head_conf().bbox_coder.max_num
+    if torch.device(device).type == 'cuda' and max_num > circle_nms.MAX_SLOTS:
+        raise ValueError(f'BBoxCoderConf.max_num = {max_num}: the card\'s circle NMS (kernel '
+                         f'K3) takes at most {circle_nms.MAX_SLOTS} candidates a row; lower '
+                         'it or build the model on the CPU')
+
+
 class BEVDepthLiDAR(nn.Module):
     """Camera and/or LiDAR(+radar) branches, fusion and the CenterPoint
     head, built in eval mode.
@@ -79,6 +92,7 @@ class BEVDepthLiDAR(nn.Module):
         super().__init__()
         if not (cfg.use_cam or cfg.use_lidar):
             raise ValueError('the model needs use_cam or use_lidar')
+        check_card_limits(cfg, dev)
         lconf = cfg.get_lidar_conf()
         if cfg.use_lidar and lconf.variant != 'dense':
             raise NotImplementedError(f'lidar encoder variant {lconf.variant!r} '

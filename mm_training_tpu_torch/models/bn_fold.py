@@ -27,7 +27,31 @@ from torch import nn
 
 from ..ops import affine_act
 
-__all__ = ['BatchNorm2d']
+__all__ = ['BatchNorm2d', 'StateCache']
+
+
+class StateCache:
+    """A value made from some tensors, kept until one of them changes: its
+    object, its storage or its in-place version (an optimizer step, a
+    state-dict load, a dtype cast), or the ``extra`` key. The key holds the
+    tensors themselves, so a freed tensor's memory reused by a new one
+    cannot pass for it."""
+
+    def __init__(self):
+        self.key = None
+        self.value = None
+
+    def get(self, tensors, extra, make):
+        """``make()`` (without autograd) when the tensors or ``extra`` changed
+        since the last call, else the value it made then."""
+        key = [(t, t._version, t.data_ptr()) for t in tensors]
+        if (self.key is None or self.key[1] != extra or len(self.key[0]) != len(key)
+                or any(t is not k or v != kv or p != kp
+                       for (t, v, p), (k, kv, kp) in zip(key, self.key[0]))):
+            with torch.no_grad():
+                self.value = make()
+            self.key = (key, extra)
+        return self.value
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -43,27 +67,19 @@ class BatchNorm2d(nn.BatchNorm2d):
                  eps: float = 1e-5, **kw):
         super().__init__(num_features, eps=eps, **kw)
         self.relu = relu
-        self._scale_shift = None
-        self._scale_shift_key = None
+        self._scale_shift = StateCache()
 
     def scale_shift(self):
         """(s, t) float32 [C] from the (possibly bf16) parameters/stats.
 
-        Computed once per state of the four tensors (the tensor objects and
-        their in-place versions), not per call: recomputing costs ten small
-        launches per BN, which at batch 1 is host time the request waits
-        for. The key holds the tensors themselves, so a freed tensor's
-        memory reused by a new one cannot pass for it."""
-        tensors = (self.weight, self.bias, self.running_mean, self.running_var)
-        key = self._scale_shift_key
-        if key is None or any(v is not k or v._version != ver
-                              for v, (k, ver) in zip(tensors, key)):
-            with torch.no_grad():
-                s = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-                t = self.bias.float() - self.running_mean.float() * s
-            self._scale_shift = (s, t)
-            self._scale_shift_key = tuple((v, v._version) for v in tensors)
-        return self._scale_shift
+        Computed once per state of the four tensors (``StateCache``), not
+        per call: recomputing costs ten small launches per BN, which at batch
+        1 is host time the request waits for."""
+        def make():
+            s = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
+            return s, self.bias.float() - self.running_mean.float() * s
+        return self._scale_shift.get(
+            (self.weight, self.bias, self.running_mean, self.running_var), self.eps, make)
 
     def batch_scale_shift(self, x: torch.Tensor):
         """(s, t) [C] from the batch statistics of ``x``, in float32 (float64

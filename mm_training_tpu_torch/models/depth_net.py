@@ -6,12 +6,12 @@ The port of ``mm_training_tpu/models/depth_net.py``: ``DeformConv2d``
 feeds a 1x1 context conv and, in parallel, a depth branch of BasicBlocks,
 ASPP (dilations 1/6/12/18 and a global-mean branch), the deformable 3x3 conv
 and a 1x1 conv to the depth bins; the output is the depth logits first and
-the context after. Every BatchNorm tail runs through kernel A; the DCN's
-bilinear sampling is kernel K5 (``ops/deform_conv.py``); ASPP's widest
-dilations run as phase sub-images (``AtrousConv2d``). Names are the
-reference's (``reduce_conv.0``/``.1``, ``context_conv``,
-``depth_conv.{0..5}``, ASPP's ``aspp{i}.atrous_conv``/``.bn``,
-``global_avg_pool.1``/``.2``, ``conv1``/``bn1``).
+the context after. Every BatchNorm tail runs through kernel A; the
+deformable conv after its offset conv is kernel K5 (``ops/deform_conv.py``,
+one fused launch); ASPP's widest dilations run as phase sub-images
+(``AtrousConv2d``). Names are the reference's (``reduce_conv.0``/``.1``,
+``context_conv``, ``depth_conv.{0..5}``, ASPP's ``aspp{i}.atrous_conv``/
+``.bn``, ``global_avg_pool.1``/``.2``, ``conv1``/``bn1``).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import deform_conv
-from .bn_fold import BatchNorm2d
+from .bn_fold import BatchNorm2d, StateCache
 from .resnet import BasicBlock
 
 __all__ = ['ASPP', 'AtrousConv2d', 'DeformConv2d', 'DepthNet', 'phase_split_conv3x3']
@@ -36,10 +36,10 @@ class DeformConv2d(nn.Module):
     (dy, dx) of each tap; it is zero-initialised in the JAX package, which
     makes a fresh DCN a plain 3x3 conv.
 
-    The offsets are float32; kernel K5 samples the nine taps into columns
-    [B, H*W, 9, C] in x's dtype, and the grouped product over (tap, C_in/g)
-    is one batched matrix product (float32 accumulation, one rounding), as
-    the JAX package leaves its einsum to XLA."""
+    The offsets are float32 (the offset conv stays cuDNN's); the fused
+    kernel K5 (``ops/deform_conv.py::deform_conv3x3``) samples the nine taps
+    and contracts them with the kernel over (tap, C_in/g) for each group
+    (float32 sums, one rounding, then the bias), with no column tensor."""
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 4):
         super().__init__()
@@ -50,6 +50,7 @@ class DeformConv2d(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, 3, 3))
         self.bias = nn.Parameter(torch.empty(out_channels))
         self.conv_offset = nn.Conv2d(in_channels, 18, 3, padding=1)
+        self._packed = StateCache()   # the kernel laid out for the fused op
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """He init over the true per-group fan-in 9 * C_in/g (the JAX
@@ -62,17 +63,22 @@ class DeformConv2d(nn.Module):
             self.conv_offset.weight.zero_()
             self.conv_offset.bias.zero_()
 
+    def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The kernel as the fused op reads it, [g, 9 * C_in/g, C_out/g] in
+        ``dtype`` (``ops/deform_conv.py::pack_weight``). Without a gradient
+        to carry it is laid out once per state of the parameter, not per
+        call, as ``bn_fold.BatchNorm2d`` caches its scale and shift."""
+        def make():
+            return deform_conv.pack_weight(self.weight, self.groups, dtype)
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            return make()
+        return self._packed.get((self.weight,), dtype, make)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, h, w = x.shape
-        g = self.groups
-        cg, og = c // g, self.weight.shape[0] // g
         offsets = self.conv_offset(x).permute(0, 2, 3, 1).float()      # [B, H, W, 18]
-        cols = deform_conv.deform_sample(x.permute(0, 2, 3, 1), offsets)  # [B, HW, 9, C]
-        cols = cols.reshape(b * h * w, 9, g, cg).permute(2, 0, 1, 3).reshape(g, -1, 9 * cg)
-        # [g*og, cg, ky, kx] -> [g, (ky, kx, cg), og]: rows in the columns' order
-        wgt = self.weight.reshape(g, og, cg, 9).permute(0, 3, 2, 1).reshape(g, 9 * cg, og)
-        out = torch.bmm(cols, wgt.to(x.dtype))                           # [g, BHW, og]
-        out = out.permute(1, 0, 2).reshape(b, h, w, g * og) + self.bias.to(x.dtype)
+        out = deform_conv.deform_conv3x3(x.permute(0, 2, 3, 1), offsets,
+                                         self.packed_weight(x.dtype), self.bias.to(x.dtype),
+                                         self.groups)                    # [B, H, W, C_out]
         return out.permute(0, 3, 1, 2)
 
 

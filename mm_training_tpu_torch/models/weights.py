@@ -43,7 +43,8 @@ from .resnet import DEPTH_CFG, Bottleneck
 
 __all__ = ['state_dict_from_flax', 'resnet_state_dict', 'second_fpn_state_dict',
            'bev_head_state_dict', 'lidar_encoder_state_dict', 'depth_net_state_dict',
-           'aspp_state_dict', 'fuse_layer_state_dict', 'stem_7x7_from_s2d']
+           'aspp_state_dict', 'deform_conv_state_dict', 'fuse_layer_state_dict',
+           'stem_7x7_from_s2d']
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -236,14 +237,21 @@ def depth_net_state_dict(params: Mapping, stats: Mapping, prefix: str = '') -> S
     n = len(blocks)
     out.update(aspp_state_dict(params['aspp'], stats['aspp'], f'{prefix}depth_conv.{n}.'))
     if 'dcn' in params:
-        dcn = params['dcn']
-        k = np.asarray(dcn['kernel'])                     # [9, g, cg, og]
-        _, g, cg, og = k.shape
-        w = np.transpose(k.reshape(3, 3, g, cg, og), (2, 4, 3, 0, 1))
-        out[f'{prefix}depth_conv.{n + 1}.weight'] = _t(w.reshape(g * og, cg, 3, 3))
-        out[f'{prefix}depth_conv.{n + 1}.bias'] = _t(dcn['bias'])
-        _conv(out, f'{prefix}depth_conv.{n + 1}.conv_offset', dcn['conv_offset']['kernel'])
-        out[f'{prefix}depth_conv.{n + 1}.conv_offset.bias'] = _t(dcn['conv_offset']['bias'])
+        out.update(deform_conv_state_dict(params['dcn'], f'{prefix}depth_conv.{n + 1}.'))
+    return out
+
+
+def deform_conv_state_dict(params: Mapping, prefix: str = '') -> StateDict:
+    """flax ``DeformConv2d`` -> mmcv's ``weight`` [g*og, cg, 3, 3], the JAX
+    module's ``bias`` and ``conv_offset``."""
+    out: StateDict = {}
+    k = np.asarray(params['kernel'])                      # [9, g, cg, og]
+    _, g, cg, og = k.shape
+    w = np.transpose(k.reshape(3, 3, g, cg, og), (2, 4, 3, 0, 1))
+    out[f'{prefix}weight'] = _t(w.reshape(g * og, cg, 3, 3))
+    out[f'{prefix}bias'] = _t(params['bias'])
+    _conv(out, f'{prefix}conv_offset', params['conv_offset']['kernel'])
+    out[f'{prefix}conv_offset.bias'] = _t(params['conv_offset']['bias'])
     return out
 
 

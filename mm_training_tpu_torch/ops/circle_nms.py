@@ -29,6 +29,7 @@ from . import build
 __all__ = ['circle_nms_mask', 'circle_nms_mask_plain']
 
 MAX_TASKS = 16      # thresholds the kernel takes by value
+MAX_SLOTS = 1024    # slots a row the kernel takes (K)
 Thresh = Union[float, Sequence[float], torch.Tensor]
 
 
@@ -94,7 +95,7 @@ def circle_nms_mask(centers: torch.Tensor, scores: torch.Tensor,
 
     Args:
       centers: [R, K, 2] float32 box centres (x, y), the last dimension
-        contiguous (a view of the boxes is fine); K <= 1024 on the card (the
+        contiguous (a view of the boxes is fine); K <= MAX_SLOTS on the card (the
         decode's K is ``max_num`` = 500).
       scores: [R, K] scores (used only for ordering).
       valid: [R, K] bool; invalid slots are never kept and never suppress.
@@ -117,8 +118,8 @@ def circle_nms_mask(centers: torch.Tensor, scores: torch.Tensor,
     if centers.device.type != 'cuda':
         raise ValueError(f'circle_nms_mask: unsupported device {centers.device}')
     r, k = scores.shape
-    if k > 1024:
-        raise ValueError(f'circle_nms_mask: the kernel takes K <= 1024 slots a row, '
+    if k > MAX_SLOTS:
+        raise ValueError(f'circle_nms_mask: the kernel takes K <= {MAX_SLOTS} slots a row, '
                          f'got {k}')
     vals = _per_task(thresh, r)
     if vals is None:

@@ -1,18 +1,27 @@
-"""Kernel K5: the bilinear sampling of the deformable 3x3 conv.
+"""Kernel K5: the deformable 3x3 conv after its offset conv.
 
-The port of the sampling half of
-``mm_training_tpu/models/depth_net.py::DeformConv2d.__call__`` (:56-90):
-for each pixel and each of the 9 taps, the point ``(y + ty - 1 + dy,
-x + tx - 1 + dx)`` is sampled bilinearly from the NHWC map, corners outside
-the image weighing 0, into the columns ``[B, H*W, 9, C]`` in the input
-dtype. The grouped product with the kernel is a batched matrix product in
-``models/depth_net.py``. The CUDA source is ``csrc/deform_conv.cu``; it is
-bound by the bytes of the columns it writes, see the note there.
+The port of ``mm_training_tpu/models/depth_net.py::DeformConv2d.__call__``
+without the offset conv (:46-110): for each pixel and each of the 9 taps,
+the point ``(y + ty - 1 + dy, x + tx - 1 + dx)`` is sampled bilinearly from
+the NHWC map, corners outside the image weighing 0 (:56-90); the grouped
+product over (tap, C/g) with fp32 sums, one rounding to the input dtype and
+the bias added in that dtype follow (:100-110).
+
+Two entries share the sampling code of ``csrc/deform_conv.cu`` (one
+``__device__`` function each for the corners and the blend):
+
+- :func:`deform_conv3x3`, the fused op on the serving path: the samples are
+  built tile by tile in shared memory and contracted there on the tensor
+  cores, so no column is ever written to device memory;
+- :func:`deform_sample`, the columns ``[B, H*W, 9, C]``: off the serving
+  path since the fused op, kept for the weight gradient of the camera
+  training slice (dW = cols^T dY for each group).
 
 Rounding follows the JAX package: coordinates and corner weights in fp32,
 each weight rounded to the input dtype, then ``sampled = sampled + row *
 weight`` corner by corner in the input dtype (each product and each sum
-rounded), so the kernel matches the plain version bit for bit.
+rounded), so the sampled values match the plain version bit for bit; the
+fused op's fp32 sums run in another order than cuBLAS's.
 
 There is no backward yet (serving runs under ``inference_mode``): the
 training slice adds one. Until then a CUDA call that needs a gradient
@@ -27,7 +36,8 @@ import torch
 
 from . import build
 
-__all__ = ['deform_sample', 'deform_sample_plain']
+__all__ = ['deform_conv3x3', 'deform_conv3x3_plain', 'deform_sample', 'deform_sample_plain',
+           'halo_corners', 'pack_weight']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,6 +79,8 @@ def _lib() -> ctypes.CDLL:
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.deform_sample.argtypes = [i32, p, p, p, ctypes.c_longlong, i32, i32, i32, i32, p]
     lib.deform_sample.restype = ctypes.c_int
+    lib.deform_conv3x3.argtypes = [i32, p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p]
+    lib.deform_conv3x3.restype = ctypes.c_int
     return lib
 
 
@@ -108,3 +120,104 @@ def deform_sample(x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
 
 
 deform_sample.launches = 0
+
+
+def pack_weight(weight: torch.Tensor, groups: int, dtype: torch.dtype) -> torch.Tensor:
+    """mmcv's kernel [C_out, C_in/g, 3, 3] -> [g, 9 * C_in/g, C_out/g] in
+    ``dtype``, row ``tap * C_in/g + c`` (taps row-major over the 3x3
+    window): the columns' order, which the fused kernel reads."""
+    o, cg = weight.shape[:2]
+    g = groups
+    w = weight.reshape(g, o // g, cg, 9).permute(0, 3, 2, 1).reshape(g, 9 * cg, o // g)
+    return w.to(dtype).contiguous()
+
+
+def deform_conv3x3_plain(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, groups: int) -> torch.Tensor:
+    """Plain PyTorch version: :func:`deform_sample_plain`, the grouped
+    product as one batched matrix product of the columns and the kernel in
+    x's dtype, summed in fp32 (the products of bf16 values are exact there;
+    no reduced-precision split reductions) and rounded once to x's dtype,
+    then the bias in x's dtype. x [B, H, W, C], offsets [B, H, W, 18]
+    float32, weight [g, 9 * C/g, C_out/g] (:func:`pack_weight`), bias
+    [C_out] -> [B, H, W, C_out] in x's dtype."""
+    b, h, w, c = x.shape
+    g = groups
+    cols = deform_sample_plain(x, offsets)                              # [B, HW, 9, C]
+    cols = cols.reshape(b * h * w, 9, g, c // g).permute(2, 0, 1, 3).reshape(g, -1, 9 * c // g)
+    out = torch.bmm(cols.float(), weight.to(x.dtype).float()).to(x.dtype)   # [g, BHW, og]
+    return out.permute(1, 0, 2).reshape(b, h, w, -1) + bias.to(x.dtype)
+
+
+def deform_conv3x3(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor, groups: int) -> torch.Tensor:
+    """The deformable 3x3 conv after its offset conv: x [B, H, W, C]
+    (float32 or bfloat16, NHWC-contiguous), offsets [B, H, W, 18] float32
+    (dy, dx per tap), weight [g, 9 * C/g, C_out/g] (:func:`pack_weight`)
+    and bias [C_out] -> [B, H, W, C_out] in x's dtype.
+
+    A CPU tensor takes :func:`deform_conv3x3_plain`; a CUDA tensor launches
+    the fused kernel K5 once (C/g and C_out/g multiples of 8; weight and
+    bias of x's dtype) or raises (also when a gradient is asked for: the
+    kernel has no backward yet)."""
+    return _fused(x, offsets, weight, bias, groups)
+
+
+def halo_corners(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor, groups: int):
+    """Launch the fused kernel as :func:`deform_conv3x3` does, on CUDA
+    tensors, and count on the card the bilinear corners it samples: returns
+    (corners read from L2, beyond the staged halo; corners sampled)."""
+    if x.device.type != 'cuda':
+        raise ValueError('halo_corners: kernel K5 counts its corners on a CUDA device')
+    counts = torch.zeros(2, dtype=torch.int64, device=x.device)
+    _fused(x, offsets, weight, bias, groups, counts)
+    from_l2, total = counts.tolist()
+    return from_l2, total
+
+
+def _fused(x, offsets, weight, bias, groups, counts=None):
+    if x.dim() != 4 or offsets.shape != (*x.shape[:3], 18) or weight.dim() != 3:
+        raise ValueError(f'deform_conv3x3: x [B, H, W, C], offsets [B, H, W, 18] and weight '
+                         f'[g, 9 * C/g, C_out/g], got {tuple(x.shape)}, '
+                         f'{tuple(offsets.shape)} and {tuple(weight.shape)}')
+    b, h, w, c = x.shape
+    g, k, og = weight.shape
+    if g != groups or c % groups or k != 9 * (c // groups) or bias.shape != (g * og,):
+        raise ValueError(f'deform_conv3x3: {c} channels in {groups} groups take a weight '
+                         f'[{groups}, {9 * (c // max(groups, 1))}, C_out/g] and a bias '
+                         f'[C_out], got {tuple(weight.shape)} and {tuple(bias.shape)}')
+    if x.device.type == 'cpu':
+        return deform_conv3x3_plain(x, offsets, weight, bias, groups)
+    tensors = (offsets, weight, bias)
+    if (x.device.type != 'cuda' or x.dtype not in _DTYPES or offsets.dtype != torch.float32
+            or weight.dtype != x.dtype or bias.dtype != x.dtype
+            or any(t.device != x.device for t in tensors)):
+        raise ValueError(f'deform_conv3x3 takes a float32/bfloat16 CUDA or CPU x, float32 '
+                         f'offsets and weight and bias of its dtype on its device, got x '
+                         f'{x.dtype} on {x.device}, ' + ', '.join(
+                             f'{t.dtype} on {t.device}' for t in tensors))
+    if (c // groups) % 8 or og % 8:
+        raise ValueError(f'deform_conv3x3: kernel K5 takes C/g and C_out/g multiples of 8, '
+                         f'got {c // groups} and {og}')
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, offsets, weight, bias)):
+        raise NotImplementedError('deform_conv3x3: kernel K5 has no backward yet; it '
+                                  'arrives with the camera training slice (slice 4)')
+    x, offsets = x.contiguous(), offsets.contiguous()
+    weight, bias = weight.contiguous(), bias.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    out = torch.empty(b, h, w, g * og, dtype=x.dtype, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.deform_conv3x3(_DTYPES[x.dtype], x.data_ptr(), offsets.data_ptr(),
+                                  weight.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w,
+                                  c, groups, g * og,
+                                  None if counts is None else counts.data_ptr(),
+                                  torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, code, 'deform_conv3x3')
+    deform_conv3x3.launches += 1
+    return out
+
+
+deform_conv3x3.launches = 0

@@ -1,10 +1,16 @@
-"""Kernel K1: fixed-shape pillar voxelization + mean VFE.
+"""Kernel K1: fixed-shape pillar voxelization + mean VFE, written straight
+into the LiDAR encoder's input.
 
 The port of ``mm_training_tpu/ops/voxelize.py::voxelize_pillars_dense``:
 floor-quantize points onto the (ny, nx) pillar grid and take the per-pillar
-mean of their first ``num_features`` features (empty pillars are zero). The
-CUDA source is ``csrc/voxelize.cu`` (atomic scatter of [feats, 1] rows, then
-a normalize pass); it is bound by device-memory bytes, see the note there.
+mean of their first ``num_features`` features (empty pillars are zero).
+:func:`pillar_encoder_input` also does what
+``mm_training_tpu/models/lidar_encoder.py:54-65`` does next: one rounding
+to the compute dtype and the 2x2 space-to-depth, and it pads the channels
+with zeros up to what the first conv takes. Both entries launch the one
+kernel of ``csrc/voxelize.cu`` (a cooperative launch: zero the accumulator,
+16-byte atomic adds of each point's row, then the means in the requested
+layout); it is bound by device-memory bytes, see the note there.
 
 Points stay float32 whatever the model's compute type: bf16 cannot resolve
 0.2 m voxels at 200 m range. Inputs are batched, ``points [B, P, F]``,
@@ -24,8 +30,12 @@ import torch
 
 from . import build
 
-__all__ = ['voxelize_pillars_dense', 'voxelize_pillars_dense_plain',
-           'pillar_segments']
+__all__ = ['pillar_encoder_input', 'pillar_encoder_input_plain', 'pillar_segments',
+           'voxelize_pillars_dense', 'voxelize_pillars_dense_plain']
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_FEATURES = 8    # features the kernel averages
+MAX_CHANNELS = 32   # output channels a pixel the kernel writes
 
 
 def _num_z_bins(pc_range: Sequence[float], voxel_size: Sequence[float]) -> int:
@@ -99,10 +109,50 @@ def voxelize_pillars_dense_plain(points: torch.Tensor, mask: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = build.load('voxelize')
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.pillar_scatter_mean.argtypes = [p, p, i64, i64, i32, i32, f32, f32, f32,
-                                        f32, f32, f32, i32, i32, i32, p, p, p]
-    lib.pillar_scatter_mean.restype = ctypes.c_int
+    lib.pillar_encoder_input.argtypes = [p, p, i64, i64, i32, i32, f32, f32, f32, f32, f32,
+                                         f32, i32, i32, i32, i32, i32, i32, p, p, p, p]
+    lib.pillar_encoder_input.restype = ctypes.c_int
     return lib
+
+
+def _check_points(points: torch.Tensor, mask: torch.Tensor, num_features: int, what: str):
+    if points.dim() != 3 or mask.shape != points.shape[:2] or mask.dtype != torch.bool:
+        raise ValueError(f'{what}: points [B, P, F] and bool mask [B, P], got '
+                         f'{tuple(points.shape)} and {tuple(mask.shape)} {mask.dtype}')
+    if points.dtype != torch.float32 or not 3 <= num_features <= points.shape[2]:
+        raise ValueError(f'{what}: points must be float32 with at least '
+                         f'max(3, num_features={num_features}) features')
+
+
+def _launch(points, mask, pc_range, voxel_size, grid_hw, num_features, dtype,
+            space_to_depth, channels, what):
+    """One launch of the K1 kernel on CUDA tensors -> the output tensor."""
+    if points.device.type != 'cuda' or mask.device != points.device:
+        raise ValueError(f'{what}: points on {points.device}, mask on {mask.device}')
+    if dtype not in _DTYPES or num_features > MAX_FEATURES or channels > MAX_CHANNELS:
+        raise ValueError(f'{what}: kernel K1 writes float32 or bfloat16, averages at most '
+                         f'{MAX_FEATURES} features into at most {MAX_CHANNELS} channels, got '
+                         f'{dtype}, {num_features} features, {channels} channels')
+    nz = _num_z_bins(pc_range, voxel_size)
+    b, p, f = points.shape
+    ny, nx = grid_hw
+    points, mask = points.contiguous(), mask.contiguous()
+    shape = (b, ny // 2, nx // 2, channels) if space_to_depth else (b, ny, nx, channels)
+    out = torch.empty(shape, dtype=dtype, device=points.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    row = (num_features + 4) // 4 * 4
+    acc, barrier = build.scratch('voxelize', points.device, stream, b * ny * nx * row, 2)
+    lib = _lib()
+    with torch.cuda.device(points.device):
+        code = lib.pillar_encoder_input(
+            points.data_ptr(), mask.data_ptr(), b, p, f, num_features,
+            pc_range[0], pc_range[1], pc_range[2], voxel_size[0], voxel_size[1],
+            voxel_size[2], nx, ny, nz, _DTYPES[dtype], int(space_to_depth), channels,
+            acc.data_ptr(), barrier.data_ptr(), out.data_ptr(), stream)
+    build.check(lib, code, what)
+    return out
 
 
 def voxelize_pillars_dense(points: torch.Tensor, mask: torch.Tensor,
@@ -124,40 +174,73 @@ def voxelize_pillars_dense(points: torch.Tensor, mask: torch.Tensor,
     Returns [B, ny, nx, num_features] float32. CPU tensors take
     :func:`voxelize_pillars_dense_plain`; CUDA tensors launch the kernel.
     """
-    if points.dim() != 3 or mask.shape != points.shape[:2] or mask.dtype != torch.bool:
-        raise ValueError(f'voxelize_pillars_dense: points [B, P, F] and bool mask '
-                         f'[B, P], got {tuple(points.shape)} and '
-                         f'{tuple(mask.shape)} {mask.dtype}')
-    if points.dtype != torch.float32 or not 3 <= num_features <= points.shape[2]:
-        raise ValueError('voxelize_pillars_dense: points must be float32 with '
-                         f'at least max(3, num_features={num_features}) features')
+    _check_points(points, mask, num_features, 'voxelize_pillars_dense')
     if max_points_per_voxel is not None:
         mask = _first_k_mask(points, mask, pc_range, voxel_size, grid_hw,
                              max_points_per_voxel)
     if points.device.type == 'cpu':
         return voxelize_pillars_dense_plain(points, mask, pc_range, voxel_size,
                                             grid_hw, num_features)
-    if points.device.type != 'cuda' or mask.device != points.device:
-        raise ValueError(f'voxelize_pillars_dense: points on {points.device}, '
-                         f'mask on {mask.device}')
-    nz = _num_z_bins(pc_range, voxel_size)
-    b, p, f = points.shape
-    ny, nx = grid_hw
-    points, mask = points.contiguous(), mask.contiguous()
-    acc = torch.zeros(b, ny * nx, num_features + 1, dtype=torch.float32,
-                      device=points.device)
-    out = torch.empty(b, ny, nx, num_features, dtype=torch.float32,
-                      device=points.device)
-    lib = _lib()
-    with torch.cuda.device(points.device):
-        code = lib.pillar_scatter_mean(
-            points.data_ptr(), mask.data_ptr(), b, p, f, num_features,
-            pc_range[0], pc_range[1], pc_range[2], voxel_size[0], voxel_size[1],
-            voxel_size[2], nx, ny, nz, acc.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(points.device).cuda_stream)
-    build.check(lib, code, 'voxelize_pillars_dense')
+    out = _launch(points, mask, pc_range, voxel_size, grid_hw, num_features, torch.float32,
+                  False, num_features, 'voxelize_pillars_dense')
     voxelize_pillars_dense.launches += 1
     return out
 
 
 voxelize_pillars_dense.launches = 0
+
+
+def pillar_encoder_input_plain(points: torch.Tensor, mask: torch.Tensor,
+                               pc_range: Sequence[float], voxel_size: Sequence[float],
+                               grid_hw: Tuple[int, int], num_features: int = 5,
+                               dtype: torch.dtype = torch.float32,
+                               space_to_depth: bool = True,
+                               channels: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version: :func:`voxelize_pillars_dense_plain`, one cast
+    to ``dtype``, the 2x2 space-to-depth (``models/resnet.py``), then zero
+    channels up to ``channels``."""
+    from ..models.resnet import space_to_depth_2x2   # models import this module
+    x = voxelize_pillars_dense_plain(points, mask, pc_range, voxel_size, grid_hw,
+                                     num_features).to(dtype)
+    if space_to_depth:
+        x = space_to_depth_2x2(x)
+    c = x.shape[-1]
+    channels = c if channels is None else channels
+    if channels < c:
+        raise ValueError(f'pillar_encoder_input: {channels} channels cannot hold the {c} '
+                         'the layout has')
+    return torch.nn.functional.pad(x, (0, channels - c)) if channels > c else x
+
+
+def pillar_encoder_input(points: torch.Tensor, mask: torch.Tensor,
+                         pc_range: Sequence[float], voxel_size: Sequence[float],
+                         grid_hw: Tuple[int, int], num_features: int = 5,
+                         dtype: torch.dtype = torch.float32, space_to_depth: bool = True,
+                         channels: Optional[int] = None) -> torch.Tensor:
+    """The LiDAR encoder's input in one launch: the per-pillar mean of
+    :func:`voxelize_pillars_dense`, rounded once to ``dtype``, folded by the
+    2x2 space-to-depth (``space_to_depth``; channel groups in (row-offset,
+    col-offset) order, the feature minor, as the JAX package's
+    ``space_to_depth_2x2``), and zero channels after the features up to
+    ``channels`` (default: none).
+
+    Returns [B, ny/2, nx/2, channels] (or [B, ny, nx, channels] without
+    space-to-depth) in ``dtype``, NHWC-contiguous. CPU tensors take
+    :func:`pillar_encoder_input_plain`; CUDA tensors launch kernel K1 once
+    (float32 or bfloat16, at most 8 features and 32 channels) or raise."""
+    _check_points(points, mask, num_features, 'pillar_encoder_input')
+    c = num_features * (4 if space_to_depth else 1)
+    channels = c if channels is None else channels
+    if channels < c or (space_to_depth and (grid_hw[0] % 2 or grid_hw[1] % 2)):
+        raise ValueError(f'pillar_encoder_input: {channels} channels for {c} features on a '
+                         f'{tuple(grid_hw)} grid (space-to-depth {space_to_depth} needs it even)')
+    if points.device.type == 'cpu':
+        return pillar_encoder_input_plain(points, mask, pc_range, voxel_size, grid_hw,
+                                          num_features, dtype, space_to_depth, channels)
+    out = _launch(points, mask, pc_range, voxel_size, grid_hw, num_features, dtype,
+                  space_to_depth, channels, 'pillar_encoder_input')
+    pillar_encoder_input.launches += 1
+    return out
+
+
+pillar_encoder_input.launches = 0

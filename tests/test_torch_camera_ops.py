@@ -434,3 +434,35 @@ def test_warp_keeps_bf16_and_flip_matches_jax():
                                   np.asarray(jwarp.hflip(jnp.asarray(img))))
     with pytest.raises(TypeError, match='float'):
         warp.warp_affine_nhwc(torch.zeros(1, 2, 2, 1, dtype=torch.int32), torch.eye(3)[None])
+
+
+def test_deform_conv3x3_plain_matches_jax_with_an_offset_conv():
+    """The fused op's plain version, fed by the port's DeformConv2d offset
+    conv, against the JAX DeformConv2d applied as a whole: numpy-seeded
+    parameters (the offset conv's scaled so the taps move by several
+    pixels, many corners outside the 6 x 10 image) carried over by
+    ``models/weights.py``, C = 16 in 4 groups, float32 within 1e-4."""
+    from tests.torch_port_helpers import random_variables
+    from mm_training_tpu_torch.models import weights
+    b, h, w, c = 2, 6, 10, 16
+    x = np.random.default_rng(31).normal(size=(b, h, w, c)).astype(np.float32)
+    jm = JDeformConv2d(features=c, groups=4)
+    v = random_variables(jm.init, jnp.asarray(x), seed=32)
+    off = v['params']['conv_offset']
+    off['kernel'] = off['kernel'] * 6.0
+    off['bias'] = off['bias'] * 10.0
+    want = np.asarray(jm.apply({'params': v['params']}, jnp.asarray(x)))
+
+    tm = DeformConv2d(c, c, groups=4)
+    tm.load_state_dict(weights.deform_conv_state_dict(v['params']))
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        offsets = tm.conv_offset(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+        got = deform_conv.deform_conv3x3_plain(
+            xt, offsets, deform_conv.pack_weight(tm.weight, 4, torch.float32), tm.bias, 4)
+        through_module = tm(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    # the offsets reach far: a share of the corners fall outside the image
+    py = np.arange(h)[None, :, None, None] + (np.arange(9) // 3 - 1) + offsets[..., 0::2].numpy()
+    assert ((py < 0) | (py > h - 1)).mean() > 0.2
+    _rel_close(got.numpy(), want, tol=1e-4)
+    assert torch.equal(through_module, got)

@@ -442,3 +442,154 @@ def test_affine_act_backward_and_lift_splat_device_ops(gen):
     k4 = sum(n for name, n in ops.items() if 'splat' in name)
     other = sum(ops.values()) - backward - k4
     assert backward == 1 and other == 0 and 1 <= k4 <= 2, ops
+
+
+# ------------------------------------------------- K5 fused, K1 into the encoder
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape,groups,max_offset', [
+    ((4, 44, 80, 512), 4, 3.0),      # the B=1 camera request's DCN
+    ((2, 13, 21, 64), 4, 3.0),       # ragged H and W against the 8 x 16 pixel tile
+    ((2, 12, 20, 64), 4, 9.0),       # corners beyond the halo and outside the image
+    ((1, 9, 17, 512), 2, 2.0),       # two tiles of 128 output channels a group
+])
+def test_deform_conv3x3_kernel_matches_plain(gen, dtype, shape, groups, max_offset):
+    """The fused K5 against its plain version (sampling, grouped product,
+    one rounding, the bias): the sampled A-tiles are the plain columns bit
+    for bit, the fp32 sums run in another order than the plain version's,
+    so each output (and the plain version's) must be the op's rounding of
+    some sum within 1e-5 of the sum of |terms| of the exact sum
+    (``exps/kernel_inputs.py::deform_outside_tolerance``). Offsets beyond
+    the 3 px halo read their corners from L2."""
+    from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs, deform_outside_tolerance
+    from mm_training_tpu_torch.ops import deform_conv
+    x, off, weight, bias = deform_inputs(shape, groups, gen, dtype, max_offset)
+    before = deform_conv.deform_conv3x3.launches
+    got = deform_conv.deform_conv3x3(x, off, weight, bias, groups)
+    assert deform_conv.deform_conv3x3.launches == before + 1
+    assert got.dtype == dtype and got.shape == shape
+    outside, err = deform_outside_tolerance(got, x, off, weight, bias, groups)
+    assert outside == 0, err
+    from_l2, corners = deform_conv.halo_corners(x, off, weight, bias, groups)
+    assert corners == 4 * 9 * shape[0] * shape[1] * shape[2]
+    assert (from_l2 > 0) == (max_offset > 3.0), (from_l2, corners)
+
+
+def test_deform_conv3x3_one_device_op_and_refusals(gen):
+    """One fused K5 call at the B=1 request's shape is one device kernel (no
+    column, copy or fill beside it); a gradient request, a weight of another
+    dtype and C/g off a multiple of 8 raise."""
+    from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs
+    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.ops import deform_conv
+    x, off, weight, bias = deform_inputs((4, 44, 80, 512), 4, gen)
+    ops = device_ops(lambda: deform_conv.deform_conv3x3(x, off, weight, bias, 4))
+    assert list(ops.values()) == [1] and 'deform_conv' in next(iter(ops)), ops
+    with pytest.raises(NotImplementedError, match='backward'):
+        deform_conv.deform_conv3x3(x.float().requires_grad_(), off, weight.float(),
+                                   bias.float(), 4)
+    with pytest.raises(ValueError, match='dtype'):
+        deform_conv.deform_conv3x3(x, off, weight.float(), bias, 4)
+    x12, off12, w12, b12 = deform_inputs((1, 5, 6, 48), 4, gen)
+    with pytest.raises(ValueError, match='multiples of 8'):
+        deform_conv.deform_conv3x3(x12, off12, w12, b12, 4)
+
+
+def test_deform_conv2d_forward_runs_the_fused_kernel(gen):
+    """``DeformConv2d.forward`` on the card launches the fused kernel and
+    no column kernel, and matches the module run through the plain
+    version; its packed kernel is laid out once per parameter state."""
+    from unittest import mock
+    from mm_training_tpu_torch.exps.kernel_inputs import deform_outside_tolerance
+    from mm_training_tpu_torch.models.depth_net import DeformConv2d
+    from mm_training_tpu_torch.ops import deform_conv
+    m = DeformConv2d(64, 64, groups=4)
+    m.reset_parameters(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        m.conv_offset.weight.normal_(0, 0.05)
+    m = m.to('cuda', torch.bfloat16).to(memory_format=torch.channels_last)
+    x = torch.randn(2, 64, 12, 20, generator=gen, device='cuda').bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        cols_before = deform_conv.deform_sample.launches
+        got = m(x)
+        packed = m.packed_weight(torch.bfloat16)
+        assert m.packed_weight(torch.bfloat16) is packed
+        assert deform_conv.deform_sample.launches == cols_before
+        off = m.conv_offset(x).permute(0, 2, 3, 1).float()
+        with mock.patch.object(deform_conv, 'deform_conv3x3', deform_conv.deform_conv3x3_plain):
+            want = m(x)
+    assert got.shape == want.shape == (2, 64, 12, 20)
+    outside, err = deform_outside_tolerance(got.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1),
+                                            off, packed, m.bias, 4)
+    assert outside == 0, err
+
+
+def _k1_points(gen, b, p=100_000):
+    pc, vs, grid = (-204.8, -25.6, -5.0, 204.8, 25.6, 3.0), (0.2, 0.2, 8.0), (256, 2048)
+    lo = torch.tensor([pc[0] - 5, pc[1] - 2, pc[2] - 1, 0, -10, 0, 0, 0], device='cuda')
+    hi = torch.tensor([pc[3] + 5, pc[4] + 2, pc[5] + 1, 1, 10, 40, 1, 0.1], device='cuda')
+    pts = lo + torch.rand(b, p, 8, generator=gen, device='cuda') * (hi - lo)
+    mask = torch.rand(b, p, generator=gen, device='cuda') < 0.95
+    return pts, mask, (pc, vs, grid)
+
+
+def _k1_outside_tolerance(got, want):
+    """Entries further than one bf16 ulp plus K1's atomic-order slack (the
+    fp32 means agree to 1e-5) from the plain version."""
+    w = want.float()
+    ulp = torch.where(w == 0, 0.0, torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
+    if want.dtype == torch.float32:
+        ulp = torch.zeros_like(ulp)
+    return int(((got.float() - w).abs() > ulp + 1e-5 * (1 + w.abs())).sum())
+
+
+@pytest.mark.parametrize('batch_size', [1, 4])
+@pytest.mark.parametrize('s2d,channels', [(True, 20), (True, 24), (True, 32), (False, 5),
+                                          (False, 8)])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_pillar_encoder_input_kernel_matches_plain(gen, batch_size, s2d, channels, dtype):
+    """K1's encoder-input entry at B=1 and B=4 (100k points a frame, the
+    full 256 x 2048 grid, some points outside it): the means, one rounding,
+    the space-to-depth channel order and the zero pad, in one launch."""
+    from mm_training_tpu_torch.ops import voxelize
+    pts, mask, geo = _k1_points(gen, batch_size)
+    before = voxelize.pillar_encoder_input.launches
+    got = voxelize.pillar_encoder_input(pts, mask, *geo, num_features=5, dtype=dtype,
+                                        space_to_depth=s2d, channels=channels)
+    assert voxelize.pillar_encoder_input.launches == before + 1
+    want = voxelize.pillar_encoder_input_plain(pts, mask, *geo, num_features=5, dtype=dtype,
+                                               space_to_depth=s2d, channels=channels)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert got.shape == ((batch_size, 128, 1024, channels) if s2d
+                         else (batch_size, 256, 2048, channels))
+    assert _k1_outside_tolerance(got, want) == 0
+    used = 20 if s2d else 5
+    assert torch.equal(got[..., used:], torch.zeros_like(got[..., used:]))
+    assert got[..., :used].abs().sum() > 0
+
+
+def test_pillar_encoder_input_empty_and_out_of_range(gen):
+    """No masked-in point, and every point outside the grid: all zeros, the
+    pad included; calls in turn at other batch sizes and layouts each see
+    their own points only (the launch zeroes its accumulator); K1's entry is
+    one device op a call."""
+    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.ops import voxelize
+    pts, mask, geo = _k1_points(gen, 2, 5000)
+    empty = torch.zeros_like(mask)
+    far = pts.clone()
+    far[..., 0] += 1000.0
+    for p, m in ((pts, empty), (far, mask)):
+        got = voxelize.pillar_encoder_input(p, m, *geo, dtype=torch.bfloat16, channels=24)
+        assert got.shape == (2, 128, 1024, 24) and not got.any()
+    for p, m in ((pts, mask), (pts[:1], mask[:1]), (pts, mask), (pts, mask)):
+        for s2d, nf in ((True, 5), (False, 8)):
+            got = voxelize.pillar_encoder_input(p, m, *geo, num_features=nf,
+                                                dtype=torch.float32, space_to_depth=s2d)
+            want = voxelize.pillar_encoder_input_plain(p, m, *geo, num_features=nf,
+                                                       dtype=torch.float32, space_to_depth=s2d)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    ops = device_ops(lambda: voxelize.pillar_encoder_input(pts, mask, *geo,
+                                                           dtype=torch.bfloat16, channels=24))
+    assert list(ops.values()) == [1] and 'pillar' in next(iter(ops)), ops

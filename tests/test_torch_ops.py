@@ -11,6 +11,8 @@ the plain versions (the card's oracle) to:
     (``mm_training_tpu.models.centerpoint_head.decode_boxes``).
 Inputs come from numpy with a seed; fp32 throughout.
 """
+import dataclasses
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -165,6 +167,38 @@ def test_voxelize_refuses_multiple_z_bins():
                                         (1.0, 1.0, 2.0), GRID)
 
 
+@pytest.mark.parametrize('s2d,channels', [(True, None), (True, 24), (True, 32),
+                                          (False, None), (False, 8)])
+def test_pillar_encoder_input_plain_matches_jax(s2d, channels):
+    """K1's encoder input (its plain version, which the CPU path runs)
+    against what the JAX encoder hands its first conv: the vmapped
+    voxelize, ``astype(bf16)`` and ``space_to_depth_2x2``, bit for bit, then
+    zero channels up to ``channels``."""
+    from mm_training_tpu.models.resnet import space_to_depth_2x2 as j_s2d
+    pts, mask = _points()
+    want = jnp.asarray(_jax_voxelize(pts, mask, None)).astype(jnp.bfloat16)
+    if s2d:
+        want = j_s2d(want)
+    want = np.asarray(want.astype(jnp.float32))
+    for fn in (voxelize.pillar_encoder_input, voxelize.pillar_encoder_input_plain):
+        got = fn(torch.from_numpy(pts), torch.from_numpy(mask), PC_RANGE, VOXEL, GRID,
+                 num_features=5, dtype=torch.bfloat16, space_to_depth=s2d, channels=channels)
+        c = want.shape[-1]
+        assert got.dtype == torch.bfloat16
+        assert got.shape == (*want.shape[:-1], channels or c)
+        np.testing.assert_array_equal(got[..., :c].float().numpy(), want)
+        assert not got[..., c:].any()
+
+
+def test_pillar_encoder_input_refusals():
+    pts, mask = _points()
+    args = (torch.from_numpy(pts), torch.from_numpy(mask), PC_RANGE, VOXEL)
+    with pytest.raises(ValueError, match='channels'):
+        voxelize.pillar_encoder_input(*args, GRID, channels=16)
+    with pytest.raises(ValueError, match='even'):
+        voxelize.pillar_encoder_input(*args, (3, 8))
+
+
 # ------------------------------------------------------------------------ K3
 
 def _jax_nms_rows(centers, scores, valid, thresh):
@@ -308,3 +342,53 @@ def test_batchnorm_scale_shift_follows_weight_updates():
     torch.testing.assert_close(bn(x), y0 - 1.0 / np.sqrt(1 + 1e-5) + 2.0)
     half = bn.to(torch.bfloat16)
     assert half(x.bfloat16()).dtype == torch.bfloat16
+
+
+def _head_conf_past_the_slot_limit(cfgmod, max_num=2000):
+    cfg = cfgmod.tiny_test_config(use_cam=False)
+    hc = cfg.get_head_conf()
+    return cfg.replace(head_conf=dataclasses.replace(
+        hc, bbox_coder=dataclasses.replace(hc.bbox_coder, max_num=max_num)))
+
+
+def test_k3_slot_limit_is_refused_where_the_model_is_built():
+    """``max_num`` = 2000 asks the card's circle NMS for more candidates a
+    row than it takes (``circle_nms.MAX_SLOTS``): a model for the card is
+    refused at build time, naming the knob; on the CPU it builds."""
+    import mm_training_tpu_torch.configs as tcfg
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.models.bev_depth import check_card_limits
+    cfg = _head_conf_past_the_slot_limit(tcfg)
+    assert circle_nms.MAX_SLOTS == 1024
+    with pytest.raises(ValueError, match=r'BBoxCoderConf\.max_num = 2000'):
+        check_card_limits(cfg, torch.device('cuda'))
+    check_card_limits(cfg, torch.device('cpu'))
+    check_card_limits(_head_conf_past_the_slot_limit(tcfg, 1024), torch.device('cuda'))
+    model = BEVDepthLiDAR(cfg, device='cpu')
+    assert model.cfg.get_head_conf().bbox_coder.max_num == 2000
+
+
+def test_decode_boxes_past_the_card_slot_limit_matches_jax():
+    """On the CPU the decode takes any K, as the JAX package does: top 2000
+    candidates a task (above the card's 1024), circle NMS over each row,
+    against the JAX decode with the same head conf."""
+    import mm_training_tpu.configs as jcfg
+    from mm_training_tpu.models.centerpoint_head import decode_boxes as j_decode
+    import mm_training_tpu_torch.configs as tcfg
+    from mm_training_tpu_torch.models import decode_boxes
+    from tests.torch_port_helpers import _compare_boxes
+
+    jconf = _head_conf_past_the_slot_limit(jcfg).get_head_conf()
+    tconf = _head_conf_past_the_slot_limit(tcfg).get_head_conf()
+    rng = np.random.default_rng(17)
+    preds = []
+    for task in tconf.tasks:
+        p = {'heatmap': rng.normal(-1.0, 1.5, (2, 32, 64, task.num_class))}
+        for name, (ch, _) in tconf.common_heads:
+            p[name] = rng.normal(0.0, 0.5, (2, 32, 64, ch))
+        preds.append({n: v.astype(np.float32) for n, v in p.items()})
+    want = [np.asarray(a) for a in j_decode(
+        jconf, [{n: jnp.asarray(v) for n, v in p.items()} for p in preds])]
+    got = [a.numpy() for a in decode_boxes(
+        tconf, [{n: torch.from_numpy(v) for n, v in p.items()} for p in preds])]
+    _compare_boxes(got, want)
