@@ -6,14 +6,18 @@
 Phases, each raising on failure:
   1. build the nine CUDA kernels from ``mm_training_tpu_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time; then count
-     the device operations of one K3, K7, A', fused K5 and K1 encoder-input
-     call (torch.profiler): one kernel each, no copy; and of one K4 call at
-     the B=1 and the B=4 camera request's shapes: at most two;
+     the device operations of one K3, K7, A', fused K5, K1 encoder-input,
+     K6 (``depth_labels`` at the B=1 and the B=4 camera request,
+     ``depth_grid_to_onehot`` on a [4, 44, 80] grid) and K2 (the B=4 train
+     batch's targets) call (torch.profiler): one kernel each, no copy, no
+     fill; and of one K4 call at the B=1 and the B=4 camera request's
+     shapes: at most two;
   2. hold each kernel against its plain PyTorch version at the serving and
      training paths' shapes (K3 also on dense rows, A' also at ResNet-50's
-     2048-channel shape, K1 also into the encoder's input at B=1 and B=4),
-     and time kernel, plain version and, where one exists, a single
-     PyTorch call computing the same function;
+     2048-channel shape, K1 also into the encoder's input at B=1 and B=4,
+     K2 also the same bits on a second call), and time kernel, plain
+     version and, where one exists, a single PyTorch call computing the
+     same function;
   3. serve the full-width ``lidar_radar`` predict path (grid 256 x 2048,
      8-feature points, bf16, seeded random weights): distinct B=1 requests,
      one B=4 batch and a p50/p90/p99 latency run, with every kernel's launch
@@ -30,8 +34,9 @@ Phases, each raising on failure:
   6. the fp32 tiny config's train step on the card against the port's CPU
      step (TF32 off): loss, updated parameters, BN statistics;
   7. the camera kernels K4-K7 against their plain versions at the
-     ``lidar_cam_radar`` serving path's shapes, timed as in phase 2 (K4 and
-     the fused K5 at the B=1 and the B=4 request, K4 with the atomic adds a
+     ``lidar_cam_radar`` serving path's shapes, timed as in phase 2 (K4,
+     the fused K5 and K6 at the B=1 and the B=4 request, K6 bit for bit
+     and also on a precomputed [4, 44, 80] grid, K4 with the atomic adds a
      launch counts on the card before and after merging runs of bins, K5
      with the corners it reads beyond its halo and against ``F.grid_sample``
      plus ``torch.bmm``; the K5 columns kernel, off the serving path; K7 as
@@ -52,8 +57,8 @@ Phases, each raising on failure:
      and with ``use_depth_loss=False`` (the DCN's depth reaches the splat);
      the fp32 tiny camera config on the card against the port's CPU path
      (TF32 off; boxes to 1e-3, scores to 1e-4).
-Each path's device-op count is printed beside the count before the fused
-K5 and K1's encoder input (the tree they replaced).
+Each path's device-op count is printed beside the count before the
+one-launch K6 and K2 (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result. It imports nothing of JAX or of the JAX package.
@@ -72,11 +77,11 @@ import torch
 from mm_training_tpu_torch.exps.timing import BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S
 
 SEED = 0
-# device ops of one call of each path before the fused K5 and K1's encoder
-# input, on the tree they replaced (torch.profiler; exps/profile_predict.py
-# and exps/profile_train.py, PERF.md section 5)
-BEFORE_DEVICE_OPS = {'lidar_radar B=1 request': 512, 'lidar_radar B=4 train step': 4227,
-                  'lidar_cam_radar B=1 request': 930}
+# device ops of one call of each path before the one-launch K6 and K2, on
+# the tree they replaced (torch.profiler; exps/profile_predict.py and
+# exps/profile_train.py, PERF.md section 5)
+BEFORE_DEVICE_OPS = {'lidar_radar B=1 request': 504, 'lidar_radar B=4 train step': 4219,
+                     'lidar_cam_radar B=1 request': 917}
 # GiB one B=4 lidar_cam_radar request holds at its peak above what is held
 # between requests, on the tree before the fused K5 and K1 (exps/ab_kernels.py,
 # same process as this tree's; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
@@ -101,6 +106,7 @@ def _swaps():
             (deform_conv, 'deform_sample', deform_conv.deform_sample_plain),
             (deform_conv, 'deform_conv3x3', deform_conv.deform_conv3x3_plain),
             (depth_labels, 'depth_labels', depth_labels.depth_labels_plain),
+            (depth_labels, 'depth_grid_to_onehot', depth_labels.depth_grid_to_onehot_plain),
             (warp, 'warp_affine_nhwc', warp.warp_affine_nhwc_plain),
             (warp, 'bda_bev_warp', warp.bda_bev_warp_plain))
 
@@ -166,10 +172,11 @@ def _encoder_channels(cfg):
 
 def _path_device_ops(label, fn):
     """Print and return the device operations of one call of a path,
-    beside the count before the fused K5 and K1 (``BEFORE_DEVICE_OPS``)."""
+    beside the count before the one-launch K6 and K2
+    (``BEFORE_DEVICE_OPS``)."""
     from mm_training_tpu_torch.exps.timing import device_ops
     n = sum(device_ops(fn).values())
-    print(f'device ops of one {label}: {n} (before the fused K5 and K1: '
+    print(f'device ops of one {label}: {n} (before the one-launch K6 and K2: '
           f'{BEFORE_DEVICE_OPS[label]})', flush=True)
     return n
 
@@ -182,16 +189,20 @@ def count_device_ops(cfg, cam_cfg):
     per-task thresholds by value), K7 (the [1, 32, 256, 80] bf16 camera BEV
     and a BDA matrix), A' ([4, 64, 64, 512] bf16 with a residual), K4 (the
     B=1 camera request), the fused K5 (the B=1 request's DCN, [4, 44, 80,
-    512] bf16) and K1's encoder input (a B=1 lidar request) in one session;
-    A' at ResNet-50's [4, 2048, 22, 40], K4, K5 and K1 at the B=4 requests
-    in a second. Each kernel is known by its name; any other device op (a
+    512] bf16), K1's encoder input (a B=1 lidar request), K6 (the B=1
+    camera request's points and rig, and a precomputed [4, 44, 80] grid)
+    and K2 (the B=4 train batch's targets) in one session; A' at
+    ResNet-50's [4, 2048, 22, 40], K4, K5, K1 and K6 at the B=4 requests in
+    a second. Each kernel is known by its name; any other device op (a
     copy, a fill) counts against every call of its session. Returns
     {kernel row name: device ops a call}."""
-    from mm_training_tpu_torch.data import random_bda_matrices
-    from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs, deform_shape, splat_inputs
+    from mm_training_tpu_torch.data import make_fake_batch, random_bda_matrices
+    from mm_training_tpu_torch.exps.kernel_inputs import (deform_inputs, deform_shape,
+                                                          depth_label_inputs, splat_inputs)
     from mm_training_tpu_torch.exps.timing import device_ops
-    from mm_training_tpu_torch.ops import (affine_act, circle_nms, deform_conv, voxel_pooling,
-                                           voxelize, warp)
+    from mm_training_tpu_torch.models.centerpoint_head import heatmap_inputs
+    from mm_training_tpu_torch.ops import (affine_act, circle_nms, deform_conv, depth_labels,
+                                           gaussian, voxel_pooling, voxelize, warp)
 
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -217,7 +228,9 @@ def count_device_ops(cfg, cam_cfg):
         return affine_act.affine_act_backward(g, x, s, t, r, True)
     kernels = {'circle_nms_mask': 'circle_nms', 'bda_bev_warp': 'bev_warp',
                'affine_act_backward': 'affine_act_bwd', 'lift_splat_factorized': 'splat',
-               'deform_conv3x3': 'deform_conv_kernel', 'pillar_encoder_input': 'pillar_kernel'}
+               'deform_conv3x3': 'deform_conv_kernel', 'pillar_encoder_input': 'pillar_kernel',
+               'depth_labels': 'depth_labels_kernel', 'depth_grid_to_onehot': 'depth_onehot',
+               'draw_heatmap': 'heatmap_kernel'}
     dcn1 = deform_inputs(deform_shape(cam_cfg), 4, gen)
     dcn4 = deform_inputs(deform_shape(cam_cfg.replace(batch_size=4)), 4, gen)
     pts1, pts4 = (_points(cfg, b, SEED) for b in (1, 4))
@@ -227,18 +240,31 @@ def count_device_ops(cfg, cam_cfg):
     def encoder_input(pts, mask):
         return voxelize.pillar_encoder_input(pts, mask, *geo, dtype=torch.bfloat16,
                                              channels=channels)
+    labels1 = depth_label_inputs(cam_cfg, dev, seed=SEED + 8)
+    labels4 = depth_label_inputs(cam_cfg.replace(batch_size=4), dev, seed=SEED + 8)
+    grid = torch.rand(4, *bb.feat_hw, generator=gen, device=dev) * 220
+    cfg4 = cfg.replace(batch_size=4)
+    tb = make_fake_batch(cfg4, seed=SEED)
+    heat = heatmap_inputs(cfg4.get_head_conf(), torch.as_tensor(tb['gt_boxes'], device=dev),
+                          torch.as_tensor(tb['gt_labels'], device=dev).long(),
+                          torch.as_tensor(tb['gt_mask'], device=dev))
     per_call = {}
     for rows, fn in (
             (('circle_nms_mask', 'bda_bev_warp', 'affine_act_backward_residual',
-              'lift_splat_factorized', 'deform_conv3x3', 'pillar_encoder_input'),
+              'lift_splat_factorized', 'deform_conv3x3', 'pillar_encoder_input',
+              'depth_labels', 'depth_grid_to_onehot', 'draw_heatmap'),
              lambda: (circle_nms.circle_nms_mask(centers, scores, valid, thresh),
                       warp.bda_bev_warp(bev, bda), backward(*bn),
                       voxel_pooling.lift_splat_factorized(*splat1),
-                      deform_conv.deform_conv3x3(*dcn1, 4), encoder_input(*pts1))),
+                      deform_conv.deform_conv3x3(*dcn1, 4), encoder_input(*pts1),
+                      depth_labels.depth_labels(*labels1),
+                      depth_labels.depth_grid_to_onehot(grid, bb.d_bound, bb.depth_channels),
+                      gaussian.draw_heatmap(*heat))),
             (('affine_act_backward_resnet50', 'lift_splat_factorized_b4', 'deform_conv3x3_b4',
-              'pillar_encoder_input_b4'),
+              'pillar_encoder_input_b4', 'depth_labels_b4'),
              lambda: (backward(*bn50), voxel_pooling.lift_splat_factorized(*splat4),
-                      deform_conv.deform_conv3x3(*dcn4, 4), encoder_input(*pts4)))):
+                      deform_conv.deform_conv3x3(*dcn4, 4), encoder_input(*pts4),
+                      depth_labels.depth_labels(*labels4)))):
         ops = device_ops(fn)
         print(f'device ops of one call each of {list(rows)} (torch.profiler): '
               f'{json.dumps(ops)}', flush=True)
@@ -248,11 +274,12 @@ def count_device_ops(cfg, cam_cfg):
             per_call[row] = other + sum(n for name, n in ops.items() if key in name)
     one = ('circle_nms_mask', 'bda_bev_warp', 'affine_act_backward_residual',
            'affine_act_backward_resnet50', 'deform_conv3x3', 'deform_conv3x3_b4',
-           'pillar_encoder_input', 'pillar_encoder_input_b4')
+           'pillar_encoder_input', 'pillar_encoder_input_b4', 'depth_labels',
+           'depth_labels_b4', 'depth_grid_to_onehot', 'draw_heatmap')
     if any(per_call[n] != 1 for n in one) or not all(
             1 <= per_call[n] <= 2 for n in ('lift_splat_factorized', 'lift_splat_factorized_b4')):
-        raise AssertionError(f"K1's encoder input, K3, K5, K7 and A' must each be one device "
-                             f'kernel a call, K4 at most two: {per_call}')
+        raise AssertionError(f"K1's encoder input, K2, K3, K5, K6, K7 and A' must each be one "
+                             f'device kernel a call, K4 at most two: {per_call}')
     return per_call
 
 
@@ -447,6 +474,7 @@ def check_kernels(cfg):
     got = gaussian.draw_heatmap(centers, radii, valid, hw)
     want = gaussian.draw_heatmap_plain(centers, radii, valid, hw)
     centres_equal = torch.equal(got == 1.0, want == 1.0)
+    deterministic = torch.equal(gaussian.draw_heatmap(centers, radii, valid, hw), got)
     # bytes: the maps written, the operands read; operations: ~8 a drawn
     # cell (2 sub, 2 mul, add, div, exp, max) over the clipped windows
     bsz, m_maps, k_obj = valid.shape
@@ -461,6 +489,7 @@ def check_kernels(cfg):
         name='draw_heatmap', route='cuda', source='mm_training_tpu_torch/csrc/gaussian_heatmap.cu',
         replaces='mm_training_tpu/ops/gaussian.py:45',
         max_abs_err=(got - want).abs().max().item(), centres_equal=centres_equal,
+        deterministic=deterministic,
         ms=device_ms(lambda: gaussian.draw_heatmap(centers, radii, valid, hw), 100),
         call_ms=host_ms(lambda: gaussian.draw_heatmap(centers, radii, valid, hw), 100),
         plain_ms=device_ms(lambda: gaussian.draw_heatmap_plain(centers, radii, valid, hw), 10),
@@ -494,8 +523,10 @@ def check_kernels(cfg):
                 or not row['deterministic']:
             raise AssertionError(f'{name} differs from its plain version: {row}')
     row = by['draw_heatmap']
-    # expf may differ from torch.exp by an ulp; centres exactly 1.0 in both
-    if not (row['centres_equal'] and row['max_abs_err'] <= 1e-6 and row['drawn_windows']):
+    # expf may differ from torch.exp by an ulp; centres exactly 1.0 in both;
+    # the same bits on a second call
+    if not (row['centres_equal'] and row['max_abs_err'] <= 1e-6 and row['drawn_windows']
+            and row['deterministic']):
         raise AssertionError(f'draw_heatmap differs from its plain version: {row}')
     return rows
 
@@ -768,18 +799,19 @@ def _bound(nbytes, flops, rate):
 def check_camera_kernels(cfg):
     """Phase 7: K4-K7 against their plain versions at the camera serving
     path's shapes (one B=1 request: 4 cameras, 409 bins, 44 x 80 features,
-    an 8192-cell camera BEV; K4 and the fused K5 also at the B=4 request),
-    K6 on the request's own points."""
-    from mm_training_tpu_torch.data import make_fake_batch, random_bda_matrices
+    an 8192-cell camera BEV; K4, the fused K5 and K6 also at the B=4
+    request), K6 on the requests' own points and rig, and its binning on a
+    precomputed grid."""
+    from mm_training_tpu_torch.data import random_bda_matrices
     from mm_training_tpu_torch.exps.kernel_inputs import (deform_inputs, deform_outside_tolerance,
-                                                          deform_shape, splat_inputs)
+                                                          deform_shape, depth_label_inputs,
+                                                          splat_inputs)
     from mm_training_tpu_torch.exps.timing import device_ms, host_ms
     from mm_training_tpu_torch.ops import deform_conv, depth_labels, voxel_pooling, warp
 
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     bb = cfg.get_backbone_conf()
-    batch = make_fake_batch(cfg, batch_size=1, seed=SEED + 8)
     d, (fh, fw), c = bb.depth_channels, bb.feat_hw, bb.output_channels
     rows = []
 
@@ -794,7 +826,6 @@ def check_camera_kernels(cfg):
     # cameras of the fake rig), depth and ctx in the layouts the path hands
     # over under the depth oracle (a channels-last softmax, a permuted
     # channels-last slice)
-    intr = torch.as_tensor(batch['intrin'][:, 0], device=dev)
     for name, bsz in (('lift_splat_factorized', 1), ('lift_splat_factorized_b4', 4)):
         depth, ctx, idx, zvalid, n_cells = args = splat_inputs(
             cfg.replace(batch_size=bsz), gen, seed=SEED + 8)
@@ -900,23 +931,42 @@ def check_camera_kernels(cfg):
         print(f'K5 {name}: {from_l2} of {corners} corners beyond the halo '
               f'({from_l2 / corners:.6f}), offsets up to 3 px', flush=True)
 
-    # --- K6 on the request's 100k points, its 4 cameras
-    pts = torch.as_tensor(batch['points'], device=dev)
-    mask = torch.as_tensor(batch['point_mask'], device=dev)
-    extr = torch.as_tensor(batch['extrinsics'][:, 0], device=dev)
-    largs = (pts, mask, extr, intr, cfg.final_dim, bb.downsample_factor, bb.d_bound, d)
-    got = depth_labels.depth_labels(*largs)
-    want = depth_labels.depth_labels_plain(*largs)
-    kept = int(mask.sum())
-    # the mask, x y z of the masked-in points and the matrices read, the
-    # labels written; ~60 operations to project a point into a camera
-    row('depth_labels', 'depth_labels.cu', 'mm_training_tpu/ops/depth_labels.py:30',
-        lambda: depth_labels.depth_labels(*largs), lambda: depth_labels.depth_labels_plain(*largs),
-        mask.numel() + kept * 12 + 2 * extr.numel() * 4 + got.numel() * 4,
-        60 * kept * extr.shape[1], FP32_FLOPS, 20,
-        max_abs_err=(got - want).abs().max().item(), library_ms=None,
-        cells_with_depth=int((got.argmax(-1) > 0).sum()), shape=[kept, extr.shape[1], d],
-        dtype='float32')
+    # --- K6 on the B=1 and the B=4 request's 100k points a frame and their 4
+    # and 16 cameras, the matrices as the path's strided views; the labels
+    # the same bits on a second call
+    for name, bsz in (('depth_labels', 1), ('depth_labels_b4', 4)):
+        largs = depth_label_inputs(cfg.replace(batch_size=bsz), dev, seed=SEED + 8)
+        pts, mask, extr = largs[:3]
+        got = depth_labels.depth_labels(*largs)
+        want = depth_labels.depth_labels_plain(*largs)
+        kept = int(mask.sum())
+        # the mask, x y z of the masked-in points and the matrices read, the
+        # labels written; ~60 operations to project a point into a camera
+        row(name, 'depth_labels.cu', 'mm_training_tpu/ops/depth_labels.py:30',
+            lambda largs=largs: depth_labels.depth_labels(*largs),
+            lambda largs=largs: depth_labels.depth_labels_plain(*largs),
+            mask.numel() + kept * 12 + 2 * extr[..., 0, 0].numel() * 64 + got.numel() * 4,
+            60 * kept * extr.shape[1], FP32_FLOPS, 20 if bsz == 1 else 5,
+            max_abs_err=(got - want).abs().max().item(),
+            deterministic=torch.equal(depth_labels.depth_labels(*largs), got),
+            library_ms=None, cells_with_depth=int((got.argmax(-1) > 0).sum()),
+            max_cells_a_camera=depth_labels.max_cells(dev),
+            shape=[kept, extr.shape[0] * extr.shape[1], d], dtype='float32')
+        del got, want
+    # --- K6's binning alone, on a precomputed [4, 44, 80] min-depth grid
+    # (a batch's depth_gt; 0 and values past the last bin go to bin 0)
+    grid = torch.rand(4, fh, fw, generator=gen, device=dev) * 220
+    grid.view(-1)[:3] = torch.tensor([0.0, 1.5, 206.4])
+    got = depth_labels.depth_grid_to_onehot(grid, bb.d_bound, d)
+    row('depth_grid_to_onehot', 'depth_labels.cu', 'mm_training_tpu/ops/depth_labels.py:76',
+        lambda: depth_labels.depth_grid_to_onehot(grid, bb.d_bound, d),
+        lambda: depth_labels.depth_grid_to_onehot_plain(grid, bb.d_bound, d),
+        grid.numel() * 4 + got.numel() * 4, 3 * grid.numel(), FP32_FLOPS, 20,
+        max_abs_err=(got - depth_labels.depth_grid_to_onehot_plain(grid, bb.d_bound, d)
+                     ).abs().max().item(),
+        deterministic=torch.equal(depth_labels.depth_grid_to_onehot(grid, bb.d_bound, d), got),
+        library_ms=None, shape=list(grid.shape) + [d], dtype='float32')
+    del got
 
     # --- K7 on the camera BEV (32 x 256 x 80 bf16) with a rotated, flipped
     # and scaled augmentation, as the path calls it (the BDA matrix in, the
@@ -976,13 +1026,15 @@ def check_camera_kernels(cfg):
         k5 = by[name]
         if k5['outside_tolerance'] or k5['corners_from_l2']:
             raise AssertionError(f'{name} differs from its plain version: {k5}')
-    for name in ('deform_sample', 'depth_labels', 'bda_bev_warp'):   # bit for bit
-        if by[name]['max_abs_err'] != 0:
+    for name in ('deform_sample', 'depth_labels', 'depth_labels_b4', 'depth_grid_to_onehot',
+                 'bda_bev_warp'):   # bit for bit
+        if by[name]['max_abs_err'] != 0 or not by[name].get('deterministic', True):
             raise AssertionError(f'{name} differs from its plain version: {by[name]}')
     k7 = by['bda_bev_warp']
     if k7['projective_max_abs_err'] != 0:
         raise AssertionError(f'warp_affine_nhwc differs from its plain version: {k7}')
-    if not by['depth_labels']['cells_with_depth'] > 0:
+    if not (by['depth_labels']['cells_with_depth'] > 0
+            and by['depth_labels_b4']['cells_with_depth'] > 0):
         raise AssertionError('no LiDAR point reached a camera')
     return rows
 

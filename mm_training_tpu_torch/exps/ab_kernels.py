@@ -1,5 +1,5 @@
-"""Kernels A', K4, K5 and K1 of this package against another copy of it, in
-one process.
+"""Kernels A', K4, K5, K1, K6 and K2 of this package against another copy of
+it, in one process.
 
 The other copy (for example an earlier commit unpacked with ``git archive``
 into a git-ignored directory) is imported under another module name and
@@ -26,14 +26,21 @@ this, this, other, on the same inputs:
   the first conv's forward and backward (a weight gradient) on that input,
   each copy at its own input channels;
 - the peak device memory of one B=4 ``lidar_cam_radar`` predict request,
-  each copy's full-width model (seeded random weights) built in turn.
+  each copy's full-width model (seeded random weights) built in turn;
+- K6 as ``depth_labels`` on the B=1 and the B=4 ``lidar_cam_radar``
+  request's points and rig (the matrices as the strided views the path
+  hands over), and ``depth_grid_to_onehot`` on a [4, 44, 80] grid, each
+  copy's labels held equal;
+- K2 as ``draw_heatmap`` on a B=4 ``lidar_radar`` train batch's targets,
+  the two copies' maps held equal bit for bit there and on every case of
+  ``exps/kernel_inputs.py::heatmap_case``.
 
 ``--only`` takes a subset of {backward, lift_splat, deform_conv,
-encoder_input, camera_memory}. Prints one JSON object with the card's name
-and power limit.
+encoder_input, camera_memory, depth_labels, heatmap}. Prints one JSON object
+with the card's name and power limit.
 
     python -m mm_training_tpu_torch.exps.ab_kernels --other path/to/mm_training_tpu_torch
-        [--only deform_conv encoder_input camera_memory]
+        [--only depth_labels heatmap]
 """
 from __future__ import annotations
 
@@ -52,17 +59,20 @@ import torch.nn.functional as F
 from ..configs import lidar_cam_radar, lidar_radar
 from ..data import make_fake_batch
 from ..models import BEVDepthLiDAR
+from ..models.centerpoint_head import heatmap_inputs
 from ..models.depth_net import DeformConv2d
 from ..models.lidar_encoder import LidarBEVEncoder
-from ..ops import affine_act, voxel_pooling, voxelize
+from ..ops import affine_act, depth_labels, gaussian, voxel_pooling, voxelize
 from ..training import create_train_state, make_train_step
-from .kernel_inputs import SPLAT_LAYOUTS, splat_inputs
+from .kernel_inputs import (HEATMAP_CASES, SPLAT_LAYOUTS, depth_label_inputs, heatmap_case,
+                            splat_inputs)
 from .profile_kernels import record
 from .timing import HBM_BYTES_PER_S, device_ms
 
 __all__ = ['main']
 
-SECTIONS = ('backward', 'lift_splat', 'deform_conv', 'encoder_input', 'camera_memory')
+SECTIONS = ('backward', 'lift_splat', 'deform_conv', 'encoder_input', 'camera_memory',
+            'depth_labels', 'heatmap')
 
 
 def load_copy(path: str, name: str = 'mm_training_tpu_torch_other'):
@@ -214,6 +224,70 @@ def camera_memory(other: str) -> dict:
     return out
 
 
+def depth_label_rows(other: str, gen: torch.Generator) -> list:
+    """K6: ``depth_labels`` of both copies on the B=1 and the B=4 requests
+    (the matrices as the path's strided views), and
+    ``depth_grid_to_onehot`` on a [4, 44, 80] grid."""
+    other_dl = importlib.import_module(f'{other}.ops.depth_labels')
+    rows = []
+    for batch_size in (1, 4):
+        args = depth_label_inputs(lidar_cam_radar(batch_size=batch_size), 'cuda')
+        mask, extr = args[1], args[2]
+        out = depth_labels.depth_labels(*args)
+        # the mask, x y z of the kept points and the matrices read, the
+        # labels written
+        nbytes = mask.numel() + int(mask.sum()) * 12 + 2 * extr[..., 0, 0].numel() * 64 \
+            + out.numel() * 4
+        row = {'kernel': 'depth_labels', 'batch_size': batch_size, 'shape': list(out.shape),
+               'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3,
+               'equal_to_other': torch.equal(out, other_dl.depth_labels(*args))}
+        row.update(_alternate(lambda: other_dl.depth_labels(*args),
+                              lambda: depth_labels.depth_labels(*args), 50))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    bb = lidar_cam_radar().get_backbone_conf()
+    grid = torch.rand(4, *bb.feat_hw, generator=gen, device='cuda') * 220
+    grid_args = (grid, bb.d_bound, bb.depth_channels)
+    out = depth_labels.depth_grid_to_onehot(*grid_args)
+    row = {'kernel': 'depth_grid_to_onehot', 'shape': list(out.shape),
+           'bound_ms': (grid.numel() + out.numel()) * 4 / HBM_BYTES_PER_S * 1e3,
+           'equal_to_other': torch.equal(out, other_dl.depth_grid_to_onehot(*grid_args))}
+    row.update(_alternate(lambda: other_dl.depth_grid_to_onehot(*grid_args),
+                          lambda: depth_labels.depth_grid_to_onehot(*grid_args), 50))
+    rows.append(row)
+    print(json.dumps(row), flush=True)
+    return rows
+
+
+def heatmap_rows(other: str) -> dict:
+    """K2: ``draw_heatmap`` of both copies on a B=4 ``lidar_radar`` train
+    batch's targets, timed; the maps held equal bit for bit there and on
+    every edge case of ``heatmap_case``."""
+    other_g = importlib.import_module(f'{other}.ops.gaussian')
+    cfg = lidar_radar(batch_size=4)
+    tb = make_fake_batch(cfg, seed=0)
+    args = heatmap_inputs(cfg.get_head_conf(), torch.as_tensor(tb['gt_boxes'], device='cuda'),
+                          torch.as_tensor(tb['gt_labels'], device='cuda').long(),
+                          torch.as_tensor(tb['gt_mask'], device='cuda'))
+    out = gaussian.draw_heatmap(*args)
+    centers, radii, valid, _ = args
+    row = {'kernel': 'draw_heatmap', 'shape': list(out.shape),
+           'windows': int(valid.sum()),
+           'bound_ms': (out.numel() * 4 + centers.numel() * 4 + radii.numel() * 4
+                        + valid.numel()) / HBM_BYTES_PER_S * 1e3,
+           'equal_to_other': torch.equal(out, other_g.draw_heatmap(*args)),
+           'second_call_equal': torch.equal(out, gaussian.draw_heatmap(*args))}
+    for case in HEATMAP_CASES:
+        c, r, v, hw = heatmap_case(case)
+        a = (*(torch.from_numpy(x).cuda() for x in (c, r, v)), hw)
+        row[f'equal_to_other_{case}'] = torch.equal(gaussian.draw_heatmap(*a),
+                                                    other_g.draw_heatmap(*a))
+    row.update(_alternate(lambda: other_g.draw_heatmap(*args),
+                          lambda: gaussian.draw_heatmap(*args), 100))
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--other', required=True, help='directory of the other package copy')
@@ -234,6 +308,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         result['encoder_input'] = encoder_input_rows(other, gen)
     if 'camera_memory' in args.only:
         result['camera_memory'] = camera_memory(other)
+    if 'depth_labels' in args.only:
+        result['depth_labels'] = depth_label_rows(other, gen)
+    if 'heatmap' in args.only:
+        result['heatmap'] = heatmap_rows(other)
     other_aa = importlib.import_module(f'{other}.ops.affine_act')
     other_vp = importlib.import_module(f'{other}.ops.voxel_pooling')
 

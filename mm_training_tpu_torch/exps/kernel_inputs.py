@@ -1,7 +1,8 @@
-"""Kernel K4's and K5's inputs at a camera config's shapes, K4's laid out as
-the path hands them over (``models/lss_fpn.py``), and the tolerance that
-holds the fused K5 to its plain version. Shared by ``chip_smoke.py``, the
-card tests and ``exps/ab_kernels.py``."""
+"""Kernel K4's, K5's and K6's inputs at a camera config's shapes, K4's laid
+out as the path hands them over (``models/lss_fpn.py``), the tolerance that
+holds the fused K5 to its plain version, and K2's edge cases. Shared by
+``chip_smoke.py``, the card tests, the CPU tests and
+``exps/ab_kernels.py``."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,7 +13,8 @@ from ..data import make_fake_batch
 from ..models.lss_fpn import LSSFPN
 from ..ops import deform_conv
 
-__all__ = ['SPLAT_LAYOUTS', 'deform_inputs', 'deform_outside_tolerance', 'deform_shape',
+__all__ = ['HEATMAP_CASES', 'SPLAT_LAYOUTS', 'deform_inputs', 'deform_outside_tolerance',
+           'deform_shape', 'depth_label_case', 'depth_label_inputs', 'heatmap_case',
            'splat_inputs']
 
 # 'channels_last': the softmax over bins in channels-last memory, as the depth
@@ -107,3 +109,98 @@ def deform_outside_tolerance(got: torch.Tensor, x, offsets, weight, bias, groups
     plain = deform_conv.deform_conv3x3_plain(x, offsets, weight, bias, groups)
     outside = sum(int(((v < lo) | (v > hi)).sum()) for v in (got, plain))
     return outside, (got.float() - plain.float()).abs().max().item()
+
+
+def depth_label_inputs(cfg: Config, device, seed: int = 8) -> tuple:
+    """Kernel K6's arguments for ``cfg``'s fake batch (``seed``) as the
+    camera path hands them over: the points [B, P, F] (the identity BDA
+    leaves x, y, z as they are), the mask, the key frame's extrinsics and
+    intrinsics as strided [B, N, 4, 4] views, then the image size,
+    downsample, depth bounds and bins."""
+    bb = cfg.get_backbone_conf()
+    batch = make_fake_batch(cfg, seed=seed)
+    pts, mask, extr, intr = (torch.as_tensor(batch[k], device=device) for k in
+                             ('points', 'point_mask', 'extrinsics', 'intrin'))
+    return (pts, mask, extr[:, 0], intr[:, 0], cfg.final_dim, bb.downsample_factor,
+            bb.d_bound, bb.depth_channels)
+
+
+def depth_label_case(name: str, hw=(64, 128), seed: int = 0):
+    """(points [1, P, 8], mask [1, P], extrinsics, intrinsics [1, 2, 4, 4])
+    float32 / bool numpy arrays of a two-camera rig whose body frame is
+    both cameras' frame, for an ``hw`` image:
+
+    - 'p2_zero': camera 0's third intrinsic row is (0, 0, 1, -5), so a point
+      at depth 5 has p2 == 0 and the division takes 1e-9 (the point at
+      (1e-8, 2e-8, 5) lands at pixel (10, 20), the one at (0, 0, 5) at 0 and
+      is dropped); camera 1 is a pinhole (f 20, principal point at the
+      image centre); plus 400 random points at depths 0.5-30 and one NaN
+      point;
+    - 'none_kept': the same points with the mask all False (every cell
+      empty, bin 0)."""
+    if name not in ('p2_zero', 'none_kept'):
+        raise ValueError(f"depth_label_case: 'p2_zero' or 'none_kept', got {name!r}")
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((1, 404, 8), np.float32)
+    z = rng.uniform(0.5, 30.0, 400)
+    pts[0, 4:, 0] = rng.uniform(-0.6, 0.6, 400) * z * w / 40
+    pts[0, 4:, 1] = rng.uniform(-0.6, 0.6, 400) * z * h / 40
+    pts[0, 4:, 2] = z
+    pts[0, :4, :3] = [[1e-8, 2e-8, 5.0], [0.0, 0.0, 5.0], [np.nan, 0.0, 5.0],
+                      [3.0, 1.0, 7.0]]
+    extr = np.tile(np.eye(4, dtype=np.float32), (1, 2, 1, 1))
+    intr = np.tile(np.eye(4, dtype=np.float32), (1, 2, 1, 1))
+    intr[0, 0, 2, 3] = -5.0
+    intr[0, 1, :2, :3] = [[20.0, 0.0, w / 2], [0.0, 20.0, h / 2]]
+    mask = np.full((1, 404), name == 'p2_zero')
+    return pts, mask, extr, intr
+
+
+# kernel K2's edge cases (numpy, so the JAX function can take them too)
+HEATMAP_CASES = ('band_edges', 'off_map', 'r_zero', 'huge_radius', 'no_valid_map',
+                 'many_slots', 'odd_width')
+
+
+def heatmap_case(name: str, seed: int = 0):
+    """(centers [B, K, 2] int32, radii [B, K] int32, valid [B, M, K] bool,
+    (H, W)) of one of :data:`HEATMAP_CASES`:
+
+    - 'band_edges': 64 x 512 maps (8-row bands of 4096 cells), centres on
+      rows 7, 8, 15, 16 and the first and last rows, so windows straddle the
+      edges of the kernel's bands;
+    - 'off_map': centres left of, right of, above and below the map, some
+      windows reaching in and some not;
+    - 'r_zero': radius 0 (a single cell) for most objects;
+    - 'huge_radius': radii larger than the map beside ordinary ones;
+    - 'no_valid_map': one map of each sample where no object is valid;
+    - 'many_slots': 1,500 slots, more than one staging chunk of 256;
+    - 'odd_width': 23 x 37 maps, whose rows and maps are not 16-byte
+      aligned."""
+    if name not in HEATMAP_CASES:
+        raise ValueError(f'heatmap_case: one of {HEATMAP_CASES}, got {name!r}')
+    rng = np.random.default_rng(seed)
+    b, m, k, (h, w) = 2, 3, 40, (64, 512)
+    if name == 'many_slots':
+        b, m, k = 1, 2, 1500
+    if name == 'odd_width':
+        h, w = 23, 37
+    centers = np.stack([rng.integers(0, w, (b, k)), rng.integers(0, h, (b, k))], -1)
+    radii = rng.integers(1, 7, (b, k))
+    valid = rng.random((b, m, k)) < 0.5
+    if name == 'band_edges':
+        rows = np.array([7, 8, 15, 16, 0, h - 1, 23, 24])
+        centers[:, :24, 1] = np.resize(rows, 24)
+    elif name == 'off_map':
+        centers[:, 0:12, 0] = [-1, -3, -9, w, w + 2, w + 9, 5, 9, 100, 200, -2, w + 1]
+        centers[:, 0:12, 1] = [5, 6, 7, 8, 9, 10, -1, -4, h, h + 3, -2, h + 1]
+        radii[:, 0:12] = [2, 4, 3, 1, 3, 5, 2, 5, 1, 6, 3, 2]
+        valid[:, :, :12] = True
+    elif name == 'r_zero':
+        radii[:, : 3 * k // 4] = 0
+    elif name == 'huge_radius':
+        radii[:, :3] = [1000, w + 5, 4 * w]
+        valid[:, :, :3] = True
+    elif name == 'no_valid_map':
+        valid[:, 1] = False
+    return (centers.astype(np.int32), radii.astype(np.int32), valid, (h, w))

@@ -6,7 +6,11 @@ predict step up, then profiles ``--requests`` B-sized requests and prints:
 host wall time per request, device time per request summed over kernels,
 the device's busy share (device time / wall time), launches per request,
 the share of the host-to-device copies, and the kernels and host ops that
-take the most time.
+take the most time. With the LiDAR depth oracle (``use_depth_loss``), a
+second, shorter profile that records input shapes gives the device time of
+the lift's eager use of the fp32 oracle (``models/lss_fpn.py``: the max
+over its bins, the comparison, the cast to the compute dtype, the
+``where``), its ops found by their shapes.
 
     python -m mm_training_tpu_torch.exps.profile_predict [--config lidar_radar]
         [--batch-size 1] [--requests 20] [--trace predict_trace.json]
@@ -26,7 +30,29 @@ from ..data import make_fake_batch
 from ..models import BEVDepthLiDAR
 from ..training import make_predict_step
 
-__all__ = ['main']
+__all__ = ['main', 'oracle_lift_ms']
+
+ORACLE_OPS = ('aten::amax', 'aten::gt', 'aten::_to_copy', 'aten::where')
+
+
+def oracle_lift_ms(predict, batch, cfg, requests: int = 5) -> dict:
+    """{op: device ms a request} of the lift's eager ops on the depth oracle
+    (the permuted [B*N, D, fH, fW] float32 labels and their [B*N, 1, fH,
+    fW] foreground mask), from a profile of ``requests`` requests that
+    records input shapes; 'total' sums them."""
+    bb = cfg.get_backbone_conf()
+    m = cfg.batch_size * cfg.num_cameras
+    shapes = ([m, bb.depth_channels, *bb.feat_hw], [m, 1, *bb.feat_hw])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(requests):
+            [o.cpu() for o in predict(batch)]
+    out = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ORACLE_OPS and e.input_shapes and list(e.input_shapes[0]) in shapes:
+            out[e.key] = out.get(e.key, 0.0) + e.device_time_total / 1e3 / requests
+    out['total'] = sum(out.values())
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -85,6 +111,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             (e.key[:80], e.self_cpu_time_total / 1e3 / args.requests,
              e.count / args.requests) for e in top_host],
     }
+    if cfg.use_cam and cfg.use_depth_loss:
+        result['depth_oracle_lift_ms_per_request'] = oracle_lift_ms(predict, batch, cfg)
     print(json.dumps(result, indent=1))
     return result
 

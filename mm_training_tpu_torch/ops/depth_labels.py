@@ -4,8 +4,9 @@ The port of ``mm_training_tpu/ops/depth_labels.py``: ``depth_labels``
 (:89-96, ``depth_labels_single_cam`` vmapped over the cameras, :30-73) and
 ``depth_grid_to_onehot`` (:76-86), the one binning function that the
 projection path and a precomputed ``depth_gt`` grid share. The CUDA source
-is ``csrc/depth_labels.cu``; it is bound by the bytes of the one-hot labels
-it writes, see the note there.
+is ``csrc/depth_labels.cu``: one launch a call, one thread-block cluster a
+camera holding the camera's min-depth grid in its shared memory; it is
+bound by the bytes of the one-hot labels it writes, see the note there.
 
 The projection is computed in float32 with the dot products written out in
 one order (``((x*e0 + y*e1) + z*e2) + 1*e3``) in both versions, so the
@@ -25,9 +26,10 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .gaussian import true_div
 
 __all__ = ['depth_labels', 'depth_labels_plain', 'depth_grid_to_onehot',
-           'depth_grid_to_onehot_plain', 'min_depth_grid_plain']
+           'depth_grid_to_onehot_plain', 'max_cells', 'min_depth_grid_plain']
 
 EMPTY = 1e5
 
@@ -36,8 +38,7 @@ def depth_grid_to_onehot_plain(grid: torch.Tensor, d_bound: Sequence[float],
                                num_bins: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`depth_grid_to_onehot`."""
     d0, _, step = d_bound
-    idx = (grid.float() - (d0 - step)) / torch.tensor(step, dtype=torch.float32,
-                                                      device=grid.device)
+    idx = true_div(grid.float() - (d0 - step), step)
     idx = torch.where((idx < num_bins) & (idx >= 0.0), idx, 0.0)
     return F.one_hot(idx.to(torch.int64), num_bins).to(torch.float32)
 
@@ -62,8 +63,8 @@ def min_depth_grid_plain(points: torch.Tensor, mask: torch.Tensor,
                          extrinsics: torch.Tensor, intrinsics: torch.Tensor,
                          img_hw: Tuple[int, int], downsample: int) -> torch.Tensor:
     """[B*N, fH*fW] float32: the minimum depth of the kept points in each
-    cell, 1e5 where none (the plain version of the kernel's first two
-    passes)."""
+    cell, 1e5 where none (the plain version of the kernel's projection
+    phase)."""
     b, p, _ = points.shape
     n = extrinsics.shape[1]
     h, w = img_hw
@@ -95,12 +96,24 @@ def depth_labels_plain(points: torch.Tensor, mask: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = build.load('depth_labels')
     p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.depth_labels.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i32, i32, i32,
-                                 i32, f32, f32, p, p, p]
+    lib.depth_labels.argtypes = [p, i64, i64, p, p, i64, i64, p, i64, i64, i64, i64, i32,
+                                 i32, i32, i32, i32, i32, i32, f32, f32, p, p]
     lib.depth_labels.restype = ctypes.c_int
+    lib.depth_labels_max_cells.argtypes = []
+    lib.depth_labels_max_cells.restype = ctypes.c_longlong
     lib.depth_onehot.argtypes = [p, p, i64, i32, f32, f32, p]
     lib.depth_onehot.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def max_cells(device: torch.device) -> int:
+    """Cells of one camera's min-depth grid that fit in one thread-block
+    cluster's shared memory on ``device`` (the kernel keeps the grid
+    there)."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        return int(lib.depth_labels_max_cells())
 
 
 def _bin_edges(d_bound: Sequence[float]) -> Tuple[float, float]:
@@ -124,6 +137,9 @@ def depth_labels(points: torch.Tensor, mask: torch.Tensor, extrinsics: torch.Ten
 
     Returns [B*N, H/ds, W/ds, D] float32. A CPU tensor takes
     :func:`depth_labels_plain`; a CUDA tensor launches kernel K6 or raises.
+    Points and matrices are read in place (strided views welcome, x, y, z
+    and each 4 x 4 contiguous); a camera's H/ds x W/ds grid must fit in one
+    cluster's shared memory (:func:`max_cells`), else ValueError.
     """
     b, p = mask.shape
     if (points.dim() != 3 or points.shape[:2] != (b, p) or points.shape[2] < 3
@@ -141,19 +157,27 @@ def depth_labels(points: torch.Tensor, mask: torch.Tensor, extrinsics: torch.Ten
             or any(t.dtype != torch.float32 for t in (points, extrinsics, intrinsics)):
         raise ValueError('depth_labels: float32 points and matrices and a bool mask, '
                          'all on one CUDA device or all on the CPU')
-    points, mask, extrinsics, intrinsics = (t.contiguous() for t in tensors)
+    if points.stride(2) != 1:
+        points = points.contiguous()
+    extrinsics, intrinsics = (m if m.stride()[2:] == (4, 1) else m.contiguous()
+                              for m in (extrinsics, intrinsics))
+    mask = mask.contiguous()
     n = extrinsics.shape[1]
     h, w = img_hw
     fh, fw = h // downsample, w // downsample
-    grid = torch.empty(b * n, fh * fw, dtype=torch.float32, device=points.device)
+    if fh * fw > max_cells(points.device):
+        raise ValueError(f'depth_labels: a camera grid of {fh} x {fw} cells (image {h} x {w}, '
+                         f'downsample {downsample}) does not fit in one thread-block '
+                         f"cluster's shared memory ({max_cells(points.device)} cells)")
     out = torch.empty(b * n, fh, fw, num_bins, dtype=torch.float32, device=points.device)
     lo, step = _bin_edges(d_bound)
     lib = _lib()
     with torch.cuda.device(points.device):
-        code = lib.depth_labels(points.data_ptr(), mask.data_ptr(), extrinsics.data_ptr(),
-                                intrinsics.data_ptr(), b, p, points.shape[2], n, h, w,
-                                downsample, fh, fw, num_bins, lo, step, grid.data_ptr(),
-                                out.data_ptr(),
+        code = lib.depth_labels(points.data_ptr(), points.stride(0), points.stride(1),
+                                mask.data_ptr(), extrinsics.data_ptr(), extrinsics.stride(0),
+                                extrinsics.stride(1), intrinsics.data_ptr(),
+                                intrinsics.stride(0), intrinsics.stride(1), b, p, n, h, w,
+                                downsample, fh, fw, num_bins, lo, step, out.data_ptr(),
                                 torch.cuda.current_stream(points.device).cuda_stream)
     build.check(lib, code, 'depth_labels')
     depth_labels.launches += 1

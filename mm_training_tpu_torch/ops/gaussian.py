@@ -4,9 +4,9 @@ The port of ``mm_training_tpu/ops/gaussian.py``: ``gaussian_radius`` (plain
 PyTorch, per object) and ``draw_heatmap``, the elementwise max over objects
 of windowed gaussians, sigma = (2r+1)/6, drawn inside the (2r+1)^2 window
 around each centre and clipped to the map. The CUDA source is
-``csrc/gaussian_heatmap.cu`` (one block per (sample, map, object) window,
-combined with ``atomicMax``); it is bound by the bytes of the maps it
-writes, see the note there.
+``csrc/gaussian_heatmap.cu`` (one block per (sample, map, band of cells),
+each cell the max over the windows that meet the band, written once); it
+is bound by the bytes of the maps it writes, see the note there.
 
 The interface is batched where the JAX function draws one map: centres
 ``[B, K, 2]`` and radii ``[B, K]`` are shared by the ``M`` maps of a sample
@@ -26,11 +26,19 @@ from . import build
 __all__ = ['gaussian_radius', 'draw_heatmap', 'draw_heatmap_plain', 'true_div']
 
 
+@functools.lru_cache(maxsize=None)
+def _divisor(b: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):     # a normal tensor, whichever mode made it
+        return torch.full((), b, dtype=dtype, device=device)
+
+
 def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
     """``a / b`` with true division: the divisor is a tensor on ``a``'s
     device, because dividing a CUDA tensor by a Python number multiplies by
-    its reciprocal, which rounds differently from the JAX package."""
-    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+    its reciprocal, which rounds differently from the JAX package. The
+    divisor is made once per (value, dtype, device) and kept, so a call
+    makes no host-to-device copy."""
+    return a / _divisor(float(b), a.dtype, a.device)
 
 
 def gaussian_radius(det_size: Sequence[torch.Tensor], min_overlap: float) -> torch.Tensor:
@@ -116,7 +124,7 @@ def draw_heatmap(centers: torch.Tensor, radii: torch.Tensor, valid: torch.Tensor
       hw: (H, W) of the maps.
 
     Returns [B, M, H, W] float32. CPU tensors take :func:`draw_heatmap_plain`;
-    CUDA tensors launch the kernel.
+    CUDA tensors launch the kernel, which writes every value of the maps.
     """
     _check(centers, radii, valid)
     if centers.device.type == 'cpu':
@@ -127,7 +135,9 @@ def draw_heatmap(centers: torch.Tensor, radii: torch.Tensor, valid: torch.Tensor
     b, k, _ = centers.shape
     m = valid.shape[1]
     centers, radii, valid = centers.contiguous(), radii.contiguous(), valid.contiguous()
-    out = torch.zeros(b, m, h, w, dtype=torch.float32, device=centers.device)
+    if centers.data_ptr() % 8:
+        centers = centers.clone()     # the kernel reads a centre's (x, y) in one 8-byte load
+    out = torch.empty(b, m, h, w, dtype=torch.float32, device=centers.device)
     lib = _lib()
     with torch.cuda.device(centers.device):
         code = lib.draw_heatmap(centers.data_ptr(), radii.data_ptr(), valid.data_ptr(),

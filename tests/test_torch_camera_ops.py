@@ -29,6 +29,7 @@ from mm_training_tpu_torch.core import geometry as tgeo
 from mm_training_tpu_torch.models.depth_net import DeformConv2d
 from mm_training_tpu_torch.ops import deform_conv, depth_labels, voxel_pooling, warp
 from mm_training_tpu_torch.data import random_bda_matrices
+from mm_training_tpu_torch.exps.kernel_inputs import depth_label_case
 
 # the module, not the function of the same name that the package exports
 j_depth_labels = importlib.import_module('mm_training_tpu.ops.depth_labels')
@@ -345,6 +346,28 @@ def test_depth_labels_crafted_points():
     assert cam0[1, 0] == depth_labels.EMPTY              # (0.5, 20.5): inside the border
     assert cam0[1, 7] == depth_labels.EMPTY              # (w - 0.6, 30.2): inside the border
     assert (cam0 < depth_labels.EMPTY).sum() == 1
+
+
+@pytest.mark.parametrize('case', ['p2_zero', 'none_kept'])
+def test_depth_labels_p2_zero_and_none_kept(case):
+    """A point with p2 == 0 (the division takes 1e-9 and the point lands at
+    pixel (10, 20) of camera 0, depth 5: bin 7), a NaN point, and a batch
+    where no point is kept (every cell in bin 0): the same labels as the
+    JAX function (``exps/kernel_inputs.py::depth_label_case``)."""
+    hw, ds, d_bound, bins = (64, 128), 16, (2.0, 27.2, 0.5), 51
+    pts, mask, extr, intr = depth_label_case(case, hw)
+    got = depth_labels.depth_labels(*(torch.from_numpy(a) for a in (pts, mask, extr, intr)),
+                                    hw, ds, d_bound, bins).numpy()
+    want = np.asarray(j_depth_labels.depth_labels(
+        jnp.asarray(pts[0]), jnp.asarray(mask[0]), jnp.asarray(extr[0]), jnp.asarray(intr[0]),
+        hw, ds, d_bound, bins))
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (2, 4, 8, bins) and (got.sum(-1) == 1).all()
+    if case == 'none_kept':
+        assert (got.argmax(-1) == 0).all()
+    else:
+        assert got[0, 1, 0].argmax() == 7                    # the p2 == 0 point
+        assert (got[1].argmax(-1) > 0).sum() > 10
 
 
 def test_depth_grid_to_onehot_plain_matches_jax():

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from mm_training_tpu_torch.exps.kernel_inputs import (HEATMAP_CASES, depth_label_case,
+                                                      heatmap_case)
 from mm_training_tpu_torch.ops import affine_act, circle_nms, gaussian, voxelize
 
 pytestmark = pytest.mark.cuda
@@ -184,19 +186,38 @@ def test_affine_act_autograd_reaches_the_backward_kernel(gen):
     assert x.grad is not None and s.grad is not None and t.grad is not None
 
 
-def test_draw_heatmap_kernel_matches_plain(gen):
-    for b, m, k, hw in ((4, 4, 500, (64, 512)), (2, 3, 37, (24, 40))):
-        h, w = hw
-        cx = torch.randint(-3, w + 3, (b, k), generator=gen, device='cuda')
-        cy = torch.randint(-3, h + 3, (b, k), generator=gen, device='cuda')
-        centers = torch.stack([cx, cy], -1).int()
-        radii = torch.randint(0, 12, (b, k), generator=gen, device='cuda').int()
-        valid = torch.rand(b, m, k, generator=gen, device='cuda') < 0.5
+@pytest.mark.parametrize('case', ('random',) + HEATMAP_CASES)
+def test_draw_heatmap_kernel_matches_plain(gen, case):
+    """K2 on random windows (centres up to 3 cells off the map, 500 and 37
+    slots) and on the edge cases of ``exps/kernel_inputs.py::heatmap_case``
+    (band edges, off-map centres, r = 0, radii beyond the map, a map with
+    no valid object, 1,500 slots, rows off 16 bytes): within 1e-6 of the
+    plain version with the centres equal, the same bits on a second call,
+    one device kernel a call."""
+    from mm_training_tpu_torch.exps.timing import device_ops
+    if case == 'random':
+        cases = []
+        for b, m, k, hw in ((4, 4, 500, (64, 512)), (2, 3, 37, (24, 40))):
+            h, w = hw
+            cx = torch.randint(-3, w + 3, (b, k), generator=gen, device='cuda')
+            cy = torch.randint(-3, h + 3, (b, k), generator=gen, device='cuda')
+            cases.append((torch.stack([cx, cy], -1).int(),
+                          torch.randint(0, 12, (b, k), generator=gen, device='cuda').int(),
+                          torch.rand(b, m, k, generator=gen, device='cuda') < 0.5, hw))
+    else:
+        centers, radii, valid, hw = heatmap_case(case)
+        cases = [(*(torch.from_numpy(a).cuda() for a in (centers, radii, valid)), hw)]
+    for centers, radii, valid, hw in cases:
         got = gaussian.draw_heatmap(centers, radii, valid, hw)
         want = gaussian.draw_heatmap_plain(centers, radii, valid, hw)
         # expf and torch.exp may differ by an ulp; centres are exactly 1.0
         assert torch.equal(got == 1.0, want == 1.0)
         assert (got - want).abs().max().item() <= 1e-6
+        assert torch.equal(gaussian.draw_heatmap(centers, radii, valid, hw), got)
+        if case == 'no_valid_map':
+            assert not got[:, 1].any()
+    ops = device_ops(lambda: gaussian.draw_heatmap(centers, radii, valid, hw))
+    assert sum(ops.values()) == 1 and any('heatmap_kernel' in k for k in ops), ops
 
 
 def _splat_outside_tolerance(got, want, magnitude):
@@ -341,29 +362,70 @@ def test_deform_sample_kernel_equals_plain(gen, dtype, c):
     assert torch.equal(got, deform_conv.deform_sample_plain(x, off))
 
 
-def test_depth_labels_kernel_equals_plain(gen):
+# (case, image, downsample, depth bounds, bins): the requests' own points and
+# rig; the crafted two-camera rig (a point with p2 == 0, a NaN point) with
+# rows of 3 and 5 bins (row ends off 16 bytes) and a 32 x 48 image (2 x 3
+# cells); the same points with none kept; a 256 x 256-cell grid, too large
+# for one CTA's shared memory, so split over the cluster
+DEPTH_LABEL_CASES = {
+    'request_b2': ('request', None, None, None, None),
+    'request_b4': ('request', None, None, None, None),
+    'p2_zero_d3': ('p2_zero', (64, 128), 16, (2.0, 50.0, 16.0), 3),
+    'p2_zero_d5': ('p2_zero', (64, 128), 16, (2.0, 50.0, 8.0), 5),
+    'tiny_image': ('p2_zero', (32, 48), 16, (2.0, 206.4, 0.5), 409),
+    'none_kept_d5': ('none_kept', (64, 128), 16, (2.0, 50.0, 8.0), 5),
+    'split_grid': ('p2_zero', (1024, 1024), 4, (2.0, 50.0, 8.0), 5),
+}
+
+
+@pytest.mark.parametrize('case', list(DEPTH_LABEL_CASES))
+def test_depth_labels_kernel_equals_plain(gen, case):
     """K6 on a lidar_cam_radar request (100k points, 4 cameras of 704 x
-    1280, 409 bins) and on the binning of a precomputed grid: bit for bit
-    (the same fp32 steps; the minimum does not depend on the order)."""
+    1280, 409 bins) at B=2 and B=4 (16 cameras, 92 MB of labels; the
+    matrices strided views, as the path hands them over), and on the
+    crafted rig at 3 and 5 bins, a tiny image, a NaN point and no kept
+    point; then the binning of a precomputed grid of the same cells: bit
+    for bit (the same fp32 steps; the minimum does not depend on the
+    order), the same bits on a second call, one device kernel a call."""
     from mm_training_tpu_torch.configs import lidar_cam_radar
-    from mm_training_tpu_torch.data import make_fake_batch
+    from mm_training_tpu_torch.exps.kernel_inputs import depth_label_inputs
+    from mm_training_tpu_torch.exps.timing import device_ops
     from mm_training_tpu_torch.ops import depth_labels
-    cfg = lidar_cam_radar(batch_size=2)
-    batch = make_fake_batch(cfg, seed=0)
-    pts, mask, extr, intr = (torch.as_tensor(batch[k], device='cuda') for k in
-                             ('points', 'point_mask', 'extrinsics', 'intrin'))
-    bb = cfg.get_backbone_conf()
-    args = (pts, mask, extr[:, 0].contiguous(), intr[:, 0].contiguous(), cfg.final_dim,
-            bb.downsample_factor, bb.d_bound, bb.depth_channels)
+    kind, hw, ds, d_bound, bins = DEPTH_LABEL_CASES[case]
+    if kind == 'request':
+        cfg = lidar_cam_radar(batch_size=int(case[-1]))
+        args = depth_label_inputs(cfg, 'cuda', seed=0)
+        hw, ds, d_bound, bins = args[4:]
+    else:
+        args = (*(torch.from_numpy(a).cuda() for a in depth_label_case(kind, hw)), hw, ds,
+                d_bound, bins)
     got = depth_labels.depth_labels(*args)
     want = depth_labels.depth_labels_plain(*args)
-    assert got.shape == (8, 44, 80, 409)
+    m = args[2].shape[0] * args[2].shape[1]
+    assert got.shape == (m, hw[0] // ds, hw[1] // ds, bins)
     assert torch.equal(got, want)
-    assert (got.argmax(-1) > 0).sum() > 1000          # many cells hold a depth
-    grid = torch.rand(3, 44, 80, generator=gen, device='cuda') * 220
-    grid[0, 0, :3] = torch.tensor([0.0, 1.5, 206.4])
-    assert torch.equal(depth_labels.depth_grid_to_onehot(grid, bb.d_bound, 409),
-                       depth_labels.depth_grid_to_onehot_plain(grid, bb.d_bound, 409))
+    assert torch.equal(depth_labels.depth_labels(*args), got)
+    cells = (got.argmax(-1) > 0).sum().item()
+    if kind == 'request':
+        assert cells > 500 * m                        # many cells hold a depth
+    else:
+        assert (cells == 0) == (kind == 'none_kept')
+    ops = device_ops(lambda: depth_labels.depth_labels(*args))
+    assert sum(ops.values()) == 1 and any('depth_labels_kernel' in k for k in ops), ops
+    grid = torch.rand(m, *got.shape[1:3], generator=gen, device='cuda') * 220
+    grid.view(-1)[:3] = torch.tensor([0.0, 1.5, 206.4])
+    onehot = depth_labels.depth_grid_to_onehot(grid, d_bound, bins)
+    assert torch.equal(onehot, depth_labels.depth_grid_to_onehot_plain(grid, d_bound, bins))
+    ops = device_ops(lambda: depth_labels.depth_grid_to_onehot(grid, d_bound, bins))
+    assert sum(ops.values()) == 1 and any('depth_onehot_kernel' in k for k in ops), ops
+
+
+def test_depth_labels_refuses_a_grid_beyond_one_cluster(gen):
+    from mm_training_tpu_torch.ops import depth_labels
+    pts, mask, extr, intr = (torch.from_numpy(a).cuda() for a in depth_label_case('p2_zero'))
+    side = int(depth_labels.max_cells(pts.device) ** 0.5) + 1
+    with pytest.raises(ValueError, match='cluster'):
+        depth_labels.depth_labels(pts, mask, extr, intr, (side, side), 1, (2.0, 50.0, 8.0), 5)
 
 
 @pytest.mark.parametrize('dtype,c', [(torch.bfloat16, 80), (torch.float32, 80),

@@ -4,7 +4,8 @@ Inputs come from numpy with a seed and go through the JAX function and the
 port's counterpart (the plain PyTorch versions: on the CPU each wrapper
 takes its plain version):
   * K2: ``gaussian_radius`` and ``draw_heatmap`` (a centre on the map's
-    edge, overlapping windows, windows clipped by the map);
+    edge, overlapping windows, windows clipped by the map, and the edge
+    cases of the kernel's bands and staging chunks);
   * ``get_targets`` against the vmapped ``get_targets_batch``;
   * the focal and detection losses, with and without ``sample_mask``;
   * train-mode ``BatchNorm2d`` against ``flax.linen.BatchNorm``: output,
@@ -29,6 +30,7 @@ from mm_training_tpu.ops.gaussian import draw_heatmap as j_draw_heatmap
 from mm_training_tpu.ops.gaussian import gaussian_radius as j_gaussian_radius
 from mm_training_tpu.training.optim import make_optimizer as j_make_optimizer
 from mm_training_tpu_torch.data import make_fake_batch
+from mm_training_tpu_torch.exps.kernel_inputs import HEATMAP_CASES, heatmap_case
 from mm_training_tpu_torch.models import centerpoint_head as head
 from mm_training_tpu_torch.models.bn_fold import BatchNorm2d
 from mm_training_tpu_torch.ops import affine_act, gaussian
@@ -81,6 +83,29 @@ def test_draw_heatmap_matches_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     np.testing.assert_array_equal(got == 1.0, want == 1.0)
     assert (want == 1.0).sum() > 20 and (want == 0).any()
+
+
+@pytest.mark.parametrize('case', HEATMAP_CASES)
+def test_draw_heatmap_edge_cases_match_jax(case):
+    """The inputs the kernel's bands and staging chunks make delicate
+    (``exps/kernel_inputs.py::heatmap_case``): windows across band edges,
+    centres off the map, r = 0, radii larger than the map, a map with no
+    valid object, more slots than one chunk, rows off 16 bytes."""
+    centers, radii, valid, hw = heatmap_case(case)
+    b, m, _ = valid.shape
+    jdraw = jax.jit(j_draw_heatmap, static_argnums=3)
+    want = np.stack([np.stack([np.asarray(jdraw(jnp.asarray(centers[i]), jnp.asarray(radii[i]),
+                                                jnp.asarray(valid[i, j]), hw))
+                               for j in range(m)]) for i in range(b)])
+    got = gaussian.draw_heatmap(torch.from_numpy(centers), torch.from_numpy(radii),
+                                torch.from_numpy(valid), hw).numpy()
+    assert got.shape == (b, m) + hw
+    # as above: 1e-6 for exp, the centres exactly 1.0 in both
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got == 1.0, want == 1.0)
+    assert (want > 0).any()
+    if case == 'no_valid_map':
+        assert not got[:, 1].any()
 
 
 def test_draw_heatmap_refuses_wrong_operands():
