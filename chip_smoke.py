@@ -4,14 +4,16 @@
     python3 chip_smoke.py        # from the repository root, one NVIDIA H100
 
 Phases, each raising on failure:
-  1. build the nine CUDA kernels from ``mm_training_tpu_torch/csrc`` (one
+  1. build the ten CUDA sources of ``mm_training_tpu_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time; then count
      the device operations of one K3, K7, A', fused K5, K1 encoder-input,
      K6 (``depth_labels`` at the B=1 and the B=4 camera request,
      ``depth_grid_to_onehot`` on a [4, 44, 80] grid) and K2 (the B=4 train
      batch's targets) call (torch.profiler): one kernel each, no copy, no
-     fill; and of one K4 call at the B=1 and the B=4 camera request's
-     shapes: at most two;
+     fill; of one K4 call at the B=1 and the B=4 camera request's shapes:
+     at most two; and of one call of each backward kernel at those shapes:
+     K4' one kernel, K5' and K7' at most three (a fill, the scatter, the
+     rounding to bf16);
   2. hold each kernel against its plain PyTorch version at the serving and
      training paths' shapes (K3 also on dense rows, A' also at ResNet-50's
      2048-channel shape, K1 also into the encoder's input at B=1 and B=4,
@@ -56,7 +58,26 @@ Phases, each raising on failure:
      versions (bf16), with a rotated, flipped and scaled BEV augmentation
      and with ``use_depth_loss=False`` (the DCN's depth reaches the splat);
      the fp32 tiny camera config on the card against the port's CPU path
-     (TF32 off; boxes to 1e-3, scores to 1e-4).
+     (TF32 off; boxes to 1e-3, scores to 1e-4);
+ 10. the backward kernels K4', K5' and K7' against their plain versions
+     (autograd through the plain forward) at the camera train path's shapes,
+     B=1 and B=4, bf16 and float32 (``exps/backward_checks.py``), timed as
+     in phase 2 beside their bounds and, for K5' and K7',
+     ``aten.grid_sampler_2d_backward``;
+ 11. train the full-width ``lidar_cam_radar`` model at B=4 (bf16 compute
+     over float32 masters, a rotated BEV augmentation, the step's own random
+     flips and dropout): 2 warm-up steps, 10 timed steps (p50, p90,
+     samples/s, peak memory), the losses finite, one eval step, every
+     kernel's launch count reset before and read after (each kernel of the
+     path, the three backward kernels among them, launched); the device ops
+     of one step, counted in a process of its own;
+ 12. one full-width camera step at B=1 (random DCN offsets, a rotated BEV
+     augmentation, one image flipped) through the kernels against the plain
+     versions in float32, with the depth oracle and without: gradients and
+     loss within 1/32 (L2), the plain path's own run-to-run difference
+     beside it;
+ 13. the fp32 tiny camera config's train step on the card against the
+     port's CPU step with the same random draws: loss, update, BN statistics.
 Each path's device-op count is printed beside the count before the
 one-launch K6 and K2 (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -108,7 +129,11 @@ def _swaps():
             (depth_labels, 'depth_labels', depth_labels.depth_labels_plain),
             (depth_labels, 'depth_grid_to_onehot', depth_labels.depth_grid_to_onehot_plain),
             (warp, 'warp_affine_nhwc', warp.warp_affine_nhwc_plain),
-            (warp, 'bda_bev_warp', warp.bda_bev_warp_plain))
+            (warp, 'bda_bev_warp', warp.bda_bev_warp_plain),
+            (voxel_pooling, 'lift_splat_factorized_backward',
+             voxel_pooling.lift_splat_factorized_backward_plain),
+            (deform_conv, 'deform_sample_backward', deform_conv.deform_sample_backward_plain),
+            (warp, 'warp_backward', warp.warp_backward_plain))
 
 
 def _wrappers():
@@ -272,6 +297,37 @@ def count_device_ops(cfg, cam_cfg):
         other = sum(n for name, n in ops.items() if not any(v in name for v in keys.values()))
         for row, key in keys.items():
             per_call[row] = other + sum(n for name, n in ops.items() if key in name)
+    # the backward kernels, each in a session of its own (their fills and
+    # bf16 roundings have no kernel name of theirs): K4' one kernel; K7' and
+    # K5' a fill of their float32 buffer, the scatter and the rounding to
+    # bf16. Counted here, before any backward runs: after the kernels have
+    # launched from autograd's device thread, later sessions of a process
+    # have come back empty (PERF.md section 7)
+    bwd_limits = {'lift_splat_factorized_backward': 1, 'warp_backward': 3,
+                  'deform_sample_backward': 3}
+    for bsz, s1, sp, dcn in ((1, '', splat1, dcn1), (4, '_b4', splat4, dcn4)):
+        gsp = torch.randn(sp[2].shape[0], sp[4], bb.output_channels, generator=gen,
+                          device=dev).bfloat16()
+        img = torch.randn(bsz, *bb.bev_hw, bb.output_channels, generator=gen, device=dev).bfloat16()
+        bdab = torch.as_tensor(random_bda_matrices(bsz, SEED + 15), device=dev)
+        x, off, wgt, _ = dcn
+        dcols = torch.randn(4, x.shape[0] * x.shape[1] * x.shape[2], wgt.shape[1],
+                            generator=gen, device=dev).bfloat16()
+        for name, fn in (
+                ('lift_splat_factorized_backward',
+                 lambda sp=sp, gsp=gsp: voxel_pooling.lift_splat_factorized_backward(gsp, *sp)),
+                ('warp_backward', lambda img=img, bdab=bdab: warp.warp_backward(img, img, bdab, 4)),
+                ('deform_sample_backward',
+                 lambda x=x, off=off, dcols=dcols: deform_conv.deform_sample_backward(
+                     dcols, x, off, 4))):
+            ops = device_ops(fn)
+            per_call[name + s1] = sum(ops.values())
+            print(f'device ops of one {name}{s1} call (torch.profiler): {json.dumps(ops)}',
+                  flush=True)
+            if per_call[name + s1] > bwd_limits[name]:
+                raise AssertionError(f'{name}{s1}: {per_call[name + s1]} device ops a call, '
+                                     f'more than {bwd_limits[name]}')
+    del gsp, img, dcols
     one = ('circle_nms_mask', 'bda_bev_warp', 'affine_act_backward_residual',
            'affine_act_backward_resnet50', 'deform_conv3x3', 'deform_conv3x3_b4',
            'pillar_encoder_input', 'pillar_encoder_input_b4', 'depth_labels',
@@ -716,11 +772,11 @@ def compare_plain_gradients(cfg, state, batch):
 
     names = [n for n, _ in state.model.named_parameters()]
     buffers = {n: b.clone() for n, b in state.model.named_buffers()}
-    loss, got = loss_and_grads(cfg, state, batch)
+    loss, got, _ = loss_and_grads(cfg, state, batch)
     state.model.load_state_dict(buffers, strict=False)    # the same BN statistics
     before = {n: w.launches for n, w in _wrappers().items()}
     with _plain_versions():
-        loss_p, want = loss_and_grads(cfg, state, batch)
+        loss_p, want, _ = loss_and_grads(cfg, state, batch)
     if {n: w.launches for n, w in _wrappers().items()} != before:
         raise AssertionError('the plain run launched a kernel')
     state.model.load_state_dict(buffers, strict=False)
@@ -741,26 +797,33 @@ def compare_plain_gradients(cfg, state, batch):
     return rel
 
 
-def compare_cpu_train():
-    """Phase 6: the fp32 tiny config's train step on the card against the
-    port's CPU step (TF32 off)."""
+def compare_cpu_train(cfg=None):
+    """Phase 6 (and 13 with a camera config): the fp32 tiny config's train
+    step on the card against the port's CPU step (TF32 off); with the
+    camera, random DCN offsets, a rotated BEV augmentation and the same
+    random draws (flips, dropout) on both."""
     from mm_training_tpu_torch.configs import tiny_test_config
-    from mm_training_tpu_torch.data import make_fake_batch
+    from mm_training_tpu_torch.data import make_fake_batch, random_bda_matrices
     from mm_training_tpu_torch.models import BEVDepthLiDAR
     from mm_training_tpu_torch.training import create_train_state, make_train_step
 
     torch.backends.cudnn.allow_tf32 = False        # fp32 comparison: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = tiny_test_config(use_cam=False)
+    cfg = cfg or tiny_test_config(use_cam=False)
     gen = torch.Generator().manual_seed(SEED + 5)
     cpu_model = BEVDepthLiDAR(cfg, device='cpu', generator=gen)
     _randomize_bn(cpu_model, gen)
+    batch = make_fake_batch(cfg, seed=SEED + 6)
+    draws = {'cuda': None, 'cpu': None}
+    if cfg.use_cam:
+        _randomize_offsets(cpu_model, gen)
+        batch['bda_mat'] = random_bda_matrices(cfg.batch_size, SEED + 38)
+        draws = {d: _camera_draws(cfg, batch['imgs'].shape, SEED + 39, d) for d in draws}
     gpu_model = copy.deepcopy(cpu_model).to('cuda')
     old = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
-    batch = make_fake_batch(cfg, seed=SEED + 6)
     step = make_train_step(cfg)
-    _, gm = step(create_train_state(cfg, gpu_model), batch)
-    ws, wm = step(create_train_state(cfg, cpu_model), batch)
+    _, gm = step(create_train_state(cfg, gpu_model), batch, draws['cuda'])
+    ws, wm = step(create_train_state(cfg, cpu_model), batch, draws['cpu'])
     lr = cfg.learning_rate
     loss_rel = abs(float(gm['train_loss']) - float(wm['train_loss'])) / float(wm['train_loss'])
     worst_all = worst_strong = stats_err = 0.0
@@ -780,9 +843,10 @@ def compare_cpu_train():
         if n.endswith(('running_mean', 'running_var')):
             stats_err = max(stats_err, ((b_gpu.cpu() - b_cpu).abs()
                                         / (1 + b_cpu.abs())).max().item())
-    print(f'tiny fp32 train step card vs CPU: loss rel diff {loss_rel:.3g}, update diff '
-          f'{worst_all / lr:.4g} lr everywhere, {worst_strong / lr:.4g} lr where |g| is '
-          f'strong; BN stats {stats_err:.3g}', flush=True)
+    print(f'tiny fp32 train step card vs CPU (camera {cfg.use_cam}): loss rel diff '
+          f'{loss_rel:.3g}, update diff {worst_all / lr:.4g} lr everywhere, '
+          f'{worst_strong / lr:.4g} lr where |g| is strong; BN stats {stats_err:.3g}',
+          flush=True)
     # everywhere: two opposite Adam steps of lr (1 + weight decay) at most
     if not (loss_rel <= 1e-5 and worst_all <= 2.001 * lr and worst_strong <= 1e-3 * lr
             and stats_err <= 1e-5):
@@ -794,6 +858,38 @@ def _bound(nbytes, flops, rate):
     operations over the peak rate for their type."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, 'operations' if t_ops > t_bytes else 'bytes'
+
+
+def _warp_grid(minv, h, w):
+    """F.grid_sample's normalised grid (align_corners=True: pixel centres)
+    of the source points ``minv`` @ (x, y, 1) of every dst pixel, [B, H, W,
+    2]: the yardstick of K7 and K7'."""
+    dev = minv.device
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                            torch.arange(w, device=dev, dtype=torch.float32), indexing='ij')
+    q = torch.stack([xs, ys, torch.ones_like(xs)], -1)[None] @ minv.transpose(1, 2)[:, None]
+    return torch.stack([q[..., 0] / q[..., 2] / (w - 1), q[..., 1] / q[..., 2] / (h - 1)],
+                       -1) * 2 - 1
+
+
+def _tap_points(off):
+    """(y, x) in pixels of the 9 taps of every pixel, each [B, H, W, 9], for
+    offsets [B, H, W, 18], in K5's order of operations."""
+    bm, hh, ww = off.shape[:3]
+    dev = off.device
+    ys = torch.arange(hh, device=dev, dtype=torch.float32).view(1, hh, 1, 1)
+    xs = torch.arange(ww, device=dev, dtype=torch.float32).view(1, 1, ww, 1)
+    k = torch.arange(9, device=dev)
+    o5 = off.view(bm, hh, ww, 9, 2)
+    return ys + (k // 3 - 1).float() + o5[..., 0], xs + (k % 3 - 1).float() + o5[..., 1]
+
+
+def _deform_grid(off):
+    """F.grid_sample's normalised grid of the 9 taps of every pixel, [B, H,
+    W*9, 2], for offsets [B, H, W, 18]: the yardstick of K5 and K5'."""
+    bm, hh, ww = off.shape[:3]
+    gy, gx = _tap_points(off)
+    return torch.stack([gx / (ww - 1), gy / (hh - 1)], -1).view(bm, hh, ww * 9, 2) * 2 - 1
 
 
 def check_camera_kernels(cfg):
@@ -884,13 +980,7 @@ def check_camera_kernels(cfg):
         gcols = cols.reshape(bm * hh * ww, 9, 4, cc // 4).permute(2, 0, 1, 3)
         gcols = gcols.reshape(4, -1, 9 * cc // 4)
         src = x.float().permute(0, 3, 1, 2)
-        ys = torch.arange(hh, device=dev, dtype=torch.float32).view(1, hh, 1, 1)
-        xs = torch.arange(ww, device=dev, dtype=torch.float32).view(1, 1, ww, 1)
-        k = torch.arange(9, device=dev)
-        o5 = off.view(bm, hh, ww, 9, 2)
-        gy = ys + (k // 3 - 1).float() + o5[..., 0]
-        gx = xs + (k % 3 - 1).float() + o5[..., 1]
-        grid = torch.stack([gx / (ww - 1), gy / (hh - 1)], -1).view(bm, hh, ww * 9, 2) * 2 - 1
+        grid = _deform_grid(off)
 
         def sample(src=src, grid=grid):
             return torch.nn.functional.grid_sample(src, grid, mode='bilinear',
@@ -981,13 +1071,7 @@ def check_camera_kernels(cfg):
     proj = mat + torch.tensor([[0, 0, 0], [0, 0, 0], [2e-4, -1e-4, 0]], device=dev)
     proj_err = (warp.warp_affine_nhwc(bev, proj).float()
                 - warp.warp_affine_nhwc_plain(bev, proj).float()).abs().max().item()
-    h, wd = bb.bev_hw
-    minv = torch.linalg.inv(mat)
-    ys, xs = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
-                            torch.arange(wd, device=dev, dtype=torch.float32), indexing='ij')
-    q = torch.stack([xs, ys, torch.ones_like(xs)], -1) @ minv[0].T
-    grid = torch.stack([q[..., 0] / q[..., 2] / (wd - 1), q[..., 1] / q[..., 2] / (h - 1)],
-                       -1)[None] * 2 - 1
+    grid = _warp_grid(torch.linalg.inv(mat), *bb.bev_hw)
     src = bev.float().permute(0, 3, 1, 2)
 
     def library():
@@ -1188,6 +1272,314 @@ def compare_plain_camera(model, cfg, request):
     return worst
 
 
+def check_backward_kernels(cfg):
+    """Phase 10: the backward kernels K4', K5' and K7' against their plain
+    versions (autograd through the plain forward) at the camera train
+    path's shapes, B=1 and B=4, in bf16 and float32, with the tolerances of
+    ``exps/backward_checks.py``; each one's time, its plain version's and,
+    where one exists, a PyTorch call's computing the same gradient, and its
+    bound (their device ops a call are phase 1's)."""
+    from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.exps import backward_checks
+    from mm_training_tpu_torch.exps.kernel_inputs import (deform_inputs, deform_shape,
+                                                          splat_inputs)
+    from mm_training_tpu_torch.exps.timing import device_ms, host_ms
+    from mm_training_tpu_torch.ops import deform_conv, voxel_pooling, warp
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    bb = cfg.get_backbone_conf()
+    c = bb.output_channels
+    rows, checks = [], {}
+
+    def row(name, source, replaces, fn, plain, nbytes, flops, rate, plain_iters, **extra):
+        bound_ms, bound_by = _bound(nbytes, flops, rate)
+        rows.append(dict(name=name, route='cuda', source=f'mm_training_tpu_torch/csrc/{source}',
+                         replaces=replaces, ms=device_ms(fn, 20), call_ms=host_ms(fn, 20),
+                         plain_ms=device_ms(plain, plain_iters), bound_ms=bound_ms,
+                         bound_by=bound_by, **extra))
+
+    for bsz in (1, 4):
+        suffix = '' if bsz == 1 else '_b4'
+        b4 = cfg.replace(batch_size=bsz)
+        # --- K4': the splat's gradient on the fake rig's own indices, depth
+        # as the oracle's where leaves it (channels-last) and as the softmax
+        # without the oracle (NCHW)
+        for layout in ('channels_last', 'nchw'):
+            for dtype in (torch.bfloat16, torch.float32):
+                args = splat_inputs(b4, gen, layout, dtype, seed=SEED + 8)
+                g = torch.randn(args[2].shape[0], args[4], c, generator=gen,
+                                device=dev).to(dtype)
+                checks[f'lift_splat_backward B={bsz} {layout} {dtype}'] = \
+                    backward_checks.splat_backward_errors(*args, g)
+        depth, ctx, idx, zvalid, n_cells = args = splat_inputs(b4, gen, seed=SEED + 8)
+        g = torch.randn(idx.shape[0], n_cells, c, generator=gen, device=dev).bfloat16()
+        active = int((zvalid & (idx < n_cells)[:, :, None, :]).sum())
+        res = checks[f'lift_splat_backward B={bsz} channels_last {torch.bfloat16}']
+        row('lift_splat_factorized_backward' + suffix, 'lift_splat_backward.cu',
+            'mm_training_tpu/ops/voxel_pooling.py:127 (its autodiff; no TPU kernel)',
+            lambda args=args, g=g: voxel_pooling.lift_splat_factorized_backward(g, *args),
+            lambda args=args, g=g: voxel_pooling.lift_splat_factorized_backward_plain(g, *args),
+            depth.numel() * 2 * 2 + zvalid.numel() + ctx.numel() * 2 * 2 + idx.numel() * 4
+            + g.numel() * 2, 2 * 2 * active * c, BF16_FLOPS, 3,
+            max_abs_err=res['max_abs_err'], library_ms=None, deterministic=res['deterministic'],
+            shape=list(depth.shape) + [c], dtype='bfloat16')
+        del args, depth, ctx, idx, zvalid, g
+
+        # --- K7': the camera BEV's gradient under a rotated, flipped and
+        # scaled augmentation; the yardstick is aten's grid_sampler_2d_backward
+        # (the input's gradient of F.grid_sample, float32 NCHW)
+        bda = torch.as_tensor(random_bda_matrices(bsz, SEED + 31), device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            img = torch.randn(bsz, *bb.bev_hw, c, generator=gen, device=dev).to(dtype)
+            gw = torch.randn(img.shape, generator=gen, device=dev).to(dtype)
+            checks[f'warp_backward B={bsz} {dtype}'] = backward_checks.warp_backward_errors(
+                img, bda, 4, gw)
+            proj = warp.bda_pixel_matrix(bda, bb.bev_hw)
+            proj[:, 2, :2] = 1e-4
+            checks[f'warp_backward projective B={bsz} {dtype}'] = \
+                backward_checks.warp_backward_errors(img, proj, 0, gw)
+        img = torch.randn(bsz, *bb.bev_hw, c, generator=gen, device=dev).bfloat16()
+        gw = torch.randn(img.shape, generator=gen, device=dev).bfloat16()
+        grid = _warp_grid(torch.linalg.inv(warp.bda_pixel_matrix(bda, bb.bev_hw)), *bb.bev_hw)
+        src32, g32 = img.float().permute(0, 3, 1, 2), gw.float().permute(0, 3, 1, 2)
+
+        def library(src32=src32, g32=g32, grid=grid):
+            return torch.ops.aten.grid_sampler_2d_backward(g32, src32, grid, 0, 0, True,
+                                                           [True, False])
+        row('warp_backward' + suffix, 'bev_warp.cu',
+            'mm_training_tpu/ops/warp.py:75 (its autodiff; no TPU kernel)',
+            lambda img=img, gw=gw, bda=bda: warp.warp_backward(gw, img, bda, 4),
+            lambda img=img, gw=gw, bda=bda: warp.warp_backward_plain(gw, img, bda, 4),
+            2 * img.numel() * 2 + bda.numel() * 4, 8 * img.numel(), FP32_FLOPS, 10,
+            max_abs_err=checks[f'warp_backward B={bsz} {torch.bfloat16}']['max_abs_err'],
+            library_ms=device_ms(library, 20), library='aten.grid_sampler_2d_backward (fp32)',
+            shape=list(img.shape), dtype='bfloat16')
+        del img, gw, src32, g32, grid
+
+        # --- K5': the DCN's transposed sampling on the columns' gradient of
+        # the grouped product, offsets up to 3 px (and, in float32, whole
+        # pixels); the whole backward (grouped products, columns, K5')
+        # timed beside it. The yardstick: grid_sampler_2d_backward's input
+        # and grid gradients over the 9 taps (float32 NCHW)
+        shape = deform_shape(b4)
+        for dtype, reach in ((torch.bfloat16, 3.0), (torch.float32, 3.0), (torch.float32, 0.0)):
+            x, off, wgt, bias = deform_inputs(shape, 4, gen, dtype, reach)
+            if reach == 0.0:
+                off = off.round()
+            dy = torch.randn(*shape[:3], wgt.shape[0] * wgt.shape[2], generator=gen,
+                             device=dev).to(dtype)
+            checks[f'deform_backward B={bsz} {dtype} offsets {reach} px'] = \
+                backward_checks.deform_backward_errors(x, off, wgt, bias, 4, dy)
+            del x, off, wgt, bias, dy
+        x, off, wgt, bias = deform_inputs(shape, 4, gen)
+        dy = torch.randn(*shape[:3], wgt.shape[0] * wgt.shape[2], generator=gen,
+                         device=dev).bfloat16()
+        bm, hh, ww, cc = x.shape
+        dcols = torch.bmm(dy.view(-1, 4, wgt.shape[2]).transpose(0, 1), wgt.transpose(1, 2))
+        grid9 = _deform_grid(off)
+        py, px = (t.floor() for t in _tap_points(off))      # the corners inside the image
+        inside = sum(int(((py + dyc >= 0) & (py + dyc < hh)
+                          & (px + dxc >= 0) & (px + dxc < ww)).sum())
+                     for dyc in (0, 1) for dxc in (0, 1))
+        x32 = x.float().permute(0, 3, 1, 2)
+        g9 = dcols.view(4, bm, hh, ww, 9, cc // 4).permute(1, 0, 5, 2, 3, 4).reshape(
+            bm, cc, hh, ww * 9).float()
+
+        def library(x32=x32, g9=g9, grid9=grid9):
+            return torch.ops.aten.grid_sampler_2d_backward(g9, x32, grid9, 0, 0, True,
+                                                           [True, True])
+        res = checks[f'deform_backward B={bsz} {torch.bfloat16} offsets 3.0 px']
+        row('deform_sample_backward' + suffix, 'deform_conv.cu',
+            'mm_training_tpu/models/depth_net.py:46 (its autodiff; no TPU kernel)',
+            lambda a=(dcols, x, off): deform_conv.deform_sample_backward(*a, 4),
+            lambda a=(dcols, x, off): deform_conv.deform_sample_backward_plain(*a, 4),
+            x.numel() * 2 * 2 + off.numel() * 4 * 2 + dcols.numel() * 2,
+            4 * inside * cc, FP32_FLOPS, 2,
+            max_abs_err=res['max_abs_err'], library_ms=device_ms(library, 5),
+            library='aten.grid_sampler_2d_backward (fp32, input and grid)',
+            whole_backward_ms=device_ms(
+                lambda a=(dy, x, off, wgt, bias): deform_conv.deform_conv3x3_backward(*a, 4), 5),
+            whole_backward='deform_conv3x3_backward: d bias, the grouped products '
+                           '(torch.bmm), the columns kernel and K5\'',
+            column_tensor_gib=dcols.numel() * 2 / 2 ** 30,
+            shape=list(x.shape), dtype='bfloat16')
+        del x, off, wgt, bias, dy, dcols, x32, g9, grid9
+
+    for r in rows:
+        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']} ms={r['ms']:.6f} "
+              f"call_ms={r['call_ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']}",
+              flush=True)
+    print('backward kernels against their plain versions: ' + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk in ('ok', 'max_abs_err')}
+         for k, v in checks.items()}), flush=True)
+    bad = {k: v for k, v in checks.items() if not v['ok']}
+    if bad:
+        raise AssertionError(f'backward kernels differ from their plain versions: {bad}')
+    return rows
+
+
+def _camera_draws(cfg, imgs_shape, seed, device, flipped=None):
+    """A camera train step's random draws from a CPU generator (the same
+    bits on any device), moved to ``device``; ``flipped`` overrides the flips."""
+    from mm_training_tpu_torch.training import draw_train_randoms
+    d = draw_train_randoms(cfg, imgs_shape, torch.Generator().manual_seed(seed), 'cpu')
+    if flipped is not None:
+        d['flipped'] = torch.as_tensor(flipped)
+    return {'flipped': d['flipped'].to(device),
+            'dropout': [k.to(device) for k in d['dropout']]}
+
+
+CAMERA_TRAIN_KERNELS = ('affine_act', 'affine_act_backward', 'pillar_encoder_input',
+                        'draw_heatmap', 'circle_nms_mask', 'lift_splat_factorized',
+                        'lift_splat_factorized_backward', 'deform_conv3x3', 'deform_sample',
+                        'deform_sample_backward', 'depth_labels', 'bda_bev_warp',
+                        'warp_backward')
+
+
+def train_camera(cfg):
+    """Phase 11: the full-width ``lidar_cam_radar`` train path at B=4 through
+    its entry points (bf16 compute over float32 masters, one fixed fake
+    batch with a rotated BEV augmentation, the step's own random flips and
+    dropout from its generator, seeded with the config's seed): 2 warm-up
+    steps, 10 timed steps,
+    one eval step, every kernel's launch count reset before and read after."""
+    from mm_training_tpu_torch.exps.profile_train import benchmark_train, train_batch
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import (create_train_state, make_eval_step,
+                                                make_train_step)
+
+    cfg = cfg.replace(batch_size=4)
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=torch.Generator().manual_seed(SEED + 32))
+    state = create_train_state(cfg, model)
+    train_step = make_train_step(cfg)
+    eval_step = make_eval_step(cfg)
+    batch = train_batch(cfg, SEED + 34)
+    wrappers = _wrappers()
+    parts = []
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        state, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+
+    def step(state, batch):
+        state, m = train_step(state, batch)
+        parts.append((m['train_detection_loss'], m['train_depth_loss']))
+        return state, m
+    stats = benchmark_train(step, state, batch, steps=10)
+    ev_metrics, (boxes, scores, _, _), viz = eval_step(state, batch)
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    parts = [(float(a), float(b)) for a, b in parts]
+
+    print(f'train camera: 2 warm-up steps {warm_ms:.3f} ms; B=4 step p50 {stats["p50_ms"]:.3f} '
+          f'ms p90 {stats["p90_ms"]:.3f} ms, {stats["samples_per_s"]:.3f} samples/s, peak '
+          f'device memory (warm-up and timed steps) {stats["max_memory_allocated_gb"]:.3f} GiB',
+          flush=True)
+    print('train camera: losses ' + json.dumps([round(v, 4) for v in stats['losses']])
+          + '; (detection, depth) ' + json.dumps([(round(a, 4), round(b, 4)) for a, b in parts])
+          + f'; eval loss {float(ev_metrics["loss"]):.4f} (depth '
+          f'{float(ev_metrics["depth_loss"]):.4f})', flush=True)
+    print(f'train camera: launches over 12 train steps and 1 eval step {json.dumps(counts)}',
+          flush=True)
+    missing = [n for n in CAMERA_TRAIN_KERNELS if counts[n] == 0]
+    if missing:
+        raise AssertionError(f'kernels never launched on the camera train path: {missing}')
+    if counts['voxelize_pillars_dense']:
+        raise AssertionError('the camera train path launched K1 in its plain layout')
+    if not (all(np.isfinite(stats['losses'])) and np.isfinite(parts).all()
+            and torch.isfinite(ev_metrics['loss'])):
+        raise AssertionError('non-finite camera train or eval loss')
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()
+            and torch.isfinite(viz['depth']).all()):
+        raise AssertionError('non-finite camera eval boxes or depth')
+    # counted in a process of its own (one warm-up step there): after the
+    # kernels have launched from autograd's device thread, later profiler
+    # sessions of a process have come back empty (PERF.md section 7)
+    del state, model
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, '-m', 'mm_training_tpu_torch.exps.profile_train',
+                          '--config', 'lidar_cam_radar', '--batch-size', '4', '--warmup', '1',
+                          '--ops-only'], capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f'counting the camera train step\'s device ops failed:\n'
+                             f'{out.stderr[-3000:]}')
+    n_ops = json.loads(out.stdout.strip().splitlines()[-1])['device_ops_one_step']
+    print(f'device ops of one lidar_cam_radar B=4 train step: {n_ops} (a process of its own)',
+          flush=True)
+    stats['device_ops_one_step'] = n_ops
+    stats['warm_up_ms'] = warm_ms
+    return counts, stats
+
+
+def compare_plain_gradients_camera(cfg):
+    """Phase 12: one full-width ``lidar_cam_radar`` step at B=1 (random DCN
+    offsets, so K5 interpolates; a rotated BEV augmentation; one image
+    flipped; the same dropout masks) through the kernels against the same
+    step with every kernel swapped for its plain version: gradients and
+    loss within 1/32 (L2), with the depth oracle and with
+    ``use_depth_loss=False`` (the DepthNet's depth reaches the splat).
+
+    In float32 compute (TF32 off): in bf16 the plain path is no yardstick
+    at this width. Its CUDA ``index_add_`` and ``index_put_`` add in no
+    fixed order, some in bf16, and the roundings they flip reach the
+    train-mode BatchNorms, whose backward amplifies them: two runs of the
+    plain step differ by 0.160 (L2) without the oracle, against 0.003 in
+    float32 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6). The plain
+    path's own run-to-run difference is printed beside each comparison."""
+    from mm_training_tpu_torch.exps.profile_train import train_batch
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import create_train_state, loss_and_grads
+
+    torch.backends.cudnn.allow_tf32 = False        # fp32 comparison: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 35)
+    cfg = cfg.replace(batch_size=1, precision='fp32')
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=gen)
+    _randomize_offsets(model, gen)
+    state = create_train_state(cfg, model)
+    batch = train_batch(cfg, SEED + 36)
+    draws = _camera_draws(cfg, batch['imgs'].shape, SEED + 37, 'cuda',
+                          flipped=[True, False, False, False])
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    names = [n for n, _ in model.named_parameters()]
+
+    def l2(ts):
+        return torch.sqrt(sum((t.double() ** 2).sum() for t in ts))
+    out = {}
+    for label, c in (('oracle', cfg), ('no oracle', cfg.replace(use_depth_loss=False))):
+        loss, got, _ = loss_and_grads(c, state, batch, draws)
+        model.load_state_dict(buffers, strict=False)
+        before = {n: w.launches for n, w in _wrappers().items()}
+        with _plain_versions():
+            plain = [loss_and_grads(c, state, batch, draws) for _ in range(2)]
+            model.load_state_dict(buffers, strict=False)
+        if {n: w.launches for n, w in _wrappers().items()} != before:
+            raise AssertionError('the plain run launched a kernel')
+        loss_p, want, _ = plain[0]
+        rel = (l2([a - b for a, b in zip(got, want)]) / l2(want)).item()
+        floor = (l2([a - b for a, b in zip(plain[1][1], want)]) / l2(want)).item()
+        per = sorted(((((a - b).norm() / b.norm().clamp_min(1e-30)).item(), n)
+                      for a, b, n in zip(got, want, names)), reverse=True)
+        loss_rel = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+        out[label] = {'grad_rel_l2': rel, 'plain_run_to_run_rel_l2': floor,
+                      'loss_rel': loss_rel,
+                      'worst_tensors': [(n, round(v, 5)) for v, n in per[:4]]}
+    print('camera train gradients kernels vs plain (fp32, B=1): ' + json.dumps(out), flush=True)
+    # the float32 sums of K1, K4, K4', K5, K5', K7' and A' (and of the
+    # plain versions' index_add_) in another order: allow 1/32 over all
+    # parameters, as phase 5b does
+    if not all(v['grad_rel_l2'] <= 1 / 32 and v['loss_rel'] <= 1 / 32 for v in out.values()):
+        raise AssertionError(f'kernel and plain camera gradients differ: {out}')
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1226,15 +1618,21 @@ def main() -> int:
         compare_cpu_reference(tiny_test_config(use_cam=True, **kw),
                               bda=random_bda_matrices(2, SEED + 13))
 
+    rows += check_backward_kernels(cam_cfg)
+    cam_train_counts, _ = train_camera(cam_cfg)
+    compare_plain_gradients_camera(cam_cfg)
+    compare_cpu_train(tiny_test_config(use_cam=True))
+
     wrappers = _wrappers()
     for row in rows:
         name = max((w for w in wrappers if row['name'].startswith(w)), key=len)
         by_path = {'serve': counts[name], 'train': train_counts[name],
-                   'serve_camera': cam_counts[name]}
+                   'serve_camera': cam_counts[name], 'train_camera': cam_train_counts[name]}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,
-                                       'serve_camera': cam_counts[name] / cam_calls}
+                                       'serve_camera': cam_counts[name] / cam_calls,
+                                       'train_camera_step': cam_train_counts[name] / 13}
         if row['name'] in ops_per_call:
             row['device_kernels_per_call'] = ops_per_call[row['name']]
     print(json.dumps({'kernels': rows}))

@@ -7,7 +7,9 @@ or ``mm_training_tpu``. Slice 1 is the LiDAR / LiDAR+radar serving path
 slice 2 its train and eval steps (targets, train-mode BatchNorm, focal + L1
 loss, clipped AdamW), slice 3 the camera branch and fusion on the serving
 path (ResNet-50, DepthNet with the deformable conv, the LiDAR depth oracle,
-the factorized lift-splat, the BEV warp), with their hand-written kernels
+the factorized lift-splat, the BEV warp), slice 4 the camera train and eval
+steps (the depth loss, random flips and dropout, the backward kernels of the
+splat, the deformable conv and the warp), with their hand-written kernels
 under ``csrc/``.
 
 Entry points run on the card (``device='cuda'``) unless the caller passes

@@ -25,6 +25,20 @@
 // rows. Every product, sum and quotient is __fmul_rn / __fadd_rn /
 // __fsub_rn / __fdiv_rn in one fixed order (no FMA contraction), the order
 // the plain version's separate torch ops take, so both agree bit for bit.
+//
+// The backward (bev_warp_backward), kernel K7': the transposed bilinear
+// sample, d src[p] = sum over the dst pixels q whose source point falls in
+// p's 2 x 2 neighbourhood of w(q -> p) g[q], with the forward's own
+// coordinates, inverse, corner weights and zero padding (sample_point, the
+// same function). One thread per (dst pixel, channel vector) scatters its
+// four corners' products (g (1 - wy)) (1 - wx) etc., in the order JAX's
+// autodiff of the blend takes, with fp32 atomics into a float32 buffer
+// zeroed first (the float32 gradient itself, or a scratch that a second
+// pass rounds once to bf16). The matrix is data: it gets no gradient. The
+// atomics add in no fixed order, so the sums agree with the plain
+// version's to fp32 rounding. Bound: device-memory bytes (g read once, the
+// gradient written once, the float32 buffer zeroed and read back for
+// bf16); the adds land in L2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,48 +119,138 @@ __device__ __forceinline__ Pack<T, V> tap(const T* src, int yi, int xi, int h, i
   return r;
 }
 
-template <typename T, int V>
-__global__ void bev_warp_kernel(const T* __restrict__ src, const float* __restrict__ mat,
-                                int bda_n, T* __restrict__ dst, int h, int w, int c) {
-  __shared__ float minv[9];
-  const int64_t b = blockIdx.y;
+// the source point of dst pixel q = y * w + x: (x, y, 1) @ minv^T left to
+// right, the homogeneous divide, floor, and the fractional weights
+struct SamplePoint {
+  int x0i, y0i;
+  float wx, wy, omx, omy;
+};
+
+__device__ __forceinline__ SamplePoint sample_point(const float* minv, int q, int w) {
+  const float yf = (float)(q / w), xf = (float)(q - (q / w) * w);
+  const float p0 = __fadd_rn(__fadd_rn(__fmul_rn(xf, minv[0]), __fmul_rn(yf, minv[1])), minv[2]);
+  const float p1 = __fadd_rn(__fadd_rn(__fmul_rn(xf, minv[3]), __fmul_rn(yf, minv[4])), minv[5]);
+  const float p2 = __fadd_rn(__fadd_rn(__fmul_rn(xf, minv[6]), __fmul_rn(yf, minv[7])), minv[8]);
+  const float sx = __fdiv_rn(p0, p2), sy = __fdiv_rn(p1, p2);
+  const float x0 = floorf(sx), y0 = floorf(sy);
+  SamplePoint s;
+  s.wx = __fsub_rn(sx, x0);
+  s.wy = __fsub_rn(sy, y0);
+  s.omx = __fsub_rn(1.f, s.wx);
+  s.omy = __fsub_rn(1.f, s.wy);
+  s.x0i = (int)x0;
+  s.y0i = (int)y0;
+  return s;
+}
+
+// thread 0 forms batch entry b's pixel matrix and its inverse in shared memory
+__device__ __forceinline__ void block_inverse(const float* mat, int bda_n, int64_t b, int h,
+                                              int w, float* minv) {
   if (threadIdx.x == 0) {
     float m[9];
     pixel_matrix(mat, bda_n, b, h, w, m);
     inverse3(m, minv);
   }
   __syncthreads();
+}
+
+template <typename T, int V>
+__global__ void bev_warp_kernel(const T* __restrict__ src, const float* __restrict__ mat,
+                                int bda_n, T* __restrict__ dst, int h, int w, int c) {
+  __shared__ float minv[9];
+  const int64_t b = blockIdx.y;
+  block_inverse(mat, bda_n, b, h, w, minv);
 
   const int nvec = c / V;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)h * w * nvec) return;
   const int j = (int)(i % nvec);
   const int q = (int)(i / nvec);
-  const float yf = (float)(q / w), xf = (float)(q - (q / w) * w);
-  // p = (x, y, 1) @ minv^T, left to right
-  const float p0 = __fadd_rn(__fadd_rn(__fmul_rn(xf, minv[0]), __fmul_rn(yf, minv[1])), minv[2]);
-  const float p1 = __fadd_rn(__fadd_rn(__fmul_rn(xf, minv[3]), __fmul_rn(yf, minv[4])), minv[5]);
-  const float p2 = __fadd_rn(__fadd_rn(__fmul_rn(xf, minv[6]), __fmul_rn(yf, minv[7])), minv[8]);
-  const float sx = __fdiv_rn(p0, p2), sy = __fdiv_rn(p1, p2);
-  const float x0 = floorf(sx), y0 = floorf(sy);
-  const float wx = __fsub_rn(sx, x0), wy = __fsub_rn(sy, y0);
-  const float omx = __fsub_rn(1.f, wx), omy = __fsub_rn(1.f, wy);
-  const int x0i = (int)x0, y0i = (int)y0;
+  const SamplePoint s = sample_point(minv, q, w);
   const T* img = src + b * h * w * c;
-  const Pack<T, V> v00 = tap<T, V>(img, y0i, x0i, h, w, c, j);
-  const Pack<T, V> v01 = tap<T, V>(img, y0i, x0i + 1, h, w, c, j);
-  const Pack<T, V> v10 = tap<T, V>(img, y0i + 1, x0i, h, w, c, j);
-  const Pack<T, V> v11 = tap<T, V>(img, y0i + 1, x0i + 1, h, w, c, j);
+  const Pack<T, V> v00 = tap<T, V>(img, s.y0i, s.x0i, h, w, c, j);
+  const Pack<T, V> v01 = tap<T, V>(img, s.y0i, s.x0i + 1, h, w, c, j);
+  const Pack<T, V> v10 = tap<T, V>(img, s.y0i + 1, s.x0i, h, w, c, j);
+  const Pack<T, V> v11 = tap<T, V>(img, s.y0i + 1, s.x0i + 1, h, w, c, j);
   Pack<T, V> out;
 #pragma unroll
   for (int e = 0; e < V; ++e) {
-    const float top = __fadd_rn(__fmul_rn(to_float(v00.v[e]), omx),
-                                __fmul_rn(to_float(v01.v[e]), wx));
-    const float bot = __fadd_rn(__fmul_rn(to_float(v10.v[e]), omx),
-                                __fmul_rn(to_float(v11.v[e]), wx));
-    out.v[e] = from_float<T>(__fadd_rn(__fmul_rn(top, omy), __fmul_rn(bot, wy)));
+    const float top = __fadd_rn(__fmul_rn(to_float(v00.v[e]), s.omx),
+                                __fmul_rn(to_float(v01.v[e]), s.wx));
+    const float bot = __fadd_rn(__fmul_rn(to_float(v10.v[e]), s.omx),
+                                __fmul_rn(to_float(v11.v[e]), s.wx));
+    out.v[e] = from_float<T>(__fadd_rn(__fmul_rn(top, s.omy), __fmul_rn(bot, s.wy)));
   }
   *reinterpret_cast<Pack<T, V>*>(dst + (b * h * w + q) * c + (int64_t)j * V) = out;
+}
+
+// acc[yi, xi, j*V ...] += g * wgt on V channels, nothing outside the map
+template <int V>
+__device__ __forceinline__ void scatter(float* acc, int yi, int xi, int h, int w, int c, int j,
+                                        const float* g, float wgt) {
+  if (yi < 0 || yi >= h || xi < 0 || xi >= w) return;
+  float* a = acc + ((int64_t)yi * w + xi) * c + (int64_t)j * V;
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < V; e += 4)
+      atomicAdd(reinterpret_cast<float4*>(a + e),
+                make_float4(__fmul_rn(g[e], wgt), __fmul_rn(g[e + 1], wgt),
+                            __fmul_rn(g[e + 2], wgt), __fmul_rn(g[e + 3], wgt)));
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) atomicAdd(a + e, __fmul_rn(g[e], wgt));
+  }
+}
+
+template <typename T, int V>
+__global__ void bev_warp_bwd_kernel(const T* __restrict__ grad, const float* __restrict__ mat,
+                                    int bda_n, float* __restrict__ acc, int h, int w, int c) {
+  __shared__ float minv[9];
+  const int64_t b = blockIdx.y;
+  block_inverse(mat, bda_n, b, h, w, minv);
+
+  const int nvec = c / V;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)h * w * nvec) return;
+  const int j = (int)(i % nvec);
+  const int q = (int)(i / nvec);
+  const SamplePoint s = sample_point(minv, q, w);
+  const Pack<T, V> gp = *reinterpret_cast<const Pack<T, V>*>(grad + (b * h * w + q) * c +
+                                                              (int64_t)j * V);
+  // d top = g (1 - wy), d bot = g wy; each corner's weight on them as the
+  // forward's blend applies it
+  float top[V], bot[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const float g = to_float(gp.v[e]);
+    top[e] = __fmul_rn(g, s.omy);
+    bot[e] = __fmul_rn(g, s.wy);
+  }
+  float* img = acc + b * h * w * c;
+  scatter<V>(img, s.y0i, s.x0i, h, w, c, j, top, s.omx);
+  scatter<V>(img, s.y0i, s.x0i + 1, h, w, c, j, top, s.wx);
+  scatter<V>(img, s.y0i + 1, s.x0i, h, w, c, j, bot, s.omx);
+  scatter<V>(img, s.y0i + 1, s.x0i + 1, h, w, c, j, bot, s.wx);
+}
+
+// out = acc rounded to bf16, 4 values a thread
+__global__ void round_bf16_kernel(const float4* __restrict__ acc, uint2* __restrict__ out,
+                                  int64_t n4) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float4 v = acc[i];
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 pk;
+  pk.x = *reinterpret_cast<const unsigned*>(&lo);
+  pk.y = *reinterpret_cast<const unsigned*>(&hi);
+  out[i] = pk;
+}
+
+__global__ void round_bf16_tail_kernel(const float* __restrict__ acc,
+                                       __nv_bfloat16* __restrict__ out, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __float2bfloat16_rn(acc[i]);
 }
 
 template <typename T, int V>
@@ -157,6 +261,16 @@ void launch(const void* src, const float* mat, int bda_n, void* dst, int b, int 
   const dim3 grid((unsigned)((n_items + threads - 1) / threads), (unsigned)b);
   bev_warp_kernel<T, V><<<grid, threads, 0, st>>>(static_cast<const T*>(src), mat, bda_n,
                                                   static_cast<T*>(dst), h, w, c);
+}
+
+template <typename T, int V>
+void launch_backward(const void* grad, const float* mat, int bda_n, float* acc, int b, int h,
+                     int w, int c, cudaStream_t st) {
+  const int64_t n_items = (int64_t)h * w * (c / V);
+  const int threads = 256;
+  const dim3 grid((unsigned)((n_items + threads - 1) / threads), (unsigned)b);
+  bev_warp_bwd_kernel<T, V><<<grid, threads, 0, st>>>(static_cast<const T*>(grad), mat, bda_n,
+                                                      acc, h, w, c);
 }
 
 }  // namespace
@@ -177,6 +291,39 @@ extern "C" int bev_warp(int dtype, const void* src, const float* mat, int bda_n,
   } else if (dtype == 1) {
     if (vec) launch<__nv_bfloat16, 8>(src, mat, bda_n, dst, b, h, w, c, st);
     else launch<__nv_bfloat16, 1>(src, mat, bda_n, dst, b, h, w, c, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The gradient of bev_warp for the output gradient grad [B, H, W, C] (the
+// map's dtype): d src [B, H, W, C]. acc: float32 [B, H, W, C] (16-byte
+// aligned), the result itself for float32 (d_src null), else a scratch that
+// is rounded into d_src (bf16). mat and bda_n as bev_warp takes them; vec =
+// 1: grad 16-byte aligned and C a multiple of 16 bytes' worth. acc is
+// zeroed here. Returns the cudaError_t.
+extern "C" int bev_warp_backward(int dtype, const void* grad, const float* mat, int bda_n,
+                                 float* acc, void* d_src, int b, int h, int w, int c, int vec,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b == 0 || h == 0 || w == 0 || c == 0) return 0;
+  if (b > 65535 || (bda_n != 0 && bda_n != 3 && bda_n != 4) || (dtype == 1) != (d_src != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)b * h * w * c;
+  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)n * sizeof(float), st);
+  if (e != cudaSuccess) return (int)e;
+  if (dtype == 0) {
+    if (vec) launch_backward<float, 4>(grad, mat, bda_n, acc, b, h, w, c, st);
+    else launch_backward<float, 1>(grad, mat, bda_n, acc, b, h, w, c, st);
+  } else if (dtype == 1) {
+    if (vec) launch_backward<__nv_bfloat16, 8>(grad, mat, bda_n, acc, b, h, w, c, st);
+    else launch_backward<__nv_bfloat16, 1>(grad, mat, bda_n, acc, b, h, w, c, st);
+    const int64_t n4 = n / 4;
+    if (n4) round_bf16_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
+        reinterpret_cast<const float4*>(acc), static_cast<uint2*>(d_src), n4);
+    if (n - 4 * n4) round_bf16_tail_kernel<<<1, 32, 0, st>>>(
+        acc + 4 * n4, static_cast<__nv_bfloat16*>(d_src) + 4 * n4, n - 4 * n4);
   } else {
     return (int)cudaErrorInvalidValue;
   }

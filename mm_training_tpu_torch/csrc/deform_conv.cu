@@ -117,6 +117,27 @@ template <typename T, int V> __device__ __forceinline__ Pack<T, V> ldg_pack(cons
 
 // ---- the sampling, shared by both kernels
 
+// The sampling point of tap t at pixel (py_i, px_i) with the tap's offsets
+// o[0] (dy), o[1] (dx): its top-left corner and its fractional weights.
+struct TapPoint {
+  int y0i, x0i;
+  float wy, wx;
+};
+
+__device__ __forceinline__ TapPoint tap_point(int py_i, int px_i, int t, const float* o) {
+  // (iota + base tap) + offset, in fp32, in the JAX order
+  const float py = __fadd_rn(__fadd_rn((float)py_i, (float)(t / 3 - 1)), o[0]);
+  const float px = __fadd_rn(__fadd_rn((float)px_i, (float)(t % 3 - 1)), o[1]);
+  const float y0 = floorf(py), x0 = floorf(px);
+  return TapPoint{(int)y0, (int)x0, __fsub_rn(py, y0), __fsub_rn(px, x0)};
+}
+
+// corner k of a tap point (order (0, 0), (0, 1), (1, 0), (1, 1)) inside the image
+__device__ __forceinline__ bool corner_inside(const TapPoint& tp, int k, int h, int w) {
+  const int yi = tp.y0i + (k >> 1), xi = tp.x0i + (k & 1);
+  return yi >= 0 && yi < h && xi >= 0 && xi < w;
+}
+
 // The four bilinear corners of tap t at pixel (py_i, px_i) with the tap's
 // offsets o[0] (dy), o[1] (dx): each corner's clamped row (yc, xc) and its
 // weight rounded to T, zero outside the image. Corners in the order
@@ -124,22 +145,16 @@ template <typename T, int V> __device__ __forceinline__ Pack<T, V> ldg_pack(cons
 template <typename T>
 __device__ __forceinline__ void tap_corners(int py_i, int px_i, int t, const float* o, int h,
                                             int w, int yc[4], int xc[4], float cw[4]) {
-  // (iota + base tap) + offset, in fp32, in the JAX order
-  const float py = __fadd_rn(__fadd_rn((float)py_i, (float)(t / 3 - 1)), o[0]);
-  const float px = __fadd_rn(__fadd_rn((float)px_i, (float)(t % 3 - 1)), o[1]);
-  const float y0 = floorf(py), x0 = floorf(px);
-  const float wy = __fsub_rn(py, y0), wx = __fsub_rn(px, x0);
-  const int y0i = (int)y0, x0i = (int)x0;
-  const float omy = __fsub_rn(1.f, wy), omx = __fsub_rn(1.f, wx);
-  const float wk[4] = {__fmul_rn(omy, omx), __fmul_rn(omy, wx), __fmul_rn(wy, omx),
-                       __fmul_rn(wy, wx)};
+  const TapPoint tp = tap_point(py_i, px_i, t, o);
+  const float omy = __fsub_rn(1.f, tp.wy), omx = __fsub_rn(1.f, tp.wx);
+  const float wk[4] = {__fmul_rn(omy, omx), __fmul_rn(omy, tp.wx), __fmul_rn(tp.wy, omx),
+                       __fmul_rn(tp.wy, tp.wx)};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const int yi = y0i + (k >> 1), xi = x0i + (k & 1);
-    const bool inb = yi >= 0 && yi < h && xi >= 0 && xi < w;
+    const int yi = tp.y0i + (k >> 1), xi = tp.x0i + (k & 1);
     yc[k] = min(max(yi, 0), h - 1);
     xc[k] = min(max(xi, 0), w - 1);
-    cw[k] = round_to<T>(inb ? wk[k] : 0.f);
+    cw[k] = round_to<T>(corner_inside(tp, k, h, w) ? wk[k] : 0.f);
   }
 }
 
@@ -197,6 +212,125 @@ void launch_sample(const void* x, const float* off, void* cols, int64_t rows, in
   const int threads = 256;
   deform_sample_kernel<T, V><<<(unsigned)((n_items + threads - 1) / threads), threads, 0, st>>>(
       static_cast<const T*>(x), off, static_cast<T*>(cols), n_items, h, w, c);
+}
+
+// ---- deform_sample_backward: d x and d offsets from the columns' gradient
+//
+// Kernel K5': the transposed sampling. For the gradient of the columns,
+// laid out as the grouped product leaves it, dcols [g, B*H*W, 9 * C/g]
+// (row tap * C/g + c), one warp a (pixel, tap):
+//   * d x[corner_k] += cw_k * dcols[., c] for the four corners inside the
+//     image, cw_k the forward's rounded weight (tap_corners, the same
+//     function), as float32 atomics into a zeroed float32 buffer (the
+//     float32 gradient itself, or a scratch rounded once to bf16 after);
+//     a corner whose weight is exactly zero (a whole-pixel sample) adds
+//     nothing and is skipped;
+//   * d cw_k = sum_c dcols[., c] x[corner_k, c] (fp32, lanes then a warp
+//     sum), and through cw_00 = (1 - wy)(1 - wx), cw_01 = (1 - wy) wx,
+//     cw_10 = wy (1 - wx), cw_11 = wy wx with wy = py - floor(py) (floor has
+//     no gradient, as in JAX: at a whole pixel the derivative is the
+//     one-sided difference of the corners below and above),
+//     d dy = (d cw_10 (1 - wx) + d cw_11 wx) - (d cw_00 (1 - wx) + d cw_01 wx)
+//     and d dx alike, written once, no atomics.
+// Bound: device-memory bytes (dcols and x read, d x and d offsets written;
+// 0.5 GB of dcols at the B=4 train step in bf16); the atomics land in L2.
+template <typename T, int V>
+__global__ void deform_bwd_kernel(const T* __restrict__ x, const float* __restrict__ off,
+                                  const T* __restrict__ dcols, float* __restrict__ dx,
+                                  float* __restrict__ doff, int64_t rows, int64_t bhw, int h,
+                                  int w, int c, int cg) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;               // whole warps
+  const int t = (int)(row % 9);
+  const int64_t bp = row / 9;            // b * H*W + p
+  const int64_t hw = (int64_t)h * w;
+  const int64_t b = bp / hw;
+  const int p = (int)(bp - b * hw);
+  const float* o = off + bp * 18 + 2 * t;
+  int yc[4], xc[4];
+  float cw[4];
+  tap_corners<T>(p / w, p % w, t, o, h, w, yc, xc, cw);
+  const TapPoint tp = tap_point(p / w, p % w, t, o);
+  bool inside[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) inside[k] = corner_inside(tp, k, h, w);
+  const T* xb = x + b * hw * c;
+  float* dxb = dx + b * hw * c;
+  float dcw[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j = lane; j < c / V; j += 32) {
+    const int c0 = j * V;
+    const int gi = c0 / cg, cc = c0 - gi * cg;
+    const Pack<T, V> dp = *reinterpret_cast<const Pack<T, V>*>(
+        dcols + (((int64_t)gi * bhw + bp) * 9 + t) * cg + cc);
+    float dc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) dc[e] = to_float(dp.v[e]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!inside[k]) continue;
+      const int64_t at = ((int64_t)yc[k] * w + xc[k]) * c + c0;
+      const Pack<T, V> r = *reinterpret_cast<const Pack<T, V>*>(xb + at);
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < V; ++e) s = fmaf(dc[e], to_float(r.v[e]), s);
+      dcw[k] += s;
+      if (cw[k] == 0.f) continue;
+      if constexpr (V % 4 == 0) {
+#pragma unroll
+        for (int e = 0; e < V; e += 4)
+          atomicAdd(reinterpret_cast<float4*>(dxb + at + e),
+                    make_float4(__fmul_rn(cw[k], dc[e]), __fmul_rn(cw[k], dc[e + 1]),
+                                __fmul_rn(cw[k], dc[e + 2]), __fmul_rn(cw[k], dc[e + 3])));
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) atomicAdd(dxb + at + e, __fmul_rn(cw[k], dc[e]));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) dcw[k] += __shfl_xor_sync(0xffffffffu, dcw[k], s);
+  if (lane == 0) {
+    const float omy = __fsub_rn(1.f, tp.wy), omx = __fsub_rn(1.f, tp.wx);
+    const float d_omy = __fadd_rn(__fmul_rn(dcw[0], omx), __fmul_rn(dcw[1], tp.wx));
+    const float d_wy = __fadd_rn(__fmul_rn(dcw[2], omx), __fmul_rn(dcw[3], tp.wx));
+    const float d_omx = __fadd_rn(__fmul_rn(dcw[0], omy), __fmul_rn(dcw[2], tp.wy));
+    const float d_wx = __fadd_rn(__fmul_rn(dcw[1], omy), __fmul_rn(dcw[3], tp.wy));
+    doff[bp * 18 + 2 * t] = __fsub_rn(d_wy, d_omy);
+    doff[bp * 18 + 2 * t + 1] = __fsub_rn(d_wx, d_omx);
+  }
+}
+
+template <typename T, int V>
+void launch_sample_backward(const void* x, const float* off, const void* dcols, float* dx,
+                            float* doff, int64_t rows, int64_t bhw, int h, int w, int c, int cg,
+                            cudaStream_t st) {
+  const int threads = 256;
+  const int64_t blocks = (rows + threads / 32 - 1) / (threads / 32);
+  deform_bwd_kernel<T, V><<<(unsigned)blocks, threads, 0, st>>>(
+      static_cast<const T*>(x), off, static_cast<const T*>(dcols), dx, doff, rows, bhw, h, w, c,
+      cg);
+}
+
+// out = acc rounded to bf16, 4 values a thread (n4 of them), then the tail
+__global__ void round_bf16_kernel(const float* __restrict__ acc,
+                                  __nv_bfloat16* __restrict__ out, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t n4 = n / 4;
+  if (i < n4) {
+    const float4 v = reinterpret_cast<const float4*>(acc)[i];
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 pk;
+    pk.x = *reinterpret_cast<const unsigned*>(&lo);
+    pk.y = *reinterpret_cast<const unsigned*>(&hi);
+    reinterpret_cast<uint2*>(out)[i] = pk;
+  } else if (i < n4 + (n - 4 * n4)) {
+    const int64_t k = 4 * n4 + (i - n4);
+    out[k] = __float2bfloat16_rn(acc[k]);
+  }
 }
 
 // ---- deform_conv3x3: the fused op
@@ -600,6 +734,42 @@ extern "C" int deform_conv3x3(int dtype, const void* x, const float* off, const 
   if (dtype == 0) return launch_fused<float>(p, b, groups, st);
   if (dtype == 1) return launch_fused<__nv_bfloat16>(p, b, groups, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The gradient of the columns (deform_sample) for dcols [groups, B*H*W,
+// 9 * C/groups] (row tap * C/g + c) of x's dtype: d x [B, H, W, C] and d off
+// [B, H, W, 18] fp32 (written whole). x and dcols contiguous; acc float32
+// [B, H, W, C], 16-byte aligned, zeroed here: d x itself for float32 (dx
+// null), else a scratch rounded into dx (bf16). vec = 1: x and dcols 16-byte
+// aligned and C/g a multiple of 16 bytes' worth of elements. Returns the
+// cudaError_t.
+extern "C" int deform_sample_backward(int dtype, const void* x, const float* off,
+                                      const void* dcols, float* acc, void* dx, float* doff,
+                                      long long b, int h, int w, int c, int groups, int vec,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t bhw = b * (int64_t)h * w, rows = bhw * 9;
+  if (rows == 0 || c == 0) return 0;
+  if (groups < 1 || c % groups || (dtype == 1) != (dx != nullptr)) return (int)cudaErrorInvalidValue;
+  const int cg = c / groups;
+  const int64_t n = bhw * c;
+  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)n * sizeof(float), st);
+  if (e != cudaSuccess) return (int)e;
+  if (dtype == 0) {
+    if (vec) launch_sample_backward<float, 4>(x, off, dcols, acc, doff, rows, bhw, h, w, c, cg, st);
+    else launch_sample_backward<float, 1>(x, off, dcols, acc, doff, rows, bhw, h, w, c, cg, st);
+  } else if (dtype == 1) {
+    if (vec) launch_sample_backward<__nv_bfloat16, 8>(x, off, dcols, acc, doff, rows, bhw, h, w, c,
+                                                      cg, st);
+    else launch_sample_backward<__nv_bfloat16, 1>(x, off, dcols, acc, doff, rows, bhw, h, w, c,
+                                                  cg, st);
+    const int64_t items = n / 4 + (n % 4);
+    round_bf16_kernel<<<(unsigned)((items + 255) / 256), 256, 0, st>>>(
+        acc, static_cast<__nv_bfloat16*>(dx), n);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* error_string(int code) {

@@ -1,0 +1,145 @@
+"""The backward kernels K4', K5' and K7' against their plain versions on
+the card, with the tolerance each is held to. Shared by ``chip_smoke.py``
+and ``tests/test_torch_cuda.py``.
+
+Each check runs the kernel's wrapper on CUDA tensors, runs the plain version
+(autograd through the plain forward) on the same inputs raised to float32,
+and bounds the difference entry by entry: the kernels sum in float32, in
+another order than the plain version (K4' in a fixed order, K5''s and K7''s
+scattered gradients by float32 atomics in no fixed order), so a float32
+result may differ by 1e-5 of the entry's sum of |terms| (computed in float64
+from the same linear backward on magnitudes), and a bf16 result, rounded
+once, by one bf16 ulp of the float32 reference plus that. The grouped
+products of K5's backward (``torch.bmm``) and its bias sum are held to a
+bf16 rounding of their tensor's largest entry (2^-7) in bf16 and 1e-5 in
+float32: cuBLAS's order against autograd's.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..ops import deform_conv, voxel_pooling, warp
+
+__all__ = ['deform_backward_errors', 'splat_backward_errors', 'warp_backward_errors']
+
+
+def _ulp(ref: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One ulp of ``dtype`` at each entry of the float32 ``ref`` (bf16: 8
+    bits of mantissa; float32: none, the bound alone holds)."""
+    if dtype != torch.bfloat16:
+        return torch.zeros_like(ref)
+    a = ref.abs()
+    return torch.where(a == 0, 0.0, torch.exp2(torch.floor(torch.log2(a)) - 7))
+
+
+def _outside(got: torch.Tensor, ref: torch.Tensor, magnitude: torch.Tensor) -> Dict:
+    """Entries of ``got`` beyond one ulp of its dtype plus 1e-5 of the sum
+    of |terms| (and a float32 rounding of the entry) from the float32
+    ``ref``; the largest |difference|."""
+    diff = (got.float() - ref).abs()
+    bound = _ulp(ref, got.dtype) + 1e-5 * magnitude.float() + 1.2e-7 * ref.abs()
+    return {'outside': int((diff > bound).sum()), 'max_abs_err': diff.max().item()}
+
+
+def splat_backward_errors(depth, ctx, idx, zvalid, n_cells, g) -> Dict:
+    """K4' (:func:`~mm_training_tpu_torch.ops.voxel_pooling.
+    lift_splat_factorized_backward`) against its plain version: d depth and
+    d ctx, each within the module's bound; the same bits on a second call
+    (every output is written once, in a fixed order)."""
+    got_d, got_c = voxel_pooling.lift_splat_factorized_backward(g, depth, ctx, idx, zvalid,
+                                                                n_cells)
+    again = voxel_pooling.lift_splat_factorized_backward(g, depth, ctx, idx, zvalid, n_cells)
+    ref_d, ref_c = voxel_pooling.lift_splat_factorized_backward_plain(
+        g.float(), depth.float(), ctx.float(), idx, zvalid, n_cells)
+    mag_d, _ = voxel_pooling.lift_splat_factorized_backward_plain(
+        g.double().abs(), depth.double(), ctx.double().abs(), idx, zvalid, n_cells)
+    _, mag_c = voxel_pooling.lift_splat_factorized_backward_plain(
+        g.double().abs(), depth.double().abs(), ctx.double(), idx, zvalid, n_cells)
+    out = {'d_depth': _outside(got_d, ref_d, mag_d), 'd_ctx': _outside(got_c, ref_c, mag_c),
+           'deterministic': torch.equal(again[0], got_d) and torch.equal(again[1], got_c),
+           'dtypes': [str(got_d.dtype), str(got_c.dtype)]}
+    out['max_abs_err'] = max(out['d_depth']['max_abs_err'], out['d_ctx']['max_abs_err'])
+    out['ok'] = (out['d_depth']['outside'] == 0 and out['d_ctx']['outside'] == 0
+                 and out['deterministic'] and got_d.dtype == depth.dtype
+                 and got_c.dtype == ctx.dtype)
+    return out
+
+
+def warp_backward_errors(img, mat, bda_n, g) -> Dict:
+    """K7' (:func:`~mm_training_tpu_torch.ops.warp.warp_backward`) against
+    its plain version: d img within the module's bound."""
+    got = warp.warp_backward(g, img, mat, bda_n)
+    ref = warp.warp_backward_plain(g.float(), img.float(), mat, bda_n)
+    mag = warp.warp_backward_plain(g.double().abs(), img.double(), mat, bda_n)
+    out = _outside(got, ref, mag)
+    out['ok'] = out['outside'] == 0 and got.dtype == img.dtype
+    return out
+
+
+def _offset_magnitude(x, offsets, dcols, groups):
+    """Per (pixel, tap) and coordinate, float64: the sum over the tap's
+    corners inside the image of sum_c |dcols_c| |x[corner, c]|, which bounds
+    the terms of d offsets (each corner weight's derivative is at most 1)."""
+    b, h, w, c = x.shape
+    g = groups
+    d = dcols.double().abs().reshape(g, b * h * w, 9, c // g).permute(1, 2, 0, 3)
+    d = d.reshape(b, h * w * 9, c)
+    off = offsets.float().reshape(b, h, w, 9, 2)
+    dev = x.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    k = torch.arange(3, dtype=torch.float32, device=dev) - 1
+    base_dy, base_dx = torch.meshgrid(k, k, indexing='ij')
+    y0 = torch.floor((ys[None, :, :, None] + base_dy.reshape(-1)) + off[..., 0]).long()
+    x0 = torch.floor((xs[None, :, :, None] + base_dx.reshape(-1)) + off[..., 1]).long()
+    xa = x.double().abs().reshape(b, h * w, c)
+    batch = torch.arange(b, device=dev)[:, None]
+    mag = torch.zeros(b, h * w * 9, dtype=torch.float64, device=dev)
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        yi, xi = (y0 + dy).reshape(b, -1), (x0 + dx).reshape(b, -1)
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        rows = xa[batch, yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)]
+        mag += torch.where(inb, (rows * d).sum(-1), 0.0)
+    return mag.reshape(b, h, w, 9, 1).expand(b, h, w, 9, 2).reshape(b, h, w, 18)
+
+
+def deform_backward_errors(x, offsets, weight, bias, groups, dy) -> Dict:
+    """K5's backward (:func:`~mm_training_tpu_torch.ops.deform_conv.
+    deform_conv3x3_backward`: the grouped products, the columns kernel and
+    K5') against its plain versions. K5''s part, d x and d offsets, against
+    :func:`~mm_training_tpu_torch.ops.deform_conv.deform_sample_backward_plain`
+    on the same columns' gradient (``dY W^T`` in x's dtype) raised to
+    float32, within the module's bound; for a bf16 x, d x takes the corner
+    weights rounded to bf16 (the forward's, and the JAX package's
+    ``cwm.astype``) where the float32 reference keeps them, 2^-8 (bf16's
+    unit roundoff) of the sum of |terms| more. d weight and d bias against autograd through the plain
+    forward in float32, within a rounding of the tensor's largest entry."""
+    dx, doff, dw, db = deform_conv.deform_conv3x3_backward(dy, x, offsets, weight, bias, groups)
+    b, h, w, c = x.shape
+    og = weight.shape[2]
+    dyg = dy.reshape(b * h * w, groups, og).transpose(0, 1)
+    dcols = torch.bmm(dyg, weight.transpose(1, 2))       # what K5' was given
+    ref_dx, ref_doff = deform_conv.deform_sample_backward_plain(dcols.float(), x.float(),
+                                                                offsets, groups)
+    mag_x, _ = deform_conv.deform_sample_backward_plain(dcols.double().abs(), x.double(),
+                                                        offsets, groups)
+    if x.dtype == torch.bfloat16:      # bf16's unit roundoff: 2^-8
+        mag_x = mag_x * (1.0 + 2.0 ** -8 / 1e-5)
+    out = {'d_x': _outside(dx, ref_dx, mag_x),
+           'd_offsets': _outside(doff, ref_doff,
+                                 _offset_magnitude(x, offsets, dcols, groups))}
+    ref = deform_conv.deform_conv3x3_backward_plain(dy.float(), x.float(), offsets,
+                                                    weight.float(), bias.float(), groups)
+    rel = 2.0 ** -7 if x.dtype == torch.bfloat16 else 1e-5
+    for name, got, want in (('d_weight', dw, ref[2]), ('d_bias', db, ref[3])):
+        err = (got.float() - want).abs().max().item()
+        top = want.abs().max().item()
+        out[name] = {'max_abs_err': err, 'of_largest': err / max(top, 1e-30),
+                     'ok': err <= rel * top}
+    out['max_abs_err'] = max(out['d_x']['max_abs_err'], out['d_offsets']['max_abs_err'])
+    out['ok'] = (out['d_x']['outside'] == 0 and out['d_offsets']['outside'] == 0
+                 and out['d_weight']['ok'] and out['d_bias']['ok']
+                 and dx.dtype == x.dtype and doff.dtype == torch.float32)
+    return out

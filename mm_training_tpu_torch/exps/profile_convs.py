@@ -20,12 +20,17 @@ kernel K1 and needs none). ``--train`` times every conv module of one B=4
 ``lidar_radar`` train step alone, forward and backward with the gradients
 the step takes (the weight's, and the input's where the input carries one),
 on the input the step gave it, slowest first (the encoder's first conv, run
-with its padded kernel, is ``--lidar-stem``'s).
+with its padded kernel, is ``--lidar-stem``'s); ``--train --config
+lidar_cam_radar`` does so for the camera train step (ResNet-50, the image
+neck, the DepthNet with ASPP and the DCN's offset conv, the fuse layer and
+the head), where a conv that falls to a cuDNN fallback kernel shows as the
+outlier.
 
     python -m mm_training_tpu_torch.exps.profile_convs [--config lidar_cam_radar]
         [--batch-size 1] [--iters 5] [--top 20]
     python -m mm_training_tpu_torch.exps.profile_convs --lidar-stem [--iters 20]
-    python -m mm_training_tpu_torch.exps.profile_convs --train [--iters 5] [--top 20]
+    python -m mm_training_tpu_torch.exps.profile_convs --train [--config lidar_cam_radar]
+        [--iters 5] [--top 20]
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..configs import lidar_radar, variants
+from ..configs import variants
 from ..data import make_fake_batch
 from ..models import BEVDepthLiDAR
 from ..models.depth_net import AtrousConv2d, phase_split_conv3x3
@@ -69,12 +74,13 @@ def lidar_stem(iters: int, channels=(20, 24, 32), batch_size: int = 4) -> list:
     return rows
 
 
-def train_convs(iters: int, batch_size: int = 4) -> list:
+def train_convs(iters: int, batch_size: int = 4, config: str = 'lidar_radar') -> list:
     """[{module, input, out_channels, conv, input_grad, ms}] of every conv
-    module one ``lidar_radar`` train step at ``batch_size`` runs, each
-    timed alone forward and backward on the input and with the weights'
-    dtype the step gave it, slowest first."""
-    cfg = lidar_radar(batch_size=batch_size, max_points_per_frame=100_000)
+    module one ``config`` train step at ``batch_size`` runs, each timed
+    alone forward and backward on the input and with the weights' dtype the
+    step gave it, slowest first."""
+    from .profile_train import train_batch
+    cfg = getattr(variants, config)(batch_size=batch_size, max_points_per_frame=100_000)
     model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(0))
     state = create_train_state(cfg, model)
     inputs = {}
@@ -86,7 +92,8 @@ def train_convs(iters: int, batch_size: int = 4) -> list:
     for name, m in model.named_modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.register_forward_pre_hook(keep_input(name))
-    make_train_step(cfg)(state, make_fake_batch(cfg, seed=0))
+    make_train_step(cfg)(state, train_batch(cfg, 0))
+    del state
 
     rows = []
     for name, (mod, x, input_grad) in inputs.items():
@@ -107,8 +114,9 @@ def train_convs(iters: int, batch_size: int = 4) -> list:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument('--config', default='lidar_cam_radar',
-                   choices=('lidar_only', 'lidar_radar', 'lidar_cam', 'lidar_cam_radar'))
+    p.add_argument('--config', default=None,
+                   choices=('lidar_only', 'lidar_radar', 'lidar_cam', 'lidar_cam_radar'),
+                   help='default lidar_cam_radar; with --train, lidar_radar')
     p.add_argument('--batch-size', type=int, default=1)
     p.add_argument('--iters', type=int, default=5)
     p.add_argument('--top', type=int, default=20)
@@ -116,21 +124,23 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument('--lidar-stem', action='store_true',
                    help="time the LiDAR encoder's first conv at 20, 24 and 32 input channels")
     p.add_argument('--train', action='store_true',
-                   help='time each conv of a B=4 lidar_radar train step, forward and backward')
+                   help='time each conv of a B=4 train step, forward and backward')
     args = p.parse_args(argv)
     if args.lidar_stem:
         result = {'device': torch.cuda.get_device_name(0), 'lidar_stem': lidar_stem(args.iters)}
         print(json.dumps(result))
         return result
     if args.train:
-        rows = train_convs(args.iters)
-        result = {'device': torch.cuda.get_device_name(0), 'convs': len(rows),
+        config = args.config or 'lidar_radar'
+        rows = train_convs(args.iters, config=config)
+        result = {'device': torch.cuda.get_device_name(0), 'config': config, 'convs': len(rows),
                   'sum_ms': sum(r['ms'] for r in rows), 'top': rows[:args.top]}
         print(json.dumps({k: v for k, v in result.items() if k != 'top'}))
         for r in result['top']:
             print(json.dumps(r))
         return result
 
+    args.config = args.config or 'lidar_cam_radar'
     cfg = getattr(variants, args.config)(batch_size=args.batch_size,
                                          max_points_per_frame=100_000)
     model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(args.seed))

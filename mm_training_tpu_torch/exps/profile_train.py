@@ -1,16 +1,25 @@
 """Where a training step's time goes on the card (torch.profiler).
 
-Builds the full-width ``lidar_radar`` model (grid 256 x 2048, 100k 8-feature
-points a frame, bf16 compute over float32 masters) with seeded random
+Builds a full-width model (``--config``: ``lidar_radar``, grid 256 x 2048,
+100k 8-feature points a frame; or ``lidar_cam_radar``, the same LiDAR branch
+plus four 704 x 1280 cameras through ResNet-50, the DepthNet and the
+lift-splat, with a rotated BEV augmentation, the step's random flips and
+ASPP's dropout) in bf16 compute over float32 masters with seeded random
 weights, runs ``--warmup`` train steps on one fixed fake batch, then
 profiles ``--steps`` steps and prints: host wall time per step, device time
 per step summed over kernels, the device's busy share (device time / wall
-time), device ops per step, peak device memory, and the kernels and host
-ops that take the most time. Before the profiled window it times
+time), device ops per step, peak device memory, the kernels and host ops
+that take the most time, and the device time a step of each of the port's
+own kernels (by kernel name). Before the profiled window it times
 ``--steps`` unprofiled steps (host clock, each ending in a synchronize).
+With the camera it also times the depth loss alone, forward and backward
+at the step's shapes (plain torch: the JAX package leaves it to XLA).
 
-    python -m mm_training_tpu_torch.exps.profile_train [--batch-size 4]
-        [--steps 10] [--warmup 3] [--trace train_trace.json]
+    python -m mm_training_tpu_torch.exps.profile_train [--config lidar_cam_radar]
+        [--batch-size 4] [--steps 10] [--warmup 3] [--trace train_trace.json]
+
+``--ops-only`` prints only the device operations of one step after the
+warm-up (``exps/timing.py::device_ops``), as one JSON line.
 """
 from __future__ import annotations
 
@@ -23,12 +32,50 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs import lidar_radar
-from ..data import make_fake_batch
+from ..configs import variants
+from ..data import make_fake_batch, random_bda_matrices
 from ..models import BEVDepthLiDAR
-from ..training import TrainState, create_train_state, make_train_step
+from ..training import TrainState, create_train_state, depth_loss_fn, make_train_step
+from .timing import device_ms, device_ops
 
-__all__ = ['benchmark_train', 'main']
+__all__ = ['KERNEL_NAMES', 'benchmark_train', 'depth_loss_ms', 'main', 'train_batch']
+
+# the port's kernels by a substring of their device names (csrc/*.cu)
+KERNEL_NAMES = {
+    'A affine_act': 'affine_act_kernel', "A' affine_act_backward": 'affine_act_bwd',
+    'K1 pillar_encoder_input': 'pillar_kernel', 'K2 draw_heatmap': 'heatmap_kernel',
+    'K3 circle_nms': 'circle_nms', 'K4 lift_splat': 'lift_splat_kernel',
+    "K4' lift_splat_backward": 'lift_splat_bwd', 'K5 deform_conv3x3': 'deform_conv_kernel',
+    'K5 columns deform_sample': 'deform_sample_kernel', "K5' deform_sample_backward":
+    'deform_bwd', 'K6 depth_labels': 'depth_labels_kernel', 'K7 bev_warp': 'bev_warp_kernel',
+    "K7' bev_warp_backward": 'bev_warp_bwd', "K5'/K7' rounding to bf16": 'round_bf16'}
+
+
+def train_batch(cfg, seed: int) -> Dict[str, Any]:
+    """The fixed fake batch of a profiled train step; with the camera a
+    rotated, flipped and scaled BEV augmentation (``random_bda_matrices``)."""
+    batch = make_fake_batch(cfg, seed=seed)
+    if cfg.use_cam:
+        batch['bda_mat'] = random_bda_matrices(cfg.batch_size, seed=seed + 1)
+    return batch
+
+
+def depth_loss_ms(cfg, iters: int = 10) -> float:
+    """Device time of :func:`depth_loss_fn` forward and backward at ``cfg``'s
+    train step shapes: the key frame's bf16 depth [B*N, D, fH, fW] (a
+    softmax, channels-last like the DepthNet's) against one-hot labels."""
+    bb = cfg.get_backbone_conf()
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    bn, d, (fh, fw) = cfg.batch_size * cfg.num_cameras, bb.depth_channels, bb.feat_hw
+    logits = torch.randn(bn, fh, fw, d, generator=gen, device='cuda').bfloat16()
+    depth = logits.permute(0, 3, 1, 2).softmax(1).detach().requires_grad_()
+    labels = torch.nn.functional.one_hot(
+        torch.randint(0, d, (bn, fh, fw), generator=gen, device='cuda'), d).float()
+
+    def step():
+        depth.grad = None
+        depth_loss_fn(labels, depth).backward()
+    return device_ms(step, iters)
 
 
 def benchmark_train(train_step: Callable, state: TrainState, batch: Dict[str, Any],
@@ -55,21 +102,36 @@ def benchmark_train(train_step: Callable, state: TrainState, batch: Dict[str, An
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument('--config', default='lidar_radar', choices=('lidar_radar', 'lidar_cam_radar'))
     p.add_argument('--batch-size', type=int, default=4)
     p.add_argument('--steps', type=int, default=10)
     p.add_argument('--warmup', type=int, default=3)
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--trace', default=None, help='write a Chrome trace here')
+    p.add_argument('--ops-only', action='store_true',
+                   help='print only the device ops of one step after the warm-up')
     args = p.parse_args(argv)
 
-    cfg = lidar_radar(batch_size=args.batch_size, max_points_per_frame=100_000)
+    cfg = getattr(variants, args.config)(batch_size=args.batch_size,
+                                         max_points_per_frame=100_000)
     model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(args.seed))
     state = create_train_state(cfg, model)
     train_step = make_train_step(cfg)
-    batch = make_fake_batch(cfg, seed=args.seed)
+    batch = train_batch(cfg, args.seed)
     for _ in range(args.warmup):
         state, _ = train_step(state, batch)
     torch.cuda.synchronize()
+    if args.ops_only:
+        box = [state]
+
+        def one():
+            box[0], _ = train_step(box[0], batch)
+            torch.cuda.synchronize()
+        result = {'device': torch.cuda.get_device_name(0), 'config': args.config,
+                  'batch_size': args.batch_size,
+                  'device_ops_one_step': sum(device_ops(one).values())}
+        print(json.dumps(result))
+        return result
     timed = benchmark_train(train_step, state, batch, args.steps)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -85,11 +147,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     kernels = [e for e in events
                if e.device_type.name == 'CUDA' and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
-    top_dev = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    top_dev = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:25]
+    own = {label: [sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3
+                   / args.steps, sum(e.count for e in kernels if key in e.key) / args.steps]
+           for label, key in KERNEL_NAMES.items()}
     host = [e for e in events if e.device_type.name == 'CPU']
     top_host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     result = {
-        'device': torch.cuda.get_device_name(0), 'batch_size': args.batch_size,
+        'device': torch.cuda.get_device_name(0), 'config': args.config,
+        'batch_size': args.batch_size,
         'steps': args.steps, 'unprofiled': timed,
         'wall_ms_per_step': wall_ms, 'device_ms_per_step': device_ms,
         'device_busy_share': device_ms / wall_ms,
@@ -97,10 +163,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         'top_device_ms_per_step': [
             (e.key[:80], e.self_device_time_total / 1e3 / args.steps, e.count / args.steps)
             for e in top_dev],
+        'port_kernels_ms_and_launches_per_step': own,
         'top_host_self_ms_per_step': [
             (e.key[:80], e.self_cpu_time_total / 1e3 / args.steps, e.count / args.steps)
             for e in top_host],
     }
+    if cfg.use_cam:
+        result['depth_loss_forward_backward_ms'] = depth_loss_ms(cfg)
     print(json.dumps(result, indent=1))
     return result
 

@@ -13,7 +13,7 @@ raises until then.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -84,7 +84,7 @@ class BEVDepthLiDAR(nn.Module):
     'bf16'``, and activations follow the weights' dtype. ``model.train()``
     switches every BatchNorm to batch statistics, the only layers whose
     behaviour depends on the mode (the JAX modules' ``train`` flag) besides
-    ASPP's dropout."""
+    ASPP's dropout, whose keep masks a train-mode camera forward takes."""
 
     def __init__(self, cfg: Config, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -123,19 +123,29 @@ class BEVDepthLiDAR(nn.Module):
                 intrin: Optional[torch.Tensor] = None,
                 bda_mat: Optional[torch.Tensor] = None,
                 flipped: Optional[torch.Tensor] = None,
-                depth_oracle: Optional[torch.Tensor] = None) -> List[Dict[str, torch.Tensor]]:
+                depth_oracle: Optional[torch.Tensor] = None,
+                dropout: Optional[Sequence[torch.Tensor]] = None,
+                return_depth: bool = False):
         """-> list over tasks of dicts of NHWC pred maps [B, H/4, W/4, ch]
-        in the weights' dtype (float32, or bfloat16 after ``cast_floating``).
+        in the weights' dtype (float32, or bfloat16 after ``cast_floating``);
+        with ``return_depth``, (that list, the key frame's depth [B*N, D, fH,
+        fW] or None without the camera): the softmax over the bins as the
+        images came (flips not undone), which the depth loss reads (the JAX
+        model's second output). Serving leaves it out and holds nothing
+        longer.
 
         LiDAR: points [B, P, F] float32, point_mask [B, P] bool. Camera:
         imgs [B, S, N, H, W, 3] normalised float (cast to the weights'
         dtype here), sensor2ego and intrin [B, S, N, 4, 4] and bda_mat
         [B, 4, 4] float32, flipped [B*S*N] bool or None (no image flipped),
-        depth_oracle [B*N, fH, fW, D] float32 or None."""
+        depth_oracle [B*N, fH, fW, D] float32 or None, dropout (train mode)
+        ASPP's keep masks, one [B*N, mid, fH, fW] bool a sweep."""
         dtype = self.head.shared_conv.conv.weight.dtype
         bevs = []
+        depth = None
         if self.cfg.use_cam:
-            cam, _ = self.backbone(imgs.to(dtype), sensor2ego, intrin, flipped, depth_oracle)
+            cam, depth = self.backbone(imgs.to(dtype), sensor2ego, intrin, flipped,
+                                       depth_oracle, dropout)
             bevs.append(warp.bda_bev_warp(cam, bda_mat).permute(0, 3, 1, 2))
         if self.cfg.use_lidar:
             bevs.append(self.lidar_encoder(points, point_mask, dtype))
@@ -149,4 +159,5 @@ class BEVDepthLiDAR(nn.Module):
             fused = bevs[0]
         if fused.dtype != dtype:
             raise TypeError(f'the fused BEV is {fused.dtype}, not the compute dtype {dtype}')
-        return self.head(fused)
+        preds = self.head(fused)
+        return (preds, depth) if return_depth else preds

@@ -27,7 +27,7 @@ from torch import nn
 
 from ..ops import affine_act
 
-__all__ = ['BatchNorm2d', 'StateCache']
+__all__ = ['BatchNorm2d', 'StateCache', 'begin_step']
 
 
 class StateCache:
@@ -68,6 +68,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(num_features, eps=eps, **kw)
         self.relu = relu
         self._scale_shift = StateCache()
+        self._first_update = True
 
     def scale_shift(self):
         """(s, t) float32 [C] from the (possibly bf16) parameters/stats.
@@ -87,8 +88,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         statistics in place.
 
         As in the JAX train step, whose bf16 path casts the statistics to
-        bf16 before the update, the old statistics are first rounded to
-        ``x``'s dtype; the new ones are float32."""
+        bf16 once, before the step's forward, the old statistics are
+        rounded to ``x``'s dtype at the first update after
+        :func:`begin_step` (flax's ``0.9 * old`` then stays in that dtype);
+        a later update in the same step (a camera sweep after the key frame
+        runs the same BatchNorm again) takes the float32 result of the one
+        before, as flax's does. The new statistics are float32."""
         if self.momentum is None or not self.track_running_stats:
             raise RuntimeError('BatchNorm2d trains with flax semantics, an exponential '
                                'running average: momentum=None or '
@@ -97,10 +102,14 @@ class BatchNorm2d(nn.BatchNorm2d):
         var, mean = torch.var_mean(x.to(ct), dim=(0, 2, 3), correction=0)
         s = self.weight.to(ct) * torch.rsqrt(var + self.eps)
         t = self.bias.to(ct) - mean * s
+        old_dtype = x.dtype if self._first_update else self.running_mean.dtype
+        self._first_update = False
+        # flax's 0.9 is a weak-typed scalar: it takes the old statistics'
+        # dtype before the product (0.8984375 in bf16), torch's would not
+        keep = float(torch.tensor(1.0 - self.momentum, dtype=old_dtype))
         with torch.no_grad():
-            keep = 1.0 - self.momentum
             for buf, batch in ((self.running_mean, mean), (self.running_var, var)):
-                buf.copy_(buf.to(x.dtype) * keep + batch * self.momentum)
+                buf.copy_(buf.to(old_dtype) * keep + batch * self.momentum)
         return s, t
 
     def forward(self, x: torch.Tensor,
@@ -112,3 +121,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         if torch.is_grad_enabled():
             return affine_act.AffineAct.apply(x, s, t, residual, self.relu)
         return affine_act.affine_act(x, s, t, residual, self.relu)
+
+
+def begin_step(model: nn.Module) -> None:
+    """Mark the start of a train step for every :class:`BatchNorm2d` of
+    ``model``: the next update of its running statistics rounds the old ones
+    to the compute dtype first (see :meth:`BatchNorm2d.batch_scale_shift`)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m._first_update = True

@@ -25,7 +25,7 @@ from ..ops import deform_conv
 from .bn_fold import BatchNorm2d, StateCache
 from .resnet import BasicBlock
 
-__all__ = ['ASPP', 'AtrousConv2d', 'DeformConv2d', 'DepthNet', 'phase_split_conv3x3']
+__all__ = ['ASPP', 'AtrousConv2d', 'DeformConv2d', 'DepthNet', 'Dropout', 'phase_split_conv3x3']
 
 
 class DeformConv2d(nn.Module):
@@ -131,10 +131,32 @@ class _ASPPModule(nn.Module):
         return self.bn(self.atrous_conv(x))
 
 
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout(rate)`` with the keep mask as an input, not a
+    draw from a global generator: in train mode ``where(keep, x / (1 -
+    rate), 0)`` elementwise, ``keep`` a bool tensor of x's shape (keep
+    probability 1 - rate; the caller draws it, from a ``torch.Generator``
+    it owns or as the JAX package drew it); in eval mode x itself."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, keep=None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if keep is None or keep.shape != x.shape or keep.dtype != torch.bool:
+            raise ValueError(f'Dropout in train mode takes a bool keep mask of the input\'s '
+                             f'shape {tuple(x.shape)}, got '
+                             f'{None if keep is None else (tuple(keep.shape), keep.dtype)}')
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: 1x1 and dilated 3x3 (6, 12, 18)
     ConvBN-ReLUs and a global-mean ConvBN-ReLU, concatenated, a 1x1
-    ConvBN-ReLU and dropout 0.5 (off in eval)."""
+    ConvBN-ReLU and dropout 0.5 (off in eval; in train mode its keep mask
+    [B, mid, H, W] is an input, :class:`Dropout`)."""
 
     def __init__(self, in_channels: int, mid_channels: int):
         super().__init__()
@@ -147,19 +169,21 @@ class ASPP(nn.Module):
             BatchNorm2d(mid_channels, relu=True))
         self.conv1 = nn.Conv2d(5 * mid_channels, mid_channels, 1, bias=False)
         self.bn1 = BatchNorm2d(mid_channels, relu=True)
-        self.dropout = nn.Dropout(0.5)
+        self.dropout = Dropout(0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep=None) -> torch.Tensor:
         x4 = self.aspp4(x)
         pooled = self.global_avg_pool(x).expand(-1, -1, *x4.shape[2:])
         out = torch.cat([self.aspp1(x), self.aspp2(x), self.aspp3(x), x4, pooled], dim=1)
-        return self.dropout(self.bn1(self.conv1(out)))
+        return self.dropout(self.bn1(self.conv1(out)), keep)
 
 
 class DepthNet(nn.Module):
     """Depth and context head: [B, C_in, fH, fW] -> [B, D + C_ctx, fH, fW],
     the depth logits first, the context after. ``use_dcn=False`` leaves
-    ``depth_conv.4`` an identity, so the names stay the reference's."""
+    ``depth_conv.4`` an identity, so the names stay the reference's. In
+    train mode ``forward`` takes ASPP's dropout keep mask [B, mid, fH,
+    fW]."""
 
     def __init__(self, in_channels: int, mid_channels: int, context_channels: int,
                  depth_channels: int, use_dcn: bool = True, num_blocks: int = 3):
@@ -174,6 +198,9 @@ class DepthNet(nn.Module):
             DeformConv2d(mid_channels, mid_channels, groups=4) if use_dcn else nn.Identity(),
             nn.Conv2d(mid_channels, depth_channels, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep=None) -> torch.Tensor:
         x = self.reduce_conv(x)
-        return torch.cat([self.depth_conv(x), self.context_conv(x)], dim=1)
+        d = x
+        for layer in self.depth_conv:
+            d = layer(d, keep) if isinstance(layer, ASPP) else layer(d)
+        return torch.cat([d, self.context_conv(x)], dim=1)

@@ -10,7 +10,7 @@ key frame are concatenated on channels. The raw-rig splat
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -80,16 +80,18 @@ class LSSFPN(nn.Module):
 
     def _forward_single_sweep(self, imgs: torch.Tensor, sensor2ego: torch.Tensor,
                               intrin: torch.Tensor, flipped: Optional[torch.Tensor],
-                              depth_oracle: Optional[torch.Tensor]):
+                              depth_oracle: Optional[torch.Tensor],
+                              keep: Optional[torch.Tensor] = None):
         """imgs [B, N, H, W, 3] (compute dtype), matrices [B, N, 4, 4]
         float32, flipped [B*N] bool or None (no image flipped),
-        depth_oracle [B*N, fH, fW, D] or None. Returns (bev [B, ny, nx, C]
-        NHWC in the compute dtype, depth [B*N, D, fH, fW], the softmax as
-        the images came, flips not undone)."""
+        depth_oracle [B*N, fH, fW, D] or None, keep: ASPP's dropout mask
+        [B*N, mid, fH, fW] in train mode. Returns (bev [B, ny, nx, C] NHWC
+        in the compute dtype, depth [B*N, D, fH, fW], the softmax as the
+        images came, flips not undone)."""
         b, n = imgs.shape[:2]
         d_ch, c_out = self.conf.depth_channels, self.conf.output_channels
         x = imgs.reshape(b * n, *imgs.shape[2:]).permute(0, 3, 1, 2)   # NCHW view
-        feat = self.depth_net(self.img_neck(self.img_backbone(x)))     # [BN, D+C, fH, fW]
+        feat = self.depth_net(self.img_neck(self.img_backbone(x)), keep)   # [BN, D+C, fH, fW]
         depth = feat[:, :d_ch].softmax(dim=1)
         ctx = feat[:, d_ch:d_ch + c_out]
         lift = depth
@@ -112,10 +114,18 @@ class LSSFPN(nn.Module):
 
     def forward(self, imgs: torch.Tensor, sensor2ego: torch.Tensor, intrin: torch.Tensor,
                 flipped: Optional[torch.Tensor] = None,
-                depth_oracle: Optional[torch.Tensor] = None):
+                depth_oracle: Optional[torch.Tensor] = None,
+                dropout: Optional[Sequence[torch.Tensor]] = None):
         """imgs [B, S, N, H, W, 3] normalised, in the compute dtype;
         sensor2ego, intrin [B, S, N, 4, 4] float32; flipped [B*S*N] bool or
-        None; depth_oracle [B*N, fH, fW, D] (key frame) or None.
+        None; depth_oracle [B*N, fH, fW, D] (key frame) or None; dropout: in
+        train mode ASPP's keep masks, one [B*N, mid, fH, fW] bool a sweep
+        (the JAX module draws a mask a call).
+
+        Sweeps after the key frame run without a gradient (the JAX
+        package's ``stop_gradient``) but in the same mode: in train mode
+        their BatchNorms take batch statistics and update the running
+        ones, after the key frame's, in sweep order.
 
         Returns (bev [B, ny, nx, S*C] NHWC, key-frame depth [B*N, D, fH, fW])."""
         b, s, n = imgs.shape[:3]
@@ -127,7 +137,7 @@ class LSSFPN(nn.Module):
             with torch.set_grad_enabled(torch.is_grad_enabled() and si == 0):
                 bev, depth = self._forward_single_sweep(
                     imgs[:, si], sensor2ego[:, si], intrin[:, si], f,
-                    depth_oracle if si == 0 else None)
+                    depth_oracle if si == 0 else None, None if dropout is None else dropout[si])
             bevs.append(bev)
             if si == 0:
                 key_depth = depth

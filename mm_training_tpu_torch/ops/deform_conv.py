@@ -14,8 +14,8 @@ Two entries share the sampling code of ``csrc/deform_conv.cu`` (one
   built tile by tile in shared memory and contracted there on the tensor
   cores, so no column is ever written to device memory;
 - :func:`deform_sample`, the columns ``[B, H*W, 9, C]``: off the serving
-  path since the fused op, kept for the weight gradient of the camera
-  training slice (dW = cols^T dY for each group).
+  path since the fused op, the weight gradient's columns in training
+  (dW = cols^T dY for each group).
 
 Rounding follows the JAX package: coordinates and corner weights in fp32,
 each weight rounded to the input dtype, then ``sampled = sampled + row *
@@ -23,9 +23,14 @@ weight`` corner by corner in the input dtype (each product and each sum
 rounded), so the sampled values match the plain version bit for bit; the
 fused op's fp32 sums run in another order than cuBLAS's.
 
-There is no backward yet (serving runs under ``inference_mode``): the
-training slice adds one. Until then a CUDA call that needs a gradient
-raises.
+The backward (:class:`DeformConv`, a ``torch.autograd.Function`` that
+:func:`deform_conv3x3` takes for a CUDA call that needs a gradient):
+``d bias = sum dY``; the grouped products as the JAX package leaves them
+to XLA, ``d cols = dY W^T`` and ``dW = cols^T dY`` (``torch.bmm``, the
+columns from :func:`deform_sample`); then kernel K5'
+(:func:`deform_sample_backward`), the transposed sampling into d x and d
+offsets with the forward's own corner functions. On the CPU autograd
+differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -36,7 +41,9 @@ import torch
 
 from . import build
 
-__all__ = ['deform_conv3x3', 'deform_conv3x3_plain', 'deform_sample', 'deform_sample_plain',
+__all__ = ['DeformConv', 'deform_conv3x3', 'deform_conv3x3_backward',
+           'deform_conv3x3_backward_plain', 'deform_conv3x3_plain', 'deform_sample',
+           'deform_sample_backward', 'deform_sample_backward_plain', 'deform_sample_plain',
            'halo_corners', 'pack_weight']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,6 +88,9 @@ def _lib() -> ctypes.CDLL:
     lib.deform_sample.restype = ctypes.c_int
     lib.deform_conv3x3.argtypes = [i32, p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p]
     lib.deform_conv3x3.restype = ctypes.c_int
+    lib.deform_sample_backward.argtypes = [i32, p, p, p, p, p, p, ctypes.c_longlong, i32, i32,
+                                           i32, i32, i32, p]
+    lib.deform_sample_backward.restype = ctypes.c_int
     return lib
 
 
@@ -90,8 +100,9 @@ def deform_sample(x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     [B, H*W, 9, C] in x's dtype.
 
     A CPU tensor takes :func:`deform_sample_plain`; a CUDA tensor launches
-    kernel K5 or raises (also when a gradient is asked for: the kernel has
-    no backward yet)."""
+    kernel K5's columns kernel or raises (also when a gradient is asked
+    for: the columns are the weight gradient's input, not differentiated;
+    :class:`DeformConv` differentiates the conv)."""
     if x.dim() != 4 or offsets.shape != (*x.shape[:3], 18):
         raise ValueError(f'deform_sample: x [B, H, W, C] and offsets [B, H, W, 18], '
                          f'got {tuple(x.shape)} and {tuple(offsets.shape)}')
@@ -103,8 +114,8 @@ def deform_sample(x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
                          f'float32 offsets on its device, got {x.dtype} on {x.device}, '
                          f'{offsets.dtype} on {offsets.device}')
     if torch.is_grad_enabled() and (x.requires_grad or offsets.requires_grad):
-        raise NotImplementedError('deform_sample: kernel K5 has no backward yet; it '
-                                  'arrives with the camera training slice (slice 4)')
+        raise ValueError('deform_sample: the columns kernel takes no gradient; the conv\'s '
+                         'gradient is DeformConv\'s (deform_conv3x3)')
     x, offsets = x.contiguous(), offsets.contiguous()
     b, h, w, c = x.shape
     cols = torch.empty(b, h * w, 9, c, dtype=x.dtype, device=x.device)
@@ -137,15 +148,18 @@ def deform_conv3x3_plain(x: torch.Tensor, offsets: torch.Tensor, weight: torch.T
     """Plain PyTorch version: :func:`deform_sample_plain`, the grouped
     product as one batched matrix product of the columns and the kernel in
     x's dtype, summed in fp32 (the products of bf16 values are exact there;
-    no reduced-precision split reductions) and rounded once to x's dtype,
-    then the bias in x's dtype. x [B, H, W, C], offsets [B, H, W, 18]
+    no reduced-precision split reductions; float64 inputs sum in float64)
+    and rounded to float32, where the JAX package's
+    ``preferred_element_type=jnp.float32`` rounds it, then once to x's
+    dtype, then the bias in x's dtype. x [B, H, W, C], offsets [B, H, W, 18]
     float32, weight [g, 9 * C/g, C_out/g] (:func:`pack_weight`), bias
     [C_out] -> [B, H, W, C_out] in x's dtype."""
     b, h, w, c = x.shape
     g = groups
+    ct = torch.promote_types(x.dtype, torch.float32)
     cols = deform_sample_plain(x, offsets)                              # [B, HW, 9, C]
     cols = cols.reshape(b * h * w, 9, g, c // g).permute(2, 0, 1, 3).reshape(g, -1, 9 * c // g)
-    out = torch.bmm(cols.float(), weight.to(x.dtype).float()).to(x.dtype)   # [g, BHW, og]
+    out = torch.bmm(cols.to(ct), weight.to(x.dtype).to(ct)).float().to(x.dtype)  # [g, BHW, og]
     return out.permute(1, 0, 2).reshape(b, h, w, -1) + bias.to(x.dtype)
 
 
@@ -158,8 +172,13 @@ def deform_conv3x3(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
 
     A CPU tensor takes :func:`deform_conv3x3_plain`; a CUDA tensor launches
     the fused kernel K5 once (C/g and C_out/g multiples of 8; weight and
-    bias of x's dtype) or raises (also when a gradient is asked for: the
-    kernel has no backward yet)."""
+    bias of x's dtype) or raises. A CUDA call that needs a gradient goes
+    through :class:`DeformConv` (backward: :func:`deform_conv3x3_backward`)."""
+    _check(x, offsets, weight, bias, groups)
+    if x.device.type == 'cpu':
+        return deform_conv3x3_plain(x, offsets, weight, bias, groups)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, offsets, weight, bias)):
+        return DeformConv.apply(x, offsets, weight, bias, groups)
     return _fused(x, offsets, weight, bias, groups)
 
 
@@ -170,13 +189,14 @@ def halo_corners(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     (corners read from L2, beyond the staged halo; corners sampled)."""
     if x.device.type != 'cuda':
         raise ValueError('halo_corners: kernel K5 counts its corners on a CUDA device')
+    _check(x, offsets, weight, bias, groups)
     counts = torch.zeros(2, dtype=torch.int64, device=x.device)
     _fused(x, offsets, weight, bias, groups, counts)
     from_l2, total = counts.tolist()
     return from_l2, total
 
 
-def _fused(x, offsets, weight, bias, groups, counts=None):
+def _check(x, offsets, weight, bias, groups):
     if x.dim() != 4 or offsets.shape != (*x.shape[:3], 18) or weight.dim() != 3:
         raise ValueError(f'deform_conv3x3: x [B, H, W, C], offsets [B, H, W, 18] and weight '
                          f'[g, 9 * C/g, C_out/g], got {tuple(x.shape)}, '
@@ -187,8 +207,11 @@ def _fused(x, offsets, weight, bias, groups, counts=None):
         raise ValueError(f'deform_conv3x3: {c} channels in {groups} groups take a weight '
                          f'[{groups}, {9 * (c // max(groups, 1))}, C_out/g] and a bias '
                          f'[C_out], got {tuple(weight.shape)} and {tuple(bias.shape)}')
-    if x.device.type == 'cpu':
-        return deform_conv3x3_plain(x, offsets, weight, bias, groups)
+
+
+def _check_cuda(x, offsets, weight, bias, groups):
+    og = weight.shape[2]
+    c = x.shape[3]
     tensors = (offsets, weight, bias)
     if (x.device.type != 'cuda' or x.dtype not in _DTYPES or offsets.dtype != torch.float32
             or weight.dtype != x.dtype or bias.dtype != x.dtype
@@ -200,9 +223,13 @@ def _fused(x, offsets, weight, bias, groups, counts=None):
     if (c // groups) % 8 or og % 8:
         raise ValueError(f'deform_conv3x3: kernel K5 takes C/g and C_out/g multiples of 8, '
                          f'got {c // groups} and {og}')
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, offsets, weight, bias)):
-        raise NotImplementedError('deform_conv3x3: kernel K5 has no backward yet; it '
-                                  'arrives with the camera training slice (slice 4)')
+
+
+def _fused(x, offsets, weight, bias, groups, counts=None):
+    """One launch of the fused kernel K5 on CUDA tensors."""
+    _check_cuda(x, offsets, weight, bias, groups)
+    b, h, w, c = x.shape
+    g, _, og = weight.shape
     x, offsets = x.contiguous(), offsets.contiguous()
     weight, bias = weight.contiguous(), bias.contiguous()
     if x.data_ptr() % 16:
@@ -221,3 +248,137 @@ def _fused(x, offsets, weight, bias, groups, counts=None):
 
 
 deform_conv3x3.launches = 0
+
+
+def deform_sample_backward_plain(dcols: torch.Tensor, x: torch.Tensor, offsets: torch.Tensor,
+                                 groups: int):
+    """Plain PyTorch version of :func:`deform_sample_backward`: autograd
+    through :func:`deform_sample_plain`."""
+    b, h, w, c = x.shape
+    g = groups
+    d = dcols.reshape(g, b * h * w, 9, c // g).permute(1, 2, 0, 3).reshape(b, h * w, 9, c)
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_()
+        off = offsets.detach().requires_grad_()
+        dx, doff = torch.autograd.grad(deform_sample_plain(xs, off), (xs, off), d)
+    return dx, doff
+
+
+def deform_sample_backward(dcols: torch.Tensor, x: torch.Tensor, offsets: torch.Tensor,
+                           groups: int):
+    """Gradients (d x, d offsets) of the columns :func:`deform_sample` for
+    their gradient laid out as the grouped product leaves it, ``dcols``
+    [g, B*H*W, 9 * C/g] (row ``tap * C/g + c``) of x's dtype: d x [B, H, W,
+    C] in x's dtype (each corner inside the image gets its rounded weight
+    times dcols), d offsets [B, H, W, 18] float32 (the corner differences,
+    floor without a gradient as in JAX: at a whole pixel the one-sided
+    difference).
+
+    A CPU tensor takes :func:`deform_sample_backward_plain`; a CUDA tensor
+    launches kernel K5' (one warp a (pixel, tap), float32 atomics for d x,
+    rounded once to bf16 for a bf16 x; d offsets written once) or raises."""
+    if x.dim() != 4 or offsets.shape != (*x.shape[:3], 18):
+        raise ValueError(f'deform_sample_backward: x [B, H, W, C] and offsets [B, H, W, 18], '
+                         f'got {tuple(x.shape)} and {tuple(offsets.shape)}')
+    b, h, w, c = x.shape
+    if c % groups or dcols.shape != (groups, b * h * w, 9 * (c // groups)):
+        raise ValueError(f'deform_sample_backward: dcols [g, B*H*W, 9*C/g] = '
+                         f'{(groups, b * h * w, 9 * (c // max(groups, 1)))}, got '
+                         f'{tuple(dcols.shape)}')
+    if x.device.type == 'cpu':
+        return deform_sample_backward_plain(dcols, x, offsets, groups)
+    if (x.device.type != 'cuda' or x.dtype not in _DTYPES or dcols.dtype != x.dtype
+            or offsets.dtype != torch.float32
+            or any(t.device != x.device for t in (dcols, offsets))):
+        raise ValueError(f'deform_sample_backward takes a float32/bfloat16 CUDA or CPU x, '
+                         f'dcols of its dtype and float32 offsets on its device, got x '
+                         f'{x.dtype} on {x.device}, dcols {dcols.dtype} on {dcols.device}, '
+                         f'offsets {offsets.dtype} on {offsets.device}')
+    x, offsets, dcols = x.contiguous(), offsets.contiguous(), dcols.contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    doff = torch.empty_like(offsets)
+    if x.dtype == torch.float32:
+        acc = dx = torch.empty_like(x)
+    else:
+        acc = build.scratch('deform_sample_backward', x.device, stream, x.numel(), 0)[0]
+        dx = torch.empty_like(x)
+    n = 16 // x.element_size()
+    vec = int((c // groups) % n == 0 and x.data_ptr() % 16 == 0 and dcols.data_ptr() % 16 == 0)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.deform_sample_backward(
+            _DTYPES[x.dtype], x.data_ptr(), offsets.data_ptr(), dcols.data_ptr(), acc.data_ptr(),
+            None if acc is dx else dx.data_ptr(), doff.data_ptr(), b, h, w, c, groups, vec,
+            stream)
+    build.check(lib, code, 'deform_sample_backward')
+    deform_sample_backward.launches += 1
+    return dx, doff
+
+
+deform_sample_backward.launches = 0
+
+
+def deform_conv3x3_backward_plain(dy: torch.Tensor, x: torch.Tensor, offsets: torch.Tensor,
+                                  weight: torch.Tensor, bias: torch.Tensor, groups: int):
+    """Plain PyTorch version of :func:`deform_conv3x3_backward`: autograd
+    through :func:`deform_conv3x3_plain`."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, offsets, weight, bias)]
+        out = deform_conv3x3_plain(*ins, groups)
+        return torch.autograd.grad(out, ins, dy)
+
+
+def deform_conv3x3_backward(dy: torch.Tensor, x: torch.Tensor, offsets: torch.Tensor,
+                            weight: torch.Tensor, bias: torch.Tensor, groups: int):
+    """Gradients (d x, d offsets, d weight, d bias) of :func:`deform_conv3x3`
+    for the output gradient ``dy`` [B, H, W, C_out] (x's dtype), each in its
+    input's dtype and layout ([g, 9 * C/g, C_out/g] for the weight).
+
+    A CPU tensor takes :func:`deform_conv3x3_backward_plain`. On CUDA: ``d
+    bias = sum dY`` (float32 sums); ``d cols = dY W^T`` per group and, for
+    each tap, ``dW = cols^T dY`` per group (``torch.bmm``, the JAX
+    package's einsum transposes; the columns from :func:`deform_sample`),
+    then kernel K5' (:func:`deform_sample_backward`) for d x and d offsets.
+    Both column tensors are [B, H*W, 9, C]: 0.52 GB each in bf16 at the B=4
+    camera train step."""
+    _check(x, offsets, weight, bias, groups)
+    if x.device.type == 'cpu':
+        return deform_conv3x3_backward_plain(dy, x, offsets, weight, bias, groups)
+    _check_cuda(x, offsets, weight, bias, groups)
+    b, h, w, c = x.shape
+    g, k, og = weight.shape
+    cg = c // g
+    if dy.shape != (b, h, w, g * og) or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f'deform_conv3x3_backward: dy [B, H, W, C_out] = '
+                         f'{(b, h, w, g * og)} of x\'s dtype and device, got {tuple(dy.shape)} '
+                         f'{dy.dtype} {dy.device}')
+    x = x.contiguous()
+    dyg = dy.contiguous().view(b * h * w, g, og).transpose(0, 1)        # [g, BHW, og]
+    d_bias = dy.sum((0, 1, 2), dtype=torch.float32).to(bias.dtype)
+    cols = deform_sample(x, offsets).view(b * h * w, 9, g, cg)         # K5's columns kernel
+    d_weight = torch.stack([torch.bmm(cols[:, t].permute(1, 2, 0), dyg) for t in range(9)],
+                           1).reshape(g, k, og)                         # [g, 9 * cg, og]
+    del cols
+    d_cols = torch.bmm(dyg, weight.transpose(1, 2))                     # [g, BHW, 9 * cg]
+    d_x, d_off = deform_sample_backward(d_cols, x, offsets, g)
+    return d_x, d_off, d_weight, d_bias
+
+
+class DeformConv(torch.autograd.Function):
+    """:func:`deform_conv3x3` with a gradient on the card: the forward is
+    the fused kernel K5, the backward :func:`deform_conv3x3_backward`
+    (grouped products by ``torch.bmm``, the columns kernel, kernel K5').
+
+    ``DeformConv.apply(x, offsets, weight, bias, groups)``."""
+
+    @staticmethod
+    def forward(fctx, x, offsets, weight, bias, groups):
+        fctx.groups = groups
+        fctx.save_for_backward(x, offsets, weight, bias)
+        return _fused(x, offsets, weight, bias, groups)
+
+    @staticmethod
+    def backward(fctx, dy):
+        x, offsets, weight, bias = fctx.saved_tensors
+        grads = deform_conv3x3_backward(dy, x, offsets, weight, bias, fctx.groups)
+        return (*grads, None)

@@ -13,9 +13,13 @@ trash cell ``n_cells`` dropped. The CUDA source is ``csrc/lift_splat.cu``;
 it never writes the [M, D, fW, C] slab, see the note there. The raw-rig
 ``lift_splat`` (no factorization) is not ported yet.
 
-There is no backward yet (serving runs under ``inference_mode``): the
-training slice adds one. Until then a CUDA call that needs a gradient
-raises.
+Its backward, kernel K4' (``csrc/lift_splat_backward.cu``), gathers the
+output gradient by cell once (zero for the trash cell) and contracts it
+with ctx (d depth, masked by zvalid) and with the masked depth (d ctx), fp32
+sums, every output written once. :class:`LiftSplat` joins the two as a
+``torch.autograd.Function``, which :func:`lift_splat_factorized` takes for
+a CUDA call that needs a gradient; on the CPU the plain version is
+differentiated by autograd, as XLA differentiates the JAX formulation.
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ import torch
 
 from . import build
 
-__all__ = ['lift_splat_factorized', 'lift_splat_factorized_plain', 'splat_atomic_adds']
+__all__ = ['LiftSplat', 'lift_splat_factorized', 'lift_splat_factorized_backward',
+           'lift_splat_factorized_backward_plain', 'lift_splat_factorized_plain',
+           'splat_atomic_adds']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,12 +40,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def lift_splat_factorized_plain(depth: torch.Tensor, ctx: torch.Tensor,
                                 flat_idx_xy: torch.Tensor, zvalid: torch.Tensor,
                                 n_cells: int) -> torch.Tensor:
-    """Plain PyTorch version: an fp32 einsum over the rows, then one
-    ``index_add_`` of the M*D*fW rows into M*(n_cells+1) cells."""
+    """Plain PyTorch version: an einsum over the rows rounded to float32,
+    then one float32 ``index_add_`` of the M*D*fW rows into M*(n_cells+1)
+    cells. The einsum computes in float32 (float64 for float64 inputs) and
+    rounds its result to float32, where the JAX package's
+    ``preferred_element_type=jnp.float32`` rounds it (also under x64)."""
     m, d, fh, fw = depth.shape
     c = ctx.shape[-1]
     masked = depth * zvalid.to(depth.dtype)
-    a = torch.einsum('mdhw,mhwc->mdwc', masked.float(), ctx.float())    # [M,D,fW,C]
+    ct = torch.promote_types(depth.dtype, torch.float32)
+    a = torch.einsum('mdhw,mhwc->mdwc', masked.to(ct), ctx.to(ct)).float()   # [M,D,fW,C]
     seg = (flat_idx_xy.long()
            + (n_cells + 1) * torch.arange(m, device=depth.device)[:, None, None])
     out = torch.zeros(m * (n_cells + 1), c, dtype=torch.float32, device=depth.device)
@@ -74,8 +84,13 @@ def lift_splat_factorized(depth: torch.Tensor, ctx: torch.Tensor,
     :func:`lift_splat_factorized_plain`; a CUDA tensor launches kernel K4
     (one launch; depth and ctx in any strides, C a multiple of 8 up to 128,
     fH up to 64, and for float32 not both at their largest: the tile then
-    outgrows shared memory) or raises (also when a gradient is asked for: no
-    backward yet)."""
+    outgrows shared memory) or raises. A CUDA call that needs a gradient
+    goes through :class:`LiftSplat`, whose backward is kernel K4'."""
+    _check(depth, ctx, flat_idx_xy, zvalid)
+    if depth.device.type == 'cpu':
+        return lift_splat_factorized_plain(depth, ctx, flat_idx_xy, zvalid, n_cells)
+    if torch.is_grad_enabled() and (depth.requires_grad or ctx.requires_grad):
+        return LiftSplat.apply(depth, ctx, flat_idx_xy, zvalid, n_cells)
     return _splat(depth, ctx, flat_idx_xy, zvalid, n_cells)
 
 
@@ -87,13 +102,14 @@ def splat_atomic_adds(depth: torch.Tensor, ctx: torch.Tensor, flat_idx_xy: torch
     adds issued)."""
     if depth.device.type != 'cuda':
         raise ValueError('splat_atomic_adds: kernel K4 counts its adds on a CUDA device')
+    _check(depth, ctx, flat_idx_xy, zvalid)
     adds = torch.zeros(2, dtype=torch.int64, device=depth.device)
     _splat(depth, ctx, flat_idx_xy, zvalid, n_cells, adds)
     before, after = adds.tolist()
     return before, after
 
 
-def _splat(depth, ctx, flat_idx_xy, zvalid, n_cells, adds=None):
+def _check(depth, ctx, flat_idx_xy, zvalid):
     m, d, fh, fw = depth.shape
     c = ctx.shape[-1]
     if (ctx.shape != (m, fh, fw, c) or flat_idx_xy.shape != (m, d, fw)
@@ -104,20 +120,26 @@ def _splat(depth, ctx, flat_idx_xy, zvalid, n_cells, adds=None):
                          f'{tuple(depth.shape)} {depth.dtype}, {tuple(ctx.shape)} '
                          f'{ctx.dtype}, {tuple(flat_idx_xy.shape)}, {tuple(zvalid.shape)} '
                          f'{zvalid.dtype}')
-    if depth.device.type == 'cpu':
-        return lift_splat_factorized_plain(depth, ctx, flat_idx_xy, zvalid, n_cells)
+
+
+def _check_cuda(depth, ctx, flat_idx_xy, zvalid, what='lift_splat_factorized'):
+    c, fh = ctx.shape[-1], depth.shape[2]
     tensors = (depth, ctx, flat_idx_xy, zvalid)
     if (depth.device.type != 'cuda' or depth.dtype not in _DTYPES
             or flat_idx_xy.dtype != torch.int32
             or any(t.device != depth.device for t in tensors)):
-        raise ValueError('lift_splat_factorized: float32/bfloat16 depth and ctx, int32 '
-                         'indices and bool zvalid, all on one CUDA device or the CPU')
+        raise ValueError(f'{what}: float32/bfloat16 depth and ctx, int32 indices and bool '
+                         'zvalid, all on one CUDA device or the CPU')
     if c % 8 or not 8 <= c <= 128 or fh > 64:
-        raise ValueError(f'lift_splat_factorized: kernel K4 takes C a multiple of 8 up to '
-                         f'128 and fH up to 64, got C={c}, fH={fh}')
-    if torch.is_grad_enabled() and (depth.requires_grad or ctx.requires_grad):
-        raise NotImplementedError('lift_splat_factorized: kernel K4 has no backward yet; '
-                                  'it arrives with the camera training slice (slice 4)')
+        raise ValueError(f'{what}: kernel K4 takes C a multiple of 8 up to 128 and fH up to '
+                         f'64, got C={c}, fH={fh}')
+
+
+def _splat(depth, ctx, flat_idx_xy, zvalid, n_cells, adds=None):
+    """One launch of kernel K4 on CUDA tensors."""
+    _check_cuda(depth, ctx, flat_idx_xy, zvalid)
+    m, d, fh, fw = depth.shape
+    c = ctx.shape[-1]
     out = torch.empty(m, n_cells, c, dtype=ctx.dtype, device=depth.device)
     if out.numel() == 0:
         return out
@@ -138,3 +160,90 @@ def _splat(depth, ctx, flat_idx_xy, zvalid, n_cells, adds=None):
 
 
 lift_splat_factorized.launches = 0
+
+
+def lift_splat_factorized_backward_plain(g: torch.Tensor, depth: torch.Tensor, ctx: torch.Tensor,
+                                         flat_idx_xy: torch.Tensor, zvalid: torch.Tensor,
+                                         n_cells: int):
+    """Plain PyTorch version of :func:`lift_splat_factorized_backward`:
+    autograd through :func:`lift_splat_factorized_plain`."""
+    with torch.enable_grad():
+        dep = depth.detach().requires_grad_()
+        cx = ctx.detach().requires_grad_()
+        out = lift_splat_factorized_plain(dep, cx, flat_idx_xy, zvalid, n_cells)
+        d_depth, d_ctx = torch.autograd.grad(out, (dep, cx), g)
+    return d_depth, d_ctx
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_backward() -> ctypes.CDLL:
+    lib = build.load('lift_splat_backward')
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lift_splat_backward.argtypes = [i32, p, i64, i64, i64, p, i64, i64, i64, i64,
+                                        p, i64, i64, i64, i64, p, p, p, i64, i64, i64, i64,
+                                        p, i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, p]
+    lib.lift_splat_backward.restype = ctypes.c_int
+    return lib
+
+
+def lift_splat_factorized_backward(g: torch.Tensor, depth: torch.Tensor, ctx: torch.Tensor,
+                                   flat_idx_xy: torch.Tensor, zvalid: torch.Tensor,
+                                   n_cells: int):
+    """Gradients (d depth, d ctx) of :func:`lift_splat_factorized` for the
+    output gradient ``g`` [M, n_cells, C] (of ctx's dtype, any strides), in
+    depth's and ctx's dtypes:
+
+        G[m, d, w] = g[m, idx[m, d, w]]  (zero for the trash cell)
+        d depth[m, d, h, w] = zvalid * sum_c ctx[m, h, w, c] G[m, d, w, c]
+        d ctx[m, h, w, c]   = sum_d zvalid * depth[m, d, h, w] G[m, d, w, c]
+
+    A CPU tensor takes :func:`lift_splat_factorized_backward_plain`; a CUDA
+    tensor launches kernel K4' once (fp32 sums, each output written once,
+    no atomics; C up to 128, fH up to 64) or raises."""
+    _check(depth, ctx, flat_idx_xy, zvalid)
+    m, d, fh, fw = depth.shape
+    c = ctx.shape[-1]
+    if g.shape != (m, n_cells, c) or g.dtype != ctx.dtype or g.device != depth.device:
+        raise ValueError(f'lift_splat_factorized_backward: g [M, n_cells, C] = '
+                         f'{(m, n_cells, c)} of ctx\'s dtype and device, got {tuple(g.shape)} '
+                         f'{g.dtype} on {g.device}')
+    if depth.device.type == 'cpu':
+        return lift_splat_factorized_backward_plain(g, depth, ctx, flat_idx_xy, zvalid,
+                                                    n_cells)
+    _check_cuda(depth, ctx, flat_idx_xy, zvalid, 'lift_splat_factorized_backward')
+    d_depth, d_ctx = torch.empty_like(depth), torch.empty_like(ctx)
+    flat_idx_xy, zvalid = flat_idx_xy.contiguous(), zvalid.contiguous()
+    lib = _lib_backward()
+    with torch.cuda.device(depth.device):
+        code = lib.lift_splat_backward(
+            _DTYPES[depth.dtype], g.data_ptr(), *g.stride(), depth.data_ptr(), *depth.stride(),
+            ctx.data_ptr(), *ctx.stride(), flat_idx_xy.data_ptr(), zvalid.data_ptr(),
+            d_depth.data_ptr(), *d_depth.stride(), d_ctx.data_ptr(), *d_ctx.stride(), m, d, fh,
+            fw, c, n_cells, torch.cuda.current_stream(depth.device).cuda_stream)
+    build.check(lib, code, 'lift_splat_factorized_backward')
+    lift_splat_factorized_backward.launches += 1
+    return d_depth, d_ctx
+
+
+lift_splat_factorized_backward.launches = 0
+
+
+class LiftSplat(torch.autograd.Function):
+    """:func:`lift_splat_factorized` with a gradient on the card: the forward
+    is kernel K4, the backward :func:`lift_splat_factorized_backward`
+    (kernel K4'). The indices and the z mask are data: no gradient.
+
+    ``LiftSplat.apply(depth, ctx, flat_idx_xy, zvalid, n_cells)``."""
+
+    @staticmethod
+    def forward(fctx, depth, ctx, flat_idx_xy, zvalid, n_cells):
+        fctx.n_cells = n_cells
+        fctx.save_for_backward(depth, ctx, flat_idx_xy, zvalid)
+        return _splat(depth, ctx, flat_idx_xy, zvalid, n_cells)
+
+    @staticmethod
+    def backward(fctx, g):
+        depth, ctx, flat_idx_xy, zvalid = fctx.saved_tensors
+        d_depth, d_ctx = lift_splat_factorized_backward(g, depth, ctx, flat_idx_xy, zvalid,
+                                                        fctx.n_cells)
+        return d_depth, d_ctx, None, None, None

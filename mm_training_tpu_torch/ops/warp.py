@@ -18,11 +18,15 @@ order (``top = v00 (1 - wx) + v01 wx``, ``bot`` alike, ``top (1 - wy) + bot
 wy``), rounded once to the map's dtype, so the warp keeps a bf16 map bf16
 (an fp32 result would promote the fuse layer and the head). The plain
 versions take the same steps as separate torch ops, so kernel and plain
-version agree bit for bit on the card.
+version agree bit for bit on the card. (A float64 map, in the CPU tests,
+blends in float64, as the JAX package does under x64.)
 
-There is no backward yet (serving runs under ``inference_mode``): the
-training slice adds one. Until then a CUDA call that needs a gradient
-raises.
+The backward, kernel K7' (``bev_warp_backward`` in the same source), is the
+transposed bilinear sample from the forward's own coordinates, scattered
+with float32 atomics and rounded once to the map's dtype; the matrix gets
+no gradient. :class:`BevWarp` joins the two as a ``torch.autograd.Function``,
+which both wrappers take for a CUDA map that needs a gradient; on the CPU
+autograd differentiates the plain versions.
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ import torch
 
 from . import build
 
-__all__ = ['warp_affine_nhwc', 'warp_affine_nhwc_plain', 'bda_bev_warp',
-           'bda_bev_warp_plain', 'bda_pixel_matrix', 'hflip']
+__all__ = ['BevWarp', 'bda_bev_warp', 'bda_bev_warp_plain', 'bda_pixel_matrix', 'hflip',
+           'warp_affine_nhwc', 'warp_affine_nhwc_plain', 'warp_backward', 'warp_backward_plain']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,11 +73,13 @@ def _warp_plain(img: torch.Tensor, minv: torch.Tensor) -> torch.Tensor:
     flat = img.reshape(b, h * w, c)
     batch = torch.arange(b, device=dev)[:, None]
 
+    ct = torch.promote_types(img.dtype, torch.float32)
+
     def tap(xi, yi):
         inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
         at = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, h * w)
         val = flat[batch, at].reshape(b, h, w, c)
-        return torch.where(inb[..., None], val, 0.0).float()
+        return torch.where(inb[..., None], val, 0.0).to(ct)
 
     v00, v01 = tap(x0i, y0i), tap(x0i + 1, y0i)
     v10, v11 = tap(x0i, y0i + 1), tap(x0i + 1, y0i + 1)
@@ -113,20 +119,23 @@ def _lib() -> ctypes.CDLL:
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.bev_warp.argtypes = [i32, p, p, i32, p, i32, i32, i32, i32, i32, p]
     lib.bev_warp.restype = ctypes.c_int
+    lib.bev_warp_backward.argtypes = [i32, p, p, i32, p, p, i32, i32, i32, i32, i32, p]
+    lib.bev_warp_backward.restype = ctypes.c_int
     return lib
+
+
+def _check_cuda(img: torch.Tensor, mat: torch.Tensor, what: str) -> None:
+    if img.device.type != 'cuda' or img.dtype not in _DTYPES or mat.device != img.device:
+        raise ValueError(f'{what} takes a float32/bfloat16 CUDA or CPU map and a matrix on '
+                         f'its device, got {img.dtype} on {img.device}, matrix on {mat.device}')
+    if img.shape[0] > 65535:
+        raise ValueError(f'{what}: the kernel takes B <= 65535, got {img.shape[0]}')
 
 
 def _launch(img: torch.Tensor, mat: torch.Tensor, bda_n: int, what: str) -> torch.Tensor:
     """One launch of kernel K7 on a CUDA map; ``mat`` is the [B, 3, 3]
     pixel matrix (``bda_n`` 0) or the [B, n, n] BDA matrix (``bda_n`` n)."""
-    if img.device.type != 'cuda' or img.dtype not in _DTYPES or mat.device != img.device:
-        raise ValueError(f'{what} takes a float32/bfloat16 CUDA or CPU map and a matrix on '
-                         f'its device, got {img.dtype} on {img.device}, matrix on {mat.device}')
-    if torch.is_grad_enabled() and img.requires_grad:
-        raise NotImplementedError(f'{what}: kernel K7 has no backward yet; it arrives with '
-                                  'the camera training slice (slice 4)')
-    if img.shape[0] > 65535:
-        raise ValueError(f'{what}: the kernel takes B <= 65535, got {img.shape[0]}')
+    _check_cuda(img, mat, what)
     img = img.contiguous()
     mat = mat.float().contiguous()
     b, h, w, c = img.shape
@@ -154,17 +163,17 @@ def warp_affine_nhwc(img: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     dtype.
 
     A CPU tensor takes :func:`warp_affine_nhwc_plain`; a CUDA tensor
-    launches kernel K7 or raises (also when a gradient is asked for: no
-    backward yet)."""
+    launches kernel K7 or raises; with a gradient, through :class:`BevWarp`
+    (backward: kernel K7')."""
     _check_map(img, 'warp_affine_nhwc')
     if mat.shape != (img.shape[0], 3, 3):
         raise ValueError(f'warp_affine_nhwc: mat [B, 3, 3] for B = {img.shape[0]}, got '
                          f'{tuple(mat.shape)}')
     if img.device.type == 'cpu':
         return warp_affine_nhwc_plain(img, mat)
-    out = _launch(img, mat, 0, 'warp_affine_nhwc')
-    warp_affine_nhwc.launches += 1
-    return out
+    if torch.is_grad_enabled() and img.requires_grad:
+        return BevWarp.apply(img, mat, 0, 'warp_affine_nhwc')
+    return _forward(img, mat, 0, 'warp_affine_nhwc')
 
 
 warp_affine_nhwc.launches = 0
@@ -177,7 +186,8 @@ def bda_bev_warp(bev: torch.Tensor, bda_mat: torch.Tensor) -> torch.Tensor:
 
     A CPU tensor takes :func:`bda_bev_warp_plain`; a CUDA tensor launches
     kernel K7 once (the pixel matrix and its inverse are formed in the
-    kernel) or raises."""
+    kernel) or raises; with a gradient, through :class:`BevWarp` (backward:
+    kernel K7')."""
     _check_map(bev, 'bda_bev_warp')
     n = bda_mat.shape[-1]
     if n not in (3, 4) or bda_mat.shape != (bev.shape[0], n, n):
@@ -185,12 +195,99 @@ def bda_bev_warp(bev: torch.Tensor, bda_mat: torch.Tensor) -> torch.Tensor:
                          f'{bev.shape[0]}, got {tuple(bda_mat.shape)}')
     if bev.device.type == 'cpu':
         return bda_bev_warp_plain(bev, bda_mat)
-    out = _launch(bev, bda_mat, n, 'bda_bev_warp')
-    bda_bev_warp.launches += 1
-    return out
+    if torch.is_grad_enabled() and bev.requires_grad:
+        return BevWarp.apply(bev, bda_mat, n, 'bda_bev_warp')
+    return _forward(bev, bda_mat, n, 'bda_bev_warp')
 
 
 bda_bev_warp.launches = 0
+
+
+def _forward(img: torch.Tensor, mat: torch.Tensor, bda_n: int, what: str) -> torch.Tensor:
+    """The forward kernel K7 of ``what`` (its launch counted on that wrapper)."""
+    out = _launch(img, mat, bda_n, what)
+    (bda_bev_warp if bda_n else warp_affine_nhwc).launches += 1
+    return out
+
+
+def _plain(img: torch.Tensor, mat: torch.Tensor, bda_n: int) -> torch.Tensor:
+    return bda_bev_warp_plain(img, mat) if bda_n else warp_affine_nhwc_plain(img, mat)
+
+
+def warp_backward_plain(g: torch.Tensor, img: torch.Tensor, mat: torch.Tensor,
+                        bda_n: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`warp_backward`: autograd through
+    :func:`warp_affine_nhwc_plain` (``bda_n`` 0) or
+    :func:`bda_bev_warp_plain` (``bda_n`` 3 or 4)."""
+    with torch.enable_grad():
+        src = img.detach().requires_grad_()
+        (d_src,) = torch.autograd.grad(_plain(src, mat.detach(), bda_n), (src,), g)
+    return d_src
+
+
+def warp_backward(g: torch.Tensor, img: torch.Tensor, mat: torch.Tensor,
+                  bda_n: int = 0) -> torch.Tensor:
+    """Gradient of the warp of ``img`` [B, H, W, C] for the output gradient
+    ``g`` (img's shape and dtype): the transposed bilinear sample, ``d
+    img[p] = sum_q w(q -> p) g[q]`` over the dst pixels q whose source point
+    falls in p's 2 x 2 neighbourhood. ``mat`` and ``bda_n`` as the forward
+    took them: the [B, 3, 3] pixel matrix (0, :func:`warp_affine_nhwc`) or
+    the [B, n, n] BDA matrix (n, :func:`bda_bev_warp`); it gets no gradient.
+
+    A CPU tensor takes :func:`warp_backward_plain`; a CUDA tensor launches
+    kernel K7' (float32 atomics into a zeroed float32 buffer, rounded once
+    to bf16 for a bf16 map) or raises."""
+    _check_map(img, 'warp_backward')
+    if g.shape != img.shape or g.dtype != img.dtype or g.device != img.device:
+        raise ValueError(f'warp_backward: g of the map\'s shape, dtype and device '
+                         f'{tuple(img.shape)} {img.dtype} {img.device}, got {tuple(g.shape)} '
+                         f'{g.dtype} {g.device}')
+    if img.device.type == 'cpu':
+        return warp_backward_plain(g, img, mat, bda_n)
+    _check_cuda(img, mat, 'warp_backward')
+    g = g.contiguous()
+    mat = mat.float().contiguous()
+    b, h, w, c = img.shape
+    vec = int(c % (16 // img.element_size()) == 0 and g.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+    if img.dtype == torch.float32:
+        acc = d_src = torch.empty_like(g)
+    else:
+        acc = build.scratch('bev_warp_backward', img.device, stream, g.numel(), 0)[0]
+        d_src = torch.empty_like(g)
+    lib = _lib()
+    with torch.cuda.device(img.device):
+        code = lib.bev_warp_backward(_DTYPES[img.dtype], g.data_ptr(), mat.data_ptr(), bda_n,
+                                     acc.data_ptr(),
+                                     None if acc is d_src else d_src.data_ptr(), b, h, w, c,
+                                     vec, stream)
+    build.check(lib, code, 'warp_backward')
+    warp_backward.launches += 1
+    return d_src
+
+
+warp_backward.launches = 0
+
+
+class BevWarp(torch.autograd.Function):
+    """The warp with a gradient on the card: the forward is kernel K7, the
+    backward :func:`warp_backward` (kernel K7'); the matrix gets none.
+
+    ``BevWarp.apply(img, mat, bda_n, what)``: ``bda_n`` 0 for
+    :func:`warp_affine_nhwc`'s pixel matrix, 3 or 4 for
+    :func:`bda_bev_warp`'s BDA matrix; ``what`` names the wrapper whose
+    launch count the forward adds to."""
+
+    @staticmethod
+    def forward(fctx, img, mat, bda_n, what):
+        fctx.bda_n = bda_n
+        fctx.save_for_backward(img, mat)
+        return _forward(img, mat, bda_n, what)
+
+    @staticmethod
+    def backward(fctx, g):
+        img, mat = fctx.saved_tensors
+        return warp_backward(g, img, mat, fctx.bda_n), None, None, None
 
 
 def hflip(img: torch.Tensor) -> torch.Tensor:

@@ -175,17 +175,6 @@ def test_affine_act_backward_any_channel_count(gen, dtype, shape):
             assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
 
 
-def test_affine_act_autograd_reaches_the_backward_kernel(gen):
-    x = torch.randn(2, 64, 8, 16, generator=gen, device='cuda').to(
-        torch.bfloat16).contiguous(memory_format=torch.channels_last).requires_grad_(True)
-    s = torch.randn(64, generator=gen, device='cuda', requires_grad=True)
-    t = torch.randn(64, generator=gen, device='cuda', requires_grad=True)
-    before = affine_act.affine_act_backward.launches
-    affine_act.AffineAct.apply(x, s, t, None, True).float().sum().backward()
-    assert affine_act.affine_act_backward.launches == before + 1
-    assert x.grad is not None and s.grad is not None and t.grad is not None
-
-
 @pytest.mark.parametrize('case', ('random',) + HEATMAP_CASES)
 def test_draw_heatmap_kernel_matches_plain(gen, case):
     """K2 on random windows (centres up to 3 cells off the map, 500 and 37
@@ -228,33 +217,6 @@ def _splat_outside_tolerance(got, want, magnitude):
     w = want.float()
     ulp = torch.where(w == 0, 0.0, torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
     return int(((got.float() - w).abs() > ulp + 1e-5 * magnitude).sum())
-
-
-@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-def test_lift_splat_kernel_matches_plain(gen, dtype):
-    """K4 at the camera path's shapes (4 cameras, 409 bins, 44 x 80, C = 80,
-    8192 cells): the fp32 sums to atomic-order rounding, one bf16 ulp after
-    the cast (plus that rounding where a sum cancels); trash-bin rows are
-    dropped."""
-    from mm_training_tpu_torch.ops import voxel_pooling
-    m, d, fh, fw, c, g = 4, 409, 44, 80, 80, 8192
-    depth = torch.rand(m, d, fh, fw, generator=gen, device='cuda').softmax(1).to(dtype)
-    ctx = torch.randn(m, fh, fw, c, generator=gen, device='cuda').to(dtype)
-    idx = torch.randint(0, g + 1, (m, d, fw), generator=gen, device='cuda').int()
-    idx[:, :100] = g
-    zvalid = torch.rand(m, d, fh, fw, generator=gen, device='cuda') < 0.6
-    got = voxel_pooling.lift_splat_factorized(depth, ctx, idx, zvalid, g)
-    want = voxel_pooling.lift_splat_factorized_plain(depth, ctx, idx, zvalid, g)
-    assert got.dtype == dtype and got.shape == (m, g, c)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    else:
-        mag = voxel_pooling.lift_splat_factorized_plain(depth.float(), ctx.float().abs(), idx,
-                                                        zvalid, g)
-        assert _splat_outside_tolerance(got, want, mag) == 0
-    with pytest.raises(NotImplementedError, match='backward'):
-        voxel_pooling.lift_splat_factorized(depth.float().requires_grad_(), ctx.float(),
-                                            idx, zvalid, g)
 
 
 def _check_splat(got, depth, ctx, idx, zvalid, g):
@@ -325,25 +287,6 @@ def test_lift_splat_kernel_ragged_tiles(gen, dtype, m, d, fh, fw, c):
     trash = torch.full_like(idx, n_cells)
     out = voxel_pooling.lift_splat_factorized(depth, ctx, trash, zvalid, n_cells)
     assert out.shape == (m, n_cells, c) and not out.float().abs().max().item()
-
-
-def test_lift_splat_kernel_refusals(gen):
-    """K4 raises for what it does not take: a gradient request, C not a
-    multiple of 8, fH above 64."""
-    from mm_training_tpu_torch.ops import voxel_pooling
-    depth = torch.rand(1, 4, 8, 8, generator=gen, device='cuda')
-    idx = torch.zeros(1, 4, 8, dtype=torch.int32, device='cuda')
-    zvalid = torch.ones(1, 4, 8, 8, dtype=torch.bool, device='cuda')
-    with pytest.raises(NotImplementedError, match='backward'):
-        voxel_pooling.lift_splat_factorized(depth.requires_grad_(), torch.rand(
-            1, 8, 8, 16, device='cuda'), idx, zvalid, 10)
-    with pytest.raises(ValueError, match='multiple of 8'):
-        voxel_pooling.lift_splat_factorized(depth.detach(), torch.rand(1, 8, 8, 12, device='cuda'),
-                                            idx, zvalid, 10)
-    tall = torch.rand(1, 4, 65, 8, device='cuda')
-    with pytest.raises(ValueError, match='fH up to 64'):
-        voxel_pooling.lift_splat_factorized(tall, torch.rand(1, 65, 8, 16, device='cuda'), idx,
-                                            torch.ones_like(tall, dtype=torch.bool), 10)
 
 
 @pytest.mark.parametrize('dtype,c', [(torch.bfloat16, 512), (torch.float32, 512),
@@ -445,33 +388,6 @@ def test_bev_warp_kernel_equals_plain(gen, dtype, c):
     assert torch.equal(got, warp.warp_affine_nhwc_plain(img, mat))
 
 
-@pytest.mark.parametrize('dtype,c', [(torch.bfloat16, 80), (torch.float32, 80),
-                                     (torch.float32, 3), (torch.bfloat16, 3)])
-def test_bev_warp_one_launch_forms_equal_plain(gen, dtype, c):
-    """K7 at B=4 x 32 x 256: ``bda_bev_warp`` from a [B, 4, 4] and a
-    [B, 3, 3] BDA matrix and ``warp_affine_nhwc`` at the identity and a
-    projective matrix, each one launch, bit for bit with the plain versions
-    (the closed-form inverse and the blend take the same rounded steps);
-    the identity returns the map itself."""
-    from mm_training_tpu_torch.data import random_bda_matrices
-    from mm_training_tpu_torch.ops import warp
-    img = torch.randn(4, 32, 256, c, generator=gen, device='cuda').to(dtype)
-    bda = torch.as_tensor(random_bda_matrices(4, seed=2), device='cuda')
-    for m in (bda, bda[:, :3, :3]):
-        before = warp.bda_bev_warp.launches
-        got = warp.bda_bev_warp(img, m)
-        assert warp.bda_bev_warp.launches == before + 1
-        assert torch.equal(got, warp.bda_bev_warp_plain(img, m))
-    eye = torch.eye(3, device='cuda').expand(4, 3, 3)
-    proj = warp.bda_pixel_matrix(bda, (32, 256))
-    proj[:, 2, :2] = torch.rand(4, 2, generator=gen, device='cuda') * 4e-4 - 2e-4
-    for m in (eye, proj):
-        assert torch.equal(warp.warp_affine_nhwc(img, m), warp.warp_affine_nhwc_plain(img, m))
-    assert torch.equal(warp.warp_affine_nhwc(img, eye), img)
-    with pytest.raises(NotImplementedError, match='backward'):
-        warp.bda_bev_warp(img.float().requires_grad_(), bda)
-
-
 def test_k3_and_k7_are_one_device_kernel_a_call(gen):
     """torch.profiler sees one device operation (no copy, no fill) in a call
     of each redesigned wrapper, at the paths' shapes: two kernels, one of
@@ -535,26 +451,6 @@ def test_deform_conv3x3_kernel_matches_plain(gen, dtype, shape, groups, max_offs
     from_l2, corners = deform_conv.halo_corners(x, off, weight, bias, groups)
     assert corners == 4 * 9 * shape[0] * shape[1] * shape[2]
     assert (from_l2 > 0) == (max_offset > 3.0), (from_l2, corners)
-
-
-def test_deform_conv3x3_one_device_op_and_refusals(gen):
-    """One fused K5 call at the B=1 request's shape is one device kernel (no
-    column, copy or fill beside it); a gradient request, a weight of another
-    dtype and C/g off a multiple of 8 raise."""
-    from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs
-    from mm_training_tpu_torch.exps.timing import device_ops
-    from mm_training_tpu_torch.ops import deform_conv
-    x, off, weight, bias = deform_inputs((4, 44, 80, 512), 4, gen)
-    ops = device_ops(lambda: deform_conv.deform_conv3x3(x, off, weight, bias, 4))
-    assert list(ops.values()) == [1] and 'deform_conv' in next(iter(ops)), ops
-    with pytest.raises(NotImplementedError, match='backward'):
-        deform_conv.deform_conv3x3(x.float().requires_grad_(), off, weight.float(),
-                                   bias.float(), 4)
-    with pytest.raises(ValueError, match='dtype'):
-        deform_conv.deform_conv3x3(x, off, weight.float(), bias, 4)
-    x12, off12, w12, b12 = deform_inputs((1, 5, 6, 48), 4, gen)
-    with pytest.raises(ValueError, match='multiples of 8'):
-        deform_conv.deform_conv3x3(x12, off12, w12, b12, 4)
 
 
 def test_deform_conv2d_forward_runs_the_fused_kernel(gen):
@@ -655,3 +551,271 @@ def test_pillar_encoder_input_empty_and_out_of_range(gen):
     ops = device_ops(lambda: voxelize.pillar_encoder_input(pts, mask, *geo,
                                                            dtype=torch.bfloat16, channels=24))
     assert list(ops.values()) == [1] and 'pillar' in next(iter(ops)), ops
+
+
+# ------------------------------------------------- the backward kernels K4', K5', K7'
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('layout', ['channels_last', 'nchw'])
+@pytest.mark.parametrize('batch_size', [1, 4])
+def test_lift_splat_backward_kernel_matches_plain(gen, dtype, layout, batch_size):
+    """K4' at the B=1 and B=4 camera paths' shapes on the fake rig's own
+    indices, depth in the layouts the path hands over (with and without the
+    oracle): one launch, d depth and d ctx within 1e-5 of each entry's sum
+    of |terms| of the float32 plain version (one bf16 ulp more in bf16), the
+    same bits on a second call (``exps/backward_checks.py``)."""
+    from mm_training_tpu_torch.configs import lidar_cam_radar
+    from mm_training_tpu_torch.exps.backward_checks import splat_backward_errors
+    from mm_training_tpu_torch.exps.kernel_inputs import splat_inputs
+    from mm_training_tpu_torch.ops import voxel_pooling
+    depth, ctx, idx, zvalid, n = splat_inputs(lidar_cam_radar(batch_size=batch_size), gen,
+                                              layout, dtype)
+    g = torch.randn(idx.shape[0], n, ctx.shape[-1], generator=gen, device='cuda').to(dtype)
+    before = voxel_pooling.lift_splat_factorized_backward.launches
+    errors = splat_backward_errors(depth, ctx, idx, zvalid, n, g)
+    assert voxel_pooling.lift_splat_factorized_backward.launches == before + 2
+    assert errors['ok'], errors
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('m,d,fh,fw,c', [(2, 70, 13, 11, 16), (1, 33, 64, 3, 128),
+                                         (3, 5, 1, 2, 8)])
+def test_lift_splat_backward_kernel_ragged(gen, dtype, m, d, fh, fw, c):
+    """K4' where D is no multiple of its 32-bin tile, fH reaches 64, C 128,
+    with a non-contiguous ctx and an expanded (stride-0) output gradient, as
+    the camera sum's backward hands it over; trash-cell rows read zero."""
+    from mm_training_tpu_torch.exps.backward_checks import splat_backward_errors
+    n_cells = 40
+    depth = torch.randn(m, d, fh, fw, generator=gen, device='cuda').softmax(1).to(dtype)
+    ctx = torch.randn(m, fw, fh, c, generator=gen, device='cuda').to(dtype).transpose(1, 2)
+    idx = torch.randint(0, n_cells + 1, (m, d, fw), generator=gen, device='cuda').int()
+    zvalid = torch.rand(m, d, fh, fw, generator=gen, device='cuda') < 0.7
+    g = torch.randn(1, n_cells, c, generator=gen, device='cuda').to(dtype).expand(m, n_cells, c)
+    errors = splat_backward_errors(depth, ctx, idx, zvalid, n_cells, g)
+    assert errors['ok'], errors
+
+
+@pytest.mark.parametrize('dtype,c', [(torch.bfloat16, 80), (torch.float32, 80),
+                                     (torch.float32, 3), (torch.bfloat16, 3)])
+@pytest.mark.parametrize('batch_size', [1, 4])
+def test_bev_warp_backward_kernel_matches_plain(gen, dtype, c, batch_size):
+    """K7' at the camera BEV's shape (32 x 256) under rotated, flipped and
+    scaled augmentations, from the BDA matrix (``bda_bev_warp``) and from a
+    projective pixel matrix (``warp_affine_nhwc``): within 1e-5 of each
+    entry's sum of |terms| of the float32 plain version (float32 atomics in
+    no fixed order; one bf16 ulp more in bf16)."""
+    from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.exps.backward_checks import warp_backward_errors
+    from mm_training_tpu_torch.ops import warp
+    img = torch.randn(batch_size, 32, 256, c, generator=gen, device='cuda').to(dtype)
+    g = torch.randn(img.shape, generator=gen, device='cuda').to(dtype)
+    bda = torch.as_tensor(random_bda_matrices(batch_size, seed=3), device='cuda')
+    proj = warp.bda_pixel_matrix(bda, (32, 256))
+    proj[:, 2, :2] = torch.rand(batch_size, 2, generator=gen, device='cuda') * 4e-4 - 2e-4
+    for mat, n in ((bda, 4), (bda[:, :3, :3], 3), (proj, 0)):
+        errors = warp_backward_errors(img, mat, n, g)
+        assert errors['ok'], (n, errors)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape,groups,max_offset', [
+    ((4, 44, 80, 512), 4, 3.0),      # the B=1 camera path's DCN
+    ((2, 13, 21, 64), 4, 9.0),       # ragged, corners far outside the image
+    ((1, 9, 17, 32), 2, 0.0),        # every sample on a whole pixel
+])
+def test_deform_conv_backward_kernel_matches_plain(gen, dtype, shape, groups, max_offset):
+    """K5's backward (grouped products by ``torch.bmm``, the columns kernel,
+    K5'): d x and d offsets against the plain transposed sampling on the
+    same columns' gradient, within 1e-5 of each entry's sum of |terms| (and
+    for bf16 x one ulp plus the corner weights' bf16 rounding); d weight and
+    d bias within a rounding of their largest entry
+    (``exps/backward_checks.py``). At whole pixels the offsets' gradient is
+    the one-sided difference, not zero."""
+    from mm_training_tpu_torch.exps.backward_checks import deform_backward_errors
+    from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs
+    from mm_training_tpu_torch.ops import deform_conv
+    x, off, weight, bias = deform_inputs(shape, groups, gen, dtype, max_offset)
+    if max_offset == 0.0:
+        off = off.round()
+    dy = torch.randn(*shape[:3], weight.shape[0] * weight.shape[2], generator=gen,
+                     device='cuda').to(dtype)
+    before = deform_conv.deform_sample_backward.launches
+    errors = deform_backward_errors(x, off, weight, bias, groups, dy)
+    assert deform_conv.deform_sample_backward.launches == before + 1
+    assert errors['ok'], errors
+
+
+# ------------------------------------------------- gradient requests through autograd
+# Last in the file: after the port's kernels have launched from autograd's
+# device thread, later torch.profiler sessions of a process have come back
+# without device events (PERF.md section 7), so every test that counts
+# device ops runs before these.
+
+def test_deform_conv3x3_one_device_op_and_refusals(gen):
+    """One fused K5 call at the B=1 request's shape is one device kernel (no
+    column, copy or fill beside it); a weight of another dtype and C/g off a
+    multiple of 8 raise; a gradient request is taken now (DeformConv: the
+    fused forward, then the columns kernel and K5' once each)."""
+    from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs
+    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.ops import deform_conv
+    x, off, weight, bias = deform_inputs((4, 44, 80, 512), 4, gen)
+    ops = device_ops(lambda: deform_conv.deform_conv3x3(x, off, weight, bias, 4))
+    assert list(ops.values()) == [1] and 'deform_conv' in next(iter(ops)), ops
+    xg = x.float().requires_grad_()
+    before = (deform_conv.deform_sample.launches, deform_conv.deform_sample_backward.launches)
+    deform_conv.deform_conv3x3(xg, off, weight.float(), bias.float(), 4).sum().backward()
+    assert (deform_conv.deform_sample.launches,
+            deform_conv.deform_sample_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert xg.grad.shape == x.shape
+    with pytest.raises(ValueError, match='dtype'):
+        deform_conv.deform_conv3x3(x, off, weight.float(), bias, 4)
+    x12, off12, w12, b12 = deform_inputs((1, 5, 6, 48), 4, gen)
+    with pytest.raises(ValueError, match='multiples of 8'):
+        deform_conv.deform_conv3x3(x12, off12, w12, b12, 4)
+
+
+
+def test_affine_act_autograd_reaches_the_backward_kernel(gen):
+    x = torch.randn(2, 64, 8, 16, generator=gen, device='cuda').to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    s = torch.randn(64, generator=gen, device='cuda', requires_grad=True)
+    t = torch.randn(64, generator=gen, device='cuda', requires_grad=True)
+    before = affine_act.affine_act_backward.launches
+    affine_act.AffineAct.apply(x, s, t, None, True).float().sum().backward()
+    assert affine_act.affine_act_backward.launches == before + 1
+    assert x.grad is not None and s.grad is not None and t.grad is not None
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_lift_splat_kernel_matches_plain(gen, dtype):
+    """K4 at the camera path's shapes (4 cameras, 409 bins, 44 x 80, C = 80,
+    8192 cells): the fp32 sums to atomic-order rounding, one bf16 ulp after
+    the cast (plus that rounding where a sum cancels); trash-bin rows are
+    dropped."""
+    from mm_training_tpu_torch.ops import voxel_pooling
+    m, d, fh, fw, c, g = 4, 409, 44, 80, 80, 8192
+    depth = torch.rand(m, d, fh, fw, generator=gen, device='cuda').softmax(1).to(dtype)
+    ctx = torch.randn(m, fh, fw, c, generator=gen, device='cuda').to(dtype)
+    idx = torch.randint(0, g + 1, (m, d, fw), generator=gen, device='cuda').int()
+    idx[:, :100] = g
+    zvalid = torch.rand(m, d, fh, fw, generator=gen, device='cuda') < 0.6
+    got = voxel_pooling.lift_splat_factorized(depth, ctx, idx, zvalid, g)
+    want = voxel_pooling.lift_splat_factorized_plain(depth, ctx, idx, zvalid, g)
+    assert got.dtype == dtype and got.shape == (m, g, c)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        mag = voxel_pooling.lift_splat_factorized_plain(depth.float(), ctx.float().abs(), idx,
+                                                        zvalid, g)
+        assert _splat_outside_tolerance(got, want, mag) == 0
+    # a gradient request takes LiftSplat: the forward kernel, then K4' once
+    dep = depth.detach().requires_grad_()
+    before = voxel_pooling.lift_splat_factorized_backward.launches
+    out = voxel_pooling.lift_splat_factorized(dep, ctx, idx, zvalid, g)
+    assert voxel_pooling.lift_splat_factorized_backward.launches == before
+    out.float().sum().backward()
+    assert voxel_pooling.lift_splat_factorized_backward.launches == before + 1
+    assert dep.grad.dtype == dtype and dep.grad.shape == depth.shape
+
+
+def test_lift_splat_kernel_refusals(gen):
+    """K4 raises for what it does not take: C not a multiple of 8, fH above
+    64 (a gradient request is taken now: it runs K4', no plain fallback,
+    and the gradients are the plain version's)."""
+    from mm_training_tpu_torch.ops import voxel_pooling
+    depth = torch.rand(1, 4, 8, 8, generator=gen, device='cuda')
+    idx = torch.zeros(1, 4, 8, dtype=torch.int32, device='cuda')
+    zvalid = torch.ones(1, 4, 8, 8, dtype=torch.bool, device='cuda')
+    ctx16 = torch.rand(1, 8, 8, 16, device='cuda')
+    dep = depth.clone().requires_grad_()
+    before = voxel_pooling.lift_splat_factorized_backward.launches
+    voxel_pooling.lift_splat_factorized(dep, ctx16, idx, zvalid, 10).sum().backward()
+    assert voxel_pooling.lift_splat_factorized_backward.launches == before + 1
+    want, _ = voxel_pooling.lift_splat_factorized_backward_plain(
+        torch.ones(1, 10, 16, device='cuda'), depth, ctx16, idx, zvalid, 10)
+    torch.testing.assert_close(dep.grad, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match='multiple of 8'):
+        voxel_pooling.lift_splat_factorized(depth.detach(), torch.rand(1, 8, 8, 12, device='cuda'),
+                                            idx, zvalid, 10)
+    tall = torch.rand(1, 4, 65, 8, device='cuda')
+    with pytest.raises(ValueError, match='fH up to 64'):
+        voxel_pooling.lift_splat_factorized(tall, torch.rand(1, 65, 8, 16, device='cuda'), idx,
+                                            torch.ones_like(tall, dtype=torch.bool), 10)
+
+
+@pytest.mark.parametrize('dtype,c', [(torch.bfloat16, 80), (torch.float32, 80),
+                                     (torch.float32, 3), (torch.bfloat16, 3)])
+def test_bev_warp_one_launch_forms_equal_plain(gen, dtype, c):
+    """K7 at B=4 x 32 x 256: ``bda_bev_warp`` from a [B, 4, 4] and a
+    [B, 3, 3] BDA matrix and ``warp_affine_nhwc`` at the identity and a
+    projective matrix, each one launch, bit for bit with the plain versions
+    (the closed-form inverse and the blend take the same rounded steps);
+    the identity returns the map itself."""
+    from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.ops import warp
+    img = torch.randn(4, 32, 256, c, generator=gen, device='cuda').to(dtype)
+    bda = torch.as_tensor(random_bda_matrices(4, seed=2), device='cuda')
+    for m in (bda, bda[:, :3, :3]):
+        before = warp.bda_bev_warp.launches
+        got = warp.bda_bev_warp(img, m)
+        assert warp.bda_bev_warp.launches == before + 1
+        assert torch.equal(got, warp.bda_bev_warp_plain(img, m))
+    eye = torch.eye(3, device='cuda').expand(4, 3, 3)
+    proj = warp.bda_pixel_matrix(bda, (32, 256))
+    proj[:, 2, :2] = torch.rand(4, 2, generator=gen, device='cuda') * 4e-4 - 2e-4
+    for m in (eye, proj):
+        assert torch.equal(warp.warp_affine_nhwc(img, m), warp.warp_affine_nhwc_plain(img, m))
+    assert torch.equal(warp.warp_affine_nhwc(img, eye), img)
+    # a gradient request takes BevWarp: one forward launch, then K7' once
+    src = img.detach().requires_grad_()
+    before = (warp.bda_bev_warp.launches, warp.warp_backward.launches)
+    warp.bda_bev_warp(src, bda).float().sum().backward()
+    assert (warp.bda_bev_warp.launches, warp.warp_backward.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert src.grad.dtype == dtype
+
+
+def test_camera_autograd_reaches_the_backward_kernels(gen):
+    """The camera branch's three kernels under autograd on the card: a
+    ``DeformConv2d`` with a gradient, the splat and the BEV warp each launch
+    their backward kernel once a backward and match the same graph through
+    the plain versions (float32, TF32 off)."""
+    from unittest import mock
+    from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.models.depth_net import DeformConv2d
+    from mm_training_tpu_torch.ops import deform_conv, voxel_pooling, warp
+    torch.backends.cudnn.allow_tf32 = False
+    m = DeformConv2d(32, 32, groups=4)
+    m.reset_parameters(torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        m.conv_offset.weight.normal_(0, 0.1)
+    m = m.to('cuda').to(memory_format=torch.channels_last)
+    x = torch.randn(2, 32, 6, 10, generator=gen, device='cuda').contiguous(
+        memory_format=torch.channels_last)
+    idx = torch.randint(0, 41, (2, 16, 10), generator=gen, device='cuda').int()
+    zvalid = torch.rand(2, 16, 6, 10, generator=gen, device='cuda') < 0.7
+    bda = torch.as_tensor(random_bda_matrices(1, seed=4), device='cuda')
+
+    def run():
+        xs = x.detach().requires_grad_()
+        feat = m(xs)                                                # [2, 32, 6, 10]
+        depth = feat[:, :16].softmax(1)
+        ctx = feat[:, 16:].permute(0, 2, 3, 1)
+        bev = voxel_pooling.lift_splat_factorized(depth, ctx, idx, zvalid, 40)
+        out = warp.bda_bev_warp(bev.reshape(1, 2, 40, 16).sum(1, keepdim=True).reshape(
+            1, 5, 8, 16), bda)
+        grads = torch.autograd.grad((out * out).sum(), [xs, *m.parameters()])
+        return grads
+    counts = (voxel_pooling.lift_splat_factorized_backward, deform_conv.deform_sample_backward,
+              warp.warp_backward)
+    before = [f.launches for f in counts]
+    got = run()
+    assert [f.launches for f in counts] == [b + 1 for b in before]
+    with mock.patch.object(voxel_pooling, 'lift_splat_factorized',
+                           voxel_pooling.lift_splat_factorized_plain), \
+            mock.patch.object(deform_conv, 'deform_conv3x3', deform_conv.deform_conv3x3_plain), \
+            mock.patch.object(warp, 'bda_bev_warp', warp.bda_bev_warp_plain):
+        want = run()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item())

@@ -64,12 +64,24 @@ def test_train_loss_falls_on_one_batch():
 
 
 def test_steps_refuse_what_later_slices_bring():
+    """EMA (the runtime slice) and the raw-rig splat (kernel K8) are still
+    refused; the camera train and eval steps are ported (the camera
+    training slice) and build for L+C and camera-only, and a camera step
+    called without its random draws through ``loss_and_grads`` says so."""
+    import dataclasses
+    from mm_training_tpu_torch.training import loss_and_grads
     cfg = tiny_test_config(use_cam=False)
     with pytest.raises(NotImplementedError, match='runtime slice .slice 5.'):
         make_train_step(cfg.replace(use_ema=True))
     with pytest.raises(NotImplementedError, match='runtime slice .slice 5.'):
         create_train_state(cfg.replace(use_ema=True), BEVDepthLiDAR(cfg, device='cpu'))
-    with pytest.raises(NotImplementedError, match='camera training slice .slice 4.'):
-        make_train_step(cfg.replace(use_cam=True))
-    with pytest.raises(NotImplementedError, match='camera training slice .slice 4.'):
-        make_eval_step(cfg.replace(use_cam=True))
+    for cam in (tiny_test_config(use_cam=True), tiny_test_config(use_cam=True, use_lidar=False)):
+        assert callable(make_train_step(cam)) and callable(make_eval_step(cam))
+    cam = tiny_test_config(use_cam=True)
+    raw = cam.replace(backbone_conf=dataclasses.replace(cam.get_backbone_conf(),
+                                                        factorized_splat=False))
+    with pytest.raises(NotImplementedError, match='raw-rig'):
+        BEVDepthLiDAR(raw, device='cpu')
+    state = create_train_state(cam, BEVDepthLiDAR(cam, device='cpu'), steps_per_epoch=10)
+    with pytest.raises(ValueError, match='random draws'):
+        loss_and_grads(cam, state, make_fake_batch(cam, seed=0))
