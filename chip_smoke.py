@@ -12,8 +12,8 @@ Phases, each raising on failure:
      batch's targets) call (torch.profiler): one kernel each, no copy, no
      fill; of one K4 call at the B=1 and the B=4 camera request's shapes:
      at most two; and of one call of each backward kernel at those shapes:
-     K4' one kernel, K5' and K7' at most three (a fill, the scatter, the
-     rounding to bf16);
+     K4' one kernel, K7' at most three (a fill, the scatter, the rounding
+     to bf16), the DCN's whole backward K5' at most three (two launches);
   2. hold each kernel against its plain PyTorch version at the serving and
      training paths' shapes (K3 also on dense rows, A' also at ResNet-50's
      2048-channel shape, K1 also into the encoder's input at B=1 and B=4,
@@ -59,18 +59,23 @@ Phases, each raising on failure:
      and with ``use_depth_loss=False`` (the DCN's depth reaches the splat);
      the fp32 tiny camera config on the card against the port's CPU path
      (TF32 off; boxes to 1e-3, scores to 1e-4);
- 10. the backward kernels K4', K5' and K7' against their plain versions
+ 10. the backward kernels K4', K5' (the DCN's whole backward: d x, d
+     offsets, d weight, d bias) and K7' against their plain versions
      (autograd through the plain forward) at the camera train path's shapes,
-     B=1 and B=4, bf16 and float32 (``exps/backward_checks.py``), timed as
-     in phase 2 beside their bounds and, for K5' and K7',
-     ``aten.grid_sampler_2d_backward``;
+     B=1 and B=4, bf16 and float32, K5' also at whole pixels
+     (``exps/backward_checks.py``; K4' and K5''s fixed-order outputs the
+     same bits on a second call), timed as in phase 2 beside their bounds
+     and the library calls of the routes they replaced: for K7'
+     ``aten.grid_sampler_2d_backward``, for K5' that call plus the ten
+     ``torch.bmm`` of the grouped products on the columns;
  11. train the full-width ``lidar_cam_radar`` model at B=4 (bf16 compute
      over float32 masters, a rotated BEV augmentation, the step's own random
      flips and dropout): 2 warm-up steps, 10 timed steps (p50, p90,
      samples/s, peak memory), the losses finite, one eval step, every
      kernel's launch count reset before and read after (each kernel of the
-     path, the three backward kernels among them, launched); the device ops
-     of one step, counted in a process of its own;
+     path, the three backward kernels among them, launched; the columns
+     kernel not); the device ops of one step, counted in a process of its
+     own;
  12. one full-width camera step at B=1 (random DCN offsets, a rotated BEV
      augmentation, one image flipped) through the kernels against the plain
      versions in float32, with the depth oracle and without: gradients and
@@ -132,7 +137,7 @@ def _swaps():
             (warp, 'bda_bev_warp', warp.bda_bev_warp_plain),
             (voxel_pooling, 'lift_splat_factorized_backward',
              voxel_pooling.lift_splat_factorized_backward_plain),
-            (deform_conv, 'deform_sample_backward', deform_conv.deform_sample_backward_plain),
+            (deform_conv, 'deform_conv3x3_backward', deform_conv.deform_conv3x3_backward_plain),
             (warp, 'warp_backward', warp.warp_backward_plain))
 
 
@@ -297,29 +302,29 @@ def count_device_ops(cfg, cam_cfg):
         other = sum(n for name, n in ops.items() if not any(v in name for v in keys.values()))
         for row, key in keys.items():
             per_call[row] = other + sum(n for name, n in ops.items() if key in name)
-    # the backward kernels, each in a session of its own (their fills and
-    # bf16 roundings have no kernel name of theirs): K4' one kernel; K7' and
-    # K5' a fill of their float32 buffer, the scatter and the rounding to
-    # bf16. Counted here, before any backward runs: after the kernels have
+    # the backward kernels, each in a session of its own (K7''s fill and
+    # bf16 rounding have no kernel name of theirs): K4' one kernel; K7' a
+    # fill of its float32 buffer, the scatter and the rounding to bf16; K5'
+    # two (d x and d offsets, then d weight and d bias), three at most.
+    # Counted here, before any backward runs: after the kernels have
     # launched from autograd's device thread, later sessions of a process
     # have come back empty (PERF.md section 7)
     bwd_limits = {'lift_splat_factorized_backward': 1, 'warp_backward': 3,
-                  'deform_sample_backward': 3}
+                  'deform_conv3x3_backward': 3}
     for bsz, s1, sp, dcn in ((1, '', splat1, dcn1), (4, '_b4', splat4, dcn4)):
         gsp = torch.randn(sp[2].shape[0], sp[4], bb.output_channels, generator=gen,
                           device=dev).bfloat16()
         img = torch.randn(bsz, *bb.bev_hw, bb.output_channels, generator=gen, device=dev).bfloat16()
         bdab = torch.as_tensor(random_bda_matrices(bsz, SEED + 15), device=dev)
-        x, off, wgt, _ = dcn
-        dcols = torch.randn(4, x.shape[0] * x.shape[1] * x.shape[2], wgt.shape[1],
-                            generator=gen, device=dev).bfloat16()
+        x, off, wgt, bias = dcn
+        dy = torch.randn(*x.shape[:3], wgt.shape[0] * wgt.shape[2], generator=gen,
+                         device=dev).bfloat16()
         for name, fn in (
                 ('lift_splat_factorized_backward',
                  lambda sp=sp, gsp=gsp: voxel_pooling.lift_splat_factorized_backward(gsp, *sp)),
                 ('warp_backward', lambda img=img, bdab=bdab: warp.warp_backward(img, img, bdab, 4)),
-                ('deform_sample_backward',
-                 lambda x=x, off=off, dcols=dcols: deform_conv.deform_sample_backward(
-                     dcols, x, off, 4))):
+                ('deform_conv3x3_backward',
+                 lambda dcn=dcn, dy=dy: deform_conv.deform_conv3x3_backward(dy, *dcn, 4))):
             ops = device_ops(fn)
             per_call[name + s1] = sum(ops.values())
             print(f'device ops of one {name}{s1} call (torch.profiler): {json.dumps(ops)}',
@@ -327,7 +332,7 @@ def count_device_ops(cfg, cam_cfg):
             if per_call[name + s1] > bwd_limits[name]:
                 raise AssertionError(f'{name}{s1}: {per_call[name + s1]} device ops a call, '
                                      f'more than {bwd_limits[name]}')
-    del gsp, img, dcols
+    del gsp, img, dy
     one = ('circle_nms_mask', 'bda_bev_warp', 'affine_act_backward_residual',
            'affine_act_backward_resnet50', 'deform_conv3x3', 'deform_conv3x3_b4',
            'pillar_encoder_input', 'pillar_encoder_input_b4', 'depth_labels',
@@ -1276,8 +1281,8 @@ def check_backward_kernels(cfg):
     """Phase 10: the backward kernels K4', K5' and K7' against their plain
     versions (autograd through the plain forward) at the camera train
     path's shapes, B=1 and B=4, in bf16 and float32, with the tolerances of
-    ``exps/backward_checks.py``; each one's time, its plain version's and,
-    where one exists, a PyTorch call's computing the same gradient, and its
+    ``exps/backward_checks.py``; each one's time, its plain version's, the
+    library calls of the route it replaced where there are any, and its
     bound (their device ops a call are phase 1's)."""
     from mm_training_tpu_torch.data import random_bda_matrices
     from mm_training_tpu_torch.exps import backward_checks
@@ -1357,54 +1362,61 @@ def check_backward_kernels(cfg):
             shape=list(img.shape), dtype='bfloat16')
         del img, gw, src32, g32, grid
 
-        # --- K5': the DCN's transposed sampling on the columns' gradient of
-        # the grouped product, offsets up to 3 px (and, in float32, whole
-        # pixels); the whole backward (grouped products, columns, K5')
-        # timed beside it. The yardstick: grid_sampler_2d_backward's input
-        # and grid gradients over the 9 taps (float32 NCHW)
+        # --- K5': the DCN's whole backward (d x, d offsets, d weight, d
+        # bias) at the path's shapes, offsets up to 3 px and at whole pixels
+        # (the train path's zero-initialised offset conv), bf16 and float32.
+        # The yardstick, timed here and used nowhere in the port: the library
+        # calls of the route it replaced, grid_sampler_2d_backward's input
+        # and grid gradients over the 9 taps (float32 NCHW) and the ten
+        # torch.bmm of the grouped products on the columns
         shape = deform_shape(b4)
-        for dtype, reach in ((torch.bfloat16, 3.0), (torch.float32, 3.0), (torch.float32, 0.0)):
-            x, off, wgt, bias = deform_inputs(shape, 4, gen, dtype, reach)
-            if reach == 0.0:
-                off = off.round()
-            dy = torch.randn(*shape[:3], wgt.shape[0] * wgt.shape[2], generator=gen,
-                             device=dev).to(dtype)
-            checks[f'deform_backward B={bsz} {dtype} offsets {reach} px'] = \
-                backward_checks.deform_backward_errors(x, off, wgt, bias, 4, dy)
-            del x, off, wgt, bias, dy
-        x, off, wgt, bias = deform_inputs(shape, 4, gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            for reach in (3.0, 0.0):
+                x, off, wgt, bias = deform_inputs(shape, 4, gen, dtype, reach)
+                dy = torch.randn(*shape[:3], wgt.shape[0] * wgt.shape[2], generator=gen,
+                                 device=dev).to(dtype)
+                checks[f'deform_backward B={bsz} {dtype} offsets {reach} px'] = \
+                    backward_checks.deform_backward_errors(x, off, wgt, bias, 4, dy)
+                del x, off, wgt, bias, dy
+        x, off, wgt, bias = dcn = deform_inputs(shape, 4, gen)
         dy = torch.randn(*shape[:3], wgt.shape[0] * wgt.shape[2], generator=gen,
                          device=dev).bfloat16()
         bm, hh, ww, cc = x.shape
-        dcols = torch.bmm(dy.view(-1, 4, wgt.shape[2]).transpose(0, 1), wgt.transpose(1, 2))
+        og = wgt.shape[2]
+        cols = deform_conv.deform_sample(x, off).view(bm * hh * ww, 9, 4, cc // 4)
+        dyg, wt = dy.view(-1, 4, og).transpose(0, 1), wgt.transpose(1, 2)
         grid9 = _deform_grid(off)
-        py, px = (t.floor() for t in _tap_points(off))      # the corners inside the image
-        inside = sum(int(((py + dyc >= 0) & (py + dyc < hh)
-                          & (px + dxc >= 0) & (px + dxc < ww)).sum())
-                     for dyc in (0, 1) for dxc in (0, 1))
         x32 = x.float().permute(0, 3, 1, 2)
-        g9 = dcols.view(4, bm, hh, ww, 9, cc // 4).permute(1, 0, 5, 2, 3, 4).reshape(
-            bm, cc, hh, ww * 9).float()
+        g9 = torch.bmm(dyg, wt).view(4, bm, hh, ww, 9, cc // 4).permute(1, 0, 5, 2, 3, 4)
+        g9 = g9.reshape(bm, cc, hh, ww * 9).float()
 
-        def library(x32=x32, g9=g9, grid9=grid9):
+        def sampler(x32=x32, g9=g9, grid9=grid9):
             return torch.ops.aten.grid_sampler_2d_backward(g9, x32, grid9, 0, 0, True,
                                                            [True, True])
+
+        def products(cols=cols, dyg=dyg, wt=wt):
+            return ([torch.bmm(cols[:, t].permute(1, 2, 0), dyg) for t in range(9)],
+                    torch.bmm(dyg, wt))
+        sampler_ms, bmm_ms = device_ms(sampler, 5), device_ms(products, 5)
+        whole = (dy, x, torch.zeros_like(off), wgt, bias)
         res = checks[f'deform_backward B={bsz} {torch.bfloat16} offsets 3.0 px']
-        row('deform_sample_backward' + suffix, 'deform_conv.cu',
+        # x and dy read, the offsets, weights and bias read and their
+        # gradients written; the two grouped products on the tensor cores
+        row('deform_conv3x3_backward' + suffix, 'deform_conv.cu',
             'mm_training_tpu/models/depth_net.py:46 (its autodiff; no TPU kernel)',
-            lambda a=(dcols, x, off): deform_conv.deform_sample_backward(*a, 4),
-            lambda a=(dcols, x, off): deform_conv.deform_sample_backward_plain(*a, 4),
-            x.numel() * 2 * 2 + off.numel() * 4 * 2 + dcols.numel() * 2,
-            4 * inside * cc, FP32_FLOPS, 2,
-            max_abs_err=res['max_abs_err'], library_ms=device_ms(library, 5),
-            library='aten.grid_sampler_2d_backward (fp32, input and grid)',
-            whole_backward_ms=device_ms(
-                lambda a=(dy, x, off, wgt, bias): deform_conv.deform_conv3x3_backward(*a, 4), 5),
-            whole_backward='deform_conv3x3_backward: d bias, the grouped products '
-                           '(torch.bmm), the columns kernel and K5\'',
-            column_tensor_gib=dcols.numel() * 2 / 2 ** 30,
+            lambda a=(dy, *dcn): deform_conv.deform_conv3x3_backward(*a, 4),
+            lambda a=(dy, *dcn): deform_conv.deform_conv3x3_backward_plain(*a, 4),
+            (x.numel() * 2 + dy.numel()) * 2 + off.numel() * 4 * 2
+            + (wgt.numel() + bias.numel()) * 2 * 2, 2 * 2 * bm * hh * ww * 9 * cc * og,
+            BF16_FLOPS, 2,
+            max_abs_err=res['max_abs_err'], deterministic=res['deterministic'],
+            library_ms=sampler_ms + bmm_ms,
+            library='aten.grid_sampler_2d_backward (fp32, input and grid) + the ten torch.bmm '
+                    'of the grouped products',
+            grid_sampler_ms=sampler_ms, bmm_ms=bmm_ms,
+            whole_pixels_ms=device_ms(lambda: deform_conv.deform_conv3x3_backward(*whole, 4), 20),
             shape=list(x.shape), dtype='bfloat16')
-        del x, off, wgt, bias, dy, dcols, x32, g9, grid9
+        del x, off, wgt, bias, dy, dcn, cols, dyg, wt, x32, g9, grid9, whole
 
     for r in rows:
         print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']} ms={r['ms']:.6f} "
@@ -1433,8 +1445,8 @@ def _camera_draws(cfg, imgs_shape, seed, device, flipped=None):
 
 CAMERA_TRAIN_KERNELS = ('affine_act', 'affine_act_backward', 'pillar_encoder_input',
                         'draw_heatmap', 'circle_nms_mask', 'lift_splat_factorized',
-                        'lift_splat_factorized_backward', 'deform_conv3x3', 'deform_sample',
-                        'deform_sample_backward', 'depth_labels', 'bda_bev_warp',
+                        'lift_splat_factorized_backward', 'deform_conv3x3',
+                        'deform_conv3x3_backward', 'depth_labels', 'bda_bev_warp',
                         'warp_backward')
 
 
@@ -1491,8 +1503,9 @@ def train_camera(cfg):
     missing = [n for n in CAMERA_TRAIN_KERNELS if counts[n] == 0]
     if missing:
         raise AssertionError(f'kernels never launched on the camera train path: {missing}')
-    if counts['voxelize_pillars_dense']:
-        raise AssertionError('the camera train path launched K1 in its plain layout')
+    if counts['voxelize_pillars_dense'] or counts['deform_sample']:
+        raise AssertionError('the camera train path launched K1 in its plain layout or the '
+                             'columns kernel')
     if not (all(np.isfinite(stats['losses'])) and np.isfinite(parts).all()
             and torch.isfinite(ev_metrics['loss'])):
         raise AssertionError('non-finite camera train or eval loss')

@@ -1,5 +1,5 @@
-"""Kernels A', K4, K5, K1, K6 and K2 of this package against another copy of
-it, in one process.
+"""Kernels A', K4, K5, K1, K6, K2, K5' and K4' of this package against
+another copy of it, in one process.
 
 The other copy (for example an earlier commit unpacked with ``git archive``
 into a git-ignored directory) is imported under another module name and
@@ -33,10 +33,18 @@ this, this, other, on the same inputs:
   copy's labels held equal;
 - K2 as ``draw_heatmap`` on a B=4 ``lidar_radar`` train batch's targets,
   the two copies' maps held equal bit for bit there and on every case of
-  ``exps/kernel_inputs.py::heatmap_case``.
+  ``exps/kernel_inputs.py::heatmap_case``;
+- K5' as ``deform_conv3x3_backward`` (the DCN's whole backward) at the B=1
+  and the B=4 camera train step's DCN ([4 or 16, 44, 80, 512] bf16, 4
+  groups), offsets up to 3 px and at whole pixels (the train path's), with
+  each call's peak device memory above what it was handed;
+- K4' as ``lift_splat_factorized_backward`` at the B=1 and the B=4 camera
+  train step's splat (the fake rig's indices, bf16, depth channels-last as
+  under the depth oracle and NCHW without it).
 
 ``--only`` takes a subset of {backward, lift_splat, deform_conv,
-encoder_input, camera_memory, depth_labels, heatmap}. Prints one JSON object
+encoder_input, camera_memory, depth_labels, heatmap, deform_backward,
+splat_backward}. Prints one JSON object
 with the card's name and power limit.
 
     python -m mm_training_tpu_torch.exps.ab_kernels --other path/to/mm_training_tpu_torch
@@ -62,17 +70,17 @@ from ..models import BEVDepthLiDAR
 from ..models.centerpoint_head import heatmap_inputs
 from ..models.depth_net import DeformConv2d
 from ..models.lidar_encoder import LidarBEVEncoder
-from ..ops import affine_act, depth_labels, gaussian, voxel_pooling, voxelize
+from ..ops import affine_act, deform_conv, depth_labels, gaussian, voxel_pooling, voxelize
 from ..training import create_train_state, make_train_step
-from .kernel_inputs import (HEATMAP_CASES, SPLAT_LAYOUTS, depth_label_inputs, heatmap_case,
-                            splat_inputs)
+from .kernel_inputs import (HEATMAP_CASES, SPLAT_LAYOUTS, deform_inputs, deform_shape,
+                            depth_label_inputs, heatmap_case, splat_inputs)
 from .profile_kernels import record
 from .timing import HBM_BYTES_PER_S, device_ms
 
 __all__ = ['main']
 
 SECTIONS = ('backward', 'lift_splat', 'deform_conv', 'encoder_input', 'camera_memory',
-            'depth_labels', 'heatmap')
+            'depth_labels', 'heatmap', 'deform_backward', 'splat_backward')
 
 
 def load_copy(path: str, name: str = 'mm_training_tpu_torch_other'):
@@ -288,6 +296,54 @@ def heatmap_rows(other: str) -> dict:
     return row
 
 
+def deform_backward_rows(other: str, gen: torch.Generator) -> list:
+    """K5': ``deform_conv3x3_backward`` of both copies at the B=1 and the
+    B=4 camera train step's DCN, offsets up to 3 px and at whole pixels."""
+    other_dc = importlib.import_module(f'{other}.ops.deform_conv')
+    rows = []
+    for batch_size in (1, 4):
+        shape = deform_shape(lidar_cam_radar(batch_size=batch_size))
+        for reach in (3.0, 0.0):
+            x, off, wgt, bias = deform_inputs(shape, 4, gen, torch.bfloat16, reach)
+            dy = torch.randn(*shape[:3], wgt.shape[0] * wgt.shape[2], generator=gen,
+                             device='cuda').bfloat16()
+            a = (dy, x, off, wgt, bias, 4)
+            row = {'batch_size': batch_size, 'shape': list(shape), 'offsets_px': reach}
+            row.update(_alternate(lambda: other_dc.deform_conv3x3_backward(*a),
+                                  lambda: deform_conv.deform_conv3x3_backward(*a), 10))
+            row['this_peak_gib'] = _peak_above(lambda: deform_conv.deform_conv3x3_backward(*a))
+            row['other_peak_gib'] = _peak_above(lambda: other_dc.deform_conv3x3_backward(*a))
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del x, off, wgt, bias, dy, a
+    return rows
+
+
+def splat_backward_rows(other: str, gen: torch.Generator) -> list:
+    """K4': ``lift_splat_factorized_backward`` of both copies at the B=1
+    and the B=4 camera train step's splat, depth channels-last and NCHW."""
+    other_vp = importlib.import_module(f'{other}.ops.voxel_pooling')
+    rows = []
+    for batch_size in (1, 4):
+        for layout in ('channels_last', 'nchw'):
+            args = splat_inputs(lidar_cam_radar(batch_size=batch_size), gen, layout)
+            depth, ctx, idx, zvalid, n_cells = args
+            g = torch.randn(idx.shape[0], n_cells, ctx.shape[-1], generator=gen,
+                            device='cuda').bfloat16()
+            # depth and zvalid read and d depth written, ctx read and d ctx
+            # written, the indices and g read once
+            nbytes = (depth.numel() * 2 * 2 + zvalid.numel() + ctx.numel() * 2 * 2
+                      + idx.numel() * 4 + g.numel() * 2)
+            row = {'batch_size': batch_size, 'layout': layout, 'cameras': idx.shape[0],
+                   'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+            row.update(_alternate(lambda: other_vp.lift_splat_factorized_backward(g, *args),
+                                  lambda: voxel_pooling.lift_splat_factorized_backward(g, *args),
+                                  20))
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--other', required=True, help='directory of the other package copy')
@@ -312,6 +368,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         result['depth_labels'] = depth_label_rows(other, gen)
     if 'heatmap' in args.only:
         result['heatmap'] = heatmap_rows(other)
+    if 'deform_backward' in args.only:
+        result['deform_backward'] = deform_backward_rows(other, gen)
+    if 'splat_backward' in args.only:
+        result['splat_backward'] = splat_backward_rows(other, gen)
     other_aa = importlib.import_module(f'{other}.ops.affine_act')
     other_vp = importlib.import_module(f'{other}.ops.voxel_pooling')
 

@@ -5,14 +5,31 @@ and ``tests/test_torch_cuda.py``.
 Each check runs the kernel's wrapper on CUDA tensors, runs the plain version
 (autograd through the plain forward) on the same inputs raised to float32,
 and bounds the difference entry by entry: the kernels sum in float32, in
-another order than the plain version (K4' in a fixed order, K5''s and K7''s
-scattered gradients by float32 atomics in no fixed order), so a float32
-result may differ by 1e-5 of the entry's sum of |terms| (computed in float64
-from the same linear backward on magnitudes), and a bf16 result, rounded
-once, by one bf16 ulp of the float32 reference plus that. The grouped
-products of K5's backward (``torch.bmm``) and its bias sum are held to a
-bf16 rounding of their tensor's largest entry (2^-7) in bf16 and 1e-5 in
-float32: cuBLAS's order against autograd's.
+another order than the plain version (K4' in a fixed order, K5''s d x and
+K7' by float32 atomics in no fixed order), so a float32 result may differ
+by 1e-5 of the entry's sum of |terms| (computed in float64 from the same
+linear backward on magnitudes), and a bf16 result, rounded once, by one
+bf16 ulp of the float32 reference plus that.
+
+K5' computes the columns' gradient d cols = dY W^T itself, a tile at a time
+on the tensor cores, and rounds each entry once to x's dtype before the
+transposed sampling, as JAX's einsum transpose gives it in that dtype. Its
+float32 sum runs in another order than the reference's, and in bf16 an
+entry near a rounding midpoint can round the other way. So d x and d
+offsets are held to the plain transposed sampling of the float32 d cols
+(dY raised to float32, times W^T), and their bound gains one rounding of
+each d cols entry: 2^-8 (bf16's unit roundoff; 0 in float32) plus 1e-5 (the
+order of its float32 sum) of that entry's sum of |terms|, sum |dY| |W|,
+carried through the same linear map in float64 (:func:`deform_cols_reference`).
+For a bf16 x, d x also takes the corner weights rounded to bf16 (the
+forward's, and the JAX package's ``cwm.astype``) where the float32
+reference keeps them: 2^-8 of its sum of |terms| more. d weight and d bias
+are held to autograd through the plain forward in float64, within a
+rounding of the tensor's largest entry (2^-7 in bf16, 1e-5 in float32):
+each of their sums runs over every pixel of the batch (56,320 at the B=4
+camera train step), where a float32 reference's own rounding, in cuBLAS's
+order, is of the size of that bound. d offsets, d weight and d bias are
+summed in a fixed order: the same bits on a second call.
 """
 from __future__ import annotations
 
@@ -22,7 +39,11 @@ import torch
 
 from ..ops import deform_conv, voxel_pooling, warp
 
-__all__ = ['deform_backward_errors', 'splat_backward_errors', 'warp_backward_errors']
+__all__ = ['deform_backward_errors', 'deform_cols_reference', 'outside', 'splat_backward_errors',
+           'warp_backward_errors']
+
+ORDER = 1e-5                    # float32 sums in another order: of the sum of |terms|
+ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float32: 0.0}   # one rounding to the dtype
 
 
 def _ulp(ref: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -34,12 +55,15 @@ def _ulp(ref: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(a == 0, 0.0, torch.exp2(torch.floor(torch.log2(a)) - 7))
 
 
-def _outside(got: torch.Tensor, ref: torch.Tensor, magnitude: torch.Tensor) -> Dict:
+def outside(got: torch.Tensor, ref: torch.Tensor, magnitude: torch.Tensor,
+            extra: torch.Tensor = None) -> Dict:
     """Entries of ``got`` beyond one ulp of its dtype plus 1e-5 of the sum
-    of |terms| (and a float32 rounding of the entry) from the float32
-    ``ref``; the largest |difference|."""
-    diff = (got.float() - ref).abs()
-    bound = _ulp(ref, got.dtype) + 1e-5 * magnitude.float() + 1.2e-7 * ref.abs()
+    of |terms| (and a float32 rounding of the entry, and ``extra`` where
+    given) from the float32 ``ref``; the largest |difference|."""
+    diff = (got.float() - ref.float()).abs()
+    bound = _ulp(ref.float(), got.dtype) + ORDER * magnitude.float() + 1.2e-7 * ref.float().abs()
+    if extra is not None:
+        bound = bound + extra.float()
     return {'outside': int((diff > bound).sum()), 'max_abs_err': diff.max().item()}
 
 
@@ -57,7 +81,7 @@ def splat_backward_errors(depth, ctx, idx, zvalid, n_cells, g) -> Dict:
         g.double().abs(), depth.double(), ctx.double().abs(), idx, zvalid, n_cells)
     _, mag_c = voxel_pooling.lift_splat_factorized_backward_plain(
         g.double().abs(), depth.double().abs(), ctx.double(), idx, zvalid, n_cells)
-    out = {'d_depth': _outside(got_d, ref_d, mag_d), 'd_ctx': _outside(got_c, ref_c, mag_c),
+    out = {'d_depth': outside(got_d, ref_d, mag_d), 'd_ctx': outside(got_c, ref_c, mag_c),
            'deterministic': torch.equal(again[0], got_d) and torch.equal(again[1], got_c),
            'dtypes': [str(got_d.dtype), str(got_c.dtype)]}
     out['max_abs_err'] = max(out['d_depth']['max_abs_err'], out['d_ctx']['max_abs_err'])
@@ -73,7 +97,7 @@ def warp_backward_errors(img, mat, bda_n, g) -> Dict:
     got = warp.warp_backward(g, img, mat, bda_n)
     ref = warp.warp_backward_plain(g.float(), img.float(), mat, bda_n)
     mag = warp.warp_backward_plain(g.double().abs(), img.double(), mat, bda_n)
-    out = _outside(got, ref, mag)
+    out = outside(got, ref, mag)
     out['ok'] = out['outside'] == 0 and got.dtype == img.dtype
     return out
 
@@ -105,41 +129,59 @@ def _offset_magnitude(x, offsets, dcols, groups):
     return mag.reshape(b, h, w, 9, 1).expand(b, h, w, 9, 2).reshape(b, h, w, 18)
 
 
-def deform_backward_errors(x, offsets, weight, bias, groups, dy) -> Dict:
-    """K5's backward (:func:`~mm_training_tpu_torch.ops.deform_conv.
-    deform_conv3x3_backward`: the grouped products, the columns kernel and
-    K5') against its plain versions. K5''s part, d x and d offsets, against
-    :func:`~mm_training_tpu_torch.ops.deform_conv.deform_sample_backward_plain`
-    on the same columns' gradient (``dY W^T`` in x's dtype) raised to
-    float32, within the module's bound; for a bf16 x, d x takes the corner
-    weights rounded to bf16 (the forward's, and the JAX package's
-    ``cwm.astype``) where the float32 reference keeps them, 2^-8 (bf16's
-    unit roundoff) of the sum of |terms| more. d weight and d bias against autograd through the plain
-    forward in float32, within a rounding of the tensor's largest entry."""
-    dx, doff, dw, db = deform_conv.deform_conv3x3_backward(dy, x, offsets, weight, bias, groups)
+def deform_cols_reference(dy, x, offsets, weight, groups: int, dtype: torch.dtype):
+    """The plain transposed sampling of d cols = dY W^T computed in float32
+    (float64 for float64 inputs), and what bounds a kernel that works in
+    ``dtype`` against it: ((d x, its sum of |terms|, its d cols rounding
+    term), (d offsets, the same)), the magnitudes in float64. The rounding
+    term is (2^-8 in bf16 + 1e-5) of each d cols entry's sum of |terms|,
+    sum |dY| |W|, carried through the transposed sampling; for bf16 the d x
+    magnitude also carries the corner weights' bf16 rounding."""
     b, h, w, c = x.shape
     og = weight.shape[2]
-    dyg = dy.reshape(b * h * w, groups, og).transpose(0, 1)
-    dcols = torch.bmm(dyg, weight.transpose(1, 2))       # what K5' was given
-    ref_dx, ref_doff = deform_conv.deform_sample_backward_plain(dcols.float(), x.float(),
-                                                                offsets, groups)
+    ct = torch.promote_types(x.dtype, torch.float32)
+
+    def cols(d, wt):
+        return torch.bmm(d.reshape(b * h * w, groups, og).transpose(0, 1), wt.transpose(1, 2))
+    dcols = cols(dy.to(ct), weight.to(ct))
+    mag_cols = cols(dy.double().abs(), weight.double().abs())
+    ref_dx, ref_doff = deform_conv.deform_sample_backward_plain(dcols, x.to(ct), offsets, groups)
     mag_x, _ = deform_conv.deform_sample_backward_plain(dcols.double().abs(), x.double(),
                                                         offsets, groups)
-    if x.dtype == torch.bfloat16:      # bf16's unit roundoff: 2^-8
-        mag_x = mag_x * (1.0 + 2.0 ** -8 / 1e-5)
-    out = {'d_x': _outside(dx, ref_dx, mag_x),
-           'd_offsets': _outside(doff, ref_doff,
-                                 _offset_magnitude(x, offsets, dcols, groups))}
-    ref = deform_conv.deform_conv3x3_backward_plain(dy.float(), x.float(), offsets,
-                                                    weight.float(), bias.float(), groups)
-    rel = 2.0 ** -7 if x.dtype == torch.bfloat16 else 1e-5
+    if dtype == torch.bfloat16:
+        mag_x = mag_x * (1.0 + ROUNDOFF[dtype] / ORDER)
+    rounding = ROUNDOFF[dtype] + ORDER
+    flip_x, _ = deform_conv.deform_sample_backward_plain(mag_cols, x.double(), offsets, groups)
+    return ((ref_dx, mag_x, rounding * flip_x),
+            (ref_doff, _offset_magnitude(x, offsets, dcols, groups),
+             rounding * _offset_magnitude(x, offsets, mag_cols, groups)))
+
+
+def deform_backward_errors(x, offsets, weight, bias, groups, dy) -> Dict:
+    """K5' (:func:`~mm_training_tpu_torch.ops.deform_conv.
+    deform_conv3x3_backward`) against its plain versions, with the bounds
+    of this module's docstring: d x and d offsets against
+    :func:`deform_cols_reference`, d weight and d bias against autograd
+    through the plain forward in float64; d offsets, d weight and d bias the
+    same bits on a second call."""
+    dx, doff, dw, db = deform_conv.deform_conv3x3_backward(dy, x, offsets, weight, bias, groups)
+    again = deform_conv.deform_conv3x3_backward(dy, x, offsets, weight, bias, groups)
+    (ref_dx, mag_x, flip_x), (ref_doff, mag_off, flip_off) = deform_cols_reference(
+        dy, x, offsets, weight, groups, x.dtype)
+    out = {'d_x': outside(dx, ref_dx, mag_x, flip_x),
+           'd_offsets': outside(doff, ref_doff, mag_off, flip_off)}
+    ref = deform_conv.deform_conv3x3_backward_plain(dy.double(), x.double(), offsets,
+                                                    weight.double(), bias.double(), groups)
+    rel = 2.0 ** -7 if x.dtype == torch.bfloat16 else ORDER
     for name, got, want in (('d_weight', dw, ref[2]), ('d_bias', db, ref[3])):
         err = (got.float() - want).abs().max().item()
         top = want.abs().max().item()
         out[name] = {'max_abs_err': err, 'of_largest': err / max(top, 1e-30),
                      'ok': err <= rel * top}
+    out['deterministic'] = all(torch.equal(a, b) for a, b in zip(again[1:], (doff, dw, db)))
     out['max_abs_err'] = max(out['d_x']['max_abs_err'], out['d_offsets']['max_abs_err'])
     out['ok'] = (out['d_x']['outside'] == 0 and out['d_offsets']['outside'] == 0
-                 and out['d_weight']['ok'] and out['d_bias']['ok']
-                 and dx.dtype == x.dtype and doff.dtype == torch.float32)
+                 and out['d_weight']['ok'] and out['d_bias']['ok'] and out['deterministic']
+                 and dx.dtype == x.dtype and doff.dtype == torch.float32
+                 and dw.dtype == weight.dtype and db.dtype == bias.dtype)
     return out

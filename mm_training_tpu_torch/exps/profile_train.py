@@ -13,7 +13,9 @@ that take the most time, and the device time a step of each of the port's
 own kernels (by kernel name). Before the profiled window it times
 ``--steps`` unprofiled steps (host clock, each ending in a synchronize).
 With the camera it also times the depth loss alone, forward and backward
-at the step's shapes (plain torch: the JAX package leaves it to XLA).
+at the step's shapes (plain torch: the JAX package leaves it to XLA); at
+B=4 it prints the step's numbers on the tree before the fused DCN backward
+beside its own (``BEFORE``).
 
     python -m mm_training_tpu_torch.exps.profile_train [--config lidar_cam_radar]
         [--batch-size 4] [--steps 10] [--warmup 3] [--trace train_trace.json]
@@ -46,9 +48,17 @@ KERNEL_NAMES = {
     'K1 pillar_encoder_input': 'pillar_kernel', 'K2 draw_heatmap': 'heatmap_kernel',
     'K3 circle_nms': 'circle_nms', 'K4 lift_splat': 'lift_splat_kernel',
     "K4' lift_splat_backward": 'lift_splat_bwd', 'K5 deform_conv3x3': 'deform_conv_kernel',
-    'K5 columns deform_sample': 'deform_sample_kernel', "K5' deform_sample_backward":
+    'K5 columns deform_sample': 'deform_sample_kernel', "K5' deform_conv3x3_backward":
     'deform_bwd', 'K6 depth_labels': 'depth_labels_kernel', 'K7 bev_warp': 'bev_warp_kernel',
-    "K7' bev_warp_backward": 'bev_warp_bwd', "K5'/K7' rounding to bf16": 'round_bf16'}
+    "K7' bev_warp_backward": 'bev_warp_bwd', "K7' rounding to bf16": 'round_bf16'}
+
+
+# a B=4 step on the tree before the fused DCN backward (K5') and K4' on the
+# tensor cores, for comparison: device ms and device ops a profiled step,
+# peak GiB of the unprofiled steps (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md section 5)
+BEFORE = {'lidar_cam_radar': {'device_ms_per_step': 261.25, 'device_ops_per_step': 9362,
+                              'max_memory_allocated_gb': 32.98}}
 
 
 def train_batch(cfg, seed: int) -> Dict[str, Any]:
@@ -170,6 +180,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     }
     if cfg.use_cam:
         result['depth_loss_forward_backward_ms'] = depth_loss_ms(cfg)
+    if args.batch_size == 4 and args.config in BEFORE:
+        result['before'] = BEFORE[args.config]
     print(json.dumps(result, indent=1))
     return result
 

@@ -13,9 +13,9 @@ Two entries share the sampling code of ``csrc/deform_conv.cu`` (one
 - :func:`deform_conv3x3`, the fused op on the serving path: the samples are
   built tile by tile in shared memory and contracted there on the tensor
   cores, so no column is ever written to device memory;
-- :func:`deform_sample`, the columns ``[B, H*W, 9, C]``: off the serving
-  path since the fused op, the weight gradient's columns in training
-  (dW = cols^T dY for each group).
+- :func:`deform_sample`, the columns ``[B, H*W, 9, C]``: on no path since
+  the fused op and its fused backward, which build the same columns in
+  shared memory; kept as the columns' own kernel.
 
 Rounding follows the JAX package: coordinates and corner weights in fp32,
 each weight rounded to the input dtype, then ``sampled = sampled + row *
@@ -24,13 +24,18 @@ rounded), so the sampled values match the plain version bit for bit; the
 fused op's fp32 sums run in another order than cuBLAS's.
 
 The backward (:class:`DeformConv`, a ``torch.autograd.Function`` that
-:func:`deform_conv3x3` takes for a CUDA call that needs a gradient):
-``d bias = sum dY``; the grouped products as the JAX package leaves them
-to XLA, ``d cols = dY W^T`` and ``dW = cols^T dY`` (``torch.bmm``, the
-columns from :func:`deform_sample`); then kernel K5'
-(:func:`deform_sample_backward`), the transposed sampling into d x and d
-offsets with the forward's own corner functions. On the CPU autograd
-differentiates the plain version.
+:func:`deform_conv3x3` takes for a CUDA call that needs a gradient) is
+kernel K5', :func:`deform_conv3x3_backward`: two launches and no column
+tensor. The first computes each chunk's ``d cols = dY W^T`` on the tensor
+cores in shared memory, rounds it once to x's dtype (the dtype JAX's
+einsum transpose gives it) and takes it through the transposed sampling
+into d offsets (written once) and d x (each halo pixel's terms gathered in
+registers after a counting sort of the corners, then one 16-byte atomic
+add a 4-channel run into float32 sums); the second builds the columns in
+shared memory the forward's way and contracts them with dY into dW
+(float32 partials summed in a fixed order), with d bias. On the CPU
+autograd differentiates the plain version; :func:`deform_sample_backward_plain`
+is the transposed sampling alone, for a given d cols.
 """
 from __future__ import annotations
 
@@ -41,12 +46,12 @@ import torch
 
 from . import build
 
-__all__ = ['DeformConv', 'deform_conv3x3', 'deform_conv3x3_backward',
+__all__ = ['BACKWARD_MAX_GROUP_OUT', 'DeformConv', 'deform_conv3x3', 'deform_conv3x3_backward',
            'deform_conv3x3_backward_plain', 'deform_conv3x3_plain', 'deform_sample',
-           'deform_sample_backward', 'deform_sample_backward_plain', 'deform_sample_plain',
-           'halo_corners', 'pack_weight']
+           'deform_sample_backward_plain', 'deform_sample_plain', 'halo_corners', 'pack_weight']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BACKWARD_MAX_GROUP_OUT = 128   # C_out/g the backward kernels take (a dY tile a group)
 
 
 def deform_sample_plain(x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
@@ -88,9 +93,10 @@ def _lib() -> ctypes.CDLL:
     lib.deform_sample.restype = ctypes.c_int
     lib.deform_conv3x3.argtypes = [i32, p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p]
     lib.deform_conv3x3.restype = ctypes.c_int
-    lib.deform_sample_backward.argtypes = [i32, p, p, p, p, p, p, ctypes.c_longlong, i32, i32,
-                                           i32, i32, i32, p]
-    lib.deform_sample_backward.restype = ctypes.c_int
+    lib.deform_conv3x3_backward_scratch.argtypes = [i32] * 7 + [p]
+    lib.deform_conv3x3_backward_scratch.restype = ctypes.c_int
+    lib.deform_conv3x3_backward.argtypes = [i32] + [p] * 12 + [i32] * 6 + [p]
+    lib.deform_conv3x3_backward.restype = ctypes.c_int
     return lib
 
 
@@ -101,8 +107,7 @@ def deform_sample(x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
 
     A CPU tensor takes :func:`deform_sample_plain`; a CUDA tensor launches
     kernel K5's columns kernel or raises (also when a gradient is asked
-    for: the columns are the weight gradient's input, not differentiated;
-    :class:`DeformConv` differentiates the conv)."""
+    for: :class:`DeformConv` differentiates the conv)."""
     if x.dim() != 4 or offsets.shape != (*x.shape[:3], 18):
         raise ValueError(f'deform_sample: x [B, H, W, C] and offsets [B, H, W, 18], '
                          f'got {tuple(x.shape)} and {tuple(offsets.shape)}')
@@ -252,8 +257,13 @@ deform_conv3x3.launches = 0
 
 def deform_sample_backward_plain(dcols: torch.Tensor, x: torch.Tensor, offsets: torch.Tensor,
                                  groups: int):
-    """Plain PyTorch version of :func:`deform_sample_backward`: autograd
-    through :func:`deform_sample_plain`."""
+    """Gradients (d x, d offsets) of the columns :func:`deform_sample_plain`
+    for their gradient laid out as the grouped product leaves it, ``dcols``
+    [g, B*H*W, 9 * C/g] (row ``tap * C/g + c``): autograd through
+    :func:`deform_sample_plain`. d x takes each corner's weight where it is
+    inside the image; d offsets the corner differences (floor without a
+    gradient, as in JAX: at a whole pixel the one-sided difference). K5''s d
+    x and d offsets are held to it (``exps/backward_checks.py``)."""
     b, h, w, c = x.shape
     g = groups
     d = dcols.reshape(g, b * h * w, 9, c // g).permute(1, 2, 0, 3).reshape(b, h * w, 9, c)
@@ -262,60 +272,6 @@ def deform_sample_backward_plain(dcols: torch.Tensor, x: torch.Tensor, offsets: 
         off = offsets.detach().requires_grad_()
         dx, doff = torch.autograd.grad(deform_sample_plain(xs, off), (xs, off), d)
     return dx, doff
-
-
-def deform_sample_backward(dcols: torch.Tensor, x: torch.Tensor, offsets: torch.Tensor,
-                           groups: int):
-    """Gradients (d x, d offsets) of the columns :func:`deform_sample` for
-    their gradient laid out as the grouped product leaves it, ``dcols``
-    [g, B*H*W, 9 * C/g] (row ``tap * C/g + c``) of x's dtype: d x [B, H, W,
-    C] in x's dtype (each corner inside the image gets its rounded weight
-    times dcols), d offsets [B, H, W, 18] float32 (the corner differences,
-    floor without a gradient as in JAX: at a whole pixel the one-sided
-    difference).
-
-    A CPU tensor takes :func:`deform_sample_backward_plain`; a CUDA tensor
-    launches kernel K5' (one warp a (pixel, tap), float32 atomics for d x,
-    rounded once to bf16 for a bf16 x; d offsets written once) or raises."""
-    if x.dim() != 4 or offsets.shape != (*x.shape[:3], 18):
-        raise ValueError(f'deform_sample_backward: x [B, H, W, C] and offsets [B, H, W, 18], '
-                         f'got {tuple(x.shape)} and {tuple(offsets.shape)}')
-    b, h, w, c = x.shape
-    if c % groups or dcols.shape != (groups, b * h * w, 9 * (c // groups)):
-        raise ValueError(f'deform_sample_backward: dcols [g, B*H*W, 9*C/g] = '
-                         f'{(groups, b * h * w, 9 * (c // max(groups, 1)))}, got '
-                         f'{tuple(dcols.shape)}')
-    if x.device.type == 'cpu':
-        return deform_sample_backward_plain(dcols, x, offsets, groups)
-    if (x.device.type != 'cuda' or x.dtype not in _DTYPES or dcols.dtype != x.dtype
-            or offsets.dtype != torch.float32
-            or any(t.device != x.device for t in (dcols, offsets))):
-        raise ValueError(f'deform_sample_backward takes a float32/bfloat16 CUDA or CPU x, '
-                         f'dcols of its dtype and float32 offsets on its device, got x '
-                         f'{x.dtype} on {x.device}, dcols {dcols.dtype} on {dcols.device}, '
-                         f'offsets {offsets.dtype} on {offsets.device}')
-    x, offsets, dcols = x.contiguous(), offsets.contiguous(), dcols.contiguous()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    doff = torch.empty_like(offsets)
-    if x.dtype == torch.float32:
-        acc = dx = torch.empty_like(x)
-    else:
-        acc = build.scratch('deform_sample_backward', x.device, stream, x.numel(), 0)[0]
-        dx = torch.empty_like(x)
-    n = 16 // x.element_size()
-    vec = int((c // groups) % n == 0 and x.data_ptr() % 16 == 0 and dcols.data_ptr() % 16 == 0)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        code = lib.deform_sample_backward(
-            _DTYPES[x.dtype], x.data_ptr(), offsets.data_ptr(), dcols.data_ptr(), acc.data_ptr(),
-            None if acc is dx else dx.data_ptr(), doff.data_ptr(), b, h, w, c, groups, vec,
-            stream)
-    build.check(lib, code, 'deform_sample_backward')
-    deform_sample_backward.launches += 1
-    return dx, doff
-
-
-deform_sample_backward.launches = 0
 
 
 def deform_conv3x3_backward_plain(dy: torch.Tensor, x: torch.Tensor, offsets: torch.Tensor,
@@ -334,45 +290,86 @@ def deform_conv3x3_backward(dy: torch.Tensor, x: torch.Tensor, offsets: torch.Te
     for the output gradient ``dy`` [B, H, W, C_out] (x's dtype), each in its
     input's dtype and layout ([g, 9 * C/g, C_out/g] for the weight).
 
-    A CPU tensor takes :func:`deform_conv3x3_backward_plain`. On CUDA: ``d
-    bias = sum dY`` (float32 sums); ``d cols = dY W^T`` per group and, for
-    each tap, ``dW = cols^T dY`` per group (``torch.bmm``, the JAX
-    package's einsum transposes; the columns from :func:`deform_sample`),
-    then kernel K5' (:func:`deform_sample_backward`) for d x and d offsets.
-    Both column tensors are [B, H*W, 9, C]: 0.52 GB each in bf16 at the B=4
-    camera train step."""
+    A CPU tensor takes :func:`deform_conv3x3_backward_plain`. A CUDA tensor
+    launches kernel K5' (C/g and C_out/g multiples of 8, C_out/g up to
+    :data:`BACKWARD_MAX_GROUP_OUT`; else it raises): two device ops, no
+    column tensor, no ``torch.bmm``. d x's float32 sums meet by atomics (no
+    fixed order); d offsets, d weight and d bias are summed in a fixed
+    order, the same bits on every call. See ``csrc/deform_conv.cu``."""
     _check(x, offsets, weight, bias, groups)
+    b, h, w, c = x.shape
+    g, _, og = weight.shape
+    if dy.shape != (b, h, w, g * og):
+        raise ValueError(f'deform_conv3x3_backward: dy [B, H, W, C_out] = '
+                         f'{(b, h, w, g * og)}, got {tuple(dy.shape)}')
     if x.device.type == 'cpu':
         return deform_conv3x3_backward_plain(dy, x, offsets, weight, bias, groups)
-    _check_cuda(x, offsets, weight, bias, groups)
-    b, h, w, c = x.shape
-    g, k, og = weight.shape
-    cg = c // g
-    if dy.shape != (b, h, w, g * og) or dy.dtype != x.dtype or dy.device != x.device:
-        raise ValueError(f'deform_conv3x3_backward: dy [B, H, W, C_out] = '
-                         f'{(b, h, w, g * og)} of x\'s dtype and device, got {tuple(dy.shape)} '
-                         f'{dy.dtype} {dy.device}')
-    x = x.contiguous()
-    dyg = dy.contiguous().view(b * h * w, g, og).transpose(0, 1)        # [g, BHW, og]
-    d_bias = dy.sum((0, 1, 2), dtype=torch.float32).to(bias.dtype)
-    cols = deform_sample(x, offsets).view(b * h * w, 9, g, cg)         # K5's columns kernel
-    d_weight = torch.stack([torch.bmm(cols[:, t].permute(1, 2, 0), dyg) for t in range(9)],
-                           1).reshape(g, k, og)                         # [g, 9 * cg, og]
-    del cols
-    d_cols = torch.bmm(dyg, weight.transpose(1, 2))                     # [g, BHW, 9 * cg]
-    d_x, d_off = deform_sample_backward(d_cols, x, offsets, g)
+    _check_backward(x, offsets, weight, bias, groups)
+    if dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f'deform_conv3x3_backward: dy of x\'s dtype and device '
+                         f'({x.dtype} on {x.device}), got {dy.dtype} on {dy.device}')
+    if b * h * w == 0:
+        return (torch.zeros_like(x), torch.zeros_like(offsets), torch.zeros_like(weight),
+                torch.zeros_like(bias))
+    x, dy = _aligned(x), _aligned(dy)
+    offsets, weight = offsets.contiguous(), _aligned(weight)
+    dev = x.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib()
+    dtype = _DTYPES[x.dtype]
+    sizes = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(dev):
+        code = lib.deform_conv3x3_backward_scratch(dtype, b, h, w, c, g, g * og,
+                                                   ctypes.cast(sizes, ctypes.c_void_p))
+    build.check(lib, code, 'deform_conv3x3_backward')
+    partials, counters = build.scratch('deform_conv3x3_backward_weight', dev, stream, sizes[0],
+                                       sizes[1])
+    d_x = torch.empty_like(x)
+    sums, barrier = build.scratch('deform_conv3x3_backward_input', dev, stream,
+                                  0 if x.dtype == torch.float32 else x.numel(), 2)
+    if x.dtype == torch.float32:
+        sums = d_x
+    d_off, d_weight = torch.empty_like(offsets), torch.empty_like(weight)
+    d_bias = torch.empty(bias.shape, dtype=bias.dtype, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.deform_conv3x3_backward(
+            dtype, x.data_ptr(), offsets.data_ptr(), weight.data_ptr(), dy.data_ptr(),
+            sums.data_ptr(), None if x.dtype == torch.float32 else d_x.data_ptr(),
+            d_off.data_ptr(), d_weight.data_ptr(), d_bias.data_ptr(), barrier.data_ptr(),
+            partials.data_ptr(), counters.data_ptr(), b, h, w, c, g, g * og, stream)
+    build.check(lib, code, 'deform_conv3x3_backward')
+    deform_conv3x3_backward.launches += 1
     return d_x, d_off, d_weight, d_bias
+
+
+deform_conv3x3_backward.launches = 0
+
+
+def _check_backward(x, offsets, weight, bias, groups):
+    """What kernel K5' takes on top of the fused forward's limits."""
+    _check_cuda(x, offsets, weight, bias, groups)
+    if weight.shape[2] > BACKWARD_MAX_GROUP_OUT:
+        raise ValueError(f'deform_conv3x3_backward: kernel K5\' takes C_out/g up to '
+                         f'{BACKWARD_MAX_GROUP_OUT}, got {weight.shape[2]}')
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a copy only where it is not)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 class DeformConv(torch.autograd.Function):
     """:func:`deform_conv3x3` with a gradient on the card: the forward is
-    the fused kernel K5, the backward :func:`deform_conv3x3_backward`
-    (grouped products by ``torch.bmm``, the columns kernel, kernel K5').
+    the fused kernel K5, the backward kernel K5'
+    (:func:`deform_conv3x3_backward`); shapes the backward does not take
+    raise before the forward runs.
 
     ``DeformConv.apply(x, offsets, weight, bias, groups)``."""
 
     @staticmethod
     def forward(fctx, x, offsets, weight, bias, groups):
+        _check_backward(x, offsets, weight, bias, groups)
         fctx.groups = groups
         fctx.save_for_backward(x, offsets, weight, bias)
         return _fused(x, offsets, weight, bias, groups)

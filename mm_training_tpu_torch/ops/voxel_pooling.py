@@ -15,8 +15,9 @@ it never writes the [M, D, fW, C] slab, see the note there. The raw-rig
 
 Its backward, kernel K4' (``csrc/lift_splat_backward.cu``), gathers the
 output gradient by cell once (zero for the trash cell) and contracts it
-with ctx (d depth, masked by zvalid) and with the masked depth (d ctx), fp32
-sums, every output written once. :class:`LiftSplat` joins the two as a
+with ctx (d depth, masked by zvalid) and with the masked depth (d ctx):
+bf16 on the tensor cores, fp32 sums in a fixed order, every output written
+once. :class:`LiftSplat` joins the two as a
 ``torch.autograd.Function``, which :func:`lift_splat_factorized` takes for
 a CUDA call that needs a gradient; on the CPU the plain version is
 differentiated by autograd, as XLA differentiates the JAX formulation.
@@ -181,7 +182,8 @@ def _lib_backward() -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lift_splat_backward.argtypes = [i32, p, i64, i64, i64, p, i64, i64, i64, i64,
                                         p, i64, i64, i64, i64, p, p, p, i64, i64, i64, i64,
-                                        p, i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, p]
+                                        p, i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, i32,
+                                        p]
     lib.lift_splat_backward.restype = ctypes.c_int
     return lib
 
@@ -198,8 +200,9 @@ def lift_splat_factorized_backward(g: torch.Tensor, depth: torch.Tensor, ctx: to
         d ctx[m, h, w, c]   = sum_d zvalid * depth[m, d, h, w] G[m, d, w, c]
 
     A CPU tensor takes :func:`lift_splat_factorized_backward_plain`; a CUDA
-    tensor launches kernel K4' once (fp32 sums, each output written once,
-    no atomics; C up to 128, fH up to 64) or raises."""
+    tensor launches kernel K4' once (bf16 products on the tensor cores, fp32
+    sums in a fixed order, each output written once, no atomics; C a
+    multiple of 8 up to 128, fH up to 64) or raises."""
     _check(depth, ctx, flat_idx_xy, zvalid)
     m, d, fh, fw = depth.shape
     c = ctx.shape[-1]
@@ -213,13 +216,17 @@ def lift_splat_factorized_backward(g: torch.Tensor, depth: torch.Tensor, ctx: to
     _check_cuda(depth, ctx, flat_idx_xy, zvalid, 'lift_splat_factorized_backward')
     d_depth, d_ctx = torch.empty_like(depth), torch.empty_like(ctx)
     flat_idx_xy, zvalid = flat_idx_xy.contiguous(), zvalid.contiguous()
+    # g's rows by 16-byte copies when its channels are contiguous and aligned
+    es = g.element_size()
+    g_vec = int(g.stride(2) == 1 and g.data_ptr() % 16 == 0
+                and all(st * es % 16 == 0 for st in g.stride()[:2]))
     lib = _lib_backward()
     with torch.cuda.device(depth.device):
         code = lib.lift_splat_backward(
             _DTYPES[depth.dtype], g.data_ptr(), *g.stride(), depth.data_ptr(), *depth.stride(),
             ctx.data_ptr(), *ctx.stride(), flat_idx_xy.data_ptr(), zvalid.data_ptr(),
             d_depth.data_ptr(), *d_depth.stride(), d_ctx.data_ptr(), *d_ctx.stride(), m, d, fh,
-            fw, c, n_cells, torch.cuda.current_stream(depth.device).cuda_stream)
+            fw, c, n_cells, g_vec, torch.cuda.current_stream(depth.device).cuda_stream)
     build.check(lib, code, 'lift_splat_factorized_backward')
     lift_splat_factorized_backward.launches += 1
     return d_depth, d_ctx

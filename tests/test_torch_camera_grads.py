@@ -148,9 +148,10 @@ def test_deform_conv_gradients_match_jax_vjp(kind):
 
 
 def test_deform_sample_backward_is_the_columns_transpose():
-    """K5's transposed sampling (:func:`deform_sample_backward`, the part
-    the card runs as kernel K5') is the adjoint of the columns: <d cols,
-    cols(x)> = <d x, x> (the columns are linear in x), and d offsets is the
+    """K5's transposed sampling (:func:`deform_sample_backward_plain`, the
+    part of the backward that kernel K5' runs on its own d cols, and the
+    reference it is held to on the card) is the adjoint of the columns:
+    <d cols, cols(x)> = <d x, x> (the columns are linear in x), and d offsets is the
     derivative of <d cols, cols> along the offsets, checked against a
     central difference at points off the pixel grid; the columns' gradient
     comes laid out as the grouped product leaves it, [g, B*H*W, 9*C/g]."""
@@ -159,7 +160,7 @@ def test_deform_sample_backward_is_the_columns_transpose():
     rng = np.random.default_rng(46)
     dcols = torch.from_numpy(rng.normal(size=(4, b * h * w, 9 * 4)).astype(np.float32)).double()
     xt, ot = torch.from_numpy(x).double(), torch.from_numpy(off)
-    dx, doff = deform_conv.deform_sample_backward(dcols, xt, ot, 4)
+    dx, doff = deform_conv.deform_sample_backward_plain(dcols, xt, ot, 4)
     assert dx.dtype == torch.float64 and doff.dtype == torch.float32
 
     def inner(o):

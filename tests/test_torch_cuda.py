@@ -422,6 +422,26 @@ def test_affine_act_backward_and_lift_splat_device_ops(gen):
     assert backward == 1 and other == 0 and 1 <= k4 <= 2, ops
 
 
+def test_backward_kernels_device_ops(gen):
+    """torch.profiler over one call each: the DCN's whole backward K5' at
+    the B=1 camera train step's shape ([4, 44, 80, 512] bf16, 4 groups) is
+    at most three device ops, all its own kernels (no fill, copy, column
+    kernel or bmm), K4' at the B=1 camera splat one kernel."""
+    from mm_training_tpu_torch.configs import lidar_cam_radar
+    from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs, splat_inputs
+    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.ops import deform_conv, voxel_pooling
+    x, off, wgt, bias = deform_inputs((4, 44, 80, 512), 4, gen)
+    dy = torch.randn(4, 44, 80, 512, generator=gen, device='cuda').bfloat16()
+    ops = device_ops(lambda: deform_conv.deform_conv3x3_backward(dy, x, off, wgt, bias, 4))
+    assert sum(ops.values()) <= 3 and all('deform_bwd' in n for n in ops), ops
+    depth, ctx, idx, zvalid, n = splat_inputs(lidar_cam_radar(batch_size=1), gen)
+    g = torch.randn(idx.shape[0], n, ctx.shape[-1], generator=gen, device='cuda').bfloat16()
+    ops = device_ops(lambda: voxel_pooling.lift_splat_factorized_backward(g, depth, ctx, idx,
+                                                                          zvalid, n))
+    assert list(ops.values()) == [1] and 'lift_splat_bwd' in next(iter(ops)), ops
+
+
 # ------------------------------------------------- K5 fused, K1 into the encoder
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
@@ -620,28 +640,30 @@ def test_bev_warp_backward_kernel_matches_plain(gen, dtype, c, batch_size):
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('shape,groups,max_offset', [
     ((4, 44, 80, 512), 4, 3.0),      # the B=1 camera path's DCN
-    ((2, 13, 21, 64), 4, 9.0),       # ragged, corners far outside the image
+    ((4, 44, 80, 512), 4, 0.0),      # the same at whole pixels (the zero-initialised offset conv)
+    ((2, 13, 21, 64), 4, 9.0),       # ragged, corners beyond the halo and far outside the image
     ((1, 9, 17, 32), 2, 0.0),        # every sample on a whole pixel
+    ((1, 5, 6, 16), 2, 1.5),         # C/g = C_out/g = 8, one tile not full
 ])
 def test_deform_conv_backward_kernel_matches_plain(gen, dtype, shape, groups, max_offset):
-    """K5's backward (grouped products by ``torch.bmm``, the columns kernel,
-    K5'): d x and d offsets against the plain transposed sampling on the
-    same columns' gradient, within 1e-5 of each entry's sum of |terms| (and
-    for bf16 x one ulp plus the corner weights' bf16 rounding); d weight and
-    d bias within a rounding of their largest entry
-    (``exps/backward_checks.py``). At whole pixels the offsets' gradient is
-    the one-sided difference, not zero."""
+    """K5', the DCN's whole backward (two launches a call, no column
+    tensor): d x and d offsets within 1e-5 of each entry's sum of |terms| of
+    the plain transposed sampling of the float32 d cols, plus one rounding
+    of each d cols entry (bf16: one ulp more, and the corner weights' bf16
+    rounding); d weight and d bias within a rounding of their largest entry
+    of autograd through the plain forward in float64; d offsets, d weight and d bias
+    the same bits on a second call (``exps/backward_checks.py``). At whole
+    pixels the offsets' gradient is the one-sided difference, not zero."""
     from mm_training_tpu_torch.exps.backward_checks import deform_backward_errors
     from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs
     from mm_training_tpu_torch.ops import deform_conv
     x, off, weight, bias = deform_inputs(shape, groups, gen, dtype, max_offset)
-    if max_offset == 0.0:
-        off = off.round()
     dy = torch.randn(*shape[:3], weight.shape[0] * weight.shape[2], generator=gen,
                      device='cuda').to(dtype)
-    before = deform_conv.deform_sample_backward.launches
+    before = (deform_conv.deform_conv3x3_backward.launches, deform_conv.deform_sample.launches)
     errors = deform_backward_errors(x, off, weight, bias, groups, dy)
-    assert deform_conv.deform_sample_backward.launches == before + 1
+    assert (deform_conv.deform_conv3x3_backward.launches,
+            deform_conv.deform_sample.launches) == (before[0] + 2, before[1])
     assert errors['ok'], errors
 
 
@@ -655,7 +677,8 @@ def test_deform_conv3x3_one_device_op_and_refusals(gen):
     """One fused K5 call at the B=1 request's shape is one device kernel (no
     column, copy or fill beside it); a weight of another dtype and C/g off a
     multiple of 8 raise; a gradient request is taken now (DeformConv: the
-    fused forward, then the columns kernel and K5' once each)."""
+    fused forward, then K5' once, no columns kernel), and refused before the
+    forward where K5' does not take C_out/g (above 128)."""
     from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs
     from mm_training_tpu_torch.exps.timing import device_ops
     from mm_training_tpu_torch.ops import deform_conv
@@ -663,11 +686,16 @@ def test_deform_conv3x3_one_device_op_and_refusals(gen):
     ops = device_ops(lambda: deform_conv.deform_conv3x3(x, off, weight, bias, 4))
     assert list(ops.values()) == [1] and 'deform_conv' in next(iter(ops)), ops
     xg = x.float().requires_grad_()
-    before = (deform_conv.deform_sample.launches, deform_conv.deform_sample_backward.launches)
+    before = (deform_conv.deform_sample.launches, deform_conv.deform_conv3x3_backward.launches)
     deform_conv.deform_conv3x3(xg, off, weight.float(), bias.float(), 4).sum().backward()
     assert (deform_conv.deform_sample.launches,
-            deform_conv.deform_sample_backward.launches) == (before[0] + 1, before[1] + 1)
+            deform_conv.deform_conv3x3_backward.launches) == (before[0], before[1] + 1)
     assert xg.grad.shape == x.shape
+    x2, off2, w2, b2 = deform_inputs((1, 9, 17, 512), 2, gen)
+    fwd = deform_conv.deform_conv3x3.launches
+    with pytest.raises(ValueError, match='C_out/g up to 128'):
+        deform_conv.deform_conv3x3(x2.requires_grad_(), off2, w2, b2, 2)
+    assert deform_conv.deform_conv3x3.launches == fwd
     with pytest.raises(ValueError, match='dtype'):
         deform_conv.deform_conv3x3(x, off, weight.float(), bias, 4)
     x12, off12, w12, b12 = deform_inputs((1, 5, 6, 48), 4, gen)
@@ -807,7 +835,7 @@ def test_camera_autograd_reaches_the_backward_kernels(gen):
             1, 5, 8, 16), bda)
         grads = torch.autograd.grad((out * out).sum(), [xs, *m.parameters()])
         return grads
-    counts = (voxel_pooling.lift_splat_factorized_backward, deform_conv.deform_sample_backward,
+    counts = (voxel_pooling.lift_splat_factorized_backward, deform_conv.deform_conv3x3_backward,
               warp.warp_backward)
     before = [f.launches for f in counts]
     got = run()
@@ -819,3 +847,24 @@ def test_camera_autograd_reaches_the_backward_kernels(gen):
         want = run()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item())
+
+
+def test_camera_train_step_runs_the_fused_dcn_backward(gen):
+    """One tiny camera train step on the card: its DCN takes K5' (no columns
+    kernel), its splat K4', and the loss is finite."""
+    from mm_training_tpu_torch.configs import tiny_test_config
+    from mm_training_tpu_torch.exps.profile_train import train_batch
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.ops import deform_conv, voxel_pooling
+    from mm_training_tpu_torch.training import create_train_state, make_train_step
+    cfg = tiny_test_config(use_cam=True)
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=torch.Generator().manual_seed(0))
+    state = create_train_state(cfg, model)
+    kernels = (deform_conv.deform_sample, deform_conv.deform_conv3x3_backward,
+               voxel_pooling.lift_splat_factorized_backward)
+    before = [k.launches for k in kernels]
+    state, metrics = make_train_step(cfg)(state, train_batch(cfg, 0))
+    torch.cuda.synchronize()
+    after = [k.launches for k in kernels]
+    assert after == [before[0], before[1] + 1, before[2] + 1], (before, after)
+    assert torch.isfinite(metrics['train_loss'])
