@@ -4,16 +4,16 @@
     python3 chip_smoke.py        # from the repository root, one NVIDIA H100
 
 Phases, each raising on failure:
-  1. build the ten CUDA sources of ``mm_training_tpu_torch/csrc`` (one
+  1. build the eleven CUDA sources of ``mm_training_tpu_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time; then count
      the device operations of one K3, K7, A', fused K5, K1 encoder-input,
      K6 (``depth_labels`` at the B=1 and the B=4 camera request,
      ``depth_grid_to_onehot`` on a [4, 44, 80] grid) and K2 (the B=4 train
      batch's targets) call (torch.profiler): one kernel each, no copy, no
      fill; of one K4 call at the B=1 and the B=4 camera request's shapes:
-     at most two; and of one call of each backward kernel at those shapes:
-     K4' one kernel, K7' at most three (a fill, the scatter, the rounding
-     to bf16), the DCN's whole backward K5' at most three (two launches);
+     at most two; and of one call of each backward kernel and of the
+     raw-rig splat at those shapes: K4', K7' (the gather), K8 and K8' one
+     kernel each, the DCN's whole backward K5' at most three (two launches);
   2. hold each kernel against its plain PyTorch version at the serving and
      training paths' shapes (K3 also on dense rows, A' also at ResNet-50's
      2048-channel shape, K1 also into the encoder's input at B=1 and B=4,
@@ -51,9 +51,9 @@ Phases, each raising on failure:
      random weights): distinct B=1 requests, one B=4 batch, p50/p90 latency
      at B=1 and B=4 and peak memory (also of one B=4 request alone), with
      every kernel's launch count reset before and read after (the fused K5,
-     no column kernel and no ``torch.bmm``); the fused BEV must be bf16; the
-     share of corners the fused K5 reads beyond its halo on the path's own
-     offsets; the device ops of one B=1 request;
+     no column kernel and no ``torch.bmm``; K4, not K8); the fused BEV must
+     be bf16; the share of corners the fused K5 reads beyond its halo on
+     the path's own offsets; the device ops of one B=1 request;
   9. pred maps of one camera request through the kernels against the plain
      versions (bf16), with a rotated, flipped and scaled BEV augmentation
      and with ``use_depth_loss=False`` (the DCN's depth reaches the splat);
@@ -63,9 +63,9 @@ Phases, each raising on failure:
      offsets, d weight, d bias) and K7' against their plain versions
      (autograd through the plain forward) at the camera train path's shapes,
      B=1 and B=4, bf16 and float32, K5' also at whole pixels
-     (``exps/backward_checks.py``; K4' and K5''s fixed-order outputs the
-     same bits on a second call), timed as in phase 2 beside their bounds
-     and the library calls of the routes they replaced: for K7'
+     (``exps/backward_checks.py``; K4', K7' and K5''s fixed-order outputs
+     the same bits on a second call), timed as in phase 2 beside their
+     bounds and the library calls of the routes they replaced: for K7'
      ``aten.grid_sampler_2d_backward``, for K5' that call plus the ten
      ``torch.bmm`` of the grouped products on the columns;
  11. train the full-width ``lidar_cam_radar`` model at B=4 (bf16 compute
@@ -74,15 +74,36 @@ Phases, each raising on failure:
      samples/s, peak memory), the losses finite, one eval step, every
      kernel's launch count reset before and read after (each kernel of the
      path, the three backward kernels among them, launched; the columns
-     kernel not); the device ops of one step, counted in a process of its
-     own;
+     kernel, K8 and K8' not); the device ops of one step, counted in a
+     process of its own;
  12. one full-width camera step at B=1 (random DCN offsets, a rotated BEV
      augmentation, one image flipped) through the kernels against the plain
      versions in float32, with the depth oracle and without: gradients and
      loss within 1/32 (L2), the plain path's own run-to-run difference
      beside it;
  13. the fp32 tiny camera config's train step on the card against the
-     port's CPU step with the same random draws: loss, update, BN statistics.
+     port's CPU step with the same random draws: loss, update, BN statistics;
+ 14. the raw-rig splat K8 and its backward K8' against their plain versions
+     at the raw-rig path's B=1 and B=4 shapes on the pitched fake rig's own
+     indices, bf16 and float32, depth channels-last and NCHW (1e-5 of each
+     entry's sum of |terms|, one bf16 ulp more in bf16; K8' the same bits
+     on a second call), timed as in phase 2 beside their bounds and plain
+     times, K8 with the atomic adds one launch issues;
+ 15. serve the raw-rig ``lidar_cam_radar`` (``factorized_splat=False``,
+     every camera pitched by 3 degrees) as phase 8 serves the factorized
+     one: distinct B=1 requests, one B=4 batch, p50/p90 at B=1 and B=4;
+     K8 launched and K4 not;
+ 16. its pred maps through the kernels against the plain versions (bf16),
+     as phase 9; the tiny fp32 raw-rig camera configs on the card against
+     the port's CPU path;
+ 17. train the raw-rig model at B=4 as phase 11: 2 warm-up steps, 5 timed
+     steps, one eval step; K8 and K8' launched once a step, K4 and K4'
+     never; the device ops of one step in a process of its own;
+ 18. one full-width raw-rig camera step at B=1 through the kernels against
+     the plain versions in float32, with the depth oracle and without, as
+     phase 12;
+ 19. the fp32 tiny raw-rig camera config's train step on the card against
+     the port's CPU step.
 Each path's device-op count is printed beside the count before the
 one-launch K6 and K2 (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -129,6 +150,7 @@ def _swaps():
             (circle_nms, 'circle_nms_mask', circle_nms.circle_nms_mask_plain),
             (voxel_pooling, 'lift_splat_factorized',
              voxel_pooling.lift_splat_factorized_plain),
+            (voxel_pooling, 'lift_splat', voxel_pooling.lift_splat_plain),
             (deform_conv, 'deform_sample', deform_conv.deform_sample_plain),
             (deform_conv, 'deform_conv3x3', deform_conv.deform_conv3x3_plain),
             (depth_labels, 'depth_labels', depth_labels.depth_labels_plain),
@@ -138,7 +160,8 @@ def _swaps():
             (voxel_pooling, 'lift_splat_factorized_backward',
              voxel_pooling.lift_splat_factorized_backward_plain),
             (deform_conv, 'deform_conv3x3_backward', deform_conv.deform_conv3x3_backward_plain),
-            (warp, 'warp_backward', warp.warp_backward_plain))
+            (warp, 'warp_backward', warp.warp_backward_plain),
+            (voxel_pooling, 'lift_splat_backward', voxel_pooling.lift_splat_backward_plain))
 
 
 def _wrappers():
@@ -203,11 +226,11 @@ def _encoder_channels(cfg):
 def _path_device_ops(label, fn):
     """Print and return the device operations of one call of a path,
     beside the count before the one-launch K6 and K2
-    (``BEFORE_DEVICE_OPS``)."""
+    (``BEFORE_DEVICE_OPS``, where the path had one)."""
     from mm_training_tpu_torch.exps.timing import device_ops
     n = sum(device_ops(fn).values())
     print(f'device ops of one {label}: {n} (before the one-launch K6 and K2: '
-          f'{BEFORE_DEVICE_OPS[label]})', flush=True)
+          f'{BEFORE_DEVICE_OPS.get(label, "no such path")})', flush=True)
     return n
 
 
@@ -228,7 +251,8 @@ def count_device_ops(cfg, cam_cfg):
     {kernel row name: device ops a call}."""
     from mm_training_tpu_torch.data import make_fake_batch, random_bda_matrices
     from mm_training_tpu_torch.exps.kernel_inputs import (deform_inputs, deform_shape,
-                                                          depth_label_inputs, splat_inputs)
+                                                          depth_label_inputs, raw_splat_inputs,
+                                                          splat_inputs)
     from mm_training_tpu_torch.exps.timing import device_ops
     from mm_training_tpu_torch.models.centerpoint_head import heatmap_inputs
     from mm_training_tpu_torch.ops import (affine_act, circle_nms, deform_conv, depth_labels,
@@ -302,16 +326,21 @@ def count_device_ops(cfg, cam_cfg):
         other = sum(n for name, n in ops.items() if not any(v in name for v in keys.values()))
         for row, key in keys.items():
             per_call[row] = other + sum(n for name, n in ops.items() if key in name)
-    # the backward kernels, each in a session of its own (K7''s fill and
-    # bf16 rounding have no kernel name of theirs): K4' one kernel; K7' a
-    # fill of its float32 buffer, the scatter and the rounding to bf16; K5'
-    # two (d x and d offsets, then d weight and d bias), three at most.
-    # Counted here, before any backward runs: after the kernels have
+    # the backward kernels and the raw-rig splat, each in a session of its
+    # own: K4', K7' (the gather: no fill, no rounding kernel), K8 and K8' one
+    # kernel; K5' two (d x and d offsets, then d weight and d bias), three at
+    # most. Counted here, before any backward runs: after the kernels have
     # launched from autograd's device thread, later sessions of a process
     # have come back empty (PERF.md section 7)
-    bwd_limits = {'lift_splat_factorized_backward': 1, 'warp_backward': 3,
-                  'deform_conv3x3_backward': 3}
+    bwd_limits = {'lift_splat_factorized_backward': 1, 'warp_backward': 1,
+                  'deform_conv3x3_backward': 3, 'lift_splat': 1, 'lift_splat_backward': 1}
+    bwd_names = {'lift_splat_factorized_backward': 'lift_splat_bwd',
+                 'warp_backward': 'bev_warp_bwd', 'deform_conv3x3_backward': 'deform_bwd',
+                 'lift_splat': 'lift_splat_raw_kernel', 'lift_splat_backward': 'lift_splat_raw_bwd'}
     for bsz, s1, sp, dcn in ((1, '', splat1, dcn1), (4, '_b4', splat4, dcn4)):
+        raw = raw_splat_inputs(cam_cfg.replace(batch_size=bsz), gen, seed=SEED + 8)
+        graw = torch.randn(raw[2].shape[0], raw[3], bb.output_channels, generator=gen,
+                           device=dev).bfloat16()
         gsp = torch.randn(sp[2].shape[0], sp[4], bb.output_channels, generator=gen,
                           device=dev).bfloat16()
         img = torch.randn(bsz, *bb.bev_hw, bb.output_channels, generator=gen, device=dev).bfloat16()
@@ -324,15 +353,19 @@ def count_device_ops(cfg, cam_cfg):
                  lambda sp=sp, gsp=gsp: voxel_pooling.lift_splat_factorized_backward(gsp, *sp)),
                 ('warp_backward', lambda img=img, bdab=bdab: warp.warp_backward(img, img, bdab, 4)),
                 ('deform_conv3x3_backward',
-                 lambda dcn=dcn, dy=dy: deform_conv.deform_conv3x3_backward(dy, *dcn, 4))):
+                 lambda dcn=dcn, dy=dy: deform_conv.deform_conv3x3_backward(dy, *dcn, 4)),
+                ('lift_splat', lambda raw=raw: voxel_pooling.lift_splat(*raw)),
+                ('lift_splat_backward',
+                 lambda raw=raw, graw=graw: voxel_pooling.lift_splat_backward(graw, *raw))):
             ops = device_ops(fn)
             per_call[name + s1] = sum(ops.values())
             print(f'device ops of one {name}{s1} call (torch.profiler): {json.dumps(ops)}',
                   flush=True)
-            if per_call[name + s1] > bwd_limits[name]:
-                raise AssertionError(f'{name}{s1}: {per_call[name + s1]} device ops a call, '
-                                     f'more than {bwd_limits[name]}')
-    del gsp, img, dy
+            if (per_call[name + s1] > bwd_limits[name]
+                    or not all(bwd_names[name] in op for op in ops)):
+                raise AssertionError(f'{name}{s1}: {ops} a call, more than {bwd_limits[name]} '
+                                     f'device ops or one not named {bwd_names[name]}')
+    del gsp, img, dy, raw, graw
     one = ('circle_nms_mask', 'bda_bev_warp', 'affine_act_backward_residual',
            'affine_act_backward_resnet50', 'deform_conv3x3', 'deform_conv3x3_b4',
            'pillar_encoder_input', 'pillar_encoder_input_b4', 'depth_labels',
@@ -677,10 +710,10 @@ def compare_plain(model, request):
     return worst
 
 
-def compare_cpu_reference(cfg=None, bda=None):
-    """Phase 4b (and 9b with a camera config): the fp32 tiny config on the
-    card vs the port's CPU path; ``bda`` replaces the batch's identity
-    ``bda_mat``."""
+def compare_cpu_reference(cfg=None, bda=None, pitch_deg=0.0):
+    """Phase 4b (and 9b, 16b with a camera config): the fp32 tiny config on
+    the card vs the port's CPU path; ``bda`` replaces the batch's identity
+    ``bda_mat``, ``pitch_deg`` pitches the rig's cameras."""
     from mm_training_tpu_torch.configs import tiny_test_config
     from mm_training_tpu_torch.data import make_fake_batch
     from mm_training_tpu_torch.models import BEVDepthLiDAR
@@ -694,7 +727,7 @@ def compare_cpu_reference(cfg=None, bda=None):
     _randomize_bn(cpu_model, gen)
     _randomize_offsets(cpu_model, gen)
     gpu_model = copy.deepcopy(cpu_model).to('cuda')
-    batch = make_fake_batch(cfg, seed=SEED + 2)
+    batch = make_fake_batch(cfg, seed=SEED + 2, pitch_deg=pitch_deg)
     if bda is not None:
         batch['bda_mat'] = bda
     gb, gs, gl, gv = (o.cpu().numpy() for o in make_predict_step(cfg, gpu_model)(batch))
@@ -707,8 +740,9 @@ def compare_cpu_reference(cfg=None, bda=None):
         same = gv[b] & (gl[b] == wl[b, i]) & (np.abs(gs[b] - ws[b, i]) <= 1e-4)
         worst = max(worst, float(np.abs(gb[b, same] - wb[b, i]).max(-1).min()))
     print(f'tiny fp32 card vs CPU (camera {cfg.use_cam}, depth oracle '
-          f'{cfg.use_cam and cfg.use_depth_loss}): {int(wv.sum())} kept boxes, worst box err '
-          f'{worst:.3g}', flush=True)
+          f'{cfg.use_cam and cfg.use_depth_loss}, raw rig '
+          f'{not cfg.get_backbone_conf().factorized_splat}): {int(wv.sum())} kept boxes, '
+          f'worst box err {worst:.3g}', flush=True)
     if not worst <= 1e-3:
         raise AssertionError(f'tiny fp32 boxes differ from the CPU path by {worst}')
 
@@ -802,11 +836,12 @@ def compare_plain_gradients(cfg, state, batch):
     return rel
 
 
-def compare_cpu_train(cfg=None):
-    """Phase 6 (and 13 with a camera config): the fp32 tiny config's train
-    step on the card against the port's CPU step (TF32 off); with the
+def compare_cpu_train(cfg=None, pitch_deg=0.0):
+    """Phase 6 (and 13, 19 with a camera config): the fp32 tiny config's
+    train step on the card against the port's CPU step (TF32 off); with the
     camera, random DCN offsets, a rotated BEV augmentation and the same
-    random draws (flips, dropout) on both."""
+    random draws (flips, dropout) on both; ``pitch_deg`` pitches the rig's
+    cameras."""
     from mm_training_tpu_torch.configs import tiny_test_config
     from mm_training_tpu_torch.data import make_fake_batch, random_bda_matrices
     from mm_training_tpu_torch.models import BEVDepthLiDAR
@@ -818,7 +853,7 @@ def compare_cpu_train(cfg=None):
     gen = torch.Generator().manual_seed(SEED + 5)
     cpu_model = BEVDepthLiDAR(cfg, device='cpu', generator=gen)
     _randomize_bn(cpu_model, gen)
-    batch = make_fake_batch(cfg, seed=SEED + 6)
+    batch = make_fake_batch(cfg, seed=SEED + 6, pitch_deg=pitch_deg)
     draws = {'cuda': None, 'cpu': None}
     if cfg.use_cam:
         _randomize_offsets(cpu_model, gen)
@@ -848,7 +883,8 @@ def compare_cpu_train(cfg=None):
         if n.endswith(('running_mean', 'running_var')):
             stats_err = max(stats_err, ((b_gpu.cpu() - b_cpu).abs()
                                         / (1 + b_cpu.abs())).max().item())
-    print(f'tiny fp32 train step card vs CPU (camera {cfg.use_cam}): loss rel diff '
+    print(f'tiny fp32 train step card vs CPU (camera {cfg.use_cam}, raw rig '
+          f'{not cfg.get_backbone_conf().factorized_splat}): loss rel diff '
           f'{loss_rel:.3g}, update diff {worst_all / lr:.4g} lr everywhere, '
           f'{worst_strong / lr:.4g} lr where |g| is strong; BN stats {stats_err:.3g}',
           flush=True)
@@ -1128,8 +1164,11 @@ def check_camera_kernels(cfg):
     return rows
 
 
-def serve_camera(cfg):
-    """Phase 8: the full-width camera + LiDAR + radar predict path."""
+def serve_camera(cfg, pitch_deg=0.0, iters=(60, 20)):
+    """Phase 8 (and 15 on the raw rig): the full-width camera + LiDAR + radar
+    predict path; ``pitch_deg`` pitches the fake rig's cameras, ``iters``
+    are the B=1 and B=4 latency samples. The splat is K4 for the factorized
+    config and K8 for the raw-rig one, and the other is never launched."""
     from mm_training_tpu_torch.data import make_fake_batch
     from mm_training_tpu_torch.exps.inference import benchmark_latency
     from mm_training_tpu_torch.models import BEVDepthLiDAR
@@ -1151,9 +1190,14 @@ def serve_camera(cfg):
     next(m for m in model.modules() if isinstance(m, DeformConv2d)).register_forward_pre_hook(
         keep_dcn_input)
     predict = make_predict_step(cfg, model)
-    requests = [make_fake_batch(cfg, batch_size=1, seed=SEED + 11 + i) for i in range(3)]
-    big = make_fake_batch(cfg, batch_size=4, seed=SEED + 20)
+    requests = [make_fake_batch(cfg, batch_size=1, seed=SEED + 11 + i, pitch_deg=pitch_deg)
+                for i in range(3)]
+    big = make_fake_batch(cfg, batch_size=4, seed=SEED + 20, pitch_deg=pitch_deg)
     wrappers = _wrappers()
+    raw = not cfg.get_backbone_conf().factorized_splat
+    label = 'raw-rig camera' if raw else 'camera'
+    splat, other = (('lift_splat', 'lift_splat_factorized') if raw
+                    else ('lift_splat_factorized', 'lift_splat'))
 
     bmm_calls = []
     bmm = torch.bmm
@@ -1174,8 +1218,8 @@ def serve_camera(cfg):
         t0 = time.perf_counter()
         out_big = [o.cpu() for o in predict(big)]
         lat_big = (time.perf_counter() - t0) * 1e3
-    stats = benchmark_latency(predict, requests[0], iters=60)
-    stats_b4 = benchmark_latency(predict, big, iters=20)
+    stats = benchmark_latency(predict, requests[0], iters=iters[0])
+    stats_b4 = benchmark_latency(predict, big, iters=iters[1])
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = {n: w.launches for n, w in wrappers.items()}
     calls = len(requests) + 1 + (stats['samples'] + 1) + (stats_b4['samples'] + 1)
@@ -1185,11 +1229,11 @@ def serve_camera(cfg):
     base_gib = torch.cuda.memory_allocated() / 2 ** 30
     [o.cpu() for o in predict(big)]
     peak_b4_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'serve camera: peak device memory of one B=4 request {peak_b4_gib:.4f} GiB, '
+    print(f'serve {label}: peak device memory of one B=4 request {peak_b4_gib:.4f} GiB, '
           f'{peak_b4_gib - base_gib:.4f} GiB above the {base_gib:.4f} GiB held between '
-          f'requests (before the fused K5: {BEFORE_CAMERA_B4_ABOVE_GIB} GiB above); torch.bmm '
-          f'calls on the '
-          f'path {len(bmm_calls)}', flush=True)
+          f'requests (before the fused K5, the factorized config: '
+          f'{BEFORE_CAMERA_B4_ABOVE_GIB} GiB above); torch.bmm calls on the path '
+          f'{len(bmm_calls)}', flush=True)
     # the share of bilinear corners the fused K5 read from L2 on the path's
     # own offsets (the DepthNet's input of the first request)
     with torch.inference_mode():
@@ -1203,21 +1247,22 @@ def serve_camera(cfg):
           f'({from_l2 / corners:.6f}); |offset| mean {off_abs.mean().item():.4f} px, '
           f'99.9th percentile {off_abs.flatten().float().quantile(0.999).item():.4f} px, '
           f'max {off_abs.max().item():.4f} px', flush=True)
-    _path_device_ops('lidar_cam_radar B=1 request',
+    _path_device_ops(f'lidar_cam_radar{" raw-rig" if raw else ""} B=1 request',
                      lambda: [o.cpu() for o in predict(requests[0])])
 
-    print(f'serve camera: {len(requests)} B=1 requests {[round(v, 3) for v in lat]} ms '
+    print(f'serve {label}: {len(requests)} B=1 requests {[round(v, 3) for v in lat]} ms '
           f'(first includes warm-up), B=4 batch {lat_big:.3f} ms; '
           f'max_memory_allocated {peak_gib:.3f} GiB', flush=True)
-    print('serve camera latency B=1: ' + json.dumps(stats), flush=True)
-    print('serve camera latency B=4: ' + json.dumps(stats_b4), flush=True)
-    print(f'serve camera: launches over {calls} predict calls {json.dumps(counts)}; '
+    print(f'serve {label} latency B=1: ' + json.dumps(stats), flush=True)
+    print(f'serve {label} latency B=4: ' + json.dumps(stats_b4), flush=True)
+    print(f'serve {label}: launches over {calls} predict calls {json.dumps(counts)}; '
           f'fused BEV dtypes {sorted(map(str, fused_dtypes))}', flush=True)
-    missing = [n for n in ('affine_act', 'pillar_encoder_input', 'circle_nms_mask',
-                           'lift_splat_factorized', 'deform_conv3x3', 'depth_labels',
-                           'bda_bev_warp') if counts[n] == 0]
+    missing = [n for n in ('affine_act', 'pillar_encoder_input', 'circle_nms_mask', splat,
+                           'deform_conv3x3', 'depth_labels', 'bda_bev_warp') if counts[n] == 0]
     if missing:
-        raise AssertionError(f'kernels never launched on the camera path: {missing}')
+        raise AssertionError(f'kernels never launched on the {label} path: {missing}')
+    if counts[other]:
+        raise AssertionError(f'the {label} path launched {other}: {counts}')
     # the fused K5 holds no column tensor: no columns kernel, no batched
     # product; the encoder takes K1's own layout
     if counts['deform_sample'] or counts['voxelize_pillars_dense'] or bmm_calls:
@@ -1358,6 +1403,7 @@ def check_backward_kernels(cfg):
             lambda img=img, gw=gw, bda=bda: warp.warp_backward_plain(gw, img, bda, 4),
             2 * img.numel() * 2 + bda.numel() * 4, 8 * img.numel(), FP32_FLOPS, 10,
             max_abs_err=checks[f'warp_backward B={bsz} {torch.bfloat16}']['max_abs_err'],
+            deterministic=checks[f'warp_backward B={bsz} {torch.bfloat16}']['deterministic'],
             library_ms=device_ms(library, 20), library='aten.grid_sampler_2d_backward (fp32)',
             shape=list(img.shape), dtype='bfloat16')
         del img, gw, src32, g32, grid
@@ -1432,6 +1478,88 @@ def check_backward_kernels(cfg):
     return rows
 
 
+def check_raw_splat_kernels(cfg):
+    """Phase 14: kernels K8 (``lift_splat``) and K8' (``lift_splat_backward``)
+    against their plain versions at the raw-rig path's B=1 and B=4 shapes
+    (4 and 16 cameras x 409 bins x 44 x 80 pixels, C 80, 8192 cells), on the
+    pitched fake rig's own indices, in bf16 and float32, depth channels-last
+    (under the depth oracle) and NCHW (without it), with the tolerances of
+    ``exps/backward_checks.py``; K8' also the same bits on a second call.
+    Each timed as phase 2 times kernels, beside its bound, its plain time
+    and, for K8, the atomic adds one launch issues (counted by the kernel on
+    the card). No single PyTorch call computes either: no library time."""
+    from mm_training_tpu_torch.exps import backward_checks
+    from mm_training_tpu_torch.exps.kernel_inputs import raw_splat_inputs
+    from mm_training_tpu_torch.exps.timing import device_ms, host_ms
+    from mm_training_tpu_torch.ops import voxel_pooling
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    c = cfg.get_backbone_conf().output_channels
+    rows, checks = [], {}
+    for bsz in (1, 4):
+        suffix = '' if bsz == 1 else '_b4'
+        b4 = cfg.replace(batch_size=bsz)
+        for layout in ('channels_last', 'nchw'):
+            for dtype in (torch.bfloat16, torch.float32):
+                depth, ctx, idx, n_cells = args = raw_splat_inputs(b4, gen, layout, dtype,
+                                                                   seed=SEED + 8)
+                g = torch.randn(idx.shape[0], n_cells, c, generator=gen, device=dev).to(dtype)
+                checks[f'lift_splat B={bsz} {layout} {dtype}'] = \
+                    backward_checks.raw_splat_errors(*args)
+                checks[f'lift_splat_backward B={bsz} {layout} {dtype}'] = \
+                    backward_checks.raw_splat_backward_errors(*args, g)
+                del depth, ctx, idx, g, args
+        depth, ctx, idx, n_cells = args = raw_splat_inputs(b4, gen, seed=SEED + 8)
+        g = torch.randn(idx.shape[0], n_cells, c, generator=gen, device=dev).bfloat16()
+        kept = int((idx < n_cells).sum())
+        before, after = voxel_pooling.raw_splat_atomic_adds(*args)
+        # depth, ctx and the indices read once, the BEV written once; a
+        # product and an add a kept (row, channel)
+        nbytes = depth.numel() * 2 + ctx.numel() * 2 + idx.numel() * 4 + g.numel() * 2
+        for name, fn, plain, total, flops, extra in (
+                ('lift_splat', lambda a=args: voxel_pooling.lift_splat(*a),
+                 lambda a=args: voxel_pooling.lift_splat_plain(*a), nbytes, 2 * kept * c,
+                 dict(atomic_adds={'before_merge': before, 'after_merge': after,
+                                   'before': 'kept rows x C scalar fp32 adds the runs stand for',
+                                   'after': '16-byte adds issued (a run of bins x 4 channels)',
+                                   'counted_by': 'the kernel, on the card'},
+                      kept_rows_x_c=kept * c, rows_off_the_grid=int(idx.numel() - kept))),
+                ('lift_splat_backward',
+                 lambda a=args, g=g: voxel_pooling.lift_splat_backward(g, *a),
+                 lambda a=args, g=g: voxel_pooling.lift_splat_backward_plain(g, *a),
+                 nbytes + depth.numel() * 2 + ctx.numel() * 2, 4 * kept * c, {})):
+            res = checks[f'{name} B={bsz} channels_last {torch.bfloat16}']
+            bound_ms, bound_by = _bound(total, flops, FP32_FLOPS)
+            rows.append(dict(
+                name=name + suffix, route='cuda',
+                source='mm_training_tpu_torch/csrc/lift_splat_raw.cu',
+                replaces='mm_training_tpu/ops/voxel_pooling.py:83' + (
+                    '' if name == 'lift_splat' else ' (its autodiff; no TPU kernel)'),
+                ms=device_ms(fn, 20), call_ms=host_ms(fn, 20), plain_ms=device_ms(plain, 2),
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=res['max_abs_err'],
+                deterministic=res.get('deterministic'), library_ms=None,
+                shape=list(depth.shape) + [c], dtype='bfloat16', **extra))
+        del depth, ctx, idx, g, args
+    for r in rows:
+        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']} ms={r['ms']:.6f} "
+              f"call_ms={r['call_ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']}",
+              flush=True)
+    print('raw-rig splat kernels against their plain versions: ' + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk in ('ok', 'max_abs_err', 'deterministic')}
+         for k, v in checks.items()}), flush=True)
+    bad = {k: v for k, v in checks.items() if not v['ok']}
+    for r in rows:
+        adds = r.get('atomic_adds')
+        if adds and not (adds['before_merge'] == r['kept_rows_x_c']
+                         and 0 < 4 * adds['after_merge'] < adds['before_merge']):
+            bad[r['name']] = adds
+    if bad:
+        raise AssertionError(f'the raw-rig splat kernels differ from their plain versions: {bad}')
+    return rows
+
+
 def _camera_draws(cfg, imgs_shape, seed, device, flipped=None):
     """A camera train step's random draws from a CPU generator (the same
     bits on any device), moved to ``device``; ``flipped`` overrides the flips."""
@@ -1450,13 +1578,16 @@ CAMERA_TRAIN_KERNELS = ('affine_act', 'affine_act_backward', 'pillar_encoder_inp
                         'warp_backward')
 
 
-def train_camera(cfg):
-    """Phase 11: the full-width ``lidar_cam_radar`` train path at B=4 through
-    its entry points (bf16 compute over float32 masters, one fixed fake
-    batch with a rotated BEV augmentation, the step's own random flips and
+def train_camera(cfg, pitch_deg=0.0, steps=10):
+    """Phase 11 (and 17 on the raw rig): the full-width ``lidar_cam_radar``
+    train path at B=4 through its entry points (bf16 compute over float32
+    masters, one fixed fake batch with a rotated BEV augmentation and its
+    cameras pitched by ``pitch_deg``, the step's own random flips and
     dropout from its generator, seeded with the config's seed): 2 warm-up
-    steps, 10 timed steps,
-    one eval step, every kernel's launch count reset before and read after."""
+    steps, ``steps`` timed steps, one eval step, every kernel's launch count
+    reset before and read after. The splat is K4 and K4' for the factorized
+    config and K8 and K8' for the raw-rig one, and the other pair is never
+    launched."""
     from mm_training_tpu_torch.exps.profile_train import benchmark_train, train_batch
     from mm_training_tpu_torch.models import BEVDepthLiDAR
     from mm_training_tpu_torch.training import (create_train_state, make_eval_step,
@@ -1467,9 +1598,16 @@ def train_camera(cfg):
     state = create_train_state(cfg, model)
     train_step = make_train_step(cfg)
     eval_step = make_eval_step(cfg)
-    batch = train_batch(cfg, SEED + 34)
+    batch = train_batch(cfg, SEED + 34, pitch_deg)
     wrappers = _wrappers()
     parts = []
+    raw = not cfg.get_backbone_conf().factorized_splat
+    label = 'raw-rig camera' if raw else 'camera'
+    swap = {'lift_splat_factorized': 'lift_splat',
+            'lift_splat_factorized_backward': 'lift_splat_backward'}
+    expected = [swap.get(n, n) if raw else n for n in CAMERA_TRAIN_KERNELS]
+    never = ['voxelize_pillars_dense', 'deform_sample'] + [
+        n for pair in swap.items() for n in pair if n not in expected]
 
     for w in wrappers.values():
         w.launches = 0
@@ -1484,28 +1622,29 @@ def train_camera(cfg):
         state, m = train_step(state, batch)
         parts.append((m['train_detection_loss'], m['train_depth_loss']))
         return state, m
-    stats = benchmark_train(step, state, batch, steps=10)
+    stats = benchmark_train(step, state, batch, steps=steps)
     ev_metrics, (boxes, scores, _, _), viz = eval_step(state, batch)
     torch.cuda.synchronize()
     counts = {n: w.launches for n, w in wrappers.items()}
     parts = [(float(a), float(b)) for a, b in parts]
 
-    print(f'train camera: 2 warm-up steps {warm_ms:.3f} ms; B=4 step p50 {stats["p50_ms"]:.3f} '
-          f'ms p90 {stats["p90_ms"]:.3f} ms, {stats["samples_per_s"]:.3f} samples/s, peak '
-          f'device memory (warm-up and timed steps) {stats["max_memory_allocated_gb"]:.3f} GiB',
-          flush=True)
-    print('train camera: losses ' + json.dumps([round(v, 4) for v in stats['losses']])
+    print(f'train {label}: 2 warm-up steps {warm_ms:.3f} ms; B=4 step p50 '
+          f'{stats["p50_ms"]:.3f} ms p90 {stats["p90_ms"]:.3f} ms, '
+          f'{stats["samples_per_s"]:.3f} samples/s, peak device memory (warm-up and timed '
+          f'steps) {stats["max_memory_allocated_gb"]:.3f} GiB', flush=True)
+    print(f'train {label}: losses ' + json.dumps([round(v, 4) for v in stats['losses']])
           + '; (detection, depth) ' + json.dumps([(round(a, 4), round(b, 4)) for a, b in parts])
           + f'; eval loss {float(ev_metrics["loss"]):.4f} (depth '
           f'{float(ev_metrics["depth_loss"]):.4f})', flush=True)
-    print(f'train camera: launches over 12 train steps and 1 eval step {json.dumps(counts)}',
-          flush=True)
-    missing = [n for n in CAMERA_TRAIN_KERNELS if counts[n] == 0]
+    print(f'train {label}: launches over {steps + 2} train steps and 1 eval step '
+          f'{json.dumps(counts)}', flush=True)
+    missing = [n for n in expected if counts[n] == 0]
     if missing:
-        raise AssertionError(f'kernels never launched on the camera train path: {missing}')
-    if counts['voxelize_pillars_dense'] or counts['deform_sample']:
-        raise AssertionError('the camera train path launched K1 in its plain layout or the '
-                             'columns kernel')
+        raise AssertionError(f'kernels never launched on the {label} train path: {missing}')
+    if any(counts[n] for n in never):
+        raise AssertionError(f'the {label} train path launched one of {never}: {counts}')
+    if raw and (counts['lift_splat'], counts['lift_splat_backward']) != (steps + 3, steps + 2):
+        raise AssertionError(f'K8 and K8\' are not launched once a step: {counts}')
     if not (all(np.isfinite(stats['losses'])) and np.isfinite(parts).all()
             and torch.isfinite(ev_metrics['loss'])):
         raise AssertionError('non-finite camera train or eval loss')
@@ -1519,20 +1658,22 @@ def train_camera(cfg):
     torch.cuda.empty_cache()
     out = subprocess.run([sys.executable, '-m', 'mm_training_tpu_torch.exps.profile_train',
                           '--config', 'lidar_cam_radar', '--batch-size', '4', '--warmup', '1',
-                          '--ops-only'], capture_output=True, text=True, timeout=600)
+                          '--ops-only'] + (['--raw-rig'] if raw else []),
+                         capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
-        raise AssertionError(f'counting the camera train step\'s device ops failed:\n'
+        raise AssertionError(f'counting the {label} train step\'s device ops failed:\n'
                              f'{out.stderr[-3000:]}')
     n_ops = json.loads(out.stdout.strip().splitlines()[-1])['device_ops_one_step']
-    print(f'device ops of one lidar_cam_radar B=4 train step: {n_ops} (a process of its own)',
-          flush=True)
+    print(f'device ops of one {label} lidar_cam_radar B=4 train step: {n_ops} (a process of '
+          f'its own)', flush=True)
     stats['device_ops_one_step'] = n_ops
     stats['warm_up_ms'] = warm_ms
     return counts, stats
 
 
-def compare_plain_gradients_camera(cfg):
-    """Phase 12: one full-width ``lidar_cam_radar`` step at B=1 (random DCN
+def compare_plain_gradients_camera(cfg, pitch_deg=0.0):
+    """Phase 12 (and 18 on the raw rig, its cameras pitched by
+    ``pitch_deg``): one full-width ``lidar_cam_radar`` step at B=1 (random DCN
     offsets, so K5 interpolates; a rotated BEV augmentation; one image
     flipped; the same dropout masks) through the kernels against the same
     step with every kernel swapped for its plain version: gradients and
@@ -1557,7 +1698,7 @@ def compare_plain_gradients_camera(cfg):
     model = BEVDepthLiDAR(cfg, device='cuda', generator=gen)
     _randomize_offsets(model, gen)
     state = create_train_state(cfg, model)
-    batch = train_batch(cfg, SEED + 36)
+    batch = train_batch(cfg, SEED + 36, pitch_deg)
     draws = _camera_draws(cfg, batch['imgs'].shape, SEED + 37, 'cuda',
                           flipped=[True, False, False, False])
     buffers = {n: b.clone() for n, b in model.named_buffers()}
@@ -1584,7 +1725,9 @@ def compare_plain_gradients_camera(cfg):
         out[label] = {'grad_rel_l2': rel, 'plain_run_to_run_rel_l2': floor,
                       'loss_rel': loss_rel,
                       'worst_tensors': [(n, round(v, 5)) for v, n in per[:4]]}
-    print('camera train gradients kernels vs plain (fp32, B=1): ' + json.dumps(out), flush=True)
+    raw = not cfg.get_backbone_conf().factorized_splat
+    print(f'{"raw-rig " if raw else ""}camera train gradients kernels vs plain (fp32, B=1): '
+          + json.dumps(out), flush=True)
     # the float32 sums of K1, K4, K4', K5, K5', K7' and A' (and of the
     # plain versions' index_add_) in another order: allow 1/32 over all
     # parameters, as phase 5b does
@@ -1597,8 +1740,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
-    from mm_training_tpu_torch.configs import lidar_cam_radar, lidar_radar, tiny_test_config
+    from mm_training_tpu_torch.configs import (lidar_cam_radar, lidar_radar, raw_rig,
+                                               tiny_test_config)
     from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.exps.profile_train import RAW_RIG_PITCH_DEG
     from mm_training_tpu_torch.ops import build
 
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -1636,16 +1781,33 @@ def main() -> int:
     compare_plain_gradients_camera(cam_cfg)
     compare_cpu_train(tiny_test_config(use_cam=True))
 
+    rows += check_raw_splat_kernels(cam_cfg)
+    raw_cfg = raw_rig(cam_cfg)
+    raw_model, raw_request, raw_counts, raw_calls, _ = serve_camera(raw_cfg, RAW_RIG_PITCH_DEG,
+                                                                    iters=(30, 10))
+    compare_plain_camera(raw_model, raw_cfg, raw_request)
+    del raw_model
+    for kw in (dict(), dict(use_depth_loss=False)):
+        compare_cpu_reference(raw_rig(tiny_test_config(use_cam=True, **kw)),
+                              bda=random_bda_matrices(2, SEED + 13), pitch_deg=RAW_RIG_PITCH_DEG)
+    raw_train_counts, _ = train_camera(raw_cfg, RAW_RIG_PITCH_DEG, steps=5)
+    compare_plain_gradients_camera(raw_cfg, RAW_RIG_PITCH_DEG)
+    compare_cpu_train(raw_rig(tiny_test_config(use_cam=True)), RAW_RIG_PITCH_DEG)
+
     wrappers = _wrappers()
     for row in rows:
         name = max((w for w in wrappers if row['name'].startswith(w)), key=len)
         by_path = {'serve': counts[name], 'train': train_counts[name],
-                   'serve_camera': cam_counts[name], 'train_camera': cam_train_counts[name]}
+                   'serve_camera': cam_counts[name], 'train_camera': cam_train_counts[name],
+                   'serve_camera_raw': raw_counts[name],
+                   'train_camera_raw': raw_train_counts[name]}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,
                                        'serve_camera': cam_counts[name] / cam_calls,
-                                       'train_camera_step': cam_train_counts[name] / 13}
+                                       'train_camera_step': cam_train_counts[name] / 13,
+                                       'serve_camera_raw': raw_counts[name] / raw_calls,
+                                       'train_camera_raw_step': raw_train_counts[name] / 8}
         if row['name'] in ops_per_call:
             row['device_kernels_per_call'] = ops_per_call[row['name']]
     print(json.dumps({'kernels': rows}))

@@ -9,8 +9,9 @@ loss, clipped AdamW), slice 3 the camera branch and fusion on the serving
 path (ResNet-50, DepthNet with the deformable conv, the LiDAR depth oracle,
 the factorized lift-splat, the BEV warp), slice 4 the camera train and eval
 steps (the depth loss, random flips and dropout, the backward kernels of the
-splat, the deformable conv and the warp), with their hand-written kernels
-under ``csrc/``.
+splat, the deformable conv and the warp), and the raw-rig form of the camera
+path (a rig with roll, pitch or skew: the general lift-splat and its
+backward), with their hand-written kernels under ``csrc/``.
 
 Entry points run on the card (``device='cuda'``) unless the caller passes
 ``device='cpu'``; without a card they raise rather than fall back.

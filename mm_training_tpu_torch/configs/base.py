@@ -58,7 +58,7 @@ class BackboneConf:
     # head-input grid (grid/8): 1.6 m cells for the default geometry
     bev_pool_downsample: int = 2
     # the row-factorized splat (kernel K4), exact for the virtualized
-    # zero-roll/pitch rig; False (raw rigs) is not ported yet
+    # zero-roll/pitch rig; False: the general splat (kernel K8) for raw rigs
     factorized_splat: bool = True
 
     @property

@@ -2,6 +2,8 @@
 ``mm_training_tpu/configs/variants.py``)."""
 from __future__ import annotations
 
+import dataclasses
+
 from .base import (BackboneConf, Config, DepthNetConf, ImageBackboneConf,
                    ImageNeckConf, LidarEncoderConf, VoxelizationConf)
 
@@ -72,3 +74,12 @@ def tiny_test_config(use_cam: bool = False, use_lidar: bool = True,
     )
     base.update(kw)
     return Config(**base)
+
+
+def raw_rig(cfg: Config) -> Config:
+    """``cfg`` with the general lift-splat (kernel K8) in place of the
+    row-factorized one: ``BackboneConf.factorized_splat=False``, what the
+    JAX trainer switches to for a rig with roll, pitch or intrinsic skew
+    (``mm_training_tpu/training/trainer.py::_disable_factorized_splat``)."""
+    return cfg.replace(backbone_conf=dataclasses.replace(cfg.get_backbone_conf(),
+                                                         factorized_splat=False))

@@ -28,19 +28,27 @@
 //
 // The backward (bev_warp_backward), kernel K7': the transposed bilinear
 // sample, d src[p] = sum over the dst pixels q whose source point falls in
-// p's 2 x 2 neighbourhood of w(q -> p) g[q], with the forward's own
-// coordinates, inverse, corner weights and zero padding (sample_point, the
-// same function). One thread per (dst pixel, channel vector) scatters its
-// four corners' products (g (1 - wy)) (1 - wx) etc., in the order JAX's
-// autodiff of the blend takes, with fp32 atomics into a float32 buffer
-// zeroed first (the float32 gradient itself, or a scratch that a second
-// pass rounds once to bf16). The matrix is data: it gets no gradient. The
-// atomics add in no fixed order, so the sums agree with the plain
-// version's to fp32 rounding. Bound: device-memory bytes (g read once, the
-// gradient written once, the float32 buffer zeroed and read back for
-// bf16); the adds land in L2.
+// p's 2 x 2 neighbourhood of w(q -> p) g[q], written as a gather: one
+// launch, no fill, no scratch, no atomics. One thread per (src pixel p,
+// channel vector). The dst pixels whose sample point lies in [px - 1,
+// px + 1) x [py - 1, py + 1) lie in the image of that square under the
+// forward pixel matrix M (q = M s); the thread takes the bounding box of
+// the image of its four corners (the whole map where a corner's
+// homogeneous w is not positive), widened by half a pixel on each side for
+// rounding, and walks its dst pixels in row order. For each it recomputes
+// the sample point with the forward's own sample_point (the same inverse,
+// coordinates, floor and weights, bit for bit), and where p is one of that
+// point's four corners it adds the forward's weight on it times g[q], as
+// JAX's autodiff of the blend takes it ((g (1 - wy)) (1 - wx) and so on),
+// in float32 registers; then it rounds once to the map's dtype. The box
+// holds 9-16 candidates under the BEV augmentation's rotations of +-5 deg
+// and scales of 0.95-1.05. Every output is written once, its terms summed
+// in a fixed order: a second call gives the same bits. The matrix is data:
+// it gets no gradient. Bound: device-memory bytes (g read once, the
+// gradient written once; g's rows are gathered again from L1 and L2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -144,10 +152,9 @@ __device__ __forceinline__ SamplePoint sample_point(const float* minv, int q, in
 }
 
 // thread 0 forms batch entry b's pixel matrix and its inverse in shared memory
-__device__ __forceinline__ void block_inverse(const float* mat, int bda_n, int64_t b, int h,
-                                              int w, float* minv) {
+__device__ __forceinline__ void block_matrices(const float* mat, int bda_n, int64_t b, int h,
+                                               int w, float* m, float* minv) {
   if (threadIdx.x == 0) {
-    float m[9];
     pixel_matrix(mat, bda_n, b, h, w, m);
     inverse3(m, minv);
   }
@@ -157,9 +164,9 @@ __device__ __forceinline__ void block_inverse(const float* mat, int bda_n, int64
 template <typename T, int V>
 __global__ void bev_warp_kernel(const T* __restrict__ src, const float* __restrict__ mat,
                                 int bda_n, T* __restrict__ dst, int h, int w, int c) {
-  __shared__ float minv[9];
+  __shared__ float m[9], minv[9];
   const int64_t b = blockIdx.y;
-  block_inverse(mat, bda_n, b, h, w, minv);
+  block_matrices(mat, bda_n, b, h, w, m, minv);
 
   const int nvec = c / V;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -184,73 +191,65 @@ __global__ void bev_warp_kernel(const T* __restrict__ src, const float* __restri
   *reinterpret_cast<Pack<T, V>*>(dst + (b * h * w + q) * c + (int64_t)j * V) = out;
 }
 
-// acc[yi, xi, j*V ...] += g * wgt on V channels, nothing outside the map
-template <int V>
-__device__ __forceinline__ void scatter(float* acc, int yi, int xi, int h, int w, int c, int j,
-                                        const float* g, float wgt) {
-  if (yi < 0 || yi >= h || xi < 0 || xi >= w) return;
-  float* a = acc + ((int64_t)yi * w + xi) * c + (int64_t)j * V;
-  if constexpr (V % 4 == 0) {
-#pragma unroll
-    for (int e = 0; e < V; e += 4)
-      atomicAdd(reinterpret_cast<float4*>(a + e),
-                make_float4(__fmul_rn(g[e], wgt), __fmul_rn(g[e + 1], wgt),
-                            __fmul_rn(g[e + 2], wgt), __fmul_rn(g[e + 3], wgt)));
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) atomicAdd(a + e, __fmul_rn(g[e], wgt));
-  }
-}
-
 template <typename T, int V>
 __global__ void bev_warp_bwd_kernel(const T* __restrict__ grad, const float* __restrict__ mat,
-                                    int bda_n, float* __restrict__ acc, int h, int w, int c) {
-  __shared__ float minv[9];
+                                    int bda_n, T* __restrict__ d_src, int h, int w, int c) {
+  __shared__ float m[9], minv[9];
   const int64_t b = blockIdx.y;
-  block_inverse(mat, bda_n, b, h, w, minv);
+  block_matrices(mat, bda_n, b, h, w, m, minv);
 
   const int nvec = c / V;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)h * w * nvec) return;
   const int j = (int)(i % nvec);
-  const int q = (int)(i / nvec);
-  const SamplePoint s = sample_point(minv, q, w);
-  const Pack<T, V> gp = *reinterpret_cast<const Pack<T, V>*>(grad + (b * h * w + q) * c +
-                                                              (int64_t)j * V);
-  // d top = g (1 - wy), d bot = g wy; each corner's weight on them as the
-  // forward's blend applies it
-  float top[V], bot[V];
+  const int p = (int)(i / nvec);
+  const int py = p / w, px = p - py * w;
+  // the dst pixels whose sample point can have p as a corner: the box of
+  // M [px - 1, px + 1] x [py - 1, py + 1], half a pixel wider each side
+  int qx0 = 0, qx1 = w - 1, qy0 = 0, qy1 = h - 1;
+  float xlo = CUDART_INF_F, xhi = -CUDART_INF_F, ylo = CUDART_INF_F, yhi = -CUDART_INF_F;
+  bool bounded = true;
 #pragma unroll
-  for (int e = 0; e < V; ++e) {
-    const float g = to_float(gp.v[e]);
-    top[e] = __fmul_rn(g, s.omy);
-    bot[e] = __fmul_rn(g, s.wy);
+  for (int k = 0; k < 4; ++k) {
+    const float cx = (float)(px + ((k & 1) ? 1 : -1)), cy = (float)(py + ((k & 2) ? 1 : -1));
+    const float zw = m[6] * cx + m[7] * cy + m[8];
+    const float qx = (m[0] * cx + m[1] * cy + m[2]) / zw;
+    const float qy = (m[3] * cx + m[4] * cy + m[5]) / zw;
+    bounded = bounded && zw > 0.f && isfinite(qx) && isfinite(qy);
+    xlo = fminf(xlo, qx);
+    xhi = fmaxf(xhi, qx);
+    ylo = fminf(ylo, qy);
+    yhi = fmaxf(yhi, qy);
   }
-  float* img = acc + b * h * w * c;
-  scatter<V>(img, s.y0i, s.x0i, h, w, c, j, top, s.omx);
-  scatter<V>(img, s.y0i, s.x0i + 1, h, w, c, j, top, s.wx);
-  scatter<V>(img, s.y0i + 1, s.x0i, h, w, c, j, bot, s.omx);
-  scatter<V>(img, s.y0i + 1, s.x0i + 1, h, w, c, j, bot, s.wx);
-}
-
-// out = acc rounded to bf16, 4 values a thread
-__global__ void round_bf16_kernel(const float4* __restrict__ acc, uint2* __restrict__ out,
-                                  int64_t n4) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  const float4 v = acc[i];
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 pk;
-  pk.x = *reinterpret_cast<const unsigned*>(&lo);
-  pk.y = *reinterpret_cast<const unsigned*>(&hi);
-  out[i] = pk;
-}
-
-__global__ void round_bf16_tail_kernel(const float* __restrict__ acc,
-                                       __nv_bfloat16* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = __float2bfloat16_rn(acc[i]);
+  if (bounded) {
+    qx0 = (int)fmaxf(ceilf(xlo - 0.5f), 0.f);
+    qx1 = (int)fminf(floorf(xhi + 0.5f), (float)(w - 1));
+    qy0 = (int)fmaxf(ceilf(ylo - 0.5f), 0.f);
+    qy1 = (int)fminf(floorf(yhi + 0.5f), (float)(h - 1));
+  }
+  const T* g_img = grad + b * h * w * c + (int64_t)j * V;
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
+  for (int qy = qy0; qy <= qy1; ++qy) {
+    for (int qx = qx0; qx <= qx1; ++qx) {
+      const int q = qy * w + qx;
+      const SamplePoint s = sample_point(minv, q, w);
+      const unsigned dx = (unsigned)px - (unsigned)s.x0i, dy = (unsigned)py - (unsigned)s.y0i;
+      if (dx > 1u || dy > 1u) continue;
+      // the forward's weight on corner (y0 + dy, x0 + dx), g times the row
+      // weight first, as the blend's autodiff takes it
+      const float wy = dy ? s.wy : s.omy, wx = dx ? s.wx : s.omx;
+      const Pack<T, V> gp = *reinterpret_cast<const Pack<T, V>*>(g_img + (int64_t)q * c);
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        acc[e] = __fadd_rn(acc[e], __fmul_rn(__fmul_rn(to_float(gp.v[e]), wy), wx));
+    }
+  }
+  Pack<T, V> out;
+#pragma unroll
+  for (int e = 0; e < V; ++e) out.v[e] = from_float<T>(acc[e]);
+  *reinterpret_cast<Pack<T, V>*>(d_src + (b * h * w + p) * c + (int64_t)j * V) = out;
 }
 
 template <typename T, int V>
@@ -264,13 +263,13 @@ void launch(const void* src, const float* mat, int bda_n, void* dst, int b, int 
 }
 
 template <typename T, int V>
-void launch_backward(const void* grad, const float* mat, int bda_n, float* acc, int b, int h,
+void launch_backward(const void* grad, const float* mat, int bda_n, void* d_src, int b, int h,
                      int w, int c, cudaStream_t st) {
   const int64_t n_items = (int64_t)h * w * (c / V);
   const int threads = 256;
   const dim3 grid((unsigned)((n_items + threads - 1) / threads), (unsigned)b);
   bev_warp_bwd_kernel<T, V><<<grid, threads, 0, st>>>(static_cast<const T*>(grad), mat, bda_n,
-                                                      acc, h, w, c);
+                                                      static_cast<T*>(d_src), h, w, c);
 }
 
 }  // namespace
@@ -298,32 +297,22 @@ extern "C" int bev_warp(int dtype, const void* src, const float* mat, int bda_n,
 }
 
 // The gradient of bev_warp for the output gradient grad [B, H, W, C] (the
-// map's dtype): d src [B, H, W, C]. acc: float32 [B, H, W, C] (16-byte
-// aligned), the result itself for float32 (d_src null), else a scratch that
-// is rounded into d_src (bf16). mat and bda_n as bev_warp takes them; vec =
-// 1: grad 16-byte aligned and C a multiple of 16 bytes' worth. acc is
-// zeroed here. Returns the cudaError_t.
+// map's dtype): d src [B, H, W, C] of the same dtype, each entry written
+// once. mat and bda_n as bev_warp takes them; vec = 1: grad and d_src
+// 16-byte aligned and C a multiple of 16 bytes' worth. Returns the
+// cudaError_t.
 extern "C" int bev_warp_backward(int dtype, const void* grad, const float* mat, int bda_n,
-                                 float* acc, void* d_src, int b, int h, int w, int c, int vec,
+                                 void* d_src, int b, int h, int w, int c, int vec,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || h == 0 || w == 0 || c == 0) return 0;
-  if (b > 65535 || (bda_n != 0 && bda_n != 3 && bda_n != 4) || (dtype == 1) != (d_src != nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int64_t n = (int64_t)b * h * w * c;
-  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)n * sizeof(float), st);
-  if (e != cudaSuccess) return (int)e;
+  if (b > 65535 || (bda_n != 0 && bda_n != 3 && bda_n != 4)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (vec) launch_backward<float, 4>(grad, mat, bda_n, acc, b, h, w, c, st);
-    else launch_backward<float, 1>(grad, mat, bda_n, acc, b, h, w, c, st);
+    if (vec) launch_backward<float, 4>(grad, mat, bda_n, d_src, b, h, w, c, st);
+    else launch_backward<float, 1>(grad, mat, bda_n, d_src, b, h, w, c, st);
   } else if (dtype == 1) {
-    if (vec) launch_backward<__nv_bfloat16, 8>(grad, mat, bda_n, acc, b, h, w, c, st);
-    else launch_backward<__nv_bfloat16, 1>(grad, mat, bda_n, acc, b, h, w, c, st);
-    const int64_t n4 = n / 4;
-    if (n4) round_bf16_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
-        reinterpret_cast<const float4*>(acc), static_cast<uint2*>(d_src), n4);
-    if (n - 4 * n4) round_bf16_tail_kernel<<<1, 32, 0, st>>>(
-        acc + 4 * n4, static_cast<__nv_bfloat16*>(d_src) + 4 * n4, n - 4 * n4);
+    if (vec) launch_backward<__nv_bfloat16, 8>(grad, mat, bda_n, d_src, b, h, w, c, st);
+    else launch_backward<__nv_bfloat16, 1>(grad, mat, bda_n, d_src, b, h, w, c, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -34,7 +34,7 @@ def _camera_rigs(num_cameras: int):
 
 def make_fake_batch(cfg: Config, batch_size: Optional[int] = None,
                     seed: int = 0, n_objects: int = 24,
-                    points_fill: float = 1.0) -> Dict[str, np.ndarray]:
+                    points_fill: float = 1.0, pitch_deg: float = 0.0) -> Dict[str, np.ndarray]:
     """Build a collated batch dict like the host loader produces.
 
     Keys: imgs uint8 [B,S,N,H,W,3], cam_ts [B], sensor2ego/intrin/extrinsics
@@ -42,6 +42,12 @@ def make_fake_batch(cfg: Config, batch_size: Optional[int] = None,
     [B,4,4] (the identity), gt_boxes [B,K,9], gt_labels [B,K] int32, gt_mask
     [B,K] bool. Without the camera, imgs and the matrices are 1-camera
     placeholders.
+
+    ``pitch_deg`` pitches every camera of the rig by that angle about its
+    optical x axis (``sensor2ego @ R_x``, the extrinsics its inverse), as
+    ``tests/test_training/test_trainer_e2e.py`` does: a raw rig, whose BEV
+    cell of a frustum point depends on its image row, so the general splat
+    (``configs.raw_rig``) is the exact one. 0 keeps the JAX package's rig.
     """
     rng = np.random.default_rng(seed)
     b = batch_size or cfg.batch_size
@@ -101,6 +107,12 @@ def make_fake_batch(cfg: Config, batch_size: Optional[int] = None,
         sample['extrinsics'] = np.broadcast_to(extr, (b, s, n, 4, 4)).copy()
         sample['sensor2ego'] = np.broadcast_to(s2e, (b, s, n, 4, 4)).copy()
         sample['intrin'] = np.broadcast_to(intr, (b, s, n, 4, 4)).copy()
+        if pitch_deg:
+            a = np.deg2rad(pitch_deg)
+            pitch = np.eye(4)
+            pitch[1:3, 1:3] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+            sample['sensor2ego'] = (sample['sensor2ego'] @ pitch).astype(np.float32)
+            sample['extrinsics'] = np.linalg.inv(sample['sensor2ego']).astype(np.float32)
     else:
         sample['imgs'] = np.zeros((b, 1, 1, 1, 1, 3), np.uint8)
         eye = np.broadcast_to(np.eye(4, dtype=np.float32), (b, 1, 1, 4, 4))

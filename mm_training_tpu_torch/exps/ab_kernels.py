@@ -1,5 +1,5 @@
-"""Kernels A', K4, K5, K1, K6, K2, K5' and K4' of this package against
-another copy of it, in one process.
+"""Kernels A', K4, K5, K1, K6, K2, K5', K4', K7' and K8/K8' of this
+package against another copy of it, in one process.
 
 The other copy (for example an earlier commit unpacked with ``git archive``
 into a git-ignored directory) is imported under another module name and
@@ -40,15 +40,23 @@ this, this, other, on the same inputs:
   each call's peak device memory above what it was handed;
 - K4' as ``lift_splat_factorized_backward`` at the B=1 and the B=4 camera
   train step's splat (the fake rig's indices, bf16, depth channels-last as
-  under the depth oracle and NCHW without it).
+  under the depth oracle and NCHW without it);
+- K7' as ``warp_backward`` at the B=1 and the B=4 camera BEV ([B, 32, 256,
+  80] bf16) under a rotated, flipped and scaled BEV augmentation;
+- K8 and K8' as ``lift_splat`` and ``lift_splat_backward`` at the B=1 and
+  the B=4 raw-rig splat (the fake rig pitched by 3 degrees, bf16, depth
+  channels-last and NCHW), with the bound of each; a copy without them gets
+  ``null``.
 
 ``--only`` takes a subset of {backward, lift_splat, deform_conv,
 encoder_input, camera_memory, depth_labels, heatmap, deform_backward,
-splat_backward}. Prints one JSON object
-with the card's name and power limit.
+splat_backward, warp_backward, raw_splat}. ``--raw-rig`` measures
+``camera_memory`` on the raw-rig model (the general splat, the pitched rig;
+a copy that refuses it gets ``null``). Prints one JSON object with the
+card's name and power limit.
 
     python -m mm_training_tpu_torch.exps.ab_kernels --other path/to/mm_training_tpu_torch
-        [--only depth_labels heatmap]
+        [--only depth_labels heatmap] [--raw-rig]
 """
 from __future__ import annotations
 
@@ -64,23 +72,26 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..configs import lidar_cam_radar, lidar_radar
-from ..data import make_fake_batch
+from ..configs import lidar_cam_radar, lidar_radar, raw_rig
+from ..data import make_fake_batch, random_bda_matrices
 from ..models import BEVDepthLiDAR
 from ..models.centerpoint_head import heatmap_inputs
 from ..models.depth_net import DeformConv2d
 from ..models.lidar_encoder import LidarBEVEncoder
-from ..ops import affine_act, deform_conv, depth_labels, gaussian, voxel_pooling, voxelize
+from ..ops import (affine_act, deform_conv, depth_labels, gaussian, voxel_pooling, voxelize,
+                   warp)
 from ..training import create_train_state, make_train_step
 from .kernel_inputs import (HEATMAP_CASES, SPLAT_LAYOUTS, deform_inputs, deform_shape,
-                            depth_label_inputs, heatmap_case, splat_inputs)
+                            depth_label_inputs, heatmap_case, raw_splat_inputs, splat_inputs)
 from .profile_kernels import record
+from .profile_train import RAW_RIG_PITCH_DEG
 from .timing import HBM_BYTES_PER_S, device_ms
 
 __all__ = ['main']
 
 SECTIONS = ('backward', 'lift_splat', 'deform_conv', 'encoder_input', 'camera_memory',
-            'depth_labels', 'heatmap', 'deform_backward', 'splat_backward')
+            'depth_labels', 'heatmap', 'deform_backward', 'splat_backward', 'warp_backward',
+            'raw_splat')
 
 
 def load_copy(path: str, name: str = 'mm_training_tpu_torch_other'):
@@ -96,8 +107,11 @@ def load_copy(path: str, name: str = 'mm_training_tpu_torch_other'):
 
 
 def _alternate(other, this, iters: int) -> dict:
-    """Device ms of other, this, this, other; ``None`` for a side that raises."""
+    """Device ms of other, this, this, other; ``None`` for a side that raises
+    or that is ``None`` (a copy without the function)."""
     def timed(fn):
+        if fn is None:
+            return None
         try:
             return device_ms(fn, iters)
         except (ValueError, RuntimeError) as e:
@@ -210,16 +224,25 @@ def encoder_input_rows(other: str, gen: torch.Generator) -> list:
     return rows
 
 
-def camera_memory(other: str) -> dict:
+def camera_memory(other: str, raw: bool = False) -> dict:
     """GiB of device memory one B=4 ``lidar_cam_radar`` predict request held
-    at its peak above the model, for each copy's own model."""
-    out = {}
+    at its peak above the model, for each copy's own model; with ``raw``
+    the raw-rig model on the pitched rig (``null`` for a copy that refuses
+    it)."""
+    out = {'raw_rig': raw}
+    cfg = lidar_cam_radar(batch_size=4)
+    if raw:
+        cfg = raw_rig(cfg)
+    batch = make_fake_batch(cfg, seed=0, pitch_deg=RAW_RIG_PITCH_DEG if raw else 0.0)
     for label, pkg in (('other', other), ('this', __package__.split('.')[0])):
-        cfg = lidar_cam_radar(batch_size=4)
-        model = importlib.import_module(f'{pkg}.models').BEVDepthLiDAR(
-            cfg, generator=torch.Generator().manual_seed(0))
+        try:
+            model = importlib.import_module(f'{pkg}.models').BEVDepthLiDAR(
+                cfg, generator=torch.Generator().manual_seed(0))
+        except NotImplementedError as e:
+            print(f'  {label} refused: {e}', flush=True)
+            out[f'{label}_request_peak_gib'] = None
+            continue
         predict = importlib.import_module(f'{pkg}.training').make_predict_step(cfg, model)
-        batch = make_fake_batch(cfg, seed=0)
         out[f'{label}_request_peak_gib'] = _peak_above(lambda: [o.cpu() for o in predict(batch)])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -344,10 +367,62 @@ def splat_backward_rows(other: str, gen: torch.Generator) -> list:
     return rows
 
 
+def warp_backward_rows(other: str, gen: torch.Generator) -> list:
+    """K7': ``warp_backward`` of both copies on the B=1 and the B=4 camera
+    BEV (bf16) under a rotated, flipped and scaled BEV augmentation."""
+    other_warp = importlib.import_module(f'{other}.ops.warp')
+    rows = []
+    for batch_size in (1, 4):
+        bb = lidar_cam_radar(batch_size=batch_size).get_backbone_conf()
+        img = torch.randn(batch_size, *bb.bev_hw, bb.output_channels, generator=gen,
+                          device='cuda').bfloat16()
+        g = torch.randn(img.shape, generator=gen, device='cuda').bfloat16()
+        bda = torch.as_tensor(random_bda_matrices(batch_size, 31), device='cuda')
+        row = {'batch_size': batch_size, 'shape': list(img.shape),
+               'bound_ms': (2 * img.numel() * 2 + bda.numel() * 4) / HBM_BYTES_PER_S * 1e3}
+        row.update(_alternate(lambda: other_warp.warp_backward(g, img, bda, 4),
+                              lambda: warp.warp_backward(g, img, bda, 4), 50))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def raw_splat_rows(other: str, gen: torch.Generator) -> list:
+    """K8 and K8': ``lift_splat`` and ``lift_splat_backward`` of both copies
+    at the B=1 and the B=4 raw-rig splat, depth channels-last and NCHW."""
+    other_vp = importlib.import_module(f'{other}.ops.voxel_pooling')
+    that_fwd = getattr(other_vp, 'lift_splat', None)
+    that_bwd = getattr(other_vp, 'lift_splat_backward', None)
+    rows = []
+    for batch_size in (1, 4):
+        for layout in ('channels_last', 'nchw'):
+            depth, ctx, idx, n_cells = a = raw_splat_inputs(
+                lidar_cam_radar(batch_size=batch_size), gen, layout)
+            g = torch.randn(idx.shape[0], n_cells, ctx.shape[-1], generator=gen,
+                            device='cuda').bfloat16()
+            out_bytes = g.numel() * 2
+            row = {'batch_size': batch_size, 'layout': layout, 'cameras': idx.shape[0],
+                   'bound_ms': (depth.numel() * 2 + ctx.numel() * 2 + idx.numel() * 4
+                                + out_bytes) / HBM_BYTES_PER_S * 1e3,
+                   'backward_bound_ms': (depth.numel() * 2 * 2 + ctx.numel() * 2 * 2
+                                         + idx.numel() * 4 + g.numel() * 2)
+                   / HBM_BYTES_PER_S * 1e3}
+            row['forward'] = _alternate(that_fwd and (lambda: that_fwd(*a)),
+                                        lambda: voxel_pooling.lift_splat(*a), 20)
+            row['backward'] = _alternate(that_bwd and (lambda: that_bwd(g, *a)),
+                                         lambda: voxel_pooling.lift_splat_backward(g, *a), 20)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del depth, ctx, idx, g, a
+    return rows
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--other', required=True, help='directory of the other package copy')
     ap.add_argument('--only', nargs='+', choices=SECTIONS, default=SECTIONS)
+    ap.add_argument('--raw-rig', action='store_true',
+                    help='camera_memory on the raw-rig model and the pitched rig')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('ab_kernels: needs a CUDA device')
@@ -363,7 +438,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if 'encoder_input' in args.only:
         result['encoder_input'] = encoder_input_rows(other, gen)
     if 'camera_memory' in args.only:
-        result['camera_memory'] = camera_memory(other)
+        result['camera_memory'] = camera_memory(other, args.raw_rig)
     if 'depth_labels' in args.only:
         result['depth_labels'] = depth_label_rows(other, gen)
     if 'heatmap' in args.only:
@@ -372,6 +447,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         result['deform_backward'] = deform_backward_rows(other, gen)
     if 'splat_backward' in args.only:
         result['splat_backward'] = splat_backward_rows(other, gen)
+    if 'warp_backward' in args.only:
+        result['warp_backward'] = warp_backward_rows(other, gen)
+    if 'raw_splat' in args.only:
+        result['raw_splat'] = raw_splat_rows(other, gen)
     other_aa = importlib.import_module(f'{other}.ops.affine_act')
     other_vp = importlib.import_module(f'{other}.ops.voxel_pooling')
 

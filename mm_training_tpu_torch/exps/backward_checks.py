@@ -1,6 +1,6 @@
-"""The backward kernels K4', K5' and K7' against their plain versions on
-the card, with the tolerance each is held to. Shared by ``chip_smoke.py``
-and ``tests/test_torch_cuda.py``.
+"""The backward kernels K4', K5', K7' and K8' (and K8 itself) against their
+plain versions on the card, with the tolerance each is held to. Shared by
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 
 Each check runs the kernel's wrapper on CUDA tensors, runs the plain version
 (autograd through the plain forward) on the same inputs raised to float32,
@@ -9,7 +9,14 @@ another order than the plain version (K4' in a fixed order, K5''s d x and
 K7' by float32 atomics in no fixed order), so a float32 result may differ
 by 1e-5 of the entry's sum of |terms| (computed in float64 from the same
 linear backward on magnitudes), and a bf16 result, rounded once, by one
-bf16 ulp of the float32 reference plus that.
+bf16 ulp of the float32 reference plus that. K7' sums in a fixed order:
+the same bits on a second call.
+
+K8 and K8' round each product to the inputs' dtype, as the JAX package's
+bf16 slab (and autograd through the plain version) does, and sum in
+float32: they are held to the plain version run in the same dtype, with the
+same bound (the plain version's float32 sums in another order, then one
+rounding), and K8' also to the same bits on a second call.
 
 K5' computes the columns' gradient d cols = dY W^T itself, a tile at a time
 on the tensor cores, and rounds each entry once to x's dtype before the
@@ -39,7 +46,8 @@ import torch
 
 from ..ops import deform_conv, voxel_pooling, warp
 
-__all__ = ['deform_backward_errors', 'deform_cols_reference', 'outside', 'splat_backward_errors',
+__all__ = ['deform_backward_errors', 'deform_cols_reference', 'outside',
+           'raw_splat_backward_errors', 'raw_splat_errors', 'splat_backward_errors',
            'warp_backward_errors']
 
 ORDER = 1e-5                    # float32 sums in another order: of the sum of |terms|
@@ -93,12 +101,48 @@ def splat_backward_errors(depth, ctx, idx, zvalid, n_cells, g) -> Dict:
 
 def warp_backward_errors(img, mat, bda_n, g) -> Dict:
     """K7' (:func:`~mm_training_tpu_torch.ops.warp.warp_backward`) against
-    its plain version: d img within the module's bound."""
+    its plain version: d img within the module's bound; the same bits on a
+    second call."""
     got = warp.warp_backward(g, img, mat, bda_n)
+    again = warp.warp_backward(g, img, mat, bda_n)
     ref = warp.warp_backward_plain(g.float(), img.float(), mat, bda_n)
     mag = warp.warp_backward_plain(g.double().abs(), img.double(), mat, bda_n)
     out = outside(got, ref, mag)
-    out['ok'] = out['outside'] == 0 and got.dtype == img.dtype
+    out['deterministic'] = torch.equal(again, got)
+    out['ok'] = out['outside'] == 0 and out['deterministic'] and got.dtype == img.dtype
+    return out
+
+
+def raw_splat_errors(depth, ctx, idx, n_cells) -> Dict:
+    """K8 (:func:`~mm_training_tpu_torch.ops.voxel_pooling.lift_splat`)
+    against its plain version in the same dtype, within the module's bound
+    (its float32 atomics add in no fixed order)."""
+    got = voxel_pooling.lift_splat(depth, ctx, idx, n_cells)
+    ref = voxel_pooling.lift_splat_plain(depth, ctx, idx, n_cells)
+    mag = voxel_pooling.lift_splat_plain(depth.double().abs(), ctx.double().abs(), idx, n_cells)
+    out = outside(got, ref, mag)
+    out['ok'] = out['outside'] == 0 and got.dtype == ctx.dtype
+    return out
+
+
+def raw_splat_backward_errors(depth, ctx, idx, n_cells, g) -> Dict:
+    """K8' (:func:`~mm_training_tpu_torch.ops.voxel_pooling.
+    lift_splat_backward`) against its plain version in the same dtype: d
+    depth and d ctx, each within the module's bound; the same bits on a
+    second call (every output is written once, in a fixed order)."""
+    got_d, got_c = voxel_pooling.lift_splat_backward(g, depth, ctx, idx, n_cells)
+    again = voxel_pooling.lift_splat_backward(g, depth, ctx, idx, n_cells)
+    ref_d, ref_c = voxel_pooling.lift_splat_backward_plain(g, depth, ctx, idx, n_cells)
+    mag_d, _ = voxel_pooling.lift_splat_backward_plain(
+        g.double().abs(), depth.double(), ctx.double().abs(), idx, n_cells)
+    _, mag_c = voxel_pooling.lift_splat_backward_plain(
+        g.double().abs(), depth.double().abs(), ctx.double(), idx, n_cells)
+    out = {'d_depth': outside(got_d, ref_d, mag_d), 'd_ctx': outside(got_c, ref_c, mag_c),
+           'deterministic': torch.equal(again[0], got_d) and torch.equal(again[1], got_c)}
+    out['max_abs_err'] = max(out['d_depth']['max_abs_err'], out['d_ctx']['max_abs_err'])
+    out['ok'] = (out['d_depth']['outside'] == 0 and out['d_ctx']['outside'] == 0
+                 and out['deterministic'] and got_d.dtype == depth.dtype
+                 and got_c.dtype == ctx.dtype)
     return out
 
 

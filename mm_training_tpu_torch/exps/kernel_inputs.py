@@ -1,7 +1,7 @@
-"""Kernel K4's, K5's and K6's inputs at a camera config's shapes, K4's laid
-out as the path hands them over (``models/lss_fpn.py``), the tolerance that
-holds the fused K5 to its plain version, and K2's edge cases. Shared by
-``chip_smoke.py``, the card tests, the CPU tests and
+"""Kernel K4's, K8's, K5's and K6's inputs at a camera config's shapes, K4's
+and K8's laid out as the path hands them over (``models/lss_fpn.py``), the
+tolerance that holds the fused K5 to its plain version, and K2's edge cases.
+Shared by ``chip_smoke.py``, the card tests, the CPU tests and
 ``exps/ab_kernels.py``."""
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from ..ops import deform_conv
 
 __all__ = ['HEATMAP_CASES', 'SPLAT_LAYOUTS', 'deform_inputs', 'deform_outside_tolerance',
            'deform_shape', 'depth_label_case', 'depth_label_inputs', 'heatmap_case',
-           'splat_inputs']
+           'raw_splat_inputs', 'splat_inputs']
 
 # 'channels_last': the softmax over bins in channels-last memory, as the depth
 # oracle's ``where`` leaves it; 'slice': the softmax written into the
@@ -54,6 +54,36 @@ def splat_inputs(cfg: Config, gen: torch.Generator, layout: str = 'channels_last
         if layout == 'contiguous':
             depth, ctx = depth.contiguous(), ctx.contiguous()
     return depth, ctx, idx, zvalid, int(np.prod(bb.bev_hw))
+
+
+def raw_splat_inputs(cfg: Config, gen: torch.Generator, layout: str = 'channels_last',
+                     dtype: torch.dtype = torch.bfloat16, seed: int = 8,
+                     pitch_deg: float = 3.0):
+    """(depth [M, D, P], ctx [M, P, C], idx [M, D, P], n_cells) of kernel K8
+    on ``gen``'s device: the raw splat indices of ``cfg``'s fake batch
+    (``seed``) with every camera pitched by ``pitch_deg``, and a random
+    DepthNet output of ``dtype`` from ``gen``, viewed as the raw-rig path
+    views it: ctx the flattened permuted channels-last slice, depth the
+    flattened softmax, channels-last (``layout`` 'channels_last', as the
+    depth oracle's ``where`` leaves it) or NCHW ('nchw', without the
+    oracle)."""
+    if layout not in ('channels_last', 'nchw'):
+        raise ValueError(f"raw_splat_inputs: layout 'channels_last' or 'nchw', got {layout!r}")
+    dev = gen.device
+    bb = cfg.get_backbone_conf()
+    batch = make_fake_batch(cfg, seed=seed, pitch_deg=pitch_deg)
+    with torch.device('meta'):
+        lss = LSSFPN(bb)
+    idx = lss.raw_splat_indices(torch.as_tensor(batch['sensor2ego'][:, 0], device=dev),
+                                torch.as_tensor(batch['intrin'][:, 0], device=dev))
+    d, (fh, fw), c = bb.depth_channels, bb.feat_hw, bb.output_channels
+    feat = torch.randn(idx.shape[0], d + c, fh, fw, generator=gen, device=dev).to(dtype)
+    feat = feat.contiguous(memory_format=torch.channels_last)
+    ctx = feat[:, d:].permute(0, 2, 3, 1).flatten(1, 2)
+    depth = feat[:, :d].softmax(1)
+    depth = (depth.contiguous(memory_format=torch.channels_last) if layout == 'channels_last'
+             else depth.contiguous()).flatten(2)
+    return depth, ctx, idx, int(np.prod(bb.bev_hw))
 
 
 def deform_shape(cfg: Config):

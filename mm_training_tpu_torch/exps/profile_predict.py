@@ -25,10 +25,11 @@ from typing import Optional, Sequence
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs import variants
+from ..configs import raw_rig, variants
 from ..data import make_fake_batch
 from ..models import BEVDepthLiDAR
 from ..training import make_predict_step
+from .profile_train import RAW_RIG_PITCH_DEG
 
 __all__ = ['main', 'oracle_lift_ms']
 
@@ -59,6 +60,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--config', default='lidar_radar',
                    choices=('lidar_only', 'lidar_radar', 'lidar_cam', 'lidar_cam_radar'))
+    p.add_argument('--raw-rig', action='store_true',
+                   help='the general splat (K8) on a rig pitched by 3 degrees')
     p.add_argument('--batch-size', type=int, default=1)
     p.add_argument('--requests', type=int, default=20)
     p.add_argument('--seed', type=int, default=0)
@@ -67,9 +70,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     cfg = getattr(variants, args.config)(batch_size=args.batch_size,
                                          max_points_per_frame=100_000)
+    if args.raw_rig:
+        if not cfg.use_cam:
+            raise SystemExit('--raw-rig takes a camera config')
+        cfg = raw_rig(cfg)
     model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(args.seed))
     predict = make_predict_step(cfg, model)
-    batch = make_fake_batch(cfg, seed=args.seed)
+    batch = make_fake_batch(cfg, seed=args.seed,
+                            pitch_deg=RAW_RIG_PITCH_DEG if args.raw_rig else 0.0)
     for _ in range(3):
         [o.cpu() for o in predict(batch)]
     torch.cuda.synchronize()
@@ -97,7 +105,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     top_host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     result = {
         'device': torch.cuda.get_device_name(0), 'config': args.config,
-        'batch_size': args.batch_size,
+        'raw_rig': args.raw_rig, 'batch_size': args.batch_size,
         'requests': args.requests, 'wall_ms_per_request': wall_ms,
         'device_ms_per_request': device_ms,
         'device_busy_share': device_ms / wall_ms,

@@ -15,10 +15,12 @@ own kernels (by kernel name). Before the profiled window it times
 With the camera it also times the depth loss alone, forward and backward
 at the step's shapes (plain torch: the JAX package leaves it to XLA); at
 B=4 it prints the step's numbers on the tree before the fused DCN backward
-beside its own (``BEFORE``).
+beside its own (``BEFORE``). ``--raw-rig`` runs the camera model on the
+general splat (kernels K8 and K8') with every camera of the fake rig
+pitched by 3 degrees.
 
     python -m mm_training_tpu_torch.exps.profile_train [--config lidar_cam_radar]
-        [--batch-size 4] [--steps 10] [--warmup 3] [--trace train_trace.json]
+        [--raw-rig] [--batch-size 4] [--steps 10] [--warmup 3] [--trace train_trace.json]
 
 ``--ops-only`` prints only the device operations of one step after the
 warm-up (``exps/timing.py::device_ops``), as one JSON line.
@@ -34,13 +36,14 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs import variants
+from ..configs import raw_rig, variants
 from ..data import make_fake_batch, random_bda_matrices
 from ..models import BEVDepthLiDAR
 from ..training import TrainState, create_train_state, depth_loss_fn, make_train_step
 from .timing import device_ms, device_ops
 
-__all__ = ['KERNEL_NAMES', 'benchmark_train', 'depth_loss_ms', 'main', 'train_batch']
+__all__ = ['KERNEL_NAMES', 'RAW_RIG_PITCH_DEG', 'benchmark_train', 'depth_loss_ms', 'main',
+           'train_batch']
 
 # the port's kernels by a substring of their device names (csrc/*.cu)
 KERNEL_NAMES = {
@@ -50,7 +53,12 @@ KERNEL_NAMES = {
     "K4' lift_splat_backward": 'lift_splat_bwd', 'K5 deform_conv3x3': 'deform_conv_kernel',
     'K5 columns deform_sample': 'deform_sample_kernel', "K5' deform_conv3x3_backward":
     'deform_bwd', 'K6 depth_labels': 'depth_labels_kernel', 'K7 bev_warp': 'bev_warp_kernel',
-    "K7' bev_warp_backward": 'bev_warp_bwd', "K7' rounding to bf16": 'round_bf16'}
+    "K7' bev_warp_backward": 'bev_warp_bwd', 'K8 lift_splat_raw': 'lift_splat_raw_kernel',
+    "K8' lift_splat_raw_backward": 'lift_splat_raw_bwd'}
+
+# the fake rig's pitch under --raw-rig: every camera 3 degrees about its
+# optical x axis, as tests/test_training/test_trainer_e2e.py pitches it
+RAW_RIG_PITCH_DEG = 3.0
 
 
 # a B=4 step on the tree before the fused DCN backward (K5') and K4' on the
@@ -61,10 +69,11 @@ BEFORE = {'lidar_cam_radar': {'device_ms_per_step': 261.25, 'device_ops_per_step
                               'max_memory_allocated_gb': 32.98}}
 
 
-def train_batch(cfg, seed: int) -> Dict[str, Any]:
+def train_batch(cfg, seed: int, pitch_deg: float = 0.0) -> Dict[str, Any]:
     """The fixed fake batch of a profiled train step; with the camera a
-    rotated, flipped and scaled BEV augmentation (``random_bda_matrices``)."""
-    batch = make_fake_batch(cfg, seed=seed)
+    rotated, flipped and scaled BEV augmentation (``random_bda_matrices``)
+    and the rig's cameras pitched by ``pitch_deg``."""
+    batch = make_fake_batch(cfg, seed=seed, pitch_deg=pitch_deg)
     if cfg.use_cam:
         batch['bda_mat'] = random_bda_matrices(cfg.batch_size, seed=seed + 1)
     return batch
@@ -113,6 +122,8 @@ def benchmark_train(train_step: Callable, state: TrainState, batch: Dict[str, An
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--config', default='lidar_radar', choices=('lidar_radar', 'lidar_cam_radar'))
+    p.add_argument('--raw-rig', action='store_true',
+                   help='the general splat (K8, K8\') on a rig pitched by 3 degrees')
     p.add_argument('--batch-size', type=int, default=4)
     p.add_argument('--steps', type=int, default=10)
     p.add_argument('--warmup', type=int, default=3)
@@ -124,10 +135,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     cfg = getattr(variants, args.config)(batch_size=args.batch_size,
                                          max_points_per_frame=100_000)
+    if args.raw_rig:
+        cfg = raw_rig(cfg)
     model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(args.seed))
     state = create_train_state(cfg, model)
     train_step = make_train_step(cfg)
-    batch = train_batch(cfg, args.seed)
+    batch = train_batch(cfg, args.seed, RAW_RIG_PITCH_DEG if args.raw_rig else 0.0)
     for _ in range(args.warmup):
         state, _ = train_step(state, batch)
     torch.cuda.synchronize()
@@ -138,7 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             box[0], _ = train_step(box[0], batch)
             torch.cuda.synchronize()
         result = {'device': torch.cuda.get_device_name(0), 'config': args.config,
-                  'batch_size': args.batch_size,
+                  'raw_rig': args.raw_rig, 'batch_size': args.batch_size,
                   'device_ops_one_step': sum(device_ops(one).values())}
         print(json.dumps(result))
         return result
@@ -165,7 +178,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     top_host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     result = {
         'device': torch.cuda.get_device_name(0), 'config': args.config,
-        'batch_size': args.batch_size,
+        'raw_rig': args.raw_rig, 'batch_size': args.batch_size,
         'steps': args.steps, 'unprofiled': timed,
         'wall_ms_per_step': wall_ms, 'device_ms_per_step': device_ms,
         'device_busy_share': device_ms / wall_ms,
@@ -180,7 +193,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     }
     if cfg.use_cam:
         result['depth_loss_forward_backward_ms'] = depth_loss_ms(cfg)
-    if args.batch_size == 4 and args.config in BEFORE:
+    if args.batch_size == 4 and args.config in BEFORE and not args.raw_rig:
         result['before'] = BEFORE[args.config]
     print(json.dumps(result, indent=1))
     return result

@@ -20,7 +20,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import Config
-from ..ops import circle_nms, warp
+from ..ops import circle_nms, voxel_pooling, warp
 from .bn_fold import BatchNorm2d
 from .centerpoint_head import BEVDepthHead, SeparateHead
 from .depth_net import DeformConv2d
@@ -63,14 +63,24 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def check_card_limits(cfg: Config, device) -> None:
     """Raise ValueError, naming the knob, when ``cfg`` asks a kernel for more
     than it takes on ``device``: the decode's circle NMS (kernel K3) takes at
-    most ``ops/circle_nms.py::MAX_SLOTS`` candidates a row on the card,
-    while the CPU path, like the JAX package, takes any number. Refused where
-    the model is built, so a model that builds serves."""
+    most ``ops/circle_nms.py::MAX_SLOTS`` candidates a row on the card, and
+    the raw-rig splat (kernels K8, K8') camera features a multiple of 8 up
+    to ``ops/voxel_pooling.py::RAW_MAX_C`` channels, while the CPU path, like
+    the JAX package, takes any number. Refused where the model is built, so
+    a model that builds serves."""
+    if torch.device(device).type != 'cuda':
+        return
     max_num = cfg.get_head_conf().bbox_coder.max_num
-    if torch.device(device).type == 'cuda' and max_num > circle_nms.MAX_SLOTS:
+    if max_num > circle_nms.MAX_SLOTS:
         raise ValueError(f'BBoxCoderConf.max_num = {max_num}: the card\'s circle NMS (kernel '
                          f'K3) takes at most {circle_nms.MAX_SLOTS} candidates a row; lower '
                          'it or build the model on the CPU')
+    bb = cfg.get_backbone_conf()
+    c, top = bb.output_channels, voxel_pooling.RAW_MAX_C
+    if cfg.use_cam and not bb.factorized_splat and (c % 8 or not 8 <= c <= top):
+        raise ValueError(f'BackboneConf.output_channels = {c}: the card\'s raw-rig splat '
+                         f'(factorized_splat=False, kernels K8 and K8\') takes a multiple of 8 '
+                         f'up to {top}; change it or build the model on the CPU')
 
 
 class BEVDepthLiDAR(nn.Module):

@@ -3,10 +3,12 @@
 The port of ``mm_training_tpu/models/lss_fpn.py``: the image ResNet and its
 SECONDFPN neck, the DepthNet, the softmax over the depth bins, the undo of
 an image's horizontal flip, the depth oracle's replacement of the predicted
-depth, the frustum geometry (float32) and the row-factorized lift-splat
-(kernel K4) onto the head-input grid, summed over cameras; sweeps after the
-key frame are concatenated on channels. The raw-rig splat
-(``factorized_splat=False``) is not ported yet.
+depth, the frustum geometry (float32) and the lift-splat onto the
+head-input grid, summed over cameras; sweeps after the key frame are
+concatenated on channels. The splat is the row-factorized one (kernel K4)
+for a virtualized rig (``factorized_splat``, the default) and the general
+one (kernel K8) for a raw rig with roll, pitch or intrinsic skew
+(``factorized_splat=False``), as the JAX module chooses.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from torch import nn
 
 from ..configs import BackboneConf
-from ..core.geometry import create_frustum, get_geometry, quantize_geometry
+from ..core.geometry import create_frustum, flat_bev_index, get_geometry, quantize_geometry
 from ..ops import voxel_pooling
 from .depth_net import DepthNet
 from .resnet import ResNet
@@ -28,9 +30,6 @@ __all__ = ['LSSFPN']
 class LSSFPN(nn.Module):
     def __init__(self, conf: BackboneConf):
         super().__init__()
-        if not conf.factorized_splat:
-            raise NotImplementedError('the raw-rig lift_splat (factorized_splat=False) is not '
-                                      'ported yet; see ROADMAP.md')
         self.conf = conf
         bb, nk, dn = conf.img_backbone_conf, conf.img_neck_conf, conf.depth_net_conf
         self.img_backbone = ResNet(depth=bb.depth, in_channels=3,
@@ -62,13 +61,17 @@ class LSSFPN(nn.Module):
                 create_frustum(c.d_bound, c.final_dim, c.downsample_factor)).to(device)
         return self._frustum[device]
 
+    def _voxel_indices(self, sensor2ego: torch.Tensor, intrin: torch.Tensor) -> torch.Tensor:
+        """[B, N, D, fH, fW, 3] int32 voxel of every frustum point."""
+        return quantize_geometry(get_geometry(self.frustum(sensor2ego.device), sensor2ego,
+                                              intrin), *self.bev_geometry()[:2])
+
     def splat_indices(self, sensor2ego: torch.Tensor, intrin: torch.Tensor):
         """Per camera of [B, N] matrices: the BEV cell of each (bin, column)
         from image row 0 [B*N, D, fW] int32 (``n_cells`` = off the grid) and
         the z-range mask [B*N, D, fH, fW] bool. With zero roll and pitch a
         frustum point's (x, y) does not depend on its row."""
-        gidx = quantize_geometry(get_geometry(self.frustum(sensor2ego.device), sensor2ego,
-                                              intrin), *self.bev_geometry()[:2])
+        gidx = self._voxel_indices(sensor2ego, intrin)
         nx, ny, nz = self.bev_geometry()[2]
         d, fh, fw = gidx.shape[2:5]
         x, y = gidx[:, :, :, 0, :, 0], gidx[:, :, :, 0, :, 1]
@@ -77,6 +80,14 @@ class LSSFPN(nn.Module):
         z = gidx[..., 2]
         zvalid = (z >= 0) & (z < nz)
         return flat_xy.reshape(-1, d, fw), zvalid.reshape(-1, d, fh, fw)
+
+    def raw_splat_indices(self, sensor2ego: torch.Tensor, intrin: torch.Tensor) -> torch.Tensor:
+        """Per camera of [B, N] matrices: the BEV cell of every frustum
+        point [B*N, D, fH*fW] int32, ``n_cells`` where it is off the grid in
+        x, y or z (the raw-rig splat's index; any rig)."""
+        gidx = self._voxel_indices(sensor2ego, intrin)
+        d, fh, fw = gidx.shape[2:5]
+        return flat_bev_index(gidx, self.bev_geometry()[2]).reshape(-1, d, fh * fw)
 
     def _forward_single_sweep(self, imgs: torch.Tensor, sensor2ego: torch.Tensor,
                               intrin: torch.Tensor, flipped: Optional[torch.Tensor],
@@ -105,10 +116,16 @@ class LSSFPN(nn.Module):
             oracle = depth_oracle.permute(0, 3, 1, 2)
             fg = oracle.amax(dim=1, keepdim=True) > 0.0
             lift = torch.where(fg, oracle.to(depth.dtype), lift)
-        flat_xy, zvalid = self.splat_indices(sensor2ego, intrin)
         nx, ny, _ = self.bev_geometry()[2]
-        bev = voxel_pooling.lift_splat_factorized(lift, ctx.permute(0, 2, 3, 1), flat_xy,
-                                                  zvalid, nx * ny)     # [BN, G, C]
+        if self.conf.factorized_splat:
+            flat_xy, zvalid = self.splat_indices(sensor2ego, intrin)
+            bev = voxel_pooling.lift_splat_factorized(lift, ctx.permute(0, 2, 3, 1), flat_xy,
+                                                      zvalid, nx * ny)     # [BN, G, C]
+        else:
+            # [BN, D, P] and [BN, P, C] views of the path's layouts: no copy
+            flat = self.raw_splat_indices(sensor2ego, intrin)
+            bev = voxel_pooling.lift_splat(lift.flatten(2), ctx.permute(0, 2, 3, 1).flatten(1, 2),
+                                           flat, nx * ny)                  # [BN, G, C]
         bev = bev.reshape(b, n, ny * nx, c_out).sum(dim=1)
         return bev.reshape(b, ny, nx, c_out), depth
 

@@ -26,8 +26,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / 'csrc'
 BUILD_DIR = PKG / '_build'
 KERNEL_SOURCES = ('affine_act', 'affine_act_backward', 'voxelize', 'gaussian_heatmap',
-                  'circle_nms', 'lift_splat', 'lift_splat_backward', 'deform_conv',
-                  'depth_labels', 'bev_warp')
+                  'circle_nms', 'lift_splat', 'lift_splat_backward', 'lift_splat_raw',
+                  'deform_conv', 'depth_labels', 'bev_warp')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 

@@ -1,4 +1,5 @@
-"""Kernel K4: the row-factorized lift-splat of the camera branch.
+"""Kernels K4 and K8: the lift-splat of the camera branch, row-factorized
+for a virtualized rig and general for a raw one.
 
 The port of ``mm_training_tpu/ops/voxel_pooling.py::lift_splat_factorized``
 (:127-169). For a zero-roll/pitch (virtualized) camera a frustum point's
@@ -10,8 +11,16 @@ splat factorizes exactly:
 
 accumulated in float32 and returned in the compute dtype (``ctx``'s), the
 trash cell ``n_cells`` dropped. The CUDA source is ``csrc/lift_splat.cu``;
-it never writes the [M, D, fW, C] slab, see the note there. The raw-rig
-``lift_splat`` (no factorization) is not ported yet.
+it never writes the [M, D, fW, C] slab, see the note there.
+
+Kernel K8 (``csrc/lift_splat_raw.cu``) is the port of the raw-rig
+``lift_splat`` (:83-112), which a rig with roll, pitch or intrinsic skew
+needs: per camera the products ``depth[d, p] * ctx[p, :]`` in the compute
+dtype (each rounded to bf16 in bf16, as the JAX package's slab is),
+segment-summed in float32 into ``n_cells + 1`` cells, the trash cell
+dropped, cast to ctx's dtype. Its backward K8' gathers the output
+gradient's rows by cell (d depth, d ctx), every output written once;
+:class:`LiftSplatRaw` joins the two.
 
 Its backward, kernel K4' (``csrc/lift_splat_backward.cu``), gathers the
 output gradient by cell once (zero for the trash cell) and contracts it
@@ -31,11 +40,15 @@ import torch
 
 from . import build
 
-__all__ = ['LiftSplat', 'lift_splat_factorized', 'lift_splat_factorized_backward',
-           'lift_splat_factorized_backward_plain', 'lift_splat_factorized_plain',
+__all__ = ['LiftSplat', 'LiftSplatRaw', 'RAW_MAX_C', 'lift_splat', 'lift_splat_backward',
+           'lift_splat_backward_plain', 'lift_splat_factorized',
+           'lift_splat_factorized_backward', 'lift_splat_factorized_backward_plain',
+           'lift_splat_factorized_plain', 'lift_splat_plain', 'raw_splat_atomic_adds',
            'splat_atomic_adds']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# K8 and K8' keep 8 channels a lane and a pixel's lanes within one warp
+RAW_MAX_C = 256
 
 
 def lift_splat_factorized_plain(depth: torch.Tensor, ctx: torch.Tensor,
@@ -254,3 +267,199 @@ class LiftSplat(torch.autograd.Function):
         d_depth, d_ctx = lift_splat_factorized_backward(g, depth, ctx, flat_idx_xy, zvalid,
                                                         fctx.n_cells)
         return d_depth, d_ctx, None, None, None
+
+
+# ------------------------------------------------------------------- K8, K8'
+
+def lift_splat_plain(depth: torch.Tensor, ctx: torch.Tensor, flat_idx: torch.Tensor,
+                     n_cells: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`lift_splat`, the JAX package's steps
+    camera by camera: the rows ``depth[d, p] * ctx[p, :]`` in the inputs'
+    dtype (each product rounded to it), raised to float32 and
+    ``index_add_``ed into ``n_cells + 1`` cells, the trash cell dropped,
+    cast to ctx's dtype."""
+    m, d, p = depth.shape
+    c = ctx.shape[-1]
+    outs = []
+    for i in range(m):
+        rows = (depth[i, :, :, None] * ctx[i, None]).reshape(d * p, c)
+        acc = torch.zeros(n_cells + 1, c, dtype=torch.float32, device=depth.device)
+        acc.index_add_(0, flat_idx[i].reshape(-1).long(), rows.float())
+        outs.append(acc[:n_cells].to(ctx.dtype))
+    return torch.stack(outs)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_raw() -> ctypes.CDLL:
+    lib = build.load('lift_splat_raw')
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lift_splat_raw.argtypes = [i32, p, i64, i64, i64, p, i64, i64, i64, p,
+                                   i32, i32, i32, i32, i32, p, p, p, p, p]
+    lib.lift_splat_raw.restype = ctypes.c_int
+    lib.lift_splat_raw_backward.argtypes = [i32, p, i64, i64, i32, p, i64, i64, i64,
+                                            p, i64, i64, i64, p, p, i64, i64, i64,
+                                            p, i64, i64, i64, i32, i32, i32, i32, i32, p]
+    lib.lift_splat_raw_backward.restype = ctypes.c_int
+    return lib
+
+
+def _check_raw(depth, ctx, flat_idx, what='lift_splat'):
+    m, d, p = depth.shape
+    c = ctx.shape[-1]
+    if (ctx.shape != (m, p, c) or flat_idx.shape != (m, d, p) or ctx.dtype != depth.dtype
+            or flat_idx.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(f'{what}: depth [M, D, P], ctx [M, P, C] of its dtype, integer idx '
+                         f'[M, D, P]; got {tuple(depth.shape)} {depth.dtype}, '
+                         f'{tuple(ctx.shape)} {ctx.dtype}, {tuple(flat_idx.shape)} '
+                         f'{flat_idx.dtype}')
+    if depth.device.type == 'cpu':
+        return
+    if (depth.device.type != 'cuda' or depth.dtype not in _DTYPES
+            or flat_idx.dtype != torch.int32
+            or any(t.device != depth.device for t in (ctx, flat_idx))):
+        raise ValueError(f'{what}: float32/bfloat16 depth and ctx and int32 indices, all on '
+                         'one CUDA device or the CPU')
+    if c % 8 or not 8 <= c <= RAW_MAX_C:
+        raise ValueError(f'{what}: kernels K8 and K8\' take C a multiple of 8 up to '
+                         f'{RAW_MAX_C}, got C={c}')
+
+
+def lift_splat(depth: torch.Tensor, ctx: torch.Tensor, flat_idx: torch.Tensor,
+               n_cells: int) -> torch.Tensor:
+    """The raw-rig splat of every camera.
+
+    Args:
+      depth: [M, D, P] depth distributions (or the one-hot oracle), any strides.
+      ctx: [M, P, C] context features of depth's dtype, any strides.
+      flat_idx: [M, D, P] int32 BEV cell of each (bin, pixel) in [0, n_cells]
+        (n_cells = off the grid).
+      n_cells: ny * nx.
+
+    Returns [M, n_cells, C] in ctx's dtype. A CPU tensor takes
+    :func:`lift_splat_plain`; a CUDA tensor launches kernel K8 (one launch;
+    C a multiple of 8 up to ``RAW_MAX_C``) or raises. A CUDA call that needs
+    a gradient goes through :class:`LiftSplatRaw`, whose backward is kernel
+    K8'."""
+    _check_raw(depth, ctx, flat_idx)
+    if depth.device.type == 'cpu':
+        return lift_splat_plain(depth, ctx, flat_idx, n_cells)
+    if torch.is_grad_enabled() and (depth.requires_grad or ctx.requires_grad):
+        return LiftSplatRaw.apply(depth, ctx, flat_idx, n_cells)
+    return _splat_raw(depth, ctx, flat_idx, n_cells)
+
+
+lift_splat.launches = 0
+
+
+def raw_splat_atomic_adds(depth: torch.Tensor, ctx: torch.Tensor, flat_idx: torch.Tensor,
+                          n_cells: int):
+    """Launch kernel K8 as :func:`lift_splat` does, on CUDA tensors, and
+    count its float atomics on the card. Returns (scalar adds the runs stand
+    for: kept (camera, bin, pixel) rows x C, 16-byte adds issued)."""
+    if depth.device.type != 'cuda':
+        raise ValueError('raw_splat_atomic_adds: kernel K8 counts its adds on a CUDA device')
+    _check_raw(depth, ctx, flat_idx)
+    adds = torch.zeros(2, dtype=torch.int64, device=depth.device)
+    _splat_raw(depth, ctx, flat_idx, n_cells, adds)
+    before, after = adds.tolist()
+    return before, after
+
+
+def _splat_raw(depth, ctx, flat_idx, n_cells, adds=None):
+    """One launch of kernel K8 on CUDA tensors."""
+    m, d, p = depth.shape
+    c = ctx.shape[-1]
+    out = torch.empty(m, n_cells, c, dtype=ctx.dtype, device=depth.device)
+    if out.numel() == 0:
+        return out
+    flat_idx = flat_idx.contiguous()   # the path's indices are: no copy there
+    stream = torch.cuda.current_stream(depth.device).cuda_stream
+    acc, barrier = build.scratch('lift_splat_raw', depth.device, stream, out.numel(), 2)
+    lib = _lib_raw()
+    with torch.cuda.device(depth.device):
+        code = lib.lift_splat_raw(_DTYPES[depth.dtype], depth.data_ptr(), *depth.stride(),
+                                  ctx.data_ptr(), *ctx.stride(), flat_idx.data_ptr(), m, d, p,
+                                  c, n_cells, acc.data_ptr(), barrier.data_ptr(),
+                                  out.data_ptr(), None if adds is None else adds.data_ptr(),
+                                  stream)
+    build.check(lib, code, 'lift_splat')
+    lift_splat.launches += 1
+    return out
+
+
+def lift_splat_backward_plain(g: torch.Tensor, depth: torch.Tensor, ctx: torch.Tensor,
+                              flat_idx: torch.Tensor, n_cells: int):
+    """Plain PyTorch version of :func:`lift_splat_backward`: autograd
+    through :func:`lift_splat_plain`."""
+    with torch.enable_grad():
+        dep = depth.detach().requires_grad_()
+        cx = ctx.detach().requires_grad_()
+        out = lift_splat_plain(dep, cx, flat_idx, n_cells)
+        d_depth, d_ctx = torch.autograd.grad(out, (dep, cx), g)
+    return d_depth, d_ctx
+
+
+def lift_splat_backward(g: torch.Tensor, depth: torch.Tensor, ctx: torch.Tensor,
+                        flat_idx: torch.Tensor, n_cells: int):
+    """Gradients (d depth, d ctx) of :func:`lift_splat` for the output
+    gradient ``g`` [M, n_cells, C] (ctx's dtype, any strides), in depth's
+    and ctx's dtypes:
+
+        G[m, d, p] = g[m, idx[m, d, p]]  (zero for the trash cell)
+        d depth[m, d, p] = sum_c ctx[m, p, c] G[m, d, p, c]
+        d ctx[m, p, c]   = sum_d depth[m, d, p] G[m, d, p, c]
+
+    each product rounded to the inputs' dtype, as autograd through the plain
+    version rounds it. A CPU tensor takes :func:`lift_splat_backward_plain`;
+    a CUDA tensor launches kernel K8' once (row gathers, float32 sums in a
+    fixed order, each output written once, no atomics) or raises."""
+    _check_raw(depth, ctx, flat_idx, 'lift_splat_backward')
+    m, d, p = depth.shape
+    c = ctx.shape[-1]
+    if g.shape != (m, n_cells, c) or g.dtype != ctx.dtype or g.device != depth.device:
+        raise ValueError(f'lift_splat_backward: g [M, n_cells, C] = {(m, n_cells, c)} of '
+                         f'ctx\'s dtype and device, got {tuple(g.shape)} {g.dtype} on '
+                         f'{g.device}')
+    if depth.device.type == 'cpu':
+        return lift_splat_backward_plain(g, depth, ctx, flat_idx, n_cells)
+    d_depth, d_ctx = torch.empty_like(depth), torch.empty_like(ctx)
+    flat_idx = flat_idx.contiguous()
+    if g.stride(2) != 1:
+        g = g.contiguous()
+    # g's 8-channel rows by vector loads when aligned to their size
+    row = 8 * g.element_size()
+    g_vec = int(g.data_ptr() % row == 0
+                and all(st * g.element_size() % row == 0 for st in g.stride()[:2]))
+    lib = _lib_raw()
+    with torch.cuda.device(depth.device):
+        code = lib.lift_splat_raw_backward(
+            _DTYPES[depth.dtype], g.data_ptr(), *g.stride()[:2], g_vec, depth.data_ptr(),
+            *depth.stride(), ctx.data_ptr(), *ctx.stride(), flat_idx.data_ptr(),
+            d_depth.data_ptr(), *d_depth.stride(), d_ctx.data_ptr(), *d_ctx.stride(), m, d, p,
+            c, n_cells, torch.cuda.current_stream(depth.device).cuda_stream)
+    build.check(lib, code, 'lift_splat_backward')
+    lift_splat_backward.launches += 1
+    return d_depth, d_ctx
+
+
+lift_splat_backward.launches = 0
+
+
+class LiftSplatRaw(torch.autograd.Function):
+    """:func:`lift_splat` with a gradient on the card: the forward is kernel
+    K8, the backward :func:`lift_splat_backward` (kernel K8'). The indices
+    are data: no gradient.
+
+    ``LiftSplatRaw.apply(depth, ctx, flat_idx, n_cells)``."""
+
+    @staticmethod
+    def forward(fctx, depth, ctx, flat_idx, n_cells):
+        fctx.n_cells = n_cells
+        fctx.save_for_backward(depth, ctx, flat_idx)
+        return _splat_raw(depth, ctx, flat_idx, n_cells)
+
+    @staticmethod
+    def backward(fctx, g):
+        depth, ctx, flat_idx = fctx.saved_tensors
+        d_depth, d_ctx = lift_splat_backward(g, depth, ctx, flat_idx, fctx.n_cells)
+        return d_depth, d_ctx, None, None

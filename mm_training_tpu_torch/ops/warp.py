@@ -22,9 +22,14 @@ version agree bit for bit on the card. (A float64 map, in the CPU tests,
 blends in float64, as the JAX package does under x64.)
 
 The backward, kernel K7' (``bev_warp_backward`` in the same source), is the
-transposed bilinear sample from the forward's own coordinates, scattered
-with float32 atomics and rounded once to the map's dtype; the matrix gets
-no gradient. :class:`BevWarp` joins the two as a ``torch.autograd.Function``,
+transposed bilinear sample written as a gather: a thread owns a source
+pixel and a channel vector, walks the destination pixels whose sample
+point can fall in its 2 x 2 neighbourhood (the image of that square under
+the forward matrix, boxed), recomputes each one's sample point with the
+forward's own arithmetic, adds the forward's weight times the gradient
+where it is a corner, and rounds once to the map's dtype: one launch, no
+scratch, no atomics, the same bits on every call. The matrix gets no
+gradient. :class:`BevWarp` joins the two as a ``torch.autograd.Function``,
 which both wrappers take for a CUDA map that needs a gradient; on the CPU
 autograd differentiates the plain versions.
 """
@@ -119,7 +124,7 @@ def _lib() -> ctypes.CDLL:
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.bev_warp.argtypes = [i32, p, p, i32, p, i32, i32, i32, i32, i32, p]
     lib.bev_warp.restype = ctypes.c_int
-    lib.bev_warp_backward.argtypes = [i32, p, p, i32, p, p, i32, i32, i32, i32, i32, p]
+    lib.bev_warp_backward.argtypes = [i32, p, p, i32, p, i32, i32, i32, i32, i32, p]
     lib.bev_warp_backward.restype = ctypes.c_int
     return lib
 
@@ -235,8 +240,9 @@ def warp_backward(g: torch.Tensor, img: torch.Tensor, mat: torch.Tensor,
     the [B, n, n] BDA matrix (n, :func:`bda_bev_warp`); it gets no gradient.
 
     A CPU tensor takes :func:`warp_backward_plain`; a CUDA tensor launches
-    kernel K7' (float32 atomics into a zeroed float32 buffer, rounded once
-    to bf16 for a bf16 map) or raises."""
+    kernel K7' once (a gather over each source pixel's candidate
+    destination pixels, float32 sums in a fixed order rounded once to the
+    map's dtype) or raises."""
     _check_map(img, 'warp_backward')
     if g.shape != img.shape or g.dtype != img.dtype or g.device != img.device:
         raise ValueError(f'warp_backward: g of the map\'s shape, dtype and device '
@@ -248,19 +254,13 @@ def warp_backward(g: torch.Tensor, img: torch.Tensor, mat: torch.Tensor,
     g = g.contiguous()
     mat = mat.float().contiguous()
     b, h, w, c = img.shape
+    d_src = torch.empty_like(g)
     vec = int(c % (16 // img.element_size()) == 0 and g.data_ptr() % 16 == 0)
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    if img.dtype == torch.float32:
-        acc = d_src = torch.empty_like(g)
-    else:
-        acc = build.scratch('bev_warp_backward', img.device, stream, g.numel(), 0)[0]
-        d_src = torch.empty_like(g)
     lib = _lib()
     with torch.cuda.device(img.device):
         code = lib.bev_warp_backward(_DTYPES[img.dtype], g.data_ptr(), mat.data_ptr(), bda_n,
-                                     acc.data_ptr(),
-                                     None if acc is d_src else d_src.data_ptr(), b, h, w, c,
-                                     vec, stream)
+                                     d_src.data_ptr(), b, h, w, c, vec,
+                                     torch.cuda.current_stream(img.device).cuda_stream)
     build.check(lib, code, 'warp_backward')
     warp_backward.launches += 1
     return d_src

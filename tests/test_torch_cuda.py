@@ -442,6 +442,29 @@ def test_backward_kernels_device_ops(gen):
     assert list(ops.values()) == [1] and 'lift_splat_bwd' in next(iter(ops)), ops
 
 
+
+def test_warp_backward_and_raw_splat_are_one_device_kernel_a_call(gen):
+    """torch.profiler over one call each at the camera paths' shapes: K7'
+    (the BEV warp's gradient, [1, 32, 256, 80] bf16 under a rotated BDA),
+    K8 and K8' (the B=1 raw-rig splat) are one device kernel each, with no
+    fill, copy or rounding kernel beside them."""
+    from mm_training_tpu_torch.configs import lidar_cam_radar
+    from mm_training_tpu_torch.data import random_bda_matrices
+    from mm_training_tpu_torch.exps.kernel_inputs import raw_splat_inputs
+    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.ops import voxel_pooling, warp
+    img = torch.randn(1, 32, 256, 80, generator=gen, device='cuda').bfloat16()
+    bda = torch.as_tensor(random_bda_matrices(1, seed=3), device='cuda')
+    ops = device_ops(lambda: warp.warp_backward(img, img, bda, 4))
+    assert list(ops.values()) == [1] and 'bev_warp_bwd' in next(iter(ops)), ops
+    depth, ctx, idx, n = raw_splat_inputs(lidar_cam_radar(batch_size=1), gen)
+    g = torch.randn(idx.shape[0], n, ctx.shape[-1], generator=gen, device='cuda').bfloat16()
+    for fn, name in ((lambda: voxel_pooling.lift_splat(depth, ctx, idx, n), 'lift_splat_raw_kernel'),
+                     (lambda: voxel_pooling.lift_splat_backward(g, depth, ctx, idx, n),
+                      'lift_splat_raw_bwd')):
+        ops = device_ops(fn)
+        assert list(ops.values()) == [1] and name in next(iter(ops)), ops
+
 # ------------------------------------------------- K5 fused, K1 into the encoder
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
@@ -867,4 +890,139 @@ def test_camera_train_step_runs_the_fused_dcn_backward(gen):
     torch.cuda.synchronize()
     after = [k.launches for k in kernels]
     assert after == [before[0], before[1] + 1, before[2] + 1], (before, after)
+    assert torch.isfinite(metrics['train_loss'])
+
+
+
+# ------------------------------------------------- K8, K8': the raw-rig splat
+
+def _raw_runs(idx, n_cells):
+    """Per (camera, pixel), the runs of kept bins bound for one cell in bin
+    order, trash bins skipped (they neither add nor end a run): K8 issues
+    one 16-byte add per 4 channels of each."""
+    cells = idx.cpu().numpy()
+    runs = 0
+    for m in range(cells.shape[0]):
+        for col in cells[m].T:
+            kept = col[col < n_cells]
+            runs += int(len(kept) and 1 + (kept[1:] != kept[:-1]).sum())
+    return runs
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('layout', ['channels_last', 'nchw'])
+@pytest.mark.parametrize('batch_size', [1, 4])
+def test_lift_splat_raw_kernel_on_the_pitched_rig(gen, dtype, layout, batch_size):
+    """K8 on the pitched fake rig's own raw indices at the B=1 and B=4
+    requests' shapes (4 and 16 cameras x 409 bins x 3520 pixels, C 80),
+    depth and ctx as the path's views: one launch, within 1e-5 of each
+    entry's sum of |terms| of the plain version (one bf16 ulp more in bf16).
+    The adds it counts on the card: each kept row x C once, and one 16-byte
+    add per 4 channels of each run of kept bins bound for one cell."""
+    from mm_training_tpu_torch.configs import lidar_cam_radar
+    from mm_training_tpu_torch.exps.backward_checks import raw_splat_errors
+    from mm_training_tpu_torch.exps.kernel_inputs import raw_splat_inputs
+    from mm_training_tpu_torch.ops import voxel_pooling
+    depth, ctx, idx, n = raw_splat_inputs(lidar_cam_radar(batch_size=batch_size), gen,
+                                          layout, dtype)
+    assert not ctx.is_contiguous()
+    before = voxel_pooling.lift_splat.launches
+    errors = raw_splat_errors(depth, ctx, idx, n)
+    assert voxel_pooling.lift_splat.launches == before + 1
+    assert errors['ok'], errors
+    if batch_size == 1:
+        c = ctx.shape[-1]
+        scalar, vector = voxel_pooling.raw_splat_atomic_adds(depth, ctx, idx, n)
+        assert scalar == int((idx < n).sum()) * c
+        assert vector == _raw_runs(idx, n) * c // 4
+        assert 0 < 4 * vector < scalar
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('m,d,p,c', [(2, 37, 13, 16), (1, 9, 40, 8), (3, 20, 7, 24),
+                                     (1, 5, 33, 256)])
+def test_lift_splat_raw_kernels_ragged(gen, dtype, m, d, p, c):
+    """K8 and K8' at shapes that leave a warp's lanes idle (C / 8 lanes a
+    pixel: 2, 1, 3, 32), with transposed (strided) depth and ctx, cells that
+    repeat, change and hit the trash cell; K8' also with an expanded
+    gradient (stride 0 over the cameras) and a second call's same bits."""
+    from mm_training_tpu_torch.exps.backward_checks import (raw_splat_backward_errors,
+                                                             raw_splat_errors)
+    n_cells = 11
+    depth = torch.rand(m, p, d, generator=gen, device='cuda').to(dtype).transpose(1, 2)
+    ctx = torch.randn(m, c, p, generator=gen, device='cuda').to(dtype).transpose(1, 2)
+    idx = torch.randint(0, n_cells + 1, (m, d, p), generator=gen, device='cuda')
+    idx = torch.where(torch.rand(m, d, p, generator=gen, device='cuda') < 0.5,
+                      idx.roll(1, 1), idx).int()          # runs of a repeated cell
+    errors = raw_splat_errors(depth, ctx, idx, n_cells)
+    assert errors['ok'], errors
+    g = torch.randn(1, n_cells, c, generator=gen, device='cuda').to(dtype).expand(m, -1, -1)
+    errors = raw_splat_backward_errors(depth, ctx, idx, n_cells, g)
+    assert errors['ok'], errors
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('layout', ['channels_last', 'nchw'])
+@pytest.mark.parametrize('batch_size', [1, 4])
+def test_lift_splat_raw_backward_kernel_matches_plain(gen, dtype, layout, batch_size):
+    """K8' at the raw-rig train path's shapes (the pitched rig's indices):
+    d depth and d ctx within 1e-5 of each entry's sum of |terms| of the
+    plain version (one bf16 ulp more in bf16), the same bits on a second
+    call, one launch a call."""
+    from mm_training_tpu_torch.configs import lidar_cam_radar
+    from mm_training_tpu_torch.exps.backward_checks import raw_splat_backward_errors
+    from mm_training_tpu_torch.exps.kernel_inputs import raw_splat_inputs
+    from mm_training_tpu_torch.ops import voxel_pooling
+    depth, ctx, idx, n = raw_splat_inputs(lidar_cam_radar(batch_size=batch_size), gen,
+                                          layout, dtype)
+    g = torch.randn(idx.shape[0], n, ctx.shape[-1], generator=gen, device='cuda').to(dtype)
+    before = voxel_pooling.lift_splat_backward.launches
+    errors = raw_splat_backward_errors(depth, ctx, idx, n, g)
+    assert voxel_pooling.lift_splat_backward.launches == before + 2
+    assert errors['ok'], errors
+
+
+def test_lift_splat_raw_refusals_and_autograd(gen):
+    """K8 raises for C not a multiple of 8 or above ``RAW_MAX_C``; with a
+    gradient it runs through ``LiftSplatRaw`` (K8, then K8'), whose
+    gradients are the plain version's."""
+    from mm_training_tpu_torch.ops import voxel_pooling
+    depth = torch.rand(2, 6, 10, generator=gen, device='cuda')
+    ctx = torch.randn(2, 10, 16, generator=gen, device='cuda')
+    idx = torch.randint(0, 8, (2, 6, 10), generator=gen, device='cuda').int()
+    dep, cx = depth.clone().requires_grad_(), ctx.clone().requires_grad_()
+    before = (voxel_pooling.lift_splat.launches, voxel_pooling.lift_splat_backward.launches)
+    g = torch.randn(2, 7, 16, generator=gen, device='cuda')
+    voxel_pooling.lift_splat(dep, cx, idx, 7).backward(g)
+    assert (voxel_pooling.lift_splat.launches,
+            voxel_pooling.lift_splat_backward.launches) == (before[0] + 1, before[1] + 1)
+    want = voxel_pooling.lift_splat_backward_plain(g, depth, ctx, idx, 7)
+    torch.testing.assert_close(dep.grad, want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(cx.grad, want[1], rtol=1e-5, atol=1e-5)
+    for c in (12, voxel_pooling.RAW_MAX_C + 8):
+        with pytest.raises(ValueError, match='multiple of 8'):
+            voxel_pooling.lift_splat(depth, torch.randn(2, 10, c, device='cuda'), idx, 7)
+    with pytest.raises(ValueError, match='int32'):
+        voxel_pooling.lift_splat(depth, ctx, idx.long(), 7)
+
+
+def test_raw_rig_camera_train_step_runs_k8(gen):
+    """One tiny raw-rig camera train step on the card (the rig pitched by 3
+    degrees, the oracle off): its splat takes K8 forward and K8' backward,
+    never K4 or K4', and the loss is finite."""
+    from mm_training_tpu_torch.configs import raw_rig, tiny_test_config
+    from mm_training_tpu_torch.exps.profile_train import train_batch
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.ops import voxel_pooling
+    from mm_training_tpu_torch.training import create_train_state, make_train_step
+    cfg = raw_rig(tiny_test_config(use_cam=True, use_depth_loss=False))
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=torch.Generator().manual_seed(0))
+    state = create_train_state(cfg, model)
+    kernels = (voxel_pooling.lift_splat, voxel_pooling.lift_splat_backward,
+               voxel_pooling.lift_splat_factorized, voxel_pooling.lift_splat_factorized_backward)
+    before = [k.launches for k in kernels]
+    state, metrics = make_train_step(cfg)(state, train_batch(cfg, 0, pitch_deg=3.0))
+    torch.cuda.synchronize()
+    after = [k.launches for k in kernels]
+    assert after == [before[0] + 1, before[1] + 1, before[2], before[3]], (before, after)
     assert torch.isfinite(metrics['train_loss'])

@@ -64,11 +64,10 @@ def test_train_loss_falls_on_one_batch():
 
 
 def test_steps_refuse_what_later_slices_bring():
-    """EMA (the runtime slice) and the raw-rig splat (kernel K8) are still
-    refused; the camera train and eval steps are ported (the camera
-    training slice) and build for L+C and camera-only, and a camera step
-    called without its random draws through ``loss_and_grads`` says so."""
-    import dataclasses
+    """EMA (the runtime slice) is still refused; the camera train and eval
+    steps are ported (the camera training slice) and build for L+C and
+    camera-only, and a camera step called without its random draws through
+    ``loss_and_grads`` says so."""
     from mm_training_tpu_torch.training import loss_and_grads
     cfg = tiny_test_config(use_cam=False)
     with pytest.raises(NotImplementedError, match='runtime slice .slice 5.'):
@@ -78,10 +77,44 @@ def test_steps_refuse_what_later_slices_bring():
     for cam in (tiny_test_config(use_cam=True), tiny_test_config(use_cam=True, use_lidar=False)):
         assert callable(make_train_step(cam)) and callable(make_eval_step(cam))
     cam = tiny_test_config(use_cam=True)
-    raw = cam.replace(backbone_conf=dataclasses.replace(cam.get_backbone_conf(),
-                                                        factorized_splat=False))
-    with pytest.raises(NotImplementedError, match='raw-rig'):
-        BEVDepthLiDAR(raw, device='cpu')
     state = create_train_state(cam, BEVDepthLiDAR(cam, device='cpu'), steps_per_epoch=10)
     with pytest.raises(ValueError, match='random draws'):
         loss_and_grads(cam, state, make_fake_batch(cam, seed=0))
+
+
+def test_raw_rig_camera_model_builds_and_steps():
+    """The raw-rig camera model (``factorized_splat=False``, the general
+    splat) builds on the CPU, serves a pitched rig and takes train steps
+    with the oracle on and off (finite losses, the parameters move) and an
+    eval step; on the card a camera width the raw-rig kernels do not take
+    is refused where the model is built, naming the knob."""
+    import dataclasses
+    from mm_training_tpu_torch.configs import raw_rig
+    from mm_training_tpu_torch.models.bev_depth import check_card_limits
+    from mm_training_tpu_torch.training import make_predict_step
+    cfg = raw_rig(tiny_test_config(use_cam=True))
+    model = BEVDepthLiDAR(cfg, device='cpu')
+    batch = make_fake_batch(cfg, seed=0, pitch_deg=3.0)
+    boxes, scores, _, valid = make_predict_step(cfg, model)(batch)
+    assert boxes.shape == (2, 4 * 83, 9) and torch.isfinite(scores).all() and valid.any()
+    state = create_train_state(cfg, model, steps_per_epoch=10)
+    before = [p.detach().clone() for p in model.parameters()]
+    for c in (cfg, cfg.replace(use_depth_loss=False)):
+        state, metrics = make_train_step(c)(state, batch)
+        assert torch.isfinite(metrics['train_loss']) and metrics['train_depth_loss'] > 0
+    assert state.step == 2
+    assert any(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+    ev, (boxes, _, _, _), _ = make_eval_step(cfg)(state, batch)
+    assert torch.isfinite(ev['loss']) and torch.isfinite(boxes).all()
+    for c in (8, 256):
+        wide = cfg.replace(backbone_conf=dataclasses.replace(cfg.get_backbone_conf(),
+                                                             output_channels=c))
+        check_card_limits(wide, 'cuda')
+    for c in (12, 264):
+        wide = cfg.replace(backbone_conf=dataclasses.replace(cfg.get_backbone_conf(),
+                                                             output_channels=c))
+        with pytest.raises(ValueError, match='BackboneConf.output_channels'):
+            check_card_limits(wide, 'cuda')
+        check_card_limits(wide, 'cpu')
+        check_card_limits(wide.replace(backbone_conf=dataclasses.replace(
+            wide.get_backbone_conf(), factorized_splat=True)), 'cuda')

@@ -79,6 +79,13 @@ def narrow_cam(cfgmod, cfg):
     return out.replace(backbone_conf=bb, head_conf=head)
 
 
+def raw_rig(cfg):
+    """``cfg`` (either package's) with the general lift-splat:
+    ``BackboneConf.factorized_splat=False``."""
+    return cfg.replace(backbone_conf=dataclasses.replace(cfg.get_backbone_conf(),
+                                                         factorized_splat=False))
+
+
 def _compare_boxes(got, want) -> None:
     """Valid flags and labels equal, scores within 1e-4 and each kept box
     within 1e-3 (m, rad, m/s), more than 50 kept boxes compared. Two kept
@@ -97,7 +104,8 @@ def _compare_boxes(got, want) -> None:
 
 
 def check_camera_predict_parity(use_radar: bool, use_depth_loss: bool,
-                                rotated_bda: bool, seed: int = 4) -> None:
+                                rotated_bda: bool, seed: int = 4,
+                                pitch_deg: float = 0.0) -> None:
     """The port's predict step against the JAX package's on
     ``tiny_test_config(use_cam=True)`` (camera + LiDAR, 2 cameras of 64 x
     128, 50 depth bins) at narrow widths, fp32, with random flax variables
@@ -105,7 +113,10 @@ def check_camera_predict_parity(use_radar: bool, use_depth_loss: bool,
     too, so the deformable taps leave the pixel grid) and the tolerances of
     :func:`check_predict_parity`. ``rotated_bda`` replaces the identity
     ``bda_mat`` with the port's ``random_bda_matrices``; with ``use_depth_loss`` the
-    LiDAR depth labels replace the predicted depth in the lift."""
+    LiDAR depth labels replace the predicted depth in the lift. A nonzero
+    ``pitch_deg`` pitches the fake rig's cameras (``make_fake_batch``) and
+    builds both models with the general splat (:func:`raw_rig`), the raw-rig
+    path."""
     import jax.numpy as jnp
 
     import mm_training_tpu.configs as jcfg
@@ -126,6 +137,10 @@ def check_camera_predict_parity(use_radar: bool, use_depth_loss: bool,
     assert set(batch) == set(jbatch)
     for k in batch:
         np.testing.assert_array_equal(batch[k], jbatch[k])
+    if pitch_deg:
+        jc, tc = raw_rig(jc), raw_rig(tc)
+        batch = make_fake_batch(tc, seed=3, pitch_deg=pitch_deg)
+        jbatch.update({k: batch[k].copy() for k in ('sensor2ego', 'extrinsics')})
     if rotated_bda:
         batch['bda_mat'] = jbatch['bda_mat'] = random_bda_matrices(2, seed=5)
 
@@ -334,7 +349,7 @@ def _true_division_normalize(imgs):
 def camera_train_parity_case(use_radar: bool = False, use_lidar: bool = True,
                              use_depth_loss: bool = True, num_sweeps: int = 1,
                              dtype=np.float32, with_eval: bool = True,
-                             rotated_bda: bool = True) -> dict:
+                             rotated_bda: bool = True, pitch_deg: float = 0.0) -> dict:
     """One camera train step of both packages on ``tiny_test_config(
     use_cam=True)`` at narrow widths (:func:`narrow_cam`: 2 cameras of 64 x
     128, 50 depth bins, ResNet-10, DepthNet mid 32) from the same random
@@ -387,6 +402,11 @@ def camera_train_parity_case(use_radar: bool = False, use_lidar: bool = True,
     held to the lidar step's tolerances (:func:`check_train_gradients`,
     1e-4 of each tensor's largest entry, and the others below).
 
+    A nonzero ``pitch_deg`` pitches the fake rig's cameras and builds both
+    models with the general splat (:func:`raw_rig`): the raw-rig path, whose
+    splat rounds each product to the compute dtype and sums the cells in
+    float32 in both packages (also in the float64 run).
+
     ``rotated_bda`` replaces the fake batch's identity BEV augmentation with
     ``random_bda_matrices``. The float32 step takes it; the float64 step
     keeps the identity: under a rotation the JAX warp's LU inverse
@@ -421,6 +441,10 @@ def camera_train_parity_case(use_radar: bool = False, use_lidar: bool = True,
     for k in batch:
         if k in jbatch:
             np.testing.assert_array_equal(batch[k], jbatch[k])
+    if pitch_deg:
+        jc, tc = raw_rig(jc), raw_rig(tc)
+        batch = make_fake_batch(tc, seed=3, pitch_deg=pitch_deg)
+        jbatch.update({k: batch[k].copy() for k in ('sensor2ego', 'extrinsics')})
     if rotated_bda:
         batch['bda_mat'] = jbatch['bda_mat'] = random_bda_matrices(2, seed=5)
     b, s, n = batch['imgs'].shape[:3]
