@@ -88,7 +88,10 @@ Phases, each raising on failure:
      indices, bf16 and float32, depth channels-last and NCHW (1e-5 of each
      entry's sum of |terms|, one bf16 ulp more in bf16; K8' the same bits
      on a second call), timed as in phase 2 beside their bounds and plain
-     times, K8 with the atomic adds one launch issues;
+     times; K8 with the counts one launch keeps on the card (each kept row
+     scattered once, its integer atomics), no float atomic in its SASS
+     (``cuobjdump -sass``; K4's, read the same way, has some) and the
+     rig's interval statistics (entries a cell);
  15. serve the raw-rig ``lidar_cam_radar`` (``factorized_splat=False``,
      every camera pitched by 3 degrees) as phase 8 serves the factorized
      one: distinct B=1 requests, one B=4 batch, p50/p90 at B=1 and B=4;
@@ -1485,16 +1488,22 @@ def check_raw_splat_kernels(cfg):
     pitched fake rig's own indices, in bf16 and float32, depth channels-last
     (under the depth oracle) and NCHW (without it), with the tolerances of
     ``exps/backward_checks.py``; K8' also the same bits on a second call.
-    Each timed as phase 2 times kernels, beside its bound, its plain time
-    and, for K8, the atomic adds one launch issues (counted by the kernel on
-    the card). No single PyTorch call computes either: no library time."""
+    Each timed as phase 2 times kernels, beside its bound and its plain
+    time; K8 with the counts one launch keeps on the card (it must scatter
+    each kept row once), the float atomics in its built SASS (none; K4's,
+    which has them, read the same way so that the scan is seen to find
+    them) and the interval statistics of the rig's cells. No single
+    PyTorch call computes either: no library time."""
     from mm_training_tpu_torch.exps import backward_checks
-    from mm_training_tpu_torch.exps.kernel_inputs import raw_splat_inputs
+    from mm_training_tpu_torch.exps.kernel_inputs import raw_interval_stats, raw_splat_inputs
     from mm_training_tpu_torch.exps.timing import device_ms, host_ms
-    from mm_training_tpu_torch.ops import voxel_pooling
+    from mm_training_tpu_torch.ops import build, voxel_pooling
 
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    sass = {'lift_splat_raw_kernel': build.float_atomics('lift_splat_raw',
+                                                         'lift_splat_raw_kernel'),
+            'k4_lift_splat_kernel': build.float_atomics('lift_splat', 'lift_splat_kernel')}
     c = cfg.get_backbone_conf().output_channels
     rows, checks = [], {}
     for bsz in (1, 4):
@@ -1513,18 +1522,18 @@ def check_raw_splat_kernels(cfg):
         depth, ctx, idx, n_cells = args = raw_splat_inputs(b4, gen, seed=SEED + 8)
         g = torch.randn(idx.shape[0], n_cells, c, generator=gen, device=dev).bfloat16()
         kept = int((idx < n_cells).sum())
-        before, after = voxel_pooling.raw_splat_atomic_adds(*args)
+        counted = voxel_pooling.raw_splat_atomic_adds(*args)
+        intervals = raw_interval_stats(idx, n_cells)
         # depth, ctx and the indices read once, the BEV written once; a
         # product and an add a kept (row, channel)
         nbytes = depth.numel() * 2 + ctx.numel() * 2 + idx.numel() * 4 + g.numel() * 2
         for name, fn, plain, total, flops, extra in (
                 ('lift_splat', lambda a=args: voxel_pooling.lift_splat(*a),
                  lambda a=args: voxel_pooling.lift_splat_plain(*a), nbytes, 2 * kept * c,
-                 dict(atomic_adds={'before_merge': before, 'after_merge': after,
-                                   'before': 'kept rows x C scalar fp32 adds the runs stand for',
-                                   'after': '16-byte adds issued (a run of bins x 4 channels)',
-                                   'counted_by': 'the kernel, on the card'},
-                      kept_rows_x_c=kept * c, rows_off_the_grid=int(idx.numel() - kept))),
+                 dict(atomic_adds=dict(counted, counted_by='the kernel, on the card'),
+                      float_atomics_in_sass=sum(sass['lift_splat_raw_kernel'].values()),
+                      intervals=intervals, kept_rows=kept,
+                      rows_off_the_grid=int(idx.numel() - kept))),
                 ('lift_splat_backward',
                  lambda a=args, g=g: voxel_pooling.lift_splat_backward(g, *a),
                  lambda a=args, g=g: voxel_pooling.lift_splat_backward_plain(g, *a),
@@ -1549,11 +1558,20 @@ def check_raw_splat_kernels(cfg):
     print('raw-rig splat kernels against their plain versions: ' + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk in ('ok', 'max_abs_err', 'deterministic')}
          for k, v in checks.items()}), flush=True)
+    for r in rows:
+        if 'atomic_adds' in r:
+            print(f"kernel {r['name']}: counted on the card {json.dumps(r['atomic_adds'])}; "
+                  f"intervals {json.dumps(r['intervals'])}", flush=True)
+    print('float atomics in the SASS (cuobjdump -sass of the built libraries): '
+          + json.dumps(sass), flush=True)
     bad = {k: v for k, v in checks.items() if not v['ok']}
+    if any(sass['lift_splat_raw_kernel'].values()) or not any(
+            sass['k4_lift_splat_kernel'].values()):
+        bad['float atomics in the SASS'] = sass
     for r in rows:
         adds = r.get('atomic_adds')
-        if adds and not (adds['before_merge'] == r['kept_rows_x_c']
-                         and 0 < 4 * adds['after_merge'] < adds['before_merge']):
+        if adds and not (adds['kept_rows'] == r['kept_rows']
+                         and 0 < adds['scatter_int_atomics'] <= adds['kept_rows']):
             bad[r['name']] = adds
     if bad:
         raise AssertionError(f'the raw-rig splat kernels differ from their plain versions: {bad}')

@@ -1,31 +1,37 @@
-"""Where the time of the backward kernels K5' (the DCN's whole backward) and
-K4' (the splat's backward) goes, by ablation on the card.
+"""Where the time of the kernels K5' (the DCN's whole backward), K4' (the
+splat's backward) and K8 / K8' (the raw-rig splat and its backward) goes,
+by ablation on the card.
 
-Each variant is a copy of ``csrc/deform_conv.cu`` or
-``csrc/lift_splat_backward.cu`` with one phase cut out (its results are
-wrong; only its time is read), built by ``nvcc`` into
-``_build/ablate/`` and swapped in for the module's library. Each is timed
-with :func:`~mm_training_tpu_torch.exps.timing.device_ms` on the same
-inputs: K5' at the B=1 and the B=4 ``lidar_cam_radar`` train step's DCN
-([4 or 16, 44, 80, 512] bf16, 4 groups) with offsets up to 3 px and at
-whole pixels, each of its two kernels' device time split out by
-torch.profiler; K4' at the B=1 and B=4 camera splat in both depth layouts.
-The ``phase clocks`` variant keeps every phase and adds ``clock64()``
-stamps: the cycles block 0's first thread spends in each phase of K5''s d
-x kernel (its own work and its waits at the barrier that ends the phase),
-summed over its tiles.
+Each variant is a copy of ``csrc/deform_conv.cu``,
+``csrc/lift_splat_backward.cu`` or ``csrc/lift_splat_raw.cu`` with one
+phase cut out (its results are wrong; only its time is read), built by
+``nvcc`` into ``_build/ablate/`` and swapped in for the module's library.
+Each is timed with :func:`~mm_training_tpu_torch.exps.timing.device_ms` on
+the same inputs: K5' at the B=1 and the B=4 ``lidar_cam_radar`` train
+step's DCN ([4 or 16, 44, 80, 512] bf16, 4 groups) with offsets up to 3 px
+and at whole pixels, each of its two kernels' device time split out by
+torch.profiler; K4' at the B=1 and B=4 camera splat in both depth layouts;
+K8 and K8' at the B=1 and B=4 raw-rig splat (the fake rig pitched by 3
+degrees, bf16) in both depth layouts, with the interval statistics of the
+rig's cells (entries a cell: max, p99, mean). The ``phase clocks``
+variants keep every phase and add timer stamps: for K5''s d x kernel the
+cycles block 0's first thread spends in each phase (its own work and its
+waits at the barrier that ends the phase), summed over its tiles; for K8
+the global timer at each of its grid barriers and at the last block's
+end, the grid's time in each of its five phases.
 
-    python -m mm_training_tpu_torch.exps.ablate_backward
+    python -m mm_training_tpu_torch.exps.ablate_backward [--only raw_splat]
 
 A variant whose text no longer matches the source raises: update it with
 the kernel.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 from unittest import mock
 
 import torch
@@ -33,10 +39,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import lidar_cam_radar
 from ..ops import build, deform_conv, voxel_pooling
-from .kernel_inputs import deform_inputs, deform_shape, splat_inputs
+from .kernel_inputs import (deform_inputs, deform_shape, raw_interval_stats, raw_splat_inputs,
+                            splat_inputs)
 from .timing import device_ms
 
-__all__ = ['DEFORM_VARIANTS', 'SPLAT_VARIANTS', 'main']
+__all__ = ['DEFORM_VARIANTS', 'RAW_SPLAT_VARIANTS', 'SECTIONS', 'SPLAT_VARIANTS', 'main']
 
 Patch = List[Tuple[str, str]]
 
@@ -105,6 +112,67 @@ SPLAT_VARIANTS: Dict[str, Patch] = {
 }
 
 
+# K8 and K8' (csrc/lift_splat_raw.cu); a cut store stays behind a test on
+# a value the data never holds, so the compiler keeps what feeds it.
+# 'phase clocks' keeps every phase and stamps the global timer at K8's grid
+# barriers (block 0) and at each block's end (the latest), read back by
+# read_phase_clocks: the grid's time in each phase.
+RAW_SPLAT_VARIANTS: Dict[str, Patch] = {
+    'kernels as built': [],
+    'phase clocks': [
+        ('namespace {\n\nconstexpr int kThreads = 256;',
+         '__device__ unsigned long long g_clk[8];\n'
+         '__device__ __forceinline__ unsigned long long gtime() {\n'
+         '  unsigned long long t;\n'
+         '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n'
+         '  return t;\n'
+         '}\n\n'
+         'namespace {\n\nconstexpr int kThreads = 256;'),
+        ('  // --- (a) count the kept rows of each cell\n',
+         '  if (blockIdx.x == 0 && tid == 0) { g_clk[0] = gtime(); g_clk[5] = 0; }\n'
+         '  // --- (a) count the kept rows of each cell\n'),
+        ('  grid_barrier(p.barrier);\n\n  // --- (b) scan',
+         '  grid_barrier(p.barrier);\n  if (blockIdx.x == 0 && tid == 0) g_clk[1] = gtime();\n\n'
+         '  // --- (b) scan'),
+        ('  if (tid == 0) p.block_sums[blockIdx.x] = s;\n  grid_barrier(p.barrier);',
+         '  if (tid == 0) p.block_sums[blockIdx.x] = s;\n  grid_barrier(p.barrier);\n'
+         '  if (blockIdx.x == 0 && tid == 0) g_clk[2] = gtime();'),
+        ('  grid_barrier(p.barrier);\n\n  // --- (c) scatter',
+         '  grid_barrier(p.barrier);\n  if (blockIdx.x == 0 && tid == 0) g_clk[3] = gtime();\n\n'
+         '  // --- (c) scatter'),
+        ('  grid_barrier(p.barrier);\n\n  // --- (d) gather',
+         '  grid_barrier(p.barrier);\n  if (blockIdx.x == 0 && tid == 0) g_clk[4] = gtime();\n\n'
+         '  // --- (d) gather'),
+        ('  if (p.adds) {\n    if (kept_rows)',
+         '  __syncthreads();\n  if (tid == 0) atomicMax(&g_clk[5], gtime());\n'
+         '  if (p.adds) {\n    if (kept_rows)'),
+        ('extern "C" const char* error_string(int code) {',
+         'extern "C" int read_phase_clocks(unsigned long long* out) {\n'
+         '  return (int)cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk));\n'
+         '}\n\n'
+         'extern "C" const char* error_string(int code) {')],
+    'K8 no ctx gathers': [
+        ('          cr[v] = ok ? load_row(cm + pix * scp, scc, true) : splat_row(from_float<T>(0.f));',
+         '          cr[v] = splat_row(from_float<T>((float)(pix & 7)));')],
+    'K8 no depth reads': [
+        ('      tile[b * kPad + x] = in ? to_float(dm[(d0 + b) * p.sdd + (int64_t)(p0 + x) * p.sdp]) '
+         ': 0.f;',
+         '      tile[b * kPad + x] = in ? 0.5f : 0.f;')],
+    "K8' no g gathers": [
+        ('                    ? load_row(g + (int64_t)cell[u] * p.sgg, 1, vec) : splat_row(zero);',
+         '                    ? cr : splat_row(zero);')],
+    "K8' no d depth combine": [
+        ('      dd[(d0 + b) * p.sed + (int64_t)(p0 + x) * p.sep] = from_float<T>(v);',
+         '      if (v == 1.2345e-38f) dd[(d0 + b) * p.sed + (int64_t)(p0 + x) * p.sep] = '
+         'from_float<T>(v);')],
+    "K8' no trash vote": [
+        ('      if (!any) continue;   // no pixel of the block keeps these bins\n', ''),
+        ('        if (!((any >> u) & 1u)) continue;\n', '')],
+}
+RAW_CLOCK_PHASES = ('(a) count', '(b) sum segments', '(b) scan', '(c) scatter', '(d) gather')
+SECTIONS = ('deform_backward', 'splat_backward', 'raw_splat')
+
+
 def build_variants(source: str, variants: Dict[str, Patch]) -> Dict[str, ctypes.CDLL]:
     """{variant: its library}, one nvcc per variant, all at once."""
     text = (build.CSRC / f'{source}.cu').read_text()
@@ -120,7 +188,7 @@ def build_variants(source: str, variants: Dict[str, Patch]) -> Dict[str, ctypes.
             s = s.replace(old, new)
         src, lib = out_dir / f'{source}_{i}.cu', out_dir / f'{source}_{i}.so'
         src.write_text(s)
-        procs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, '-o', str(lib),
+        procs[name] = (subprocess.Popen([build.cuda_tool(), *build.NVCC_FLAGS, '-o', str(lib),
                                          str(src)], stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
@@ -155,13 +223,7 @@ def _kernel_ms(fn, keys, iters: int = 5) -> dict:
     return out
 
 
-def main() -> List[dict]:
-    if not torch.cuda.is_available():
-        raise SystemExit('ablate_backward: needs a CUDA device')
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-                          capture_output=True, text=True).stdout.strip()
-    print(json.dumps({'card': card}), flush=True)
-    gen = torch.Generator(device='cuda').manual_seed(0)
+def _deform_rows(gen) -> List[dict]:
     rows = []
     dcn_libs = build_variants('deform_conv', DEFORM_VARIANTS)
     ref = deform_conv._lib()
@@ -186,6 +248,11 @@ def main() -> List[dict]:
                     row['block0_cycles'] = dict(zip(CLOCK_PHASES, fn()[1][0, 0, 0, :6].tolist()))
                 rows.append(row)
                 print(json.dumps(row), flush=True)
+    return rows
+
+
+def _splat_rows(gen) -> List[dict]:
+    rows = []
     splat_libs = build_variants('lift_splat_backward', SPLAT_VARIANTS)
     ref = voxel_pooling._lib_backward()
     for name, lib in splat_libs.items():
@@ -202,6 +269,66 @@ def main() -> List[dict]:
                                g, *args), 20)}
                     rows.append(row)
                     print(json.dumps(row), flush=True)
+    return rows
+
+
+def _raw_splat_rows(gen) -> List[dict]:
+    """K8 and K8' of every variant at the B=1 and B=4 raw-rig splat, both
+    depth layouts, the same inputs for every variant; first the interval
+    statistics of each batch size's cells."""
+    rows = []
+    inputs = {}
+    for b in (1, 4):
+        for layout in ('channels_last', 'nchw'):
+            args = raw_splat_inputs(lidar_cam_radar(batch_size=b), gen, layout)
+            g = torch.randn(args[2].shape[0], args[3], args[1].shape[-1], generator=gen,
+                            device='cuda').bfloat16()
+            inputs[(b, layout)] = (args, g)
+        row = {'kernel': 'lift_splat', 'batch_size': b,
+               'intervals': raw_interval_stats(*inputs[(b, 'nchw')][0][2:])}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    libs = build_variants('lift_splat_raw', RAW_SPLAT_VARIANTS)
+    ref = voxel_pooling._lib_raw()
+    names = ('lift_splat_raw', 'lift_splat_raw_workspace', 'lift_splat_raw_backward',
+             'error_string')
+    for name, lib in libs.items():
+        lib = _like(lib, ref, names)
+        with mock.patch.object(voxel_pooling, '_lib_raw', lambda lib=lib: lib):
+            for (b, layout), (args, g) in inputs.items():
+                row = {'variant': name, 'batch_size': b, 'layout': layout,
+                       'K8_ms': device_ms(lambda: voxel_pooling.lift_splat(*args), 20),
+                       "K8'_ms": device_ms(lambda: voxel_pooling.lift_splat_backward(g, *args),
+                                           20)}
+                if name == 'phase clocks':
+                    voxel_pooling.lift_splat(*args)
+                    torch.cuda.synchronize()
+                    clk = (ctypes.c_ulonglong * 8)()
+                    build.check(lib, lib.read_phase_clocks(clk), 'read_phase_clocks')
+                    row['K8_phase_ms'] = {ph: (clk[i + 1] - clk[i]) / 1e6
+                                          for i, ph in enumerate(RAW_CLOCK_PHASES)}
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    return rows
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--only', nargs='+', choices=SECTIONS, default=SECTIONS)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('ablate_backward: needs a CUDA device')
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                          capture_output=True, text=True).stdout.strip()
+    print(json.dumps({'card': card}), flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    rows = []
+    if 'deform_backward' in args.only:
+        rows += _deform_rows(gen)
+    if 'splat_backward' in args.only:
+        rows += _splat_rows(gen)
+    if 'raw_splat' in args.only:
+        rows += _raw_splat_rows(gen)
     return rows
 
 

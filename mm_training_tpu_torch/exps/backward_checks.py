@@ -116,7 +116,7 @@ def warp_backward_errors(img, mat, bda_n, g) -> Dict:
 def raw_splat_errors(depth, ctx, idx, n_cells) -> Dict:
     """K8 (:func:`~mm_training_tpu_torch.ops.voxel_pooling.lift_splat`)
     against its plain version in the same dtype, within the module's bound
-    (its float32 atomics add in no fixed order)."""
+    (a cell's entries come in the order its scatter's atomics give them)."""
     got = voxel_pooling.lift_splat(depth, ctx, idx, n_cells)
     ref = voxel_pooling.lift_splat_plain(depth, ctx, idx, n_cells)
     mag = voxel_pooling.lift_splat_plain(depth.double().abs(), ctx.double().abs(), idx, n_cells)

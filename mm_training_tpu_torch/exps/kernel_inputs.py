@@ -15,7 +15,7 @@ from ..ops import deform_conv
 
 __all__ = ['HEATMAP_CASES', 'SPLAT_LAYOUTS', 'deform_inputs', 'deform_outside_tolerance',
            'deform_shape', 'depth_label_case', 'depth_label_inputs', 'heatmap_case',
-           'raw_splat_inputs', 'splat_inputs']
+           'raw_interval_stats', 'raw_splat_inputs', 'splat_inputs']
 
 # 'channels_last': the softmax over bins in channels-last memory, as the depth
 # oracle's ``where`` leaves it; 'slice': the softmax written into the
@@ -84,6 +84,23 @@ def raw_splat_inputs(cfg: Config, gen: torch.Generator, layout: str = 'channels_
     depth = (depth.contiguous(memory_format=torch.channels_last) if layout == 'channels_last'
              else depth.contiguous()).flatten(2)
     return depth, ctx, idx, int(np.prod(bb.bev_hw))
+
+
+def raw_interval_stats(idx: torch.Tensor, n_cells: int) -> dict:
+    """The entries a (camera, cell) interval of the raw splat holds for the
+    index ``idx`` [M, D, P] (``n_cells`` = off the grid): the kept rows,
+    the cells with and without entries, and the entries a non-empty cell
+    has at most, at the 99th percentile and on average."""
+    m = idx.shape[0]
+    cell = idx.reshape(m, -1).long() + (n_cells + 1) * torch.arange(m, device=idx.device)[:, None]
+    counts = torch.bincount(cell.reshape(-1), minlength=m * (n_cells + 1))
+    counts = counts.reshape(m, n_cells + 1)[:, :n_cells].reshape(-1)
+    full = counts[counts > 0].double()
+    return {'kept_rows': int(counts.sum()), 'cells': int(counts.numel()),
+            'non_empty_cells': int(full.numel()),
+            'max': int(full.max()) if full.numel() else 0,
+            'p99': float(torch.quantile(full, 0.99)) if full.numel() else 0.0,
+            'mean_non_empty': float(full.mean()) if full.numel() else 0.0}
 
 
 def deform_shape(cfg: Config):

@@ -12,13 +12,21 @@ the lift's eager use of the fp32 oracle (``models/lss_fpn.py``: the max
 over its bins, the comparison, the cast to the compute dtype, the
 ``where``), its ops found by their shapes.
 
+``--host-gap`` (a camera config) builds the factorized and the raw-rig
+model (the same seeded weights) in one process and attributes the
+difference of their request times: p50 of each over rounds in the order
+factorized, raw, raw, factorized; then one profile of each with the host
+self-time of every op and the ops whose host time differs most.
+
     python -m mm_training_tpu_torch.exps.profile_predict [--config lidar_radar]
         [--batch-size 1] [--requests 20] [--trace predict_trace.json]
+        [--host-gap]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import time
 from typing import Optional, Sequence
 
@@ -31,7 +39,7 @@ from ..models import BEVDepthLiDAR
 from ..training import make_predict_step
 from .profile_train import RAW_RIG_PITCH_DEG
 
-__all__ = ['main', 'oracle_lift_ms']
+__all__ = ['host_gap', 'main', 'oracle_lift_ms']
 
 ORACLE_OPS = ('aten::amax', 'aten::gt', 'aten::_to_copy', 'aten::where')
 
@@ -56,6 +64,44 @@ def oracle_lift_ms(predict, batch, cfg, requests: int = 5) -> dict:
     return out
 
 
+def host_gap(cfg, seed: int = 0, requests: int = 20, rounds: int = 2) -> dict:
+    """The factorized ``cfg`` against its raw-rig form in one process (see
+    the module's docstring): p50 host ms a request of each round, host
+    self ms a request of each op under the profiler and the 12 ops whose
+    host time differs most."""
+    steps = {}
+    for name, c, pitch in (('factorized', cfg, 0.0), ('raw_rig', raw_rig(cfg), RAW_RIG_PITCH_DEG)):
+        model = BEVDepthLiDAR(c, generator=torch.Generator().manual_seed(seed))
+        steps[name] = (make_predict_step(c, model), make_fake_batch(c, seed=seed,
+                                                                   pitch_deg=pitch))
+        for _ in range(3):
+            [o.cpu() for o in steps[name][0](steps[name][1])]
+    torch.cuda.synchronize()
+    p50 = {name: [] for name in steps}
+    for _ in range(rounds):
+        for name in ('factorized', 'raw_rig', 'raw_rig', 'factorized'):
+            predict, batch = steps[name]
+            times = []
+            for _ in range(requests):
+                t0 = time.perf_counter()
+                [o.cpu() for o in predict(batch)]
+                times.append((time.perf_counter() - t0) * 1e3)
+            p50[name].append(statistics.median(times))
+    host = {}
+    for name, (predict, batch) in steps.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(requests):
+                [o.cpu() for o in predict(batch)]
+        host[name] = {e.key: e.self_cpu_time_total / 1e3 / requests
+                      for e in prof.key_averages() if e.device_type.name == 'CPU'}
+    keys = set(host['factorized']) | set(host['raw_rig'])
+    diff = {k: host['raw_rig'].get(k, 0.0) - host['factorized'].get(k, 0.0) for k in keys}
+    return {'p50_ms_by_round': p50,
+            'p50_ms': {k: statistics.median(v) for k, v in p50.items()},
+            'host_self_ms_total': {k: sum(v.values()) for k, v in host.items()},
+            'largest_host_differences_ms': sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:12]}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--config', default='lidar_radar',
@@ -66,10 +112,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument('--requests', type=int, default=20)
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--trace', default=None, help='write a Chrome trace here')
+    p.add_argument('--host-gap', action='store_true',
+                   help='the factorized against the raw-rig model in one process')
     args = p.parse_args(argv)
 
     cfg = getattr(variants, args.config)(batch_size=args.batch_size,
                                          max_points_per_frame=100_000)
+    if args.host_gap:
+        if not cfg.use_cam:
+            raise SystemExit('--host-gap takes a camera config')
+        result = {'device': torch.cuda.get_device_name(0), 'config': args.config,
+                  'batch_size': args.batch_size,
+                  **host_gap(cfg, args.seed, args.requests)}
+        print(json.dumps(result, indent=1))
+        return result
     if args.raw_rig:
         if not cfg.use_cam:
             raise SystemExit('--raw-rig takes a camera config')

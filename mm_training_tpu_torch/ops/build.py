@@ -5,7 +5,8 @@ library with a plain C interface, loaded with ``ctypes``. Libraries go to
 ``mm_training_tpu_torch/_build/``, named by a hash of their source, so an
 edited source is rebuilt and an unchanged one is built once per checkout.
 :func:`build_kernels` starts one ``nvcc`` per source at once; :func:`load`
-builds on first use. Nothing is built at import time.
+builds on first use. Nothing is built at import time. :func:`float_atomics`
+reads a built library's SASS (``cuobjdump -sass``) for float atomics.
 """
 from __future__ import annotations
 
@@ -13,14 +14,15 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
-__all__ = ['KERNEL_SOURCES', 'build_kernels', 'check', 'load', 'scratch']
+__all__ = ['KERNEL_SOURCES', 'build_kernels', 'check', 'float_atomics', 'load', 'scratch']
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / 'csrc'
@@ -30,16 +32,20 @@ KERNEL_SOURCES = ('affine_act', 'affine_act_backward', 'voxelize', 'gaussian_hea
                   'deform_conv', 'depth_labels', 'bev_warp')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
+# a float atomic or reduction in SASS, global or shared, any width:
+# RED.E.ADD.F32.FTZ.RN.STRONG.GPU, REDG.E.ADD.F32x4..., ATOMS.ADD.F32, ...BF16x2
+FLOAT_ATOMIC = re.compile(r'\b(?:ATOM|RED)[GS]?\.\S*\b(?:B?F16|F32|F64)')
 
 
-def _nvcc() -> str:
-    found = shutil.which('nvcc')
+def cuda_tool(name: str = 'nvcc') -> str:
+    """Path of the CUDA toolkit's ``name`` (``nvcc``, ``cuobjdump``)."""
+    found = shutil.which(name)
     if found:
         return found
     for root in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
-        if root and Path(root, 'bin', 'nvcc').is_file():
-            return str(Path(root, 'bin', 'nvcc'))
-    raise RuntimeError('nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): '
+        if root and Path(root, 'bin', name).is_file():
+            return str(Path(root, 'bin', name))
+    raise RuntimeError(f'{name} not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): '
                        'the CUDA kernels need the CUDA toolkit')
 
 
@@ -61,7 +67,7 @@ def build_kernels(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, Path]:
         if lib.is_file():
             continue
         tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{n}.cu')]
+        cmd = [cuda_tool(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{n}.cu')]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, lib)
@@ -84,6 +90,28 @@ def load(name: str) -> ctypes.CDLL:
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
+
+
+def float_atomics(name: str, kernel: str, library: Optional[Path] = None) -> Dict[str, int]:
+    """{function: its float atomic instructions} for every function of
+    ``csrc/{name}.cu``'s built library (or ``library``) whose mangled name
+    holds ``kernel``, read from ``cuobjdump -sass``. Raises when no function
+    matches."""
+    lib = library or build_kernels((name,))[name]
+    sass = subprocess.run([cuda_tool('cuobjdump'), '-sass', str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = line.strip()
+        if head.startswith('Function : '):
+            fn = head[len('Function : '):]
+            if kernel in fn:
+                counts[fn] = 0
+        elif fn in counts and FLOAT_ATOMIC.search(line):
+            counts[fn] += 1
+    if not counts:
+        raise RuntimeError(f'float_atomics: no function {kernel!r} in the SASS of {lib}')
+    return counts
 
 
 # (kernel, device index, stream) -> (float32 scratch, int32 barrier words):

@@ -18,9 +18,12 @@ Kernel K8 (``csrc/lift_splat_raw.cu``) is the port of the raw-rig
 needs: per camera the products ``depth[d, p] * ctx[p, :]`` in the compute
 dtype (each rounded to bf16 in bf16, as the JAX package's slab is),
 segment-summed in float32 into ``n_cells + 1`` cells, the trash cell
-dropped, cast to ctx's dtype. Its backward K8' gathers the output
-gradient's rows by cell (d depth, d ctx), every output written once;
-:class:`LiftSplatRaw` joins the two.
+dropped, cast to ctx's dtype. It puts the kept rows in cell order first
+(intervals, as BEVPoolv2 does) and sums each cell once, no float atomics;
+:func:`lift_splat_intervals_plain` is that algorithm in plain PyTorch, for
+the CPU tests (the oracle of the kernel is :func:`lift_splat_plain`). Its
+backward K8' gathers the output gradient's rows by cell (d depth, d ctx),
+every output written once; :class:`LiftSplatRaw` joins the two.
 
 Its backward, kernel K4' (``csrc/lift_splat_backward.cu``), gathers the
 output gradient by cell once (zero for the trash cell) and contracts it
@@ -40,15 +43,19 @@ import torch
 
 from . import build
 
-__all__ = ['LiftSplat', 'LiftSplatRaw', 'RAW_MAX_C', 'lift_splat', 'lift_splat_backward',
-           'lift_splat_backward_plain', 'lift_splat_factorized',
+__all__ = ['LiftSplat', 'LiftSplatRaw', 'RAW_CHUNK', 'RAW_MAX_C', 'lift_splat',
+           'lift_splat_backward', 'lift_splat_backward_plain', 'lift_splat_factorized',
            'lift_splat_factorized_backward', 'lift_splat_factorized_backward_plain',
-           'lift_splat_factorized_plain', 'lift_splat_plain', 'raw_splat_atomic_adds',
-           'splat_atomic_adds']
+           'lift_splat_factorized_plain', 'lift_splat_plain',
+           'raw_splat_atomic_adds', 'splat_atomic_adds']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# K8 and K8' keep 8 channels a lane and a pixel's lanes within one warp
+# K8 and K8' keep 8 channels a lane; K8' a warp per 8 channels of a block
 RAW_MAX_C = 256
+# entries a work unit of K8 sums at most: a longer cell is cut into
+# ceil(count / RAW_CHUNK) near-equal chunks (at least RAW_MAX_C / 2 entries
+# each, the room a chunk's float32 partial takes over its own entries)
+RAW_CHUNK = 256
 
 
 def lift_splat_factorized_plain(depth: torch.Tensor, ctx: torch.Tensor,
@@ -289,13 +296,54 @@ def lift_splat_plain(depth: torch.Tensor, ctx: torch.Tensor, flat_idx: torch.Ten
     return torch.stack(outs)
 
 
+def lift_splat_intervals_plain(depth: torch.Tensor, ctx: torch.Tensor, flat_idx: torch.Tensor,
+                               n_cells: int, chunk: int = RAW_CHUNK) -> torch.Tensor:
+    """Kernel K8's algorithm in plain PyTorch, the same function as
+    :func:`lift_splat_plain`: count the kept rows of each (camera, cell),
+    take the exclusive prefix sum of the counts as the cells' intervals,
+    scatter the rows into cell order (stably: a cell's rows in row order),
+    cut each interval into ``ceil(count / chunk)`` near-equal chunks, sum
+    each chunk's products (rounded to the inputs' dtype) in float32 in row
+    order, and add a cell's chunk sums in chunk order; cast to ctx's
+    dtype. An empty cell is zero. K8 takes a cell's entries in the order
+    of its scatter's atomics, not row order, so the two agree to float32
+    rounding, not bit for bit. Not on any path: it guards the algorithm in
+    the tests on a host with no card."""
+    m, d, p = depth.shape
+    c = ctx.shape[-1]
+    dev = depth.device
+    cell = flat_idx.reshape(m, d * p).long()
+    kept = (cell >= 0) & (cell < n_cells)
+    cam, row = kept.nonzero(as_tuple=True)                       # row order
+    key = cell[cam, row] + n_cells * cam                         # (camera, cell)
+    counts = torch.bincount(key, minlength=m * n_cells)
+    start = torch.cumsum(counts, 0) - counts
+    order = torch.argsort(key, stable=True)                      # cell order
+    key, cam, row = key[order], cam[order], row[order]
+    rank = torch.arange(key.numel(), device=dev) - start[key]
+    chunks = torch.div(counts + chunk - 1, chunk, rounding_mode='floor')
+    n, total = chunks[key], counts[key]
+    j = torch.div((rank + 1) * n - 1, total, rounding_mode='floor')   # the entry's chunk
+    first = torch.cumsum(chunks, 0) - chunks
+    prods = depth.reshape(m, d * p)[cam, row, None] * ctx[cam, row % p]
+    part = torch.zeros(int(chunks.sum()), c, dtype=torch.float32, device=dev)
+    part.index_add_(0, first[key] + j, prods.float())
+    out = torch.zeros(m * n_cells, c, dtype=torch.float32, device=dev)
+    for jj in range(int(chunks.max()) if chunks.numel() else 0):
+        sel = (chunks > jj).nonzero(as_tuple=True)[0]
+        out[sel] += part[first[sel] + jj]
+    return out.to(ctx.dtype).reshape(m, n_cells, c)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib_raw() -> ctypes.CDLL:
     lib = build.load('lift_splat_raw')
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lift_splat_raw.argtypes = [i32, p, i64, i64, i64, p, i64, i64, i64, p,
-                                   i32, i32, i32, i32, i32, p, p, p, p, p]
+    lib.lift_splat_raw.argtypes = [i32, p, i64, i64, i64, p, i64, i64, i64, i32, p,
+                                   i32, i32, i32, i32, i32, i32, p, p, p, p, p]
     lib.lift_splat_raw.restype = ctypes.c_int
+    lib.lift_splat_raw_workspace.argtypes = [i32, i32, i32, i32, i32, i32, i32]
+    lib.lift_splat_raw_workspace.restype = i64
     lib.lift_splat_raw_backward.argtypes = [i32, p, i64, i64, i32, p, i64, i64, i64,
                                             p, i64, i64, i64, p, p, i64, i64, i64,
                                             p, i64, i64, i64, i32, i32, i32, i32, i32, p]
@@ -336,10 +384,10 @@ def lift_splat(depth: torch.Tensor, ctx: torch.Tensor, flat_idx: torch.Tensor,
       n_cells: ny * nx.
 
     Returns [M, n_cells, C] in ctx's dtype. A CPU tensor takes
-    :func:`lift_splat_plain`; a CUDA tensor launches kernel K8 (one launch;
-    C a multiple of 8 up to ``RAW_MAX_C``) or raises. A CUDA call that needs
-    a gradient goes through :class:`LiftSplatRaw`, whose backward is kernel
-    K8'."""
+    :func:`lift_splat_plain`; a CUDA tensor launches kernel K8 (one launch,
+    no float atomics, each output cell written once; C a multiple of 8 up
+    to ``RAW_MAX_C``) or raises. A CUDA call that needs a gradient goes
+    through :class:`LiftSplatRaw`, whose backward is kernel K8'."""
     _check_raw(depth, ctx, flat_idx)
     if depth.device.type == 'cpu':
         return lift_splat_plain(depth, ctx, flat_idx, n_cells)
@@ -352,17 +400,26 @@ lift_splat.launches = 0
 
 
 def raw_splat_atomic_adds(depth: torch.Tensor, ctx: torch.Tensor, flat_idx: torch.Tensor,
-                          n_cells: int):
+                          n_cells: int) -> dict:
     """Launch kernel K8 as :func:`lift_splat` does, on CUDA tensors, and
-    count its float atomics on the card. Returns (scalar adds the runs stand
-    for: kept (camera, bin, pixel) rows x C, 16-byte adds issued)."""
+    read the counts it keeps on the card: the kept rows it scattered and
+    the integer atomics of its count, scatter and combine phases. K8 has no
+    float atomic to count; ``build.float_atomics('lift_splat_raw',
+    'lift_splat_raw_kernel')`` reads its SASS for them."""
     if depth.device.type != 'cuda':
         raise ValueError('raw_splat_atomic_adds: kernel K8 counts its adds on a CUDA device')
     _check_raw(depth, ctx, flat_idx)
-    adds = torch.zeros(2, dtype=torch.int64, device=depth.device)
+    adds = torch.zeros(4, dtype=torch.int64, device=depth.device)
     _splat_raw(depth, ctx, flat_idx, n_cells, adds)
-    before, after = adds.tolist()
-    return before, after
+    return dict(zip(('kept_rows', 'count_int_atomics', 'scatter_int_atomics',
+                     'combine_int_atomics'), adds.tolist()))
+
+
+def _aligned_rows(t: torch.Tensor) -> bool:
+    """8-channel rows of ``t`` [..., C] load as one aligned vector."""
+    row = 8 * t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % row == 0
+            and all(st * t.element_size() % row == 0 for st in t.stride()[:-1]))
 
 
 def _splat_raw(depth, ctx, flat_idx, n_cells, adds=None):
@@ -374,14 +431,18 @@ def _splat_raw(depth, ctx, flat_idx, n_cells, adds=None):
         return out
     flat_idx = flat_idx.contiguous()   # the path's indices are: no copy there
     stream = torch.cuda.current_stream(depth.device).cuda_stream
-    acc, barrier = build.scratch('lift_splat_raw', depth.device, stream, out.numel(), 2)
+    # the barrier's two words and the cell counts: zero, and left so
+    _, words = build.scratch('lift_splat_raw', depth.device, stream, 0, 2 + m * n_cells)
     lib = _lib_raw()
+    work = torch.empty(lib.lift_splat_raw_workspace(m, d, p, c, n_cells, RAW_CHUNK,
+                                                    ctx.element_size()),
+                       dtype=torch.uint8, device=depth.device)
     with torch.cuda.device(depth.device):
         code = lib.lift_splat_raw(_DTYPES[depth.dtype], depth.data_ptr(), *depth.stride(),
-                                  ctx.data_ptr(), *ctx.stride(), flat_idx.data_ptr(), m, d, p,
-                                  c, n_cells, acc.data_ptr(), barrier.data_ptr(),
-                                  out.data_ptr(), None if adds is None else adds.data_ptr(),
-                                  stream)
+                                  ctx.data_ptr(), *ctx.stride(), int(_aligned_rows(ctx)),
+                                  flat_idx.data_ptr(), m, d, p, c, n_cells, RAW_CHUNK,
+                                  words.data_ptr(), work.data_ptr(), out.data_ptr(),
+                                  None if adds is None else adds.data_ptr(), stream)
     build.check(lib, code, 'lift_splat')
     lift_splat.launches += 1
     return out
@@ -411,8 +472,9 @@ def lift_splat_backward(g: torch.Tensor, depth: torch.Tensor, ctx: torch.Tensor,
 
     each product rounded to the inputs' dtype, as autograd through the plain
     version rounds it. A CPU tensor takes :func:`lift_splat_backward_plain`;
-    a CUDA tensor launches kernel K8' once (row gathers, float32 sums in a
-    fixed order, each output written once, no atomics) or raises."""
+    a CUDA tensor launches kernel K8' once (a block a tile of 32 pixels, row
+    gathers, float32 sums in a fixed order, each output written once, no
+    atomics) or raises."""
     _check_raw(depth, ctx, flat_idx, 'lift_splat_backward')
     m, d, p = depth.shape
     c = ctx.shape[-1]
@@ -426,10 +488,7 @@ def lift_splat_backward(g: torch.Tensor, depth: torch.Tensor, ctx: torch.Tensor,
     flat_idx = flat_idx.contiguous()
     if g.stride(2) != 1:
         g = g.contiguous()
-    # g's 8-channel rows by vector loads when aligned to their size
-    row = 8 * g.element_size()
-    g_vec = int(g.data_ptr() % row == 0
-                and all(st * g.element_size() % row == 0 for st in g.stride()[:2]))
+    g_vec = int(_aligned_rows(g))   # g's 8-channel rows by vector loads
     lib = _lib_raw()
     with torch.cuda.device(depth.device):
         code = lib.lift_splat_raw_backward(

@@ -896,17 +896,15 @@ def test_camera_train_step_runs_the_fused_dcn_backward(gen):
 
 # ------------------------------------------------- K8, K8': the raw-rig splat
 
-def _raw_runs(idx, n_cells):
-    """Per (camera, pixel), the runs of kept bins bound for one cell in bin
-    order, trash bins skipped (they neither add nor end a run): K8 issues
-    one 16-byte add per 4 channels of each."""
-    cells = idx.cpu().numpy()
-    runs = 0
-    for m in range(cells.shape[0]):
-        for col in cells[m].T:
-            kept = col[col < n_cells]
-            runs += int(len(kept) and 1 + (kept[1:] != kept[:-1]).sum())
-    return runs
+def _raw_chunks_combined(idx, n_cells, chunk):
+    """The chunks of the (camera, cell) intervals longer than ``chunk``
+    entries: K8 counts each one done with an integer atomic."""
+    m = idx.shape[0]
+    cell = idx.reshape(m, -1).long() + (n_cells + 1) * torch.arange(m, device=idx.device)[:, None]
+    counts = torch.bincount(cell.reshape(-1), minlength=m * (n_cells + 1))
+    counts = counts.reshape(m, n_cells + 1)[:, :n_cells]
+    long_ = counts[counts > chunk]
+    return int(((long_ + chunk - 1) // chunk).sum())
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
@@ -917,8 +915,9 @@ def test_lift_splat_raw_kernel_on_the_pitched_rig(gen, dtype, layout, batch_size
     requests' shapes (4 and 16 cameras x 409 bins x 3520 pixels, C 80),
     depth and ctx as the path's views: one launch, within 1e-5 of each
     entry's sum of |terms| of the plain version (one bf16 ulp more in bf16).
-    The adds it counts on the card: each kept row x C once, and one 16-byte
-    add per 4 channels of each run of kept bins bound for one cell."""
+    The counts it keeps on the card: each kept row scattered once with at
+    most one integer atomic, one integer atomic per chunk of each interval
+    longer than ``RAW_CHUNK``."""
     from mm_training_tpu_torch.configs import lidar_cam_radar
     from mm_training_tpu_torch.exps.backward_checks import raw_splat_errors
     from mm_training_tpu_torch.exps.kernel_inputs import raw_splat_inputs
@@ -930,22 +929,27 @@ def test_lift_splat_raw_kernel_on_the_pitched_rig(gen, dtype, layout, batch_size
     errors = raw_splat_errors(depth, ctx, idx, n)
     assert voxel_pooling.lift_splat.launches == before + 1
     assert errors['ok'], errors
-    if batch_size == 1:
-        c = ctx.shape[-1]
-        scalar, vector = voxel_pooling.raw_splat_atomic_adds(depth, ctx, idx, n)
-        assert scalar == int((idx < n).sum()) * c
-        assert vector == _raw_runs(idx, n) * c // 4
-        assert 0 < 4 * vector < scalar
+    counted = voxel_pooling.raw_splat_atomic_adds(depth, ctx, idx, n)
+    kept = int((idx < n).sum())
+    assert counted['kept_rows'] == kept, counted
+    assert 0 < counted['scatter_int_atomics'] <= kept, counted
+    assert 0 < counted['count_int_atomics'] <= kept, counted
+    assert counted['combine_int_atomics'] == _raw_chunks_combined(idx, n,
+                                                                  voxel_pooling.RAW_CHUNK)
+    assert counted['combine_int_atomics'] > 0
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('m,d,p,c', [(2, 37, 13, 16), (1, 9, 40, 8), (3, 20, 7, 24),
-                                     (1, 5, 33, 256)])
+                                     (1, 5, 33, 256), (2, 64, 700, 256)])
 def test_lift_splat_raw_kernels_ragged(gen, dtype, m, d, p, c):
-    """K8 and K8' at shapes that leave a warp's lanes idle (C / 8 lanes a
-    pixel: 2, 1, 3, 32), with transposed (strided) depth and ctx, cells that
-    repeat, change and hit the trash cell; K8' also with an expanded
-    gradient (stride 0 over the cameras) and a second call's same bits."""
+    """K8 and K8' at shapes that leave a warp's lanes idle (K8: C / 8 lanes
+    an entry, 2, 1, 3, 32; K8': C / 8 warps a block, up to 32 at C = 256),
+    pixel tiles cut short, with transposed (strided) depth and ctx, cells
+    that repeat, change and hit the trash cell (at the last shape
+    intervals of ~7,000 entries, cut into chunks); K8' also with an
+    expanded gradient (stride 0 over the cameras) and a second call's same
+    bits."""
     from mm_training_tpu_torch.exps.backward_checks import (raw_splat_backward_errors,
                                                              raw_splat_errors)
     n_cells = 11
@@ -980,6 +984,64 @@ def test_lift_splat_raw_backward_kernel_matches_plain(gen, dtype, layout, batch_
     errors = raw_splat_backward_errors(depth, ctx, idx, n, g)
     assert voxel_pooling.lift_splat_backward.launches == before + 2
     assert errors['ok'], errors
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_lift_splat_raw_kernels_one_cell_and_all_trash(gen, dtype):
+    """K8 and K8' at the raw-rig camera's size (409 bins x 3520 pixels, C
+    80): every row of camera 0 in one cell (the longest interval a camera
+    can give, 1,439,680 entries in 5,624 chunks), every row of camera 1
+    trash (zeros out, zero d depth), camera 2 the pitched rig's cells."""
+    from mm_training_tpu_torch.configs import lidar_cam_radar
+    from mm_training_tpu_torch.exps.backward_checks import (raw_splat_backward_errors,
+                                                             raw_splat_errors)
+    from mm_training_tpu_torch.exps.kernel_inputs import raw_splat_inputs
+    from mm_training_tpu_torch.ops import voxel_pooling
+    depth, ctx, idx, n = raw_splat_inputs(lidar_cam_radar(batch_size=1), gen, 'nchw', dtype)
+    depth, ctx, idx = depth[:3], ctx[:3], idx[:3].clone()
+    idx[0] = 4321
+    idx[1] = n
+    errors = raw_splat_errors(depth, ctx, idx, n)
+    assert errors['ok'], errors
+    out = voxel_pooling.lift_splat(depth, ctx, idx, n)
+    assert not out[1].any() and out[0, 4321].abs().sum() > 0
+    assert not out[0, :4321].any() and not out[0, 4322:].any()
+    g = torch.randn(3, n, ctx.shape[-1], generator=gen, device='cuda').to(dtype)
+    errors = raw_splat_backward_errors(depth, ctx, idx, n, g)
+    assert errors['ok'], errors
+    d_depth, _ = voxel_pooling.lift_splat_backward(g, depth, ctx, idx, n)
+    assert not d_depth[1].any()
+
+
+def test_lift_splat_raw_kernel_beyond_the_shared_histogram(gen):
+    """K8 with more cells than its shared histogram holds (20,000): the
+    counts go to device memory by integer atomics, one a distinct cell of
+    a warp-bin; against the plain version."""
+    from mm_training_tpu_torch.exps.backward_checks import raw_splat_errors
+    from mm_training_tpu_torch.ops import voxel_pooling
+    n_cells = 20_000
+    depth = torch.rand(2, 30, 300, generator=gen, device='cuda').bfloat16()
+    ctx = torch.randn(2, 300, 16, generator=gen, device='cuda').bfloat16()
+    idx = torch.randint(0, n_cells + 1, (2, 30, 300), generator=gen, device='cuda')
+    idx[:, :, :100] = torch.randint(0, 3, (2, 30, 100), generator=gen, device='cuda')
+    idx = idx.int()
+    errors = raw_splat_errors(depth, ctx, idx, n_cells)
+    assert errors['ok'], errors
+    counted = voxel_pooling.raw_splat_atomic_adds(depth, ctx, idx, n_cells)
+    assert counted['kept_rows'] == int((idx < n_cells).sum())
+
+
+def test_lift_splat_raw_kernels_have_no_float_atomic_in_their_sass(gen):
+    """The built K8 and K8' hold no float atomic or reduction instruction
+    in their SASS (``cuobjdump -sass``), in either dtype's kernel; K4,
+    whose 16-byte float atomics the same scan must find, shows that it
+    reads them."""
+    from mm_training_tpu_torch.ops import build
+    for kernel in ('lift_splat_raw_kernel', 'lift_splat_raw_bwd_kernel'):
+        found = build.float_atomics('lift_splat_raw', kernel)
+        assert not any(found.values()), (kernel, found)
+    k4 = build.float_atomics('lift_splat', 'lift_splat_kernel')
+    assert any(k4.values()), k4
 
 
 def test_lift_splat_raw_refusals_and_autograd(gen):

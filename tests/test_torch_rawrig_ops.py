@@ -1,7 +1,9 @@
 """The raw-rig camera path's pieces against the JAX package's, on the CPU:
-the general lift-splat's plain version (kernel K8's) and its gradient
-(kernel K8''s) against ``lift_splat`` and ``jax.vjp`` of it, the frustum
-cells of a pitched rig against ``flat_bev_index``, and the port's
+the general lift-splat's plain version (kernel K8's), K8's interval
+algorithm in plain PyTorch (cell order, chunks, a fixed-order combine) and
+the gradient (kernel K8''s) against ``lift_splat`` and ``jax.vjp`` of it, the frustum
+cells of a pitched rig against ``flat_bev_index``, the scan of a built
+kernel's SASS for float atomics (on a canned listing), and the port's
 ``LSSFPN(factorized_splat=False)`` forward and gradients against the JAX
 module on a pitched rig at narrow widths. The kernels themselves are held
 against these plain versions on the card (tests/test_torch_cuda.py).
@@ -151,6 +153,157 @@ def test_lift_splat_backward_plain_matches_jax_vjp(dtype):
     dep, cx = t[1].clone().requires_grad_(), t[2].clone().requires_grad_()
     voxel_pooling.lift_splat(dep, cx, t[3], n_cells).backward(t[0])
     assert torch.equal(dep.grad, got_depth) and torch.equal(cx.grad, got_ctx)
+
+
+# ------------------------------------------------------- K8's intervals
+
+def _pitched_tiny_cells():
+    """The tiny camera rig (2 frames x 2 cameras, 51 bins x 4 x 8 pixels, a
+    16 x 32 BEV) pitched by 3 degrees: its raw splat index [4, 51, 32] and
+    n_cells (464 non-empty cells, up to 44 entries a cell)."""
+    cfg = tcfg.tiny_test_config(use_cam=True)
+    bb = cfg.get_backbone_conf()
+    s2e, intr = _pitched_rig(cfg, 2)
+    with torch.device('meta'):
+        lss = LSSFPN(bb)
+    idx = lss.raw_splat_indices(torch.from_numpy(s2e), torch.from_numpy(intr))
+    return idx.numpy(), int(np.prod(bb.bev_hw))
+
+
+def _inputs(depth, ctx, dtype):
+    """(JAX arrays, torch tensors) of ``dtype`` ('float32' or 'bfloat16')
+    holding the same values."""
+    jd, jc = (jnp.asarray(a, getattr(jnp, dtype)) for a in (depth, ctx))
+    td, tc = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(getattr(torch, dtype))
+              for a in (jd, jc))
+    return jd, jc, td, tc
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('chunk', [1, 7, 256])
+def test_lift_splat_intervals_plain_matches_jax_on_the_pitched_rig(dtype, chunk):
+    """K8's algorithm (count, offsets, scatter into cell order, chunk sums,
+    their fixed-order combine) against ``lift_splat`` on the pitched tiny
+    rig's own cells: at chunk 1 every entry is a chunk, at 7 cells of up
+    to 44 entries take up to 7 chunks, at 256 one. Within 1e-5 of each
+    entry's sum of |terms| (one bf16 ulp more in bf16)."""
+    idx, n_cells = _pitched_tiny_cells()
+    rng = np.random.default_rng(56)
+    depth = rng.uniform(0, 1, idx.shape).astype(np.float32)
+    ctx = rng.normal(size=(idx.shape[0], idx.shape[2], 16)).astype(np.float32)
+    jd, jc, td, tc = _inputs(depth, ctx, dtype)
+    want = np.asarray(j_lift_splat(jd, jc, jnp.asarray(idx), n_cells).astype(jnp.float32))
+    got = voxel_pooling.lift_splat_intervals_plain(td, tc, torch.from_numpy(idx), n_cells, chunk)
+    assert got.dtype == tc.dtype and got.shape == (4, n_cells, 16)
+    _close_to_terms(got.float().numpy(), want,
+                    _magnitude(td.float().numpy(), tc.float().numpy(), idx, n_cells),
+                    ulp_bits=8 if dtype == 'bfloat16' else None)
+    counts = np.bincount((idx + (n_cells + 1) * np.arange(4)[:, None, None]).ravel())
+    assert counts.reshape(4, n_cells + 1)[:, :n_cells].max() > 7 * 5
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('chunk', [1, 7, 256])
+def test_lift_splat_intervals_plain_rounds_each_product(dtype, chunk):
+    """Cells that each sum two nearly cancelling rows, d c and -(d + u) c
+    (u one ulp of d in the dtype), among rows that fill other cells: each
+    product rounded to the dtype before the float32 sum gives JAX's bits in
+    every cell, whichever chunk the two rows fall in."""
+    rng = np.random.default_rng(57)
+    m, p, c = 2, 64, 16
+    d1 = rng.uniform(0.5, 1.0, (m, p)).astype(np.float32)
+    jd1 = jnp.asarray(d1, getattr(jnp, dtype))
+    ulp = 2.0 ** -8 if dtype == 'bfloat16' else 2.0 ** -24
+    jd2 = -(jd1.astype(jnp.float32) + ulp).astype(getattr(jnp, dtype))
+    depth = np.stack([np.asarray(jd1.astype(jnp.float32)), np.asarray(jd2.astype(jnp.float32)),
+                      rng.uniform(0, 1, (m, p)).astype(np.float32)], 1)      # [M, 3, P]
+    ctx = rng.normal(size=(m, p, c)).astype(np.float32)
+    idx = np.stack([np.arange(p), np.arange(p), p + np.arange(p) % 5], 0)
+    idx = np.broadcast_to(idx, (m, 3, p)).astype(np.int32).copy()       # cell = pixel
+    jd, jc, td, tc = _inputs(depth, ctx, dtype)
+    want = np.asarray(j_lift_splat(jd, jc, jnp.asarray(idx), p + 5).astype(jnp.float32))
+    got = voxel_pooling.lift_splat_intervals_plain(td, tc, torch.from_numpy(idx), p + 5, chunk)
+    np.testing.assert_array_equal(got[:, :p].float().numpy(), want[:, :p])
+    _close_to_terms(got.float().numpy(), want,
+                    _magnitude(td.float().numpy(), tc.float().numpy(), idx, p + 5),
+                    ulp_bits=8 if dtype == 'bfloat16' else None)
+
+
+@pytest.mark.parametrize('chunk', [7, 256])
+def test_lift_splat_intervals_plain_one_cell_and_all_trash(chunk):
+    """Every row of camera 0 in one cell (its longest interval), every row of
+    camera 1 trash (zeros), camera 2 random cells, in bf16: against
+    ``lift_splat`` within its bound, the empty cells exactly zero."""
+    rng = np.random.default_rng(58)
+    m, d, p, c, n_cells = 3, 40, 50, 16, 30
+    depth = rng.uniform(0, 1, (m, d, p)).astype(np.float32)
+    ctx = rng.normal(size=(m, p, c)).astype(np.float32)
+    idx = rng.integers(0, n_cells + 1, (m, d, p)).astype(np.int32)
+    idx[0], idx[1] = 17, n_cells
+    jd, jc, td, tc = _inputs(depth, ctx, 'bfloat16')
+    want = np.asarray(j_lift_splat(jd, jc, jnp.asarray(idx), n_cells).astype(jnp.float32))
+    got = voxel_pooling.lift_splat_intervals_plain(td, tc, torch.from_numpy(idx), n_cells,
+                                                   chunk).float().numpy()
+    _close_to_terms(got, want, _magnitude(td.float().numpy(), tc.float().numpy(), idx, n_cells),
+                    ulp_bits=8)
+    assert not got[1].any() and not np.delete(got[0], 17, 0).any() and got[0, 17].any()
+
+
+def test_raw_interval_stats_of_the_pitched_rig():
+    """``exps/kernel_inputs.py::raw_interval_stats`` (printed by the card's
+    smoke run beside K8) against numpy's count of each (camera, cell)."""
+    from mm_training_tpu_torch.exps.kernel_inputs import raw_interval_stats
+    idx, n_cells = _pitched_tiny_cells()
+    got = raw_interval_stats(torch.from_numpy(idx), n_cells)
+    counts = np.stack([np.bincount(c.ravel(), minlength=n_cells + 1)[:n_cells] for c in idx])
+    full = counts[counts > 0]
+    assert got == {'kept_rows': int((idx < n_cells).sum()), 'cells': 4 * n_cells,
+                   'non_empty_cells': full.size, 'max': int(full.max()),
+                   'p99': pytest.approx(float(np.quantile(full, 0.99))),
+                   'mean_non_empty': pytest.approx(float(full.mean()))}
+    assert got['max'] == 44 and got['non_empty_cells'] == 464
+
+
+# a cuobjdump -sass listing cut down: two instantiations of K8, one of K8'
+_SASS = '''
+\tcode for sm_90a
+\t\tFunction : _ZN40_GLOBAL__N__lift_splat_raw_cu_5d2c_021lift_splat_raw_kernelI13__nv_bfloat16EEvNS_6ParamsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   ATOMS.ADD R4, [R2], R3 ;
+        /*0020*/                   REDG.E.ADD.64.STRONG.GPU desc[UR4][R2.64], R4 ;
+        /*0030*/                   FADD.FTZ R0, R1, R2 ;
+\t\tFunction : _ZN40_GLOBAL__N__lift_splat_raw_cu_5d2c_025lift_splat_raw_bwd_kernelIfLi16EEEvNS_9BwdParamsE
+        /*0000*/              @P0 REDG.E.ADD.F32x4.FTZ.RN.STRONG.GPU desc[UR4][R2.64], R4 ;
+\t\tFunction : _ZN40_GLOBAL__N__lift_splat_raw_cu_5d2c_021lift_splat_raw_kernelIfEEvNS_6ParamsE
+        /*0000*/                   RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;
+        /*0010*/                   ATOMG.E.ADD.BF16x2.RN.STRONG.GPU PT, R0, [R2.64], R5 ;
+'''
+
+
+def test_float_atomics_reads_each_kernels_sass(monkeypatch):
+    """``ops/build.py::float_atomics``, which the card's tests and smoke
+    run use to show that K8 has no float atomic, on a canned SASS listing:
+    it counts the float atomics and reductions (global, shared, any width)
+    of each function that holds the kernel's name, and none of its integer
+    atomics or float arithmetic; it raises when no function matches."""
+    import subprocess
+    from pathlib import Path
+    from mm_training_tpu_torch.ops import build
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout=_SASS, stderr='')
+
+    monkeypatch.setattr(build, 'cuda_tool', lambda name='nvcc': name)
+    monkeypatch.setattr(build.subprocess, 'run', run)
+    got = build.float_atomics('lift_splat_raw', 'lift_splat_raw_kernel', Path('k8.so'))
+    assert calls == [['cuobjdump', '-sass', 'k8.so']]
+    assert list(got.values()) == [0, 2] and all('raw_kernelI' in k for k in got)
+    assert list(build.float_atomics('lift_splat_raw', 'lift_splat_raw_bwd_kernel',
+                                    Path('k8.so')).values()) == [1]
+    with pytest.raises(RuntimeError, match='no function'):
+        build.float_atomics('lift_splat_raw', 'lift_splat_kernel', Path('k8.so'))
 
 
 # ------------------------------------------------------------------ geometry
