@@ -106,7 +106,20 @@ Phases, each raising on failure:
      the plain versions in float32, with the depth oracle and without, as
      phase 12;
  19. the fp32 tiny raw-rig camera config's train step on the card against
-     the port's CPU step.
+     the port's CPU step;
+ 20. write an aiMotive tree with the port's writer (LAZ frames of ~100k
+     points, no image; train 16 frames, val 8) and time the port's loader
+     alone (samples/s at B=4, 8 thread workers);
+ 21. in a process of its own, train full-width ``lidar_radar`` through
+     ``exps.train`` (B=4, 12 steps: a sanity val, a 'latest' every 4 steps,
+     a val each 4-step epoch, the test pass on 'best'), every kernel's launch
+     count reset before and read after (A, A', K1, K2 and K3 launched, no
+     plain version called), the step p50 (the trainer's StepTimer) and the
+     device's busy share of one more, profiled, epoch;
+ 22. ``exps.evaluate`` on 'best' (``eval_lidar_radar``, ``eval_split=None``)
+     reproduces the val_detection_loss recorded for that step within 1e-4
+     relative and writes one aiMotive JSON a val frame, parsed back to boxes;
+ 23. cv2, PIL, jax and mm_training_tpu are not imported by these phases.
 Each path's device-op count is printed beside the count before the
 one-launch K6 and K2 (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -1754,6 +1767,193 @@ def compare_plain_gradients_camera(cfg, pitch_deg=0.0):
     return out
 
 
+TRAINER_KERNELS = ('affine_act', 'affine_act_backward', 'pillar_encoder_input', 'draw_heatmap',
+                   'circle_nms_mask')
+TREE_FRAMES = {'train': 16, 'val': 8}
+
+
+def write_tree(root):
+    """Phase 20: an aiMotive tree of LAZ frames (~100k points each) written by
+    the port's writer, no image: train 16 frames, val 8 (seeds of their
+    own, so no val frame repeats a train frame). Then the port's loader
+    alone on the train split at B=4 with 8 thread workers: samples/s of a
+    second pass (the first builds the codec and warms the page cache)."""
+    from mm_training_tpu_torch.configs import lidar_radar
+    from mm_training_tpu_torch.data import AiMotiveDataset, generate_synthetic_dataset
+    from mm_training_tpu_torch.training.loader import PrefetchLoader
+
+    t0 = time.perf_counter()
+    for i, (split, n) in enumerate(TREE_FRAMES.items()):
+        generate_synthetic_dataset(root, splits=(split,), frames_per_sequence=n,
+                                   n_objects=12, seed=SEED + 40 + i, write_images=False,
+                                   n_ground_points=100_000, lidar_format='laz')
+    write_s = time.perf_counter() - t0
+    loader = PrefetchLoader(AiMotiveDataset(root, lidar_radar(), 'train'), 4, num_workers=8)
+    try:
+        rates = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            n = sum(b['points'].shape[0] for b in loader)
+            rates.append(n / (time.perf_counter() - t0))
+    finally:
+        loader.close()
+    if n != TREE_FRAMES['train']:
+        raise AssertionError(f'the loader yielded {n} train samples')
+    print(f'tree: {TREE_FRAMES} LAZ frames written in {write_s:.3f} s; loader alone '
+          f'(B=4, 8 thread workers) {rates[1]:.3f} samples/s (first pass {rates[0]:.3f})',
+          flush=True)
+    return {'write_s': write_s, 'loader_samples_per_s': rates[1],
+            'loader_first_pass_samples_per_s': rates[0]}
+
+
+def trainer_child(root, out, result_file):
+    """Phases 21-23 in a process of their own (a fresh profiler and a fresh
+    memory pool): train full-width ``lidar_radar`` through ``exps.train``
+    (B=4, 12 steps from the LAZ tree: a sanity val, a 'latest' every 4
+    steps, a val each 4-step epoch, the test pass on 'best'), every kernel's
+    launch count reset before and read after and every plain version
+    counted; one more epoch under torch.profiler for the device's busy
+    share; then ``exps.evaluate`` on 'best' with ``eval_lidar_radar`` and
+    ``eval_split=None`` (the tree holds the writer's 'highway' odd only, the
+    variant reads 'night'); and the imports check. Writes its numbers to
+    ``result_file``."""
+    import glob
+    import os
+    from torch.profiler import ProfilerActivity, profile
+
+    from mm_training_tpu_torch.configs import CLASSES, lidar_radar
+    from mm_training_tpu_torch.data.formats import object_to_array
+    from mm_training_tpu_torch.exps import evaluate, train
+    from mm_training_tpu_torch.training.trainer import Trainer
+
+    wrappers = _wrappers()
+    plain_calls = {}
+
+    def counting(name, fn):
+        def plain(*args, **kw):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return plain
+
+    train_out = os.path.join(out, 'train')
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in _swaps():
+            stack.enter_context(mock.patch.object(mod, fn.__name__, counting(name, fn)))
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        metrics = train.main(['--config', 'lidar_radar', '--data-root', root, '--max-steps', '12',
+                              'batch_size=4', 'num_workers=8', f'out_path={train_out!r}',
+                              'num_sanity_val_steps=1', 'latest_every_n_steps=4',
+                              f'seed={SEED + 50}'])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {n: w.launches for n, w in wrappers.items()}
+    records = [json.loads(line) for line in open(os.path.join(train_out, 'metrics.jsonl'))]
+    step_p50 = [r['step_time_p50'] for r in records if 'step_time_p50' in r][-1]
+    vals = [r for r in records if 'val_detection_loss' in r]
+    val_rows = [(r['step'], r['val_detection_loss'], r['val_ap_auc']) for r in vals]
+    saved = {name: sorted(os.listdir(os.path.join(train_out, 'saved_models', name)))
+             for name in ('best', 'latest')}
+    print(f'trainer: exps.train lidar_radar B=4, 12 steps from the LAZ tree in {wall_s:.3f} s '
+          f'(sanity val, 3 vals, test pass); step p50 {step_p50 * 1e3:.3f} ms (StepTimer); '
+          f'vals {json.dumps(val_rows)}'
+          f'; saved {json.dumps(saved)}', flush=True)
+    print(f'trainer: launches over the run {json.dumps(counts)}; plain versions called '
+          f'{json.dumps(plain_calls)}', flush=True)
+    missing = [n for n in TRAINER_KERNELS if counts[n] == 0]
+    if missing:
+        raise AssertionError(f'kernels never launched on the trainer path: {missing}')
+    if plain_calls:
+        raise AssertionError(f'the trainer path called plain versions: {plain_calls}')
+    epochs = 12 // (TREE_FRAMES['train'] // 4)
+    if len(vals) != epochs or not all(np.isfinite([r['val_detection_loss'], r['val_ap_auc']]).all()
+                                      for r in vals):
+        raise AssertionError(f'expected {epochs} finite val passes: {vals}')
+    if saved['latest'] != ['12'] or not saved['best']:
+        raise AssertionError(f'checkpoints: {saved}')
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f'non-finite test metrics {metrics}')
+
+    # the device's busy share of one more epoch (4 steps and a val pass)
+    tr = Trainer(lidar_radar(batch_size=4, num_workers=8, num_sanity_val_steps=0,
+                             out_path=os.path.join(out, 'profiled'), seed=SEED + 51),
+                 data_root=root)
+    try:
+        tr.setup()
+        tr.init_state(next(iter(tr.loader('train'))))
+        tr.fit(max_epochs=1)       # warm: the first epoch's allocations and cuDNN plans
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.fit(max_epochs=2)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tr.close()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == 'CUDA' and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy = busy_ms / prof_wall_ms
+    print(f'trainer: one profiled epoch (4 steps, a val pass of 8 frames): wall '
+          f'{prof_wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, busy share {busy:.4f}',
+          flush=True)
+    if busy_ms <= 0:
+        raise AssertionError('the profiled trainer epoch recorded no device time')
+
+    best = os.path.join(train_out, 'saved_models', 'best')
+    recorded = {}
+    for d in os.listdir(best):
+        with open(os.path.join(best, d, 'metrics.json')) as f:
+            recorded[int(d)] = json.load(f)['val_detection_loss']
+    best_step = min(recorded, key=lambda d: (recorded[d], -d))
+    eval_out = os.path.join(out, 'eval')
+    ev = evaluate.main(['--config', 'eval_lidar_radar', '--data-root', root, 'eval_split=None',
+                        f'ckpt_path={best!r}', 'batch_size=4', 'num_workers=8',
+                        f'out_path={eval_out!r}'])
+    rel = abs(ev['test_detection_loss'] - recorded[best_step]) / abs(recorded[best_step])
+    files = sorted(glob.glob(os.path.join(eval_out, 'outputs', '**', '*.json'), recursive=True))
+    parsed = []
+    for file in files:
+        for obj in json.load(open(file))['CapturedObjects']:
+            arr, name = object_to_array(obj)
+            if not (np.isfinite(arr).all() and name in CLASSES and 0 <= obj['Score'] <= 1):
+                raise AssertionError(f'bad exported box in {file}: {obj}')
+            parsed.append(arr)
+    print(f'evaluate: best step {best_step} (recorded val_detection_loss '
+          f'{recorded[best_step]:.6f}, of {json.dumps(recorded)}); test_detection_loss '
+          f'{ev["test_detection_loss"]:.6f}, relative difference {rel:.3e}; test_ap_auc '
+          f'{ev["test_ap_auc"]:.6f}; {len(files)} JSON files, {len(parsed)} boxes parsed back',
+          flush=True)
+    if rel > 1e-4:
+        raise AssertionError('exps.evaluate does not reproduce the recorded val loss')
+    if len(files) != TREE_FRAMES['val'] or len(parsed) < ev['test_num_preds']:
+        raise AssertionError(f'export: {len(files)} files, {len(parsed)} boxes, '
+                             f'{ev["test_num_preds"]} predictions')
+    leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
+    if leaked:
+        raise AssertionError(f'the trainer path imported {leaked}')
+    with open(result_file, 'w') as f:
+        json.dump({'counts': counts, 'step_p50_ms': step_p50 * 1e3, 'wall_s': wall_s,
+                   'busy_share': busy, 'profiled_wall_ms': prof_wall_ms,
+                   'busy_ms': busy_ms, 'eval_rel': rel, 'best_step': best_step}, f)
+
+
+def run_trainer(root):
+    """Phases 21-23 (:func:`trainer_child`) in a child interpreter."""
+    import os
+    import tempfile
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        result_file = os.path.join(out, 'result.json')
+        code = (f'import chip_smoke; chip_smoke.trainer_child({root!r}, {out!r}, '
+                f'{result_file!r})')
+        proc = subprocess.run([sys.executable, '-c', code], timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f'the trainer phases failed ({proc.returncode})')
+        with open(result_file) as f:
+            return json.load(f)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1812,13 +2012,28 @@ def main() -> int:
     compare_plain_gradients_camera(raw_cfg, RAW_RIG_PITCH_DEG)
     compare_cpu_train(raw_rig(tiny_test_config(use_cam=True)), RAW_RIG_PITCH_DEG)
 
+    import shutil
+    import tempfile
+    tree = tempfile.mkdtemp(prefix='aim_tree_')
+    try:
+        tree_stats = write_tree(tree)
+        trainer = run_trainer(tree)
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+    print(f'trainer phases on {card}: ' + json.dumps(dict(tree_stats, **{
+        k: v for k, v in trainer.items() if k != 'counts'})), flush=True)
+    leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
+    if leaked:
+        raise AssertionError(f'chip_smoke imported {leaked}')
+
     wrappers = _wrappers()
     for row in rows:
         name = max((w for w in wrappers if row['name'].startswith(w)), key=len)
         by_path = {'serve': counts[name], 'train': train_counts[name],
                    'serve_camera': cam_counts[name], 'train_camera': cam_train_counts[name],
                    'serve_camera_raw': raw_counts[name],
-                   'train_camera_raw': raw_train_counts[name]}
+                   'train_camera_raw': raw_train_counts[name],
+                   'trainer': trainer['counts'][name]}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,

@@ -1,11 +1,11 @@
-from .base import (BBoxCoderConf, BDAAugConf, BEVBackboneConf, BEVNeckConf, BackboneConf,
-                   Config, DepthNetConf, HeadConf, ImageBackboneConf, ImageNeckConf,
-                   LidarEncoderConf, TaskConf, TestCfg, TrainCfg, VoxelizationConf)
-from .variants import (lidar_cam, lidar_cam_radar, lidar_only, lidar_radar, raw_rig,
-                       tiny_test_config)
+from .base import (CATEGORY_MAPPING, CLASSES, BBoxCoderConf, BDAAugConf, BEVBackboneConf,
+                   BEVNeckConf, BackboneConf, Config, DepthNetConf, HeadConf, ImageBackboneConf,
+                   ImageNeckConf, LidarEncoderConf, TaskConf, TestCfg, TrainCfg, VoxelizationConf)
+from .variants import (eval_lidar_only, eval_lidar_radar, lidar_cam, lidar_cam_radar, lidar_only,
+                       lidar_radar, raw_rig, tiny_test_config)
 
-__all__ = ['BBoxCoderConf', 'BDAAugConf', 'BEVBackboneConf', 'BEVNeckConf', 'BackboneConf',
-           'Config', 'DepthNetConf', 'HeadConf', 'ImageBackboneConf', 'ImageNeckConf',
-           'LidarEncoderConf', 'TaskConf', 'TestCfg', 'TrainCfg', 'VoxelizationConf',
-           'lidar_cam', 'lidar_cam_radar', 'lidar_only', 'lidar_radar', 'raw_rig',
-           'tiny_test_config']
+__all__ = ['CATEGORY_MAPPING', 'CLASSES', 'BBoxCoderConf', 'BDAAugConf', 'BEVBackboneConf',
+           'BEVNeckConf', 'BackboneConf', 'Config', 'DepthNetConf', 'HeadConf',
+           'ImageBackboneConf', 'ImageNeckConf', 'LidarEncoderConf', 'TaskConf', 'TestCfg',
+           'TrainCfg', 'VoxelizationConf', 'eval_lidar_only', 'eval_lidar_radar', 'lidar_cam',
+           'lidar_cam_radar', 'lidar_only', 'lidar_radar', 'raw_rig', 'tiny_test_config']

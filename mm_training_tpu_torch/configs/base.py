@@ -1,9 +1,10 @@
-"""Config surface of the PyTorch port (serving and lidar training).
+"""Config surface of the PyTorch port.
 
 The port's own copy of ``mm_training_tpu/configs/base.py``: the same frozen
-dataclasses, knob names and derived values, cut to what the predict, train
-and eval steps read, the camera branch's sub-configs (``BackboneConf`` and
-friends, :27-97 there) included.
+dataclasses, knob names, defaults and derived values, cut to what the
+port's modules read: the predict, train and eval steps, the camera branch's
+sub-configs (``BackboneConf`` and friends, :27-97 there), the data
+pipeline, the trainer and its CLIs (:257-342 there).
 """
 from __future__ import annotations
 
@@ -208,14 +209,38 @@ class BDAAugConf:
     flip_dy_ratio: float = 0.5
 
 
+CLASSES: Tuple[str, ...] = ('car', 'truck/bus', 'motorcycle', 'pedestrian', 'other')
+
+# aiMotive annotation type -> class id (reference dataset/src/aimotive_dataset.py:14-21)
+CATEGORY_MAPPING = {
+    'CAR': 0, 'Size_vehicle_m': 0,
+    'TRUCK': 1, 'BUS': 1, 'TRUCK/BUS': 1, 'TRAIN': 1, 'Size_vehicle_xl': 1,
+    'VAN': 1, 'PICKUP': 1, 'TRAILER': 1,
+    'MOTORCYCLE': 2, 'RIDER': 2, 'BICYCLE': 2, 'BIKE': 2,
+    'Two_wheel_without_rider': 2, 'Rider': 2,
+    'OTHER_RIDEABLE': 2, 'OTHER-RIDEABLE': 2,
+    'PEDESTRIAN': 3, 'BABY_CARRIAGE': 3,
+    'SHOPPING-CART': 4, 'OTHER-OBJECT': 4,
+}
+
+
 @dataclass(frozen=True)
 class Config:
     """Top-level experiment config — same knob names as exps/conf_aim.py."""
+    # --- image / paths / run (conf_aim.py:1-14)
     H: int = 704
     W: int = 1280
+    data_root: str = '/data/aimotive_dataset'
+    eval_split: Optional[str] = None  # None | highway | urban | rain | night
     experiment_name: str = 'lidar_radar'
     precision: str = 'bf16'  # 'fp32' | 'bf16'
     batch_size: int = 1      # per-device batch size
+    out_path: Optional[str] = None  # defaults to output/{experiment_name}
+    log_wandb: bool = False
+    num_workers: int = 8
+    # 'thread' (numpy and the native codec release the GIL) or 'process'
+    # (forked workers; training/loader.py)
+    loader_worker_mode: str = 'thread'
     seed: int = 0
     base_learning_rate: float = 1e-3  # lr = base/64*global_batch (conf_aim.py:14)
 
@@ -232,13 +257,27 @@ class Config:
     train_velocity: bool = False
     look_back: int = 0
     look_forward: int = 0
+    ckpt_path: Optional[str] = None
 
-    # --- optimizer (conf_aim.py:29-32 + Lightning defaults, mm_training_aim.py:524-531)
+    # --- trainer (conf_aim.py:29-32 + Lightning defaults, mm_training_aim.py:524-531,619-628)
+    max_epochs: int = 999
+    log_every_n_steps: int = 50
+    viz_every_n_steps: int = 0     # the viz panels are not ported: 0 only
     gradient_clip_val: float = 2.0
     weight_decay: float = 1e-7
     lr_milestones: Tuple[int, ...] = (19, 23)  # MultiStepLR epochs
     lr_gamma: float = 0.1
+    early_stop_patience: int = 8
+    save_top_k: int = 10
+    latest_every_n_steps: int = 500
+    # checkpoints: save() returns after the copy to host memory and a thread
+    # writes the file; fit() and restore() wait for it
+    async_checkpointing: bool = True
+    num_sanity_val_steps: int = 2
     use_ema: bool = False     # EMA weights arrive with the runtime slice (refused)
+    # K train steps a group of stacked batches (training/train_step.py::
+    # make_train_step_multi); trailing batches take the single step
+    steps_per_dispatch: int = 1
 
     # --- fixed-shape capacities
     max_points_per_frame: int = 0   # 0 => (1+look_back+look_forward)*100_000
@@ -249,6 +288,7 @@ class Config:
     backbone_conf: Optional[BackboneConf] = None
     head_conf: Optional[HeadConf] = None
     lidar_conf: Optional[LidarEncoderConf] = None
+    bda_aug_conf: BDAAugConf = field(default_factory=BDAAugConf)
 
     # ------------------------------------------------------------------ derived
     @property
@@ -298,6 +338,10 @@ class Config:
     @property
     def depth_channels(self) -> int:
         return self.get_backbone_conf().depth_channels
+
+    @property
+    def output_path(self) -> str:
+        return self.out_path or f'output/{self.experiment_name}'
 
     # -------------------------------------------------------------- sub-configs
     def get_backbone_conf(self) -> BackboneConf:

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from .base import (BackboneConf, Config, DepthNetConf, ImageBackboneConf,
                    ImageNeckConf, LidarEncoderConf, VoxelizationConf)
@@ -42,6 +43,20 @@ def lidar_cam_radar(**kw) -> Config:
                 use_depth_loss=True, base_learning_rate=3e-4)
     base.update(kw)
     return Config(**base)
+
+
+def eval_lidar_only(eval_split: Optional[str] = 'night', ckpt_path: Optional[str] = None,
+                    **kw) -> Config:
+    """exps/configs/eval_lidar_only.py."""
+    return lidar_only(experiment_name='lidar_only_eval', eval_split=eval_split,
+                      ckpt_path=ckpt_path, **kw)
+
+
+def eval_lidar_radar(eval_split: Optional[str] = 'night', ckpt_path: Optional[str] = None,
+                     **kw) -> Config:
+    """exps/configs/eval_lidar_radar.py."""
+    return lidar_radar(experiment_name='lidar_radar_eval', eval_split=eval_split,
+                       ckpt_path=ckpt_path, **kw)
 
 
 def tiny_test_config(use_cam: bool = False, use_lidar: bool = True,

@@ -1,3 +1,9 @@
+from .aimotive_dataset import AiMotiveDataset, collate_aim, get_frames
 from .fake_batch import make_fake_batch, random_bda_matrices
+from .formats import Annotation, CameraParams, Sequence, object_to_array
+from .frame_loader import FrameData, FrameLoader
+from .synthetic import generate_synthetic_dataset
 
-__all__ = ['make_fake_batch', 'random_bda_matrices']
+__all__ = ['AiMotiveDataset', 'Annotation', 'CameraParams', 'FrameData', 'FrameLoader',
+           'Sequence', 'collate_aim', 'generate_synthetic_dataset', 'get_frames',
+           'make_fake_batch', 'object_to_array', 'random_bda_matrices']

@@ -1,0 +1,73 @@
+"""Shared CLI plumbing for the exps entry points.
+
+The port's copy of ``mm_training_tpu/exps/common.py``, which replaces the
+reference's argparse-over-Lightning-Trainer surface
+(exps/mm_training_aim.py:610-631): a named config variant plus key=value
+overrides, with the same reproducibility knobs (--seed; the config snapshot
+is written by the Trainer). The port adds ``--device`` (default: the card).
+"""
+from __future__ import annotations
+
+import argparse
+import ast
+import dataclasses
+from typing import Optional, Sequence
+
+from ..configs import Config, variants
+
+__all__ = ['build_config', 'parse_args']
+
+
+def parse_args(argv: Optional[Sequence[str]] = None,
+               description: str = '',
+               extra_flags: Sequence[str] = ()) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=description)
+    for flag in extra_flags:  # entry-specific boolean switches
+        p.add_argument(f'--{flag}', action='store_true')
+    p.add_argument('--config', default='lidar_radar',
+                   help='config variant name (mm_training_tpu_torch.configs.variants)'
+                        ' — lidar_only, lidar_radar, lidar_cam, lidar_cam_radar,'
+                        ' eval_lidar_only, eval_lidar_radar, tiny_test_config')
+    p.add_argument('--seed', type=int, default=None,
+                   help='override the config seed (pl.seed_everything parity)')
+    p.add_argument('--data-root', default=None, help='dataset root directory')
+    p.add_argument('--max-epochs', type=int, default=None)
+    p.add_argument('--max-steps', type=int, default=None)
+    p.add_argument('--max-batches', type=int, default=None,
+                   help='cap eval/predict batches (smoke runs)')
+    p.add_argument('--device', default=None,
+                   help='torch device (default cuda; cpu runs the plain versions)')
+    p.add_argument('overrides', nargs='*',
+                   help='config overrides as key=value (value parsed as a'
+                        ' python literal when possible)')
+    return p.parse_args(argv)
+
+
+def _parse_value(v: str):
+    try:
+        return ast.literal_eval(v)
+    except (ValueError, SyntaxError):
+        return v
+
+
+def build_config(args: argparse.Namespace) -> Config:
+    factory = getattr(variants, args.config, None)
+    if factory is None:
+        raise SystemExit(f'unknown config variant: {args.config!r}')
+    fields = {f.name for f in dataclasses.fields(Config)}
+    kw = {}
+    for ov in args.overrides:
+        if '=' not in ov:
+            raise SystemExit(f'override must be key=value, got {ov!r}')
+        k, v = ov.split('=', 1)
+        if k not in fields:
+            raise SystemExit(f'unknown config field {k!r} (the port\'s Config has no such '
+                             'field, or it arrives with a later slice)')
+        kw[k] = _parse_value(v)
+    if args.seed is not None:
+        kw['seed'] = args.seed
+    if args.data_root is not None:
+        kw['data_root'] = args.data_root
+    if args.max_epochs is not None:
+        kw['max_epochs'] = args.max_epochs
+    return factory(**kw)

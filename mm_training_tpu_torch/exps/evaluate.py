@@ -1,0 +1,34 @@
+"""Evaluation entry point (the port of ``mm_training_tpu/exps/evaluate.py``):
+load a checkpoint, run the test pass (losses + BEV mAP + aiMotive-JSON
+export).
+
+    python -m mm_training_tpu_torch.exps.evaluate --config eval_lidar_radar \\
+        --data-root /data/aimotive_dataset ckpt_path=output/lidar_radar/saved_models/best
+"""
+from __future__ import annotations
+
+import json
+
+from ..training.trainer import Trainer
+from .common import build_config, parse_args
+
+__all__ = ['main']
+
+
+def main(argv=None):
+    args = parse_args(argv, description='Evaluate a checkpoint')
+    cfg = build_config(args)
+    trainer = Trainer(cfg, device=args.device)
+    try:
+        trainer.setup(steps_per_epoch=1)
+        first = next(iter(trainer.loader('val')))
+        trainer.init_state(first)  # restores cfg.ckpt_path if set
+        metrics = trainer.test(max_batches=args.max_batches)
+    finally:
+        trainer.close()
+    print(json.dumps({k: float(v) for k, v in metrics.items()}, indent=2))
+    return metrics
+
+
+if __name__ == '__main__':
+    main()

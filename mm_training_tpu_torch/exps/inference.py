@@ -3,8 +3,8 @@
 The port of ``mm_training_tpu/exps/inference.py --latency`` (:18-37):
 repeated predict calls (forward + decode + NMS), each ending in a host
 fetch of its outputs, reported as p50/p90/p99 in milliseconds. Requests come
-from ``make_fake_batch`` until the loaders are ported; the trainer,
-checkpoints and JSON export arrive with the runtime slice (slice 5).
+from ``make_fake_batch``; prediction export from a checkpoint arrives with
+``Trainer.predict``.
 
     python -m mm_training_tpu_torch.exps.inference --latency [--config lidar_radar]
         [--batch-size 1] [--iters 50] [--device cuda] [key=value ...]
@@ -16,7 +16,6 @@ as an override turns it on).
 from __future__ import annotations
 
 import argparse
-import ast
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
@@ -27,6 +26,7 @@ from ..configs import variants
 from ..data import make_fake_batch
 from ..models import BEVDepthLiDAR
 from ..training import make_predict_step
+from .common import _parse_value
 
 __all__ = ['benchmark_latency', 'main']
 
@@ -51,13 +51,6 @@ def benchmark_latency(predict_step: Callable, batch: Dict[str, Any],
             'samples': iters, 'batch_size': int(batch['bda_mat'].shape[0])}
 
 
-def _parse_value(v: str):
-    try:
-        return ast.literal_eval(v)
-    except (ValueError, SyntaxError):
-        return v
-
-
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description='Serving latency of the port')
     p.add_argument('--latency', action='store_true',
@@ -73,7 +66,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = p.parse_args(argv)
     if not args.latency:
         raise SystemExit('only --latency is ported; prediction export arrives '
-                         'with the trainer (slice 5)')
+                         'with Trainer.predict')
     kw = {}
     for ov in args.overrides:
         if '=' not in ov:

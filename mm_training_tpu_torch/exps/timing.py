@@ -3,13 +3,19 @@ card's published peak rates that every bound of this package is taken
 against."""
 from __future__ import annotations
 
+import json
+import os
+import subprocess
+import sys
+import tempfile
 import time
-from typing import Callable
+from pathlib import Path
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
 __all__ = ['BF16_FLOPS', 'FP32_FLOPS', 'HBM_BYTES_PER_S', 'device_ms', 'device_ops',
-           'host_ms']
+           'device_ops_in_child', 'host_ms']
 
 # NVIDIA H100 SXM, data sheet, dense, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12   # device memory
@@ -64,3 +70,42 @@ def device_ops(fn: Callable[[], object], sessions: int = 3) -> dict:
         if ops:
             return ops
     raise RuntimeError(f'torch.profiler recorded no device operation in {sessions} sessions')
+
+
+# a call for device_ops_in_child: (module of the port, function, args, kwargs)
+Call = Tuple[str, str, tuple, dict]
+
+_CHILD = """
+import importlib, json, sys, torch
+from mm_training_tpu_torch.exps.timing import device_ops
+sessions = torch.load(sys.argv[1], weights_only=False)
+out = []
+for calls in sessions:
+    fns = [(getattr(importlib.import_module('mm_training_tpu_torch.' + m), f), a, k)
+           for m, f, a, k in calls]
+    out.append(device_ops(lambda: [fn(*a, **k) for fn, a, k in fns]))
+print(json.dumps(out))
+"""
+
+
+def device_ops_in_child(sessions: Sequence[Sequence[Call]], timeout: float = 300.0
+                        ) -> List[Dict[str, int]]:
+    """:func:`device_ops` of each session, a list of calls ``(module,
+    function, args, kwargs)`` (``module`` relative to the package, e.g.
+    ``'ops.gaussian'``), counted in a fresh interpreter: torch.profiler
+    sessions of a process that has launched many kernels have come back
+    without device events, while the same count in a new process holds.
+    The arguments (tensors on the card included) go to the child through a
+    ``torch.save`` file. Raises with the child's output when it fails."""
+    root = Path(__file__).resolve().parents[2]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, 'sessions.pt')
+        torch.save([list(calls) for calls in sessions], path)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(root)] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
+        out = subprocess.run([sys.executable, '-c', _CHILD, path], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise RuntimeError(f'device_ops_in_child failed ({out.returncode}):\n'
+                           f'{out.stdout[-4000:]}\n{out.stderr[-4000:]}')
+    return json.loads(out.stdout.strip().splitlines()[-1])

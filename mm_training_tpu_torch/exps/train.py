@@ -1,0 +1,41 @@
+"""Training entry point (the port of ``mm_training_tpu/exps/train.py``).
+
+fit (with val each epoch, early stopping, best/latest checkpoints), then a
+final test pass with the best checkpoint's weights — the reference's
+``trainer.fit(...); trainer.test(ckpt='best')`` (mm_training_aim.py:633-643).
+
+    python -m mm_training_tpu_torch.exps.train --config lidar_radar \\
+        --data-root /data/aimotive_dataset [--device cpu] [key=value ...]
+"""
+from __future__ import annotations
+
+import json
+
+from ..training.trainer import Trainer
+from .common import build_config, parse_args
+
+__all__ = ['main']
+
+
+def main(argv=None):
+    args = parse_args(argv, description='Train a BEV detector', extra_flags=('profile',))
+    cfg = build_config(args)
+    trainer = Trainer(cfg, device=args.device)
+    try:
+        if args.profile:
+            return trainer.profile(n_steps=args.max_steps or 5)   # raises: not ported yet
+        trainer.setup()
+        trainer.fit(max_epochs=args.max_epochs, max_steps=args.max_steps)
+        # reload best checkpoint and run the test pass (mm_training_aim.py:639)
+        best = trainer.out_path / 'saved_models' / 'best'
+        if best.is_dir():
+            trainer.restore(str(best))
+        metrics = trainer.test(max_batches=args.max_batches)
+    finally:
+        trainer.close()
+    print(json.dumps({k: float(v) for k, v in metrics.items()}, indent=2))
+    return metrics
+
+
+if __name__ == '__main__':
+    main()

@@ -1,12 +1,16 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) and its host
+libraries (``data/csrc/*.cpp``).
 
-Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, loaded with ``ctypes``. Libraries go to
-``mm_training_tpu_torch/_build/``, named by a hash of their source, so an
-edited source is rebuilt and an unchanged one is built once per checkout.
-:func:`build_kernels` starts one ``nvcc`` per source at once; :func:`load`
-builds on first use. Nothing is built at import time. :func:`float_atomics`
-reads a built library's SASS (``cuobjdump -sass``) for float atomics.
+Each kernel source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface, loaded with ``ctypes``; each host
+source by ``g++`` (:func:`load_host`). Libraries go to
+``mm_training_tpu_torch/_build/``, named by a hash of their source and
+flags, so an edited source is rebuilt and an unchanged one is built once per
+checkout; a build writes a temporary file and renames it into place, so a
+concurrent build never sees half a library. :func:`build_kernels` starts one
+``nvcc`` per source at once; :func:`load` and :func:`load_host` build on
+first use. Nothing is built at import time. :func:`float_atomics` reads a
+built library's SASS (``cuobjdump -sass``) for float atomics.
 """
 from __future__ import annotations
 
@@ -17,12 +21,14 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ['KERNEL_SOURCES', 'build_kernels', 'check', 'float_atomics', 'load', 'scratch']
+__all__ = ['KERNEL_SOURCES', 'build_kernels', 'check', 'float_atomics', 'load', 'load_host',
+           'scratch']
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / 'csrc'
@@ -32,6 +38,7 @@ KERNEL_SOURCES = ('affine_act', 'affine_act_backward', 'voxelize', 'gaussian_hea
                   'deform_conv', 'depth_labels', 'bev_warp')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
+GXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 # a float atomic or reduction in SASS, global or shared, any width:
 # RED.E.ADD.F32.FTZ.RN.STRONG.GPU, REDG.E.ADD.F32x4..., ATOMS.ADD.F32, ...BF16x2
 FLOAT_ATOMIC = re.compile(r'\b(?:ATOM|RED)[GS]?\.\S*\b(?:B?F16|F32|F64)')
@@ -49,38 +56,67 @@ def cuda_tool(name: str = 'nvcc') -> str:
                        'the CUDA kernels need the CUDA toolkit')
 
 
-def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'lib{name}-{digest}.so'
+def _library_path(source: Path, flags: Sequence[str]) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + ' '.join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f'lib{source.stem}-{digest}.so'
 
 
-def build_kernels(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, Path]:
-    """Compile every missing library, one ``nvcc`` per source, all at once.
-
-    Returns {name: library path}. Raises with the compiler's output when a
-    build fails."""
+def _compile(jobs: Dict[str, Tuple[Sequence[str], Path, Path]]) -> None:
+    """Run every job {name: (compiler and flags, source, library)} whose
+    library is missing, all at once, each into a temporary file renamed into
+    place. Raises with the compilers' output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: _library_path(n) for n in names}
     procs = {}
-    for n, lib in paths.items():
+    for n, (compiler, src, lib) in jobs.items():
         if lib.is_file():
             continue
-        tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
-        cmd = [cuda_tool(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{n}.cu')]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, lib)
+        tmp = lib.with_name(f'{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp')
+        procs[n] = (subprocess.Popen([*compiler, '-o', str(tmp), str(src)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True), tmp, lib, src)
     failed = []
-    for n, (proc, tmp, lib) in procs.items():
+    for n, (proc, tmp, lib, src) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f'{n}.cu:\n{out}')
+            failed.append(f'{src}:\n{out}')
         else:
             os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     if failed:
-        raise RuntimeError('nvcc failed\n' + '\n'.join(failed))
-    return paths
+        raise RuntimeError('build failed\n' + '\n'.join(failed))
+
+
+def build_kernels(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, Path]:
+    """Compile every missing kernel library, one ``nvcc`` per source, all at
+    once. Returns {name: library path}. Raises with the compiler's output
+    when a build fails."""
+    libs = {n: _library_path(CSRC / f'{n}.cu', NVCC_FLAGS) for n in names}
+    missing = [n for n, lib in libs.items() if not lib.is_file()]
+    if missing:
+        nvcc = [cuda_tool(), *NVCC_FLAGS]
+        _compile({n: (nvcc, CSRC / f'{n}.cu', libs[n]) for n in missing})
+    return libs
+
+
+_HOST_LOCK = threading.Lock()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_host(source: Path) -> ctypes.CDLL:
+    lib = _library_path(source, GXX_FLAGS)
+    try:
+        _compile({source.stem: (['g++', *GXX_FLAGS], source, lib)})
+    except OSError as e:            # no g++ on PATH
+        raise RuntimeError(f'cannot build {source}: {e}') from e
+    return ctypes.CDLL(str(lib))
+
+
+def load_host(source: Path) -> ctypes.CDLL:
+    """The loaded library of the host C++ ``source``, built by ``g++`` at
+    first use (one build at a time in a process; loader threads call this
+    concurrently). Raises naming the source when the build fails: nothing
+    falls back."""
+    with _HOST_LOCK:
+        return _load_host(Path(source).resolve())
 
 
 @functools.lru_cache(maxsize=None)

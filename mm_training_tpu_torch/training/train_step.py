@@ -2,6 +2,7 @@
 
 The port of ``mm_training_tpu/training/train_step.py``: ``TrainState`` and
 ``create_train_state``, ``make_train_step`` (JAX :183-257),
+``make_train_step_multi`` (:278-300),
 ``make_eval_step`` (:311-367), ``make_predict_step`` (:369-398),
 ``cast_floating`` (:148-154), ``normalize_images`` (:74-81),
 ``_prepare_camera_inputs`` (:84-145: depth labels from a precomputed
@@ -26,8 +27,11 @@ losses. Train-mode BatchNorm updates the float32 master statistics in
 place (rounding the old ones to bf16 once a step first, as the JAX step's
 cast of ``batch_stats`` does). Eval and predict cast the statistics too.
 
-EMA weights (``use_ema``) and ``make_train_step_multi`` (K steps a dispatch)
-arrive with the runtime slice and are refused until then.
+A batch's arrays may be numpy (copied to the model's device by the step)
+or tensors on that device already (the trainer's pinned, non-blocking
+copies: ``training/trainer.py::_device_batches``). EMA weights
+(``use_ema``) arrive with a later part of the runtime slice and are refused
+until then.
 """
 from __future__ import annotations
 
@@ -45,11 +49,13 @@ from ..models.centerpoint_head import detection_loss, get_targets
 from ..ops import depth_labels as depth_label_ops
 from .optim import AdamW, make_optimizer
 
-__all__ = ['IMAGENET_MEAN', 'IMAGENET_STD', 'TrainState', 'camera_inputs',
+__all__ = ['HOST_FIELDS', 'IMAGENET_MEAN', 'IMAGENET_STD', 'TrainState', 'camera_inputs',
            'camera_train_inputs', 'cast_floating', 'create_train_state', 'depth_loss_fn',
            'draw_train_randoms', 'loss_and_grads', 'make_eval_step', 'make_predict_step',
-           'make_train_step', 'normalize_images']
+           'make_train_step', 'make_train_step_multi', 'normalize_images']
 
+# a batch's host-only entries (the loader's), never read by a step
+HOST_FIELDS = ('path', 'n_valid', 'n_valid_global')
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -232,6 +238,28 @@ def make_train_step(cfg: Config) -> Callable[..., Tuple[TrainState, Dict[str, to
         return state, metrics
 
     return train_step
+
+
+def make_train_step_multi(cfg: Config, k: int
+                          ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """``train_step_multi(state, batches) -> (state, metrics)``: ``k``
+    train steps in order on batches stacked on a leading axis ([k, B, ...],
+    ``training/loader.py::stack_batches``), each through
+    :func:`make_train_step`; every metric is its mean over the ``k`` steps,
+    as the JAX package's ``lax.scan`` returns them. On the TPU this cut the
+    host's round trips a step; here it is the same K sequential steps."""
+    step = make_train_step(cfg)
+
+    def train_step_multi(state: TrainState, batches: Dict[str, Any]):
+        metrics = []
+        for i in range(k):
+            state, m = step(state, {key: v[i] for key, v in batches.items()
+                                    if key not in HOST_FIELDS})
+            metrics.append(m)
+        return state, {name: torch.stack([m[name] for m in metrics]).mean()
+                       for name in metrics[0]}
+
+    return train_step_multi
 
 
 def make_eval_step(cfg: Config) -> Callable:

@@ -1,0 +1,658 @@
+"""Training runtime: epoch loop, checkpoints, early stopping, eval, export.
+
+The port of ``mm_training_tpu/training/trainer.py`` on one card, which
+re-designs the reference's Lightning wiring (exps/mm_training_aim.py:
+BEVDepthLightningModel + create_trainer):
+  * fit: epoch loop over the train step, sanity val steps, per-epoch
+    validation, top-k checkpoints by val_detection_loss + a 'latest'
+    checkpoint every N steps (mm_training_aim.py:590-604), early stopping
+    (patience 8 on val_detection_loss, :597), config snapshot (:582-583),
+    resume from 'latest' with the loop state, K-step groups
+    (``steps_per_dispatch``) with the single-step tail, ``max_steps``.
+  * validate/test: decode on the card, BEV mAP on the host via
+    MAPCalculator (:291-342,416-422), aiMotive-format JSON export mirroring
+    the dataset tree (:514-519), PR curves.
+  * checkpoints: the JAX package's layout, ``saved_models/{best,latest}/
+    <step>/``, with one ``torch.save`` file a step (``state.pt``: the step,
+    the model's float32 masters and BN statistics, the optimizer's moments
+    and count, the loop state) and the step's metrics (``metrics.json``).
+    A step is written into a temporary directory and renamed into place, so
+    a killed run never leaves half a step; with ``async_checkpointing`` a
+    thread writes a host copy. A port checkpoint does not load in the JAX
+    package, nor the other way round (that import is slice 6's).
+
+Host-to-device copies (``_device_batches``): batch i+1 is copied into
+pinned memory and to the card with ``non_blocking=True`` on a side stream
+while step i runs; the step's stream waits on the copy's event, and the
+tensors are marked as used by it.
+
+Waiting for later slices, each raising NotImplementedError that names it:
+``profile``, ``predict``, ``fold_bn_for_inference``, the viz panels
+(``viz_every_n_steps``), EMA and TTA, and the multi-process helpers.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs import CLASSES, Config, raw_rig
+from ..core.geometry import rig_is_row_independent
+from ..core.transforms import yaw_to_quat
+from ..data.aimotive_dataset import AiMotiveDataset
+from ..evaluation import MAPCalculator
+from ..models import BEVDepthLiDAR
+from ..utils.logging import MetricsLogger
+from ..utils.profiling import StepTimer
+from .loader import PrefetchLoader, stack_batches
+from .train_step import (HOST_FIELDS, TrainState, create_train_state, make_eval_step,
+                         make_train_step, make_train_step_multi)
+
+__all__ = ['Trainer', 'boxes_to_aimotive_dict']
+
+CKPT_FILE = 'state.pt'
+METRICS_FILE = 'metrics.json'
+BEST_METRIC = 'val_detection_loss'
+
+
+def _later(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(f'{what} arrives with {slice_name} of the port')
+
+
+def boxes_to_aimotive_dict(boxes: np.ndarray, scores: np.ndarray,
+                           labels: np.ndarray, class_names=CLASSES) -> dict:
+    """Decoded boxes (bottom-z) -> aiMotive CapturedObjects JSON
+    (pred_dict_to_aimotive_dict, mm_training_aim.py:218-250: origin z =
+    bottom z + dz/2)."""
+    out = {'CapturedObjects': []}
+    for box, score, label in zip(boxes, scores, labels):
+        quat = yaw_to_quat(float(box[6]))
+        out['CapturedObjects'].append({
+            'BoundingBox3D Origin X': float(box[0]),
+            'BoundingBox3D Origin Y': float(box[1]),
+            'BoundingBox3D Origin Z': float(box[2]) + float(box[5]) / 2,
+            'BoundingBox3D Extent X': float(box[3]),
+            'BoundingBox3D Extent Y': float(box[4]),
+            'BoundingBox3D Extent Z': float(box[5]),
+            # dataset schema keys (annotation.py) — the reference's exporter
+            # writes 'BoundingBox3D Relative Velocity *' instead, which its
+            # own loader cannot parse back; deviation makes exports
+            # round-trip as annotations
+            'Relative Velocity X': float(box[7]),
+            'Relative Velocity Y': float(box[8]),
+            'Relative Velocity Z': 0,
+            'BoundingBox3D Orientation Quat X': float(quat[0]),
+            'BoundingBox3D Orientation Quat Y': float(quat[1]),
+            'BoundingBox3D Orientation Quat Z': float(quat[2]),
+            'BoundingBox3D Orientation Quat W': float(quat[3]),
+            'ObjectType': class_names[int(label)],
+            'Score': float(score),
+        })
+    return out
+
+
+class Trainer:
+    """Fit, validate and test one model on one device (default the card;
+    ``device='cpu'`` runs the kernels' plain versions)."""
+
+    def __init__(self, cfg: Config, data_root: Optional[str] = None,
+                 datasets: Optional[Dict[str, object]] = None, device=None):
+        if cfg.use_ema:
+            raise _later('EMA weights (use_ema)', 'a later part of the runtime slice')
+        if cfg.viz_every_n_steps:
+            raise _later('the viz panels (viz_every_n_steps)',
+                         'a later part of the runtime slice')
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.data_root = data_root or cfg.data_root
+        self.map_calculator = MAPCalculator()
+        self.state: Optional[TrainState] = None
+        self._datasets = datasets or {}
+        self._loaders: Dict[str, PrefetchLoader] = {}
+        self.out_path = Path(cfg.output_path)
+        self.logger = MetricsLogger(self.out_path, cfg.experiment_name,
+                                    log_every=cfg.log_every_n_steps)
+        self._ckpt_writes: Dict[str, threading.Thread] = {}
+        self._ckpt_errors: list = []
+        self.global_step = 0
+        # training-loop state (checkpointed with the weights — Lightning
+        # restores Trainer + callback state on ckpt_path resume,
+        # mm_training_aim.py:597,638: EarlyStopping counters, epoch, loader
+        # position). _loop_restored flips when a checkpoint carried it.
+        self.loop_state = {'epoch': 0, 'batch_in_epoch': 0,
+                           'best_val': float('inf'), 'patience': 0}
+        self._loop_restored = False
+        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == 'cuda'
+                             else None)
+
+    # ----------------------------------------------------------------- data
+    def dataset(self, split: str) -> AiMotiveDataset:
+        if split not in self._datasets:
+            self._datasets[split] = AiMotiveDataset(self.data_root, self.cfg,
+                                                    split=split)
+        return self._datasets[split]
+
+    def loader(self, split: str) -> PrefetchLoader:
+        """Host loader of ``cfg.batch_size`` batches. Eval loaders pad the
+        trailing batch (n_valid marker) so no frame is dropped from the
+        metric."""
+        if split not in self._loaders:
+            train = split == 'train'
+            self._loaders[split] = PrefetchLoader(
+                self.dataset(split), self.cfg.batch_size,
+                shuffle=train, num_workers=self.cfg.num_workers,
+                seed=self.cfg.seed, drop_last=train, pad_last=not train,
+                worker_mode=self.cfg.loader_worker_mode)
+        return self._loaders[split]
+
+    def close(self):
+        """Wait for checkpoint writes, release the loaders' workers and the
+        logger's files (idempotent)."""
+        self.wait_for_checkpoints()
+        for ld in self._loaders.values():
+            ld.close()
+        self.logger.close()
+
+    # ---------------------------------------------------------------- setup
+    def setup(self, steps_per_epoch: Optional[int] = None):
+        """Fix the LR schedule's ``steps_per_epoch`` (default: the train
+        loader's length), build the steps and write ``config.json``."""
+        if steps_per_epoch is None:
+            try:
+                steps_per_epoch = max(1, len(self.loader('train')))
+            except TypeError:
+                # a custom injected dataset without __len__ — the ONLY case
+                # where a default is meaningful. Loud: the LR milestones
+                # are scheduled in steps.
+                import warnings
+                steps_per_epoch = 1000
+                warnings.warn(
+                    'train dataset has no __len__; defaulting '
+                    f'steps_per_epoch={steps_per_epoch} — LR epoch '
+                    'milestones will be scheduled against this value. Pass '
+                    'Trainer.setup(steps_per_epoch=...) explicitly.',
+                    stacklevel=2)
+        self.steps_per_epoch = steps_per_epoch
+        self._build_steps()
+        self.out_path.mkdir(parents=True, exist_ok=True)
+        with open(self.out_path / 'config.json', 'w') as f:
+            json.dump(dataclasses.asdict(self.cfg), f, indent=2, default=str)
+
+    def _build_steps(self):
+        cfg = self.cfg
+        self._train_step = make_train_step(cfg)
+        self._train_step_multi = (make_train_step_multi(cfg, cfg.steps_per_dispatch)
+                                  if cfg.steps_per_dispatch > 1 else None)
+        self._eval_step = make_eval_step(cfg)
+
+    def init_state(self, sample_batch: Dict[str, np.ndarray]):
+        """Build the model (seeded from ``cfg.seed``) and its optimizer;
+        then restore ``cfg.ckpt_path`` when set. A camera rig with roll,
+        pitch or skew switches the model to the general splat first
+        (``configs.raw_rig``), as the JAX trainer does."""
+        if not hasattr(self, '_train_step'):
+            raise RuntimeError('call setup() before init_state()')
+        cfg = self.cfg
+        if (cfg.use_cam and cfg.get_backbone_conf().factorized_splat
+                and not rig_is_row_independent(sample_batch['sensor2ego'],
+                                               sample_batch['intrin'])):
+            import warnings
+            warnings.warn('camera rig has roll/pitch or intrinsic skew — switching to the '
+                          'general (non-factorized) splat for exact geometry', stacklevel=2)
+            self.cfg = raw_rig(cfg)
+            self._build_steps()      # the splat is parameter-free: the same state
+        model = BEVDepthLiDAR(self.cfg, device=self.device)
+        self.state = create_train_state(self.cfg, model, self.steps_per_epoch)
+        if self.cfg.ckpt_path:
+            self.restore(self.cfg.ckpt_path)
+        return self.state
+
+    def fold_bn_for_inference(self):
+        raise _later('BN folding for inference', 'slice 6 (checkpoint import and deploy)')
+
+    # ----------------------------------------------------------- checkpoint
+    def save_checkpoint(self, name='best', metrics: Optional[dict] = None):
+        """Write the state under ``saved_models/<name>/<step>/``: 'best'
+        keeps the ``save_top_k`` steps of least val_detection_loss,
+        'latest' the newest step only. With ``async_checkpointing`` a thread
+        writes a host copy of the state; a new save of ``name`` first waits
+        for the previous one."""
+        if self.state is None:
+            return
+        self._join_write(name)
+        root = self.out_path / 'saved_models' / name
+        step = int(self.state.step)
+        snapshot = _state_to_dict(self.state, self.loop_state)   # host copy
+        keep = self.cfg.save_top_k if name == 'best' else 1
+        args = (root, step, snapshot, metrics, keep, name == 'best')
+        if not self.cfg.async_checkpointing:
+            _write_checkpoint(*args)
+            return
+
+        def write():
+            try:
+                _write_checkpoint(*args)
+            except BaseException as e:  # noqa: BLE001 - re-raised by _join_write
+                self._ckpt_errors.append(e)
+        t = threading.Thread(target=write, name=f'checkpoint-{name}', daemon=False)
+        t.start()
+        self._ckpt_writes[name] = t
+
+    def _join_write(self, name: str):
+        t = self._ckpt_writes.pop(name, None)
+        if t is not None:
+            t.join()
+        if self._ckpt_errors:
+            err = self._ckpt_errors.pop(0)
+            self._ckpt_errors.clear()
+            raise RuntimeError('a checkpoint write failed') from err
+
+    def wait_for_checkpoints(self):
+        """Wait for every checkpoint write in flight (no-op when sync or
+        idle); re-raises a failed write. Called on fit() exit and before
+        restore(), so a write is never read half-finished or lost to the
+        process's exit."""
+        for name in list(self._ckpt_writes):
+            self._join_write(name)
+
+    def restore(self, path: str):
+        """Restore the weights, optimizer, step and loop state from a
+        checkpoint root (``saved_models/best``: its best step by
+        val_detection_loss; ``latest``: its newest) or one step directory.
+        Raises on a missing or empty path — silently training from scratch
+        is the exact failure checkpointing exists to prevent."""
+        if self.state is None:
+            raise RuntimeError('call init_state first')
+        self.wait_for_checkpoints()
+        path = os.path.abspath(path)
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f'checkpoint path {path!r} is not a directory')
+        step_dirs = [d for d in os.listdir(path) if d.isdigit()]
+        if step_dirs:
+            path = os.path.join(path, str(_pick_restore_step(path, step_dirs)))
+        file = os.path.join(path, CKPT_FILE)
+        if not os.path.isfile(file):
+            raise FileNotFoundError(f'no checkpoint ({CKPT_FILE}) under {path!r}')
+        tree = torch.load(file, map_location='cpu', weights_only=True)
+        _load_state(self.state, tree)
+        self.global_step = int(self.state.step)
+        self.loop_state = dict(tree['loop'])
+        self._loop_restored = True
+        return self.state
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, max_epochs: Optional[int] = None,
+            max_steps: Optional[int] = None, resume: bool = True):
+        """Train. With ``resume`` (default), a 'latest' checkpoint already in
+        out_path is restored first — preemption recovery: the periodic
+        latest-checkpoint (latest_every_n_steps) plus this makes a killed run
+        continue where it stopped."""
+        try:
+            return self._fit(max_epochs, max_steps, resume)
+        finally:
+            # the last 'latest'/'best' write may still be in flight — never
+            # leave fit (or unwind an exception) with it unfinished
+            self.wait_for_checkpoints()
+
+    def _fit(self, max_epochs, max_steps, resume):
+        cfg = self.cfg
+        max_epochs = max_epochs if max_epochs is not None else cfg.max_epochs
+        train_loader = self.loader('train')
+        if self.state is None:
+            if not hasattr(self, '_train_step'):
+                self.setup()
+            try:
+                first = next(iter(train_loader))
+            except StopIteration:
+                raise ValueError(
+                    f'train split has {len(self.dataset("train"))} frames — fewer than one '
+                    f'batch of {cfg.batch_size}; drop_last leaves the loader empty') from None
+            self.init_state(first)
+            latest = self.out_path / 'saved_models' / 'latest'
+            if resume and not cfg.ckpt_path and latest.is_dir():
+                self.restore(str(latest))
+
+        # sanity val steps (num_sanity_val_steps=2, mm_training_aim.py:624)
+        if cfg.num_sanity_val_steps:
+            self._run_eval('val', max_batches=cfg.num_sanity_val_steps, log=False)
+
+        kdisp = max(1, cfg.steps_per_dispatch)
+        timer = StepTimer()
+        # resume: the checkpointed loop state carries the exact epoch,
+        # loader position and early-stop counters (Lightning parity —
+        # callbacks + loaders restore on ckpt_path resume,
+        # mm_training_aim.py:597,638)
+        if self._loop_restored:
+            start_epoch = self.loop_state['epoch']
+            resume_batch = self.loop_state['batch_in_epoch']
+        else:
+            start_epoch = self.global_step // max(1, self.steps_per_epoch)
+            resume_batch = 0
+        for epoch in range(start_epoch, max_epochs):
+            train_loader.set_epoch(epoch)
+            if resume_batch:
+                # mid-epoch resume: fast-forward the deterministic batch
+                # plan (saves at step boundaries keep this a multiple of
+                # the K group size, so grouping stays aligned with the
+                # unkilled run's)
+                train_loader.skip_batches(resume_batch)
+            self.loop_state['epoch'] = epoch
+            self.loop_state['batch_in_epoch'] = resume_batch
+            resume_batch = 0
+            for batch, device_batch, stacked in self._device_batches(train_loader,
+                                                                     stack=kdisp):
+                if max_steps and self.global_step >= max_steps:
+                    # a resume at or past max_steps runs nothing
+                    break
+                timer.start()
+                prev_step = self.global_step
+                remaining = max_steps - self.global_step if max_steps else None
+                if stacked and remaining is not None and remaining < kdisp:
+                    # the final group would overshoot max_steps: run only the
+                    # remaining batches through the single step, so training
+                    # lands EXACTLY on max_steps
+                    for k in range(remaining):
+                        self.state, metrics = self._train_step(
+                            self.state, {key: v[k] for key, v in device_batch.items()})
+                    n = remaining * batch['points'].shape[1]
+                elif stacked:
+                    self.state, metrics = self._train_step_multi(self.state, device_batch)
+                    n = batch['points'].shape[0] * batch['points'].shape[1]
+                else:
+                    # batches that do not fill a K group run one by one
+                    # (no sample is dropped)
+                    self.state, metrics = self._train_step(self.state, device_batch)
+                    n = batch['points'].shape[0]
+                float(metrics['train_loss'])      # the step's end: the timer's barrier
+                self.global_step = int(self.state.step)
+                self.loop_state['batch_in_epoch'] += kdisp if stacked else 1
+                timer.stop(n_samples=n)
+                self.logger.log_step(self.global_step, metrics)
+                if cfg.latest_every_n_steps and (
+                        self.global_step // cfg.latest_every_n_steps
+                        > prev_step // cfg.latest_every_n_steps):
+                    self.save_checkpoint('latest')
+                if max_steps and self.global_step >= max_steps:
+                    break
+            for k, v in timer.summary().items():
+                self.logger.log_scalar(self.global_step, k, v)
+
+            val_metrics = self._run_eval('val')
+            vloss = val_metrics.get('val_detection_loss', float('inf'))
+            # update the early-stop counters BEFORE the epoch-end save so a
+            # resume from this checkpoint makes the same stop/best decisions
+            # as the unkilled run
+            if vloss < self.loop_state['best_val']:
+                self.loop_state['best_val'] = vloss
+                self.loop_state['patience'] = 0
+            else:
+                self.loop_state['patience'] += 1
+            self.loop_state['epoch'] = epoch + 1
+            self.loop_state['batch_in_epoch'] = 0
+            self.save_checkpoint('best', metrics={BEST_METRIC: vloss})
+            if self.loop_state['patience'] >= cfg.early_stop_patience:
+                break
+            if max_steps and self.global_step >= max_steps:
+                break
+        return self.state
+
+    # ----------------------------------------------------------------- eval
+    def _run_eval(self, split: str, prefix: Optional[str] = None,
+                  max_batches: Optional[int] = None, log: bool = True,
+                  export: bool = False) -> Dict[str, float]:
+        cfg = self.cfg
+        prefix = prefix or split
+        loader = self.loader(split)
+        self.map_calculator.reset()
+        agg: Dict[str, float] = {}
+        count = 0
+
+        def consume(batch, metrics, out):
+            nonlocal count
+            metrics = {k: float(v) for k, v in metrics.items()}
+            boxes, scores, labels, valid = (t.cpu().numpy() for t in out)
+            self._accumulate_map(batch, boxes, scores, labels, valid)
+            if export:
+                self._export_results(batch, boxes, scores, labels, valid)
+            # weight by valid samples so a padded trailing batch (pad_last)
+            # contributes proportionally, not as a full batch
+            w = int(batch.get('n_valid', boxes.shape[0]))
+            for k, v in metrics.items():
+                agg[k] = agg.get(k, 0.0) + v * w
+            count += w
+
+        # batch i+1's eval step is enqueued before batch i's outputs are read
+        # back, so the host's read and mAP accumulation of batch i overlap
+        # the card's work on batch i+1
+        pending = None
+        for batch, device_batch, _ in self._device_batches(loader, max_batches):
+            metrics, out, _ = self._eval_step(self.state, device_batch)
+            if pending is not None:
+                consume(*pending)
+            pending = (batch, metrics, out)
+        if pending is not None:
+            consume(*pending)
+        out = {f'{prefix}_{k}': v / max(count, 1) for k, v in agg.items()}
+        if count and len(self.map_calculator):
+            bev = self.map_calculator.compute_bev(iou_thr=0.3, x_range=cfg.point_cloud_range[3])
+            out.update({f'{prefix}_{k}': float(v) for k, v in bev.items()})
+            if export:
+                # PR curves + per-class AP per eval (utils/eval.py:483-499)
+                self.map_calculator.export_pr_curves(
+                    str(self.out_path / 'metrics' / prefix), iou_thr=0.3,
+                    x_range=cfg.point_cloud_range[3], class_names=CLASSES)
+        self.map_calculator.reset()
+        if log:
+            self.logger.log_eval(self.global_step, out)
+        return out
+
+    def profile(self, n_steps: int = 5):
+        raise _later('Trainer.profile (a device trace of train steps)',
+                     'a later part of the runtime slice')
+
+    def predict(self, split='val', max_batches=None):
+        raise _later('Trainer.predict', 'a later part of the runtime slice')
+
+    def validate(self, max_batches=None):
+        return self._run_eval('val', max_batches=max_batches)
+
+    def test(self, max_batches=None):
+        return self._run_eval('val', prefix='test', max_batches=max_batches, export=True)
+
+    def test_all_odds(self, odds=('highway', 'urban', 'night', 'rain'),
+                      max_batches=None) -> Dict[str, Dict[str, float]]:
+        """Per-ODD evaluation (the reference runs one config file per ODD,
+        exps/configs/eval_*.py; here it is one call)."""
+        out = {}
+        for odd in odds:
+            try:
+                ds = AiMotiveDataset(self.data_root, self.cfg, split='val', eval_odd=odd)
+            except FileNotFoundError:
+                continue
+            if not len(ds):
+                continue
+            key = f'val_{odd}'
+            self._datasets[key] = ds
+            old = self._loaders.pop(key, None)
+            if old is not None:
+                old.close()
+            out[odd] = self._run_eval(key, prefix=f'test_{odd}', max_batches=max_batches)
+        return out
+
+    # -------------------------------------------------------------- helpers
+    def _to_device(self, batch):
+        """(the batch's arrays on the device, the copy's event, the pinned
+        host tensors); on the CPU (the arrays, None, None).
+
+        On the card each array is copied into pinned memory, then to the
+        card with ``non_blocking=True`` on the side stream; the event marks
+        the copies' end. The caller keeps the pinned tensors until its step
+        is done."""
+        arrays = {k: v for k, v in batch.items() if k not in HOST_FIELDS}
+        if self._copy_stream is None:
+            return arrays, None, None
+        pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                  for k, v in arrays.items()}
+        with torch.cuda.stream(self._copy_stream):
+            dev = {k: t.to(self.device, non_blocking=True) for k, t in pinned.items()}
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return dev, event, pinned
+
+    def _device_batches(self, loader, max_batches: Optional[int] = None, stack: int = 1):
+        """Yield (host_batch, device_batch, stacked) with the NEXT batch's
+        copy already enqueued, so it overlaps the current step.
+
+        With ``stack`` > 1, groups that many loader batches on a leading K
+        axis for the K-step group. An incomplete trailing group is NOT
+        dropped: its batches are yielded one by one with stacked=False and
+        the caller runs them through the single step."""
+        it = iter(loader)
+        if stack > 1:
+            def grouped(src):
+                group = []
+                for b in src:
+                    group.append(b)
+                    if len(group) == stack:
+                        yield True, stack_batches(group)
+                        group = []
+                for b in group:
+                    yield False, b
+            it = grouped(it)
+        else:
+            it = ((False, b) for b in it)
+
+        stream = (torch.cuda.current_stream(self.device) if self._copy_stream is not None
+                  else None)
+
+        def ready(item):
+            host, (dev, event, _pinned), stacked = item
+            if event is not None:
+                stream.wait_event(event)
+                for t in dev.values():
+                    t.record_stream(stream)      # made on the copy stream, used on this one
+            return host, dev, stacked
+
+        cur = None
+        count = 0
+        for stacked, nxt in it:
+            nxt_item = (nxt, self._to_device(nxt), stacked)
+            if cur is not None:
+                yield ready(cur)
+                count += 1
+                if max_batches is not None and count >= max_batches:
+                    return
+            cur = nxt_item
+        if cur is not None and (max_batches is None or count < max_batches):
+            yield ready(cur)
+
+    def _accumulate_map(self, batch, boxes, scores, labels, valid):
+        gts, preds = [], []
+        for i in range(batch.get('n_valid', boxes.shape[0])):
+            v = valid[i]
+            # decode emits bottom z; GT carries center z. BEV metrics ignore
+            # z, keep as-is (parity with result_list, mm_training_aim.py:315)
+            preds.append([boxes[i][v].copy(), scores[i][v], labels[i][v]])
+            gm = batch['gt_mask'][i]
+            gts.append([batch['gt_boxes'][i][gm], batch['gt_labels'][i][gm]])
+        self.map_calculator.update(gts, preds, batch.get('path'))
+
+    def _export_results(self, batch, boxes, scores, labels, valid):
+        save_dir = self.out_path / 'outputs'
+        paths = batch.get('path', [])
+        paths = paths[:batch.get('n_valid', len(paths))]
+        for i, path in enumerate(paths):
+            v = valid[i]
+            d = boxes_to_aimotive_dict(boxes[i][v], scores[i][v], labels[i][v])
+            # relpath, not str.replace: replace() fires on EVERY occurrence
+            # of data_root in the path and silently leaves the path
+            # unchanged on a normalization mismatch — which would overwrite
+            # the dataset's ground-truth annotation JSON in place
+            rel = os.path.relpath(os.path.abspath(path), os.path.abspath(str(self.data_root)))
+            if rel.startswith('..'):
+                rel = os.path.basename(path)  # outside data_root: flat name
+            out_file = Path(save_dir) / rel
+            out_file.parent.mkdir(parents=True, exist_ok=True)
+            with open(out_file, 'w') as f:
+                json.dump(d, f)
+
+
+def _pick_restore_step(root: str, step_dirs) -> int:
+    """The step to restore from a directory of step checkpoints: the step
+    of least val_detection_loss among those that recorded it (a 'best' root
+    keeps the top save_top_k steps, and the newest kept step is not the
+    best one), else the newest step ('latest', a root without metrics)."""
+    scored = []
+    for d in step_dirs:
+        file = os.path.join(root, d, METRICS_FILE)
+        if os.path.isfile(file):
+            with open(file) as f:
+                metrics = json.load(f)
+            if BEST_METRIC in metrics:
+                scored.append((metrics[BEST_METRIC], -int(d)))
+    if scored:
+        return -min(scored)[1]
+    return max(int(d) for d in step_dirs)
+
+
+def _state_to_dict(state: TrainState, loop_state: dict) -> dict:
+    """A host copy of what a checkpoint holds."""
+    def host(t):
+        return t.detach().to('cpu', copy=True)
+    opt = state.optimizer
+    return {'step': int(state.step),
+            'model': {k: host(v) for k, v in state.model.state_dict().items()},
+            'optimizer': {'mu': [host(t) for t in opt.mu], 'nu': [host(t) for t in opt.nu],
+                          'count': int(opt.count)},
+            'loop': dict(loop_state)}
+
+
+@torch.no_grad()
+def _load_state(state: TrainState, tree: dict) -> None:
+    state.model.load_state_dict(tree['model'])
+    opt = state.optimizer
+    for dst, src in zip(opt.mu + opt.nu, tree['optimizer']['mu'] + tree['optimizer']['nu']):
+        dst.copy_(src)
+    opt.count = int(tree['optimizer']['count'])
+    state.step = int(tree['step'])
+
+
+def _write_checkpoint(root: Path, step: int, tree: dict, metrics: Optional[dict],
+                      keep: int, by_metric: bool) -> None:
+    """Write ``tree`` (and ``metrics``) as ``root/<step>/`` through a
+    temporary directory renamed into place, then prune ``root`` to ``keep``
+    steps: the least val_detection_loss ones when ``by_metric``, else the
+    newest."""
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = root / f'.tmp-{step}-{os.getpid()}-{threading.get_ident()}'
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir()
+    torch.save(tree, tmp / CKPT_FILE)
+    with open(tmp / METRICS_FILE, 'w') as f:
+        json.dump(metrics or {}, f)
+    final = root / str(step)
+    if final.exists():          # the same step saved again: replace it
+        old = root / f'.old-{step}-{os.getpid()}-{threading.get_ident()}'
+        os.replace(final, old)
+        os.replace(tmp, final)
+        shutil.rmtree(old)
+    else:
+        os.replace(tmp, final)
+    steps = [d for d in os.listdir(root) if d.isdigit()]
+    if by_metric:
+        def key(d):
+            with open(root / d / METRICS_FILE) as f:
+                return (json.load(f).get(BEST_METRIC, float('inf')), -int(d))
+        ranked = sorted(steps, key=key)
+    else:
+        ranked = sorted(steps, key=int, reverse=True)
+    for d in ranked[keep:]:
+        shutil.rmtree(root / d)

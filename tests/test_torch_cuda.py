@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
-false. No JAX here, so the file runs on the card's machine:
+false. Every device-op count runs in a fresh interpreter
+(``exps/timing.py::device_ops_in_child``): in one process that has launched
+many kernels, torch.profiler sessions have come back without device events.
+No JAX here, so the file runs on the card's machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -183,7 +186,7 @@ def test_draw_heatmap_kernel_matches_plain(gen, case):
     no valid object, 1,500 slots, rows off 16 bytes): within 1e-6 of the
     plain version with the centres equal, the same bits on a second call,
     one device kernel a call."""
-    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.exps.timing import device_ops_in_child
     if case == 'random':
         cases = []
         for b, m, k, hw in ((4, 4, 500, (64, 512)), (2, 3, 37, (24, 40))):
@@ -205,7 +208,8 @@ def test_draw_heatmap_kernel_matches_plain(gen, case):
         assert torch.equal(gaussian.draw_heatmap(centers, radii, valid, hw), got)
         if case == 'no_valid_map':
             assert not got[:, 1].any()
-    ops = device_ops(lambda: gaussian.draw_heatmap(centers, radii, valid, hw))
+    ops, = device_ops_in_child([[('ops.gaussian', 'draw_heatmap', (centers, radii, valid, hw),
+                                  {})]])
     assert sum(ops.values()) == 1 and any('heatmap_kernel' in k for k in ops), ops
 
 
@@ -332,7 +336,7 @@ def test_depth_labels_kernel_equals_plain(gen, case):
     order), the same bits on a second call, one device kernel a call."""
     from mm_training_tpu_torch.configs import lidar_cam_radar
     from mm_training_tpu_torch.exps.kernel_inputs import depth_label_inputs
-    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.exps.timing import device_ops_in_child
     from mm_training_tpu_torch.ops import depth_labels
     kind, hw, ds, d_bound, bins = DEPTH_LABEL_CASES[case]
     if kind == 'request':
@@ -353,14 +357,16 @@ def test_depth_labels_kernel_equals_plain(gen, case):
         assert cells > 500 * m                        # many cells hold a depth
     else:
         assert (cells == 0) == (kind == 'none_kept')
-    ops = device_ops(lambda: depth_labels.depth_labels(*args))
-    assert sum(ops.values()) == 1 and any('depth_labels_kernel' in k for k in ops), ops
     grid = torch.rand(m, *got.shape[1:3], generator=gen, device='cuda') * 220
     grid.view(-1)[:3] = torch.tensor([0.0, 1.5, 206.4])
     onehot = depth_labels.depth_grid_to_onehot(grid, d_bound, bins)
     assert torch.equal(onehot, depth_labels.depth_grid_to_onehot_plain(grid, d_bound, bins))
-    ops = device_ops(lambda: depth_labels.depth_grid_to_onehot(grid, d_bound, bins))
-    assert sum(ops.values()) == 1 and any('depth_onehot_kernel' in k for k in ops), ops
+    ops, grid_ops = device_ops_in_child(
+        [[('ops.depth_labels', 'depth_labels', tuple(args), {})],
+         [('ops.depth_labels', 'depth_grid_to_onehot', (grid, d_bound, bins), {})]])
+    assert sum(ops.values()) == 1 and any('depth_labels_kernel' in k for k in ops), ops
+    assert sum(grid_ops.values()) == 1 and any('depth_onehot_kernel' in k for k in grid_ops), \
+        grid_ops
 
 
 def test_depth_labels_refuses_a_grid_beyond_one_cluster(gen):
@@ -393,13 +399,13 @@ def test_k3_and_k7_are_one_device_kernel_a_call(gen):
     of each redesigned wrapper, at the paths' shapes: two kernels, one of
     each name, in a profiler session over one call of each."""
     from mm_training_tpu_torch.data import random_bda_matrices
-    from mm_training_tpu_torch.exps.timing import device_ops
-    from mm_training_tpu_torch.ops import warp
+    from mm_training_tpu_torch.exps.timing import device_ops_in_child
     c, sc, va = _nms_rows(gen, 4, 500)
     bev = torch.randn(1, 32, 256, 80, generator=gen, device='cuda').bfloat16()
     bda = torch.as_tensor(random_bda_matrices(1, seed=3), device='cuda')
-    ops = device_ops(lambda: (circle_nms.circle_nms_mask(c, sc, va, (4, 10, 0.5, 0.25)),
-                              warp.bda_bev_warp(bev, bda)))
+    ops, = device_ops_in_child([[('ops.circle_nms', 'circle_nms_mask',
+                                  (c, sc, va, (4, 10, 0.5, 0.25)), {}),
+                                 ('ops.warp', 'bda_bev_warp', (bev, bda), {})]])
     assert sorted(ops.values()) == [1, 1], ops
     assert any('circle_nms' in n for n in ops) and any('bev_warp' in n for n in ops), ops
 
@@ -410,12 +416,13 @@ def test_affine_act_backward_and_lift_splat_device_ops(gen):
     kernel, K4 at most two, with no copy or fill beside them."""
     from mm_training_tpu_torch.configs import lidar_cam_radar
     from mm_training_tpu_torch.exps.kernel_inputs import splat_inputs
-    from mm_training_tpu_torch.exps.timing import device_ops
-    from mm_training_tpu_torch.ops import voxel_pooling
+    from mm_training_tpu_torch.exps.timing import device_ops_in_child
     x, r, g, s, t = _backward_case(gen, (4, 64, 64, 512), torch.bfloat16)
     splat = splat_inputs(lidar_cam_radar(batch_size=1), gen)
-    ops = device_ops(lambda: (affine_act.affine_act_backward(g, x, s, t, r, True),
-                              voxel_pooling.lift_splat_factorized(*splat)))
+    ops, = device_ops_in_child([[('ops.affine_act', 'affine_act_backward',
+                                  (g, x, s, t, r, True), {}),
+                                 ('ops.voxel_pooling', 'lift_splat_factorized', tuple(splat),
+                                  {})]])
     backward = sum(n for name, n in ops.items() if 'affine_act_bwd' in name)
     k4 = sum(n for name, n in ops.items() if 'splat' in name)
     other = sum(ops.values()) - backward - k4
@@ -429,18 +436,18 @@ def test_backward_kernels_device_ops(gen):
     kernel or bmm), K4' at the B=1 camera splat one kernel."""
     from mm_training_tpu_torch.configs import lidar_cam_radar
     from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs, splat_inputs
-    from mm_training_tpu_torch.exps.timing import device_ops
-    from mm_training_tpu_torch.ops import deform_conv, voxel_pooling
+    from mm_training_tpu_torch.exps.timing import device_ops_in_child
     x, off, wgt, bias = deform_inputs((4, 44, 80, 512), 4, gen)
     dy = torch.randn(4, 44, 80, 512, generator=gen, device='cuda').bfloat16()
-    ops = device_ops(lambda: deform_conv.deform_conv3x3_backward(dy, x, off, wgt, bias, 4))
-    assert sum(ops.values()) <= 3 and all('deform_bwd' in n for n in ops), ops
     depth, ctx, idx, zvalid, n = splat_inputs(lidar_cam_radar(batch_size=1), gen)
     g = torch.randn(idx.shape[0], n, ctx.shape[-1], generator=gen, device='cuda').bfloat16()
-    ops = device_ops(lambda: voxel_pooling.lift_splat_factorized_backward(g, depth, ctx, idx,
-                                                                          zvalid, n))
-    assert list(ops.values()) == [1] and 'lift_splat_bwd' in next(iter(ops)), ops
-
+    ops, splat_ops = device_ops_in_child(
+        [[('ops.deform_conv', 'deform_conv3x3_backward', (dy, x, off, wgt, bias, 4), {})],
+         [('ops.voxel_pooling', 'lift_splat_factorized_backward',
+           (g, depth, ctx, idx, zvalid, n), {})]])
+    assert sum(ops.values()) <= 3 and all('deform_bwd' in n for n in ops), ops
+    assert list(splat_ops.values()) == [1] and 'lift_splat_bwd' in next(iter(splat_ops)), \
+        splat_ops
 
 
 def test_warp_backward_and_raw_splat_are_one_device_kernel_a_call(gen):
@@ -451,18 +458,17 @@ def test_warp_backward_and_raw_splat_are_one_device_kernel_a_call(gen):
     from mm_training_tpu_torch.configs import lidar_cam_radar
     from mm_training_tpu_torch.data import random_bda_matrices
     from mm_training_tpu_torch.exps.kernel_inputs import raw_splat_inputs
-    from mm_training_tpu_torch.exps.timing import device_ops
-    from mm_training_tpu_torch.ops import voxel_pooling, warp
+    from mm_training_tpu_torch.exps.timing import device_ops_in_child
     img = torch.randn(1, 32, 256, 80, generator=gen, device='cuda').bfloat16()
     bda = torch.as_tensor(random_bda_matrices(1, seed=3), device='cuda')
-    ops = device_ops(lambda: warp.warp_backward(img, img, bda, 4))
-    assert list(ops.values()) == [1] and 'bev_warp_bwd' in next(iter(ops)), ops
     depth, ctx, idx, n = raw_splat_inputs(lidar_cam_radar(batch_size=1), gen)
     g = torch.randn(idx.shape[0], n, ctx.shape[-1], generator=gen, device='cuda').bfloat16()
-    for fn, name in ((lambda: voxel_pooling.lift_splat(depth, ctx, idx, n), 'lift_splat_raw_kernel'),
-                     (lambda: voxel_pooling.lift_splat_backward(g, depth, ctx, idx, n),
-                      'lift_splat_raw_bwd')):
-        ops = device_ops(fn)
+    counted = device_ops_in_child(
+        [[('ops.warp', 'warp_backward', (img, img, bda, 4), {})],
+         [('ops.voxel_pooling', 'lift_splat', (depth, ctx, idx, n), {})],
+         [('ops.voxel_pooling', 'lift_splat_backward', (g, depth, ctx, idx, n), {})]])
+    for ops, name in zip(counted, ('bev_warp_bwd', 'lift_splat_raw_kernel',
+                                   'lift_splat_raw_bwd')):
         assert list(ops.values()) == [1] and name in next(iter(ops)), ops
 
 # ------------------------------------------------- K5 fused, K1 into the encoder
@@ -575,7 +581,7 @@ def test_pillar_encoder_input_empty_and_out_of_range(gen):
     pad included; calls in turn at other batch sizes and layouts each see
     their own points only (the launch zeroes its accumulator); K1's entry is
     one device op a call."""
-    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.exps.timing import device_ops_in_child
     from mm_training_tpu_torch.ops import voxelize
     pts, mask, geo = _k1_points(gen, 2, 5000)
     empty = torch.zeros_like(mask)
@@ -591,8 +597,8 @@ def test_pillar_encoder_input_empty_and_out_of_range(gen):
             want = voxelize.pillar_encoder_input_plain(p, m, *geo, num_features=nf,
                                                        dtype=torch.float32, space_to_depth=s2d)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    ops = device_ops(lambda: voxelize.pillar_encoder_input(pts, mask, *geo,
-                                                           dtype=torch.bfloat16, channels=24))
+    ops, = device_ops_in_child([[('ops.voxelize', 'pillar_encoder_input', (pts, mask, *geo),
+                                  dict(dtype=torch.bfloat16, channels=24))]])
     assert list(ops.values()) == [1] and 'pillar' in next(iter(ops)), ops
 
 
@@ -703,10 +709,11 @@ def test_deform_conv3x3_one_device_op_and_refusals(gen):
     fused forward, then K5' once, no columns kernel), and refused before the
     forward where K5' does not take C_out/g (above 128)."""
     from mm_training_tpu_torch.exps.kernel_inputs import deform_inputs
-    from mm_training_tpu_torch.exps.timing import device_ops
+    from mm_training_tpu_torch.exps.timing import device_ops_in_child
     from mm_training_tpu_torch.ops import deform_conv
     x, off, weight, bias = deform_inputs((4, 44, 80, 512), 4, gen)
-    ops = device_ops(lambda: deform_conv.deform_conv3x3(x, off, weight, bias, 4))
+    ops, = device_ops_in_child([[('ops.deform_conv', 'deform_conv3x3', (x, off, weight, bias, 4),
+                                  {})]])
     assert list(ops.values()) == [1] and 'deform_conv' in next(iter(ops)), ops
     xg = x.float().requires_grad_()
     before = (deform_conv.deform_sample.launches, deform_conv.deform_conv3x3_backward.launches)

@@ -80,3 +80,33 @@ def test_nms_rows_kinds(kind):
         assert all(k < v for k, v in zip(kept, valid.sum(1).tolist()))
     else:
         assert bool((centers[..., 0] >= PC[0]).all() and (centers[..., 0] <= PC[3]).all())
+
+
+def test_device_ops_in_child_runs_the_named_calls_in_a_new_interpreter():
+    """``timing.device_ops_in_child`` hands the named calls and their
+    arguments to a fresh interpreter, which imports the functions, calls
+    them and counts with ``device_ops``. On the CPU the count's device
+    synchronize raises, after the warm-up call ran, and the child's error
+    comes back; a call that fails in the child comes back the same way."""
+    centers = torch.zeros(1, 2, 2, dtype=torch.int32)
+    radii = torch.ones(1, 2, dtype=torch.int32)
+    valid = torch.ones(1, 1, 2, dtype=torch.bool)
+    with pytest.raises(RuntimeError, match='(?s)in device_ops.*not compiled with CUDA'):
+        timing.device_ops_in_child([[('ops.gaussian', 'draw_heatmap',
+                                      (centers, radii, valid, (4, 4)), {})]])
+    with pytest.raises(RuntimeError, match='no_such_function'):
+        timing.device_ops_in_child([[('ops.gaussian', 'no_such_function', (), {})]])
+
+
+def test_profile_loader_reports_each_stage(capsys):
+    """``exps/profile_loader.py`` at a small size: every stage timed, the
+    loader's rate for each worker count, one JSON line."""
+    import json
+
+    from mm_training_tpu_torch.exps import profile_loader
+    out = profile_loader.main(['--frames', '4', '--ground-points', '500', '--objects', '3',
+                               '--workers', '1', '2'])
+    assert out['frames'] == 4 and out['points_a_frame'] > 500
+    assert all(out[k] > 0 for k in ('decode_ms', 'frame_ms', 'box_filter_ms', 'sample_ms'))
+    assert out['frame_ms'] >= out['decode_ms'] and sorted(out['loader_samples_per_s']) == [1, 2]
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])['frames'] == 4

@@ -23,7 +23,17 @@ for name in ('mm_training_tpu_torch.ops.gaussian', 'mm_training_tpu_torch.traini
              'mm_training_tpu_torch.ops.depth_labels', 'mm_training_tpu_torch.ops.warp',
              'mm_training_tpu_torch.models.depth_net', 'mm_training_tpu_torch.models.lss_fpn',
              'mm_training_tpu_torch.models.fusion',
-             'mm_training_tpu_torch.exps.profile_convs'):
+             'mm_training_tpu_torch.exps.profile_convs',
+             'mm_training_tpu_torch.utils.universal', 'mm_training_tpu_torch.utils.logging',
+             'mm_training_tpu_torch.utils.profiling', 'mm_training_tpu_torch.evaluation.bev_map',
+             'mm_training_tpu_torch.core.transforms', 'mm_training_tpu_torch.core.boxes',
+             'mm_training_tpu_torch.data.formats', 'mm_training_tpu_torch.data.lasio',
+             'mm_training_tpu_torch.data.native', 'mm_training_tpu_torch.data.loaders',
+             'mm_training_tpu_torch.data.frame_loader',
+             'mm_training_tpu_torch.data.aimotive_dataset', 'mm_training_tpu_torch.data.synthetic',
+             'mm_training_tpu_torch.training.loader', 'mm_training_tpu_torch.training.trainer',
+             'mm_training_tpu_torch.exps.common', 'mm_training_tpu_torch.exps.train',
+             'mm_training_tpu_torch.exps.evaluate'):
     assert importlib.util.find_spec(name) is not None, name
 for banned in ('jax', 'flax', 'mm_training_tpu'):
     sys.modules[banned] = None        # any import of them raises ImportError
@@ -45,8 +55,26 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # every module of the package, the camera slice's included
-    assert int(out.stdout.split()[-1]) >= 38
+    # every module of the package, the camera and runtime slices' included
+    assert int(out.stdout.split()[-1]) >= 58
+
+
+_NO_IMAGE_CODEC = '''
+import sys
+for banned in ('cv2', 'PIL'):
+    sys.modules[banned] = None        # any import of them raises ImportError
+import mm_training_tpu_torch.data, mm_training_tpu_torch.training.trainer
+import mm_training_tpu_torch.exps.train, mm_training_tpu_torch.exps.evaluate
+'''
+
+
+def test_lidar_data_path_imports_no_image_codec():
+    """The LiDAR data path, the trainer and its CLIs import neither cv2 nor
+    PIL (the card's machine has neither; the image decode is the camera
+    data slice's)."""
+    out = subprocess.run([sys.executable, '-c', _NO_IMAGE_CODEC], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
