@@ -108,8 +108,10 @@ Phases, each raising on failure:
  19. the fp32 tiny raw-rig camera config's train step on the card against
      the port's CPU step;
  20. write an aiMotive tree with the port's writer (LAZ frames of ~100k
-     points, no image; train 16 frames, val 8) and time the port's loader
-     alone (samples/s at B=4, 8 thread workers);
+     points and 704 x 1280 front and back JPEGs of the writer's
+     ``image_detail``, encoded by the port's own encoder; train 16 frames,
+     val 8) and time the port's loader alone for ``lidar_radar``
+     (samples/s at B=4, 8 thread workers; no image decoded);
  21. in a process of its own, train full-width ``lidar_radar`` through
      ``exps.train`` (B=4, 12 steps: a sanity val, a 'latest' every 4 steps,
      a val each 4-step epoch, the test pass on 'best'), every kernel's launch
@@ -119,7 +121,26 @@ Phases, each raising on failure:
  22. ``exps.evaluate`` on 'best' (``eval_lidar_radar``, ``eval_split=None``)
      reproduces the val_detection_loss recorded for that step within 1e-4
      relative and writes one aiMotive JSON a val frame, parsed back to boxes;
- 23. cv2, PIL, jax and mm_training_tpu are not imported by these phases.
+ 23. cv2, PIL, jax and mm_training_tpu are not imported by these phases;
+ 24. the camera data path's loader alone, as phase 20 times it: for
+     ``lidar_cam_radar`` on the same tree (2 cameras, each JPEG decoded by
+     the port, re-rendered to a virtual pinhole and augmented), and with
+     the fisheyes virtualized (6 cameras) on a second tree of 8 train
+     frames with the two fisheyes;
+ 25. in a process of its own, train full-width ``lidar_cam_radar`` through
+     ``exps.train`` as phase 21 trains ``lidar_radar`` (B=4, bf16, ResNet-50
+     over the tree's two 704 x 1280 cameras, 12 steps, sanity val, 3 vals,
+     the test pass on 'best'): A, A', K1, K2, K3, K4, K4', K5, K5', K6
+     (``depth_labels``), K7 and K7' launched, the columns kernel, K8, K8'
+     and K6's ``depth_grid_to_onehot`` not, no plain version called; the
+     step p50 and the busy share of one profiled epoch;
+ 26. ``exps.evaluate`` on its 'best' reproduces the recorded val loss within
+     1e-4 relative and writes one aiMotive JSON a val frame;
+ 27. 2 steps of ``exps.train`` with ``depth_gt_root`` on grids written here
+     (the min depth of each frame's own points in each camera's cells,
+     ``ops/depth_labels.py::min_depth_grid_plain``): K6's
+     ``depth_grid_to_onehot`` launched, its projection ``depth_labels`` not;
+ 28. cv2, PIL, jax and mm_training_tpu are not imported by these phases.
 Each path's device-op count is printed beside the count before the
 one-launch K6 and K2 (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -129,6 +150,7 @@ prints no result. It imports nothing of JAX or of the JAX package.
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1770,25 +1792,28 @@ def compare_plain_gradients_camera(cfg, pitch_deg=0.0):
 TRAINER_KERNELS = ('affine_act', 'affine_act_backward', 'pillar_encoder_input', 'draw_heatmap',
                    'circle_nms_mask')
 TREE_FRAMES = {'train': 16, 'val': 8}
+FISHEYE_TRAIN_FRAMES = 8
+# the trainer runs of phases 21-23 (lidar_radar) and 25-27 (lidar_cam_radar):
+# the kernels each must launch, the config exps.evaluate takes on 'best'
+# (the tree holds the writer's 'highway' odd only; eval_lidar_radar reads
+# 'night', so its eval_split is reset) and the kernels a run must never
+# launch
+TRAINER_RUNS = {
+    'lidar_radar': dict(kernels=TRAINER_KERNELS, eval_argv=['--config', 'eval_lidar_radar',
+                                                           'eval_split=None'], never=()),
+    'lidar_cam_radar': dict(kernels=CAMERA_TRAIN_KERNELS, eval_argv=['--config', 'lidar_cam_radar'],
+                            never=('voxelize_pillars_dense', 'deform_sample', 'lift_splat',
+                                   'lift_splat_backward', 'depth_grid_to_onehot')),
+}
 
 
-def write_tree(root):
-    """Phase 20: an aiMotive tree of LAZ frames (~100k points each) written by
-    the port's writer, no image: train 16 frames, val 8 (seeds of their
-    own, so no val frame repeats a train frame). Then the port's loader
-    alone on the train split at B=4 with 8 thread workers: samples/s of a
-    second pass (the first builds the codec and warms the page cache)."""
-    from mm_training_tpu_torch.configs import lidar_radar
-    from mm_training_tpu_torch.data import AiMotiveDataset, generate_synthetic_dataset
+def _loader_rate(root, cfg):
+    """Samples/s of the port's loader alone at B=4 with 8 thread workers:
+    (second pass, first pass); the first builds the host libraries and the
+    remap tables and warms the page cache."""
+    from mm_training_tpu_torch.data import AiMotiveDataset
     from mm_training_tpu_torch.training.loader import PrefetchLoader
-
-    t0 = time.perf_counter()
-    for i, (split, n) in enumerate(TREE_FRAMES.items()):
-        generate_synthetic_dataset(root, splits=(split,), frames_per_sequence=n,
-                                   n_objects=12, seed=SEED + 40 + i, write_images=False,
-                                   n_ground_points=100_000, lidar_format='laz')
-    write_s = time.perf_counter() - t0
-    loader = PrefetchLoader(AiMotiveDataset(root, lidar_radar(), 'train'), 4, num_workers=8)
+    loader = PrefetchLoader(AiMotiveDataset(root, cfg, 'train'), 4, num_workers=8)
     try:
         rates = []
         for _ in range(2):
@@ -1797,87 +1822,181 @@ def write_tree(root):
             rates.append(n / (time.perf_counter() - t0))
     finally:
         loader.close()
-    if n != TREE_FRAMES['train']:
-        raise AssertionError(f'the loader yielded {n} train samples')
-    print(f'tree: {TREE_FRAMES} LAZ frames written in {write_s:.3f} s; loader alone '
-          f'(B=4, 8 thread workers) {rates[1]:.3f} samples/s (first pass {rates[0]:.3f})',
-          flush=True)
-    return {'write_s': write_s, 'loader_samples_per_s': rates[1],
-            'loader_first_pass_samples_per_s': rates[0]}
+    return rates[1], rates[0], n
 
 
-def trainer_child(root, out, result_file):
-    """Phases 21-23 in a process of their own (a fresh profiler and a fresh
-    memory pool): train full-width ``lidar_radar`` through ``exps.train``
-    (B=4, 12 steps from the LAZ tree: a sanity val, a 'latest' every 4
-    steps, a val each 4-step epoch, the test pass on 'best'), every kernel's
-    launch count reset before and read after and every plain version
-    counted; one more epoch under torch.profiler for the device's busy
-    share; then ``exps.evaluate`` on 'best' with ``eval_lidar_radar`` and
-    ``eval_split=None`` (the tree holds the writer's 'highway' odd only, the
-    variant reads 'night'); and the imports check. Writes its numbers to
-    ``result_file``."""
+def write_tree(root, fisheye_root):
+    """Phases 20 and 24: an aiMotive tree written by the port's writer, LAZ
+    frames of ~100k points and 704 x 1280 front and back JPEGs of the
+    writer's ``image_detail`` (its own encoder, quality 85): train 16
+    frames, val 8 (seeds of their own, so no val frame repeats a train
+    frame); and a second tree of 8 train frames with the two fisheyes too.
+    Then the port's loader alone at B=4 with 8 thread workers: for
+    ``lidar_radar`` (no image decoded) and ``lidar_cam_radar`` (2 cameras)
+    on the first tree, ``lidar_cam_radar`` with the fisheyes virtualized (6
+    cameras) on the second."""
+    from mm_training_tpu_torch.configs import lidar_cam_radar, lidar_radar
+    from mm_training_tpu_torch.data import generate_synthetic_dataset
+
+    t0 = time.perf_counter()
+    for i, (split, n) in enumerate(TREE_FRAMES.items()):
+        generate_synthetic_dataset(root, splits=(split,), frames_per_sequence=n,
+                                   n_objects=12, seed=SEED + 40 + i, image_detail=True,
+                                   n_ground_points=100_000, lidar_format='laz')
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(fisheye_root, splits=('train',),
+                               frames_per_sequence=FISHEYE_TRAIN_FRAMES, n_objects=12,
+                               seed=SEED + 42, image_detail=True, fisheyes=True,
+                               n_ground_points=100_000, lidar_format='laz')
+    fish_write_s = time.perf_counter() - t0
+    jpegs = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith('.jpg')]
+    jpeg_mb = sum(os.path.getsize(f) for f in jpegs) / len(jpegs) / 1e6
+    stats = {'write_s': write_s, 'fisheye_write_s': fish_write_s, 'jpeg_mb_each': jpeg_mb}
+    for key, tree, cfg in (('loader', root, lidar_radar()),
+                           ('camera_loader', root, lidar_cam_radar()),
+                           ('fisheye_loader', fisheye_root,
+                            lidar_cam_radar(virtualize_fisheyes=True, num_cameras=6))):
+        rate, first, n = _loader_rate(tree, cfg)
+        expect = FISHEYE_TRAIN_FRAMES if tree == fisheye_root else TREE_FRAMES['train']
+        if n != expect:
+            raise AssertionError(f'the {key} yielded {n} train samples')
+        stats[f'{key}_samples_per_s'] = rate
+        stats[f'{key}_first_pass_samples_per_s'] = first
+    print(f'tree: {TREE_FRAMES} frames (LAZ + 2 JPEGs of {jpeg_mb:.3f} MB each) written in '
+          f'{write_s:.3f} s, the fisheye tree ({FISHEYE_TRAIN_FRAMES} frames, 4 JPEGs each) in '
+          f'{fish_write_s:.3f} s; the loader alone (B=4, 8 thread workers), samples/s of a '
+          f'second pass: lidar_radar {stats["loader_samples_per_s"]:.3f}, lidar_cam_radar '
+          f'{stats["camera_loader_samples_per_s"]:.3f}, with the fisheyes virtualized '
+          f'{stats["fisheye_loader_samples_per_s"]:.3f} (first passes '
+          f'{stats["loader_first_pass_samples_per_s"]:.3f}, '
+          f'{stats["camera_loader_first_pass_samples_per_s"]:.3f}, '
+          f'{stats["fisheye_loader_first_pass_samples_per_s"]:.3f})', flush=True)
+    return stats
+
+
+def write_depth_grids(root, out, cfg):
+    """The depth-GT mirror tree of ``depth_gt_root``: for each keyframe of
+    ``root``, the min depth of its own aggregated LiDAR points in each
+    virtual camera's 16 x 16 cells (0 where no point lands), computed by the
+    port's ``ops/depth_labels.py::min_depth_grid_plain`` on the card, saved
+    as ``<out>/<frame path without extension>_depth.npy`` [N, fH, fW]
+    float32 (the layout the JAX package's scripts/gen_depth_gt.py writes).
+    Returns (the share of non-empty cells, the cameras a frame)."""
+    import os
+    from mm_training_tpu_torch.data import FrameLoader, get_frames
+    from mm_training_tpu_torch.ops.depth_labels import EMPTY, min_depth_grid_plain
+
+    loader = FrameLoader('train', (-1e9, -1e9, -1e9, 1e9, 1e9, 1e9), use_cam=True,
+                         use_lidar=True, use_radar=False, image_size=cfg.final_dim)
+    filled = []
+    for split in TREE_FRAMES:
+        for path in get_frames(root, split):
+            frame = loader[path]
+            pts = torch.as_tensor(frame.points[None, :, :3], device='cuda')
+            ext = torch.as_tensor(np.stack([c.camera_params.extrinsic for c in frame.cameras])[
+                None], dtype=torch.float32, device='cuda')
+            intr = np.tile(np.eye(4, dtype=np.float32), (len(frame.cameras), 1, 1))
+            intr[:, :3, :4] = [c.camera_params.intrinsic[:3, :4] for c in frame.cameras]
+            grid = min_depth_grid_plain(pts, torch.ones(pts.shape[:2], dtype=torch.bool,
+                                                        device='cuda'), ext,
+                                        torch.as_tensor(intr[None], device='cuda'),
+                                        cfg.final_dim, 16)
+            grid = torch.where(grid >= EMPTY, 0.0, grid).reshape(
+                len(frame.cameras), cfg.final_dim[0] // 16, cfg.final_dim[1] // 16)
+            rel = os.path.relpath(path, root)
+            file = os.path.join(out, os.path.splitext(rel)[0] + '_depth.npy')
+            os.makedirs(os.path.dirname(file), exist_ok=True)
+            np.save(file, grid.cpu().numpy())
+            filled.append(float((grid > 0).float().mean()))
+    return float(np.mean(filled)), len(frame.cameras)
+
+
+def trainer_child(root, out, result_file, config='lidar_radar'):
+    """Phases 21-23 (``config`` lidar_radar) or 25-28 (lidar_cam_radar) in a
+    process of their own (a fresh profiler and a fresh memory pool): train
+    the full-width ``config`` through ``exps.train`` (B=4, 12 steps from the
+    tree: a sanity val, a 'latest' every 4 steps, a val each 4-step epoch,
+    the test pass on 'best'), every kernel's launch count reset before and
+    read after and every plain version counted; one more epoch under
+    torch.profiler for the device's busy share; then ``exps.evaluate`` on
+    'best'; with the camera, 2 steps of ``exps.train`` with
+    ``depth_gt_root`` on grids this process writes
+    (:func:`write_depth_grids`), counted the same way; and the imports
+    check. Writes its numbers to ``result_file``."""
     import glob
     import os
     from torch.profiler import ProfilerActivity, profile
 
-    from mm_training_tpu_torch.configs import CLASSES, lidar_radar
+    from mm_training_tpu_torch.configs import CLASSES, variants
     from mm_training_tpu_torch.data.formats import object_to_array
     from mm_training_tpu_torch.exps import evaluate, train
     from mm_training_tpu_torch.training.trainer import Trainer
 
+    run = TRAINER_RUNS[config]
+    camera = config != 'lidar_radar'
     wrappers = _wrappers()
-    plain_calls = {}
 
-    def counting(name, fn):
-        def plain(*args, **kw):
-            plain_calls[name] = plain_calls.get(name, 0) + 1
-            return fn(*args, **kw)
-        return plain
+    def counted_train(argv, label):
+        """exps.train with every launch count reset before and read after,
+        and every plain version's calls counted."""
+        plain_calls = {}
+
+        def counting(name, fn):
+            def plain(*args, **kw):
+                plain_calls[name] = plain_calls.get(name, 0) + 1
+                return fn(*args, **kw)
+            return plain
+        with contextlib.ExitStack() as stack:
+            for mod, name, fn in _swaps():
+                stack.enter_context(mock.patch.object(mod, fn.__name__, counting(name, fn)))
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            metrics = train.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = {n: w.launches for n, w in wrappers.items()}
+        print(f'trainer {label}: launches over the run {json.dumps(counts)}; plain versions '
+              f'called {json.dumps(plain_calls)}', flush=True)
+        if plain_calls:
+            raise AssertionError(f'the {label} trainer path called plain versions: {plain_calls}')
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f'non-finite test metrics {metrics}')
+        return metrics, counts, wall_s
 
     train_out = os.path.join(out, 'train')
-    with contextlib.ExitStack() as stack:
-        for mod, name, fn in _swaps():
-            stack.enter_context(mock.patch.object(mod, fn.__name__, counting(name, fn)))
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.perf_counter()
-        metrics = train.main(['--config', 'lidar_radar', '--data-root', root, '--max-steps', '12',
-                              'batch_size=4', 'num_workers=8', f'out_path={train_out!r}',
-                              'num_sanity_val_steps=1', 'latest_every_n_steps=4',
-                              f'seed={SEED + 50}'])
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        counts = {n: w.launches for n, w in wrappers.items()}
+    metrics, counts, wall_s = counted_train(
+        ['--config', config, '--data-root', root, '--max-steps', '12', 'batch_size=4',
+         'num_workers=8', f'out_path={train_out!r}', 'num_sanity_val_steps=1',
+         'latest_every_n_steps=4', f'seed={SEED + 50}'], config)
     records = [json.loads(line) for line in open(os.path.join(train_out, 'metrics.jsonl'))]
     step_p50 = [r['step_time_p50'] for r in records if 'step_time_p50' in r][-1]
     vals = [r for r in records if 'val_detection_loss' in r]
     val_rows = [(r['step'], r['val_detection_loss'], r['val_ap_auc']) for r in vals]
     saved = {name: sorted(os.listdir(os.path.join(train_out, 'saved_models', name)))
              for name in ('best', 'latest')}
-    print(f'trainer: exps.train lidar_radar B=4, 12 steps from the LAZ tree in {wall_s:.3f} s '
+    print(f'trainer: exps.train {config} B=4, 12 steps from the tree in {wall_s:.3f} s '
           f'(sanity val, 3 vals, test pass); step p50 {step_p50 * 1e3:.3f} ms (StepTimer); '
           f'vals {json.dumps(val_rows)}'
           f'; saved {json.dumps(saved)}', flush=True)
-    print(f'trainer: launches over the run {json.dumps(counts)}; plain versions called '
-          f'{json.dumps(plain_calls)}', flush=True)
-    missing = [n for n in TRAINER_KERNELS if counts[n] == 0]
+    missing = [n for n in run['kernels'] if counts[n] == 0]
     if missing:
-        raise AssertionError(f'kernels never launched on the trainer path: {missing}')
-    if plain_calls:
-        raise AssertionError(f'the trainer path called plain versions: {plain_calls}')
+        raise AssertionError(f'kernels never launched on the {config} trainer path: {missing}')
+    launched = [n for n in run['never'] if counts[n]]
+    if launched:
+        raise AssertionError(f'the {config} trainer path launched {launched}')
     epochs = 12 // (TREE_FRAMES['train'] // 4)
     if len(vals) != epochs or not all(np.isfinite([r['val_detection_loss'], r['val_ap_auc']]).all()
                                       for r in vals):
         raise AssertionError(f'expected {epochs} finite val passes: {vals}')
     if saved['latest'] != ['12'] or not saved['best']:
         raise AssertionError(f'checkpoints: {saved}')
-    if not all(np.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f'non-finite test metrics {metrics}')
 
     # the device's busy share of one more epoch (4 steps and a val pass)
-    tr = Trainer(lidar_radar(batch_size=4, num_workers=8, num_sanity_val_steps=0,
-                             out_path=os.path.join(out, 'profiled'), seed=SEED + 51),
+    factory = getattr(variants, config)
+    tr = Trainer(factory(batch_size=4, num_workers=8, num_sanity_val_steps=0,
+                         out_path=os.path.join(out, 'profiled'), seed=SEED + 51),
                  data_root=root)
     try:
         tr.setup()
@@ -1894,7 +2013,7 @@ def trainer_child(root, out, result_file):
                if e.device_type.name == 'CUDA' and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     busy = busy_ms / prof_wall_ms
-    print(f'trainer: one profiled epoch (4 steps, a val pass of 8 frames): wall '
+    print(f'trainer {config}: one profiled epoch (4 steps, a val pass of 8 frames): wall '
           f'{prof_wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, busy share {busy:.4f}',
           flush=True)
     if busy_ms <= 0:
@@ -1907,9 +2026,9 @@ def trainer_child(root, out, result_file):
             recorded[int(d)] = json.load(f)['val_detection_loss']
     best_step = min(recorded, key=lambda d: (recorded[d], -d))
     eval_out = os.path.join(out, 'eval')
-    ev = evaluate.main(['--config', 'eval_lidar_radar', '--data-root', root, 'eval_split=None',
-                        f'ckpt_path={best!r}', 'batch_size=4', 'num_workers=8',
-                        f'out_path={eval_out!r}'])
+    ev = evaluate.main(run['eval_argv'][:2] + ['--data-root', root] + run['eval_argv'][2:]
+                       + [f'ckpt_path={best!r}', 'batch_size=4', 'num_workers=8',
+                          f'out_path={eval_out!r}'])
     rel = abs(ev['test_detection_loss'] - recorded[best_step]) / abs(recorded[best_step])
     files = sorted(glob.glob(os.path.join(eval_out, 'outputs', '**', '*.json'), recursive=True))
     parsed = []
@@ -1919,7 +2038,7 @@ def trainer_child(root, out, result_file):
             if not (np.isfinite(arr).all() and name in CLASSES and 0 <= obj['Score'] <= 1):
                 raise AssertionError(f'bad exported box in {file}: {obj}')
             parsed.append(arr)
-    print(f'evaluate: best step {best_step} (recorded val_detection_loss '
+    print(f'evaluate {config}: best step {best_step} (recorded val_detection_loss '
           f'{recorded[best_step]:.6f}, of {json.dumps(recorded)}); test_detection_loss '
           f'{ev["test_detection_loss"]:.6f}, relative difference {rel:.3e}; test_ap_auc '
           f'{ev["test_ap_auc"]:.6f}; {len(files)} JSON files, {len(parsed)} boxes parsed back',
@@ -1929,27 +2048,54 @@ def trainer_child(root, out, result_file):
     if len(files) != TREE_FRAMES['val'] or len(parsed) < ev['test_num_preds']:
         raise AssertionError(f'export: {len(files)} files, {len(parsed)} boxes, '
                              f'{ev["test_num_preds"]} predictions')
+    result = {'counts': counts, 'step_p50_ms': step_p50 * 1e3, 'wall_s': wall_s,
+              'busy_share': busy, 'profiled_wall_ms': prof_wall_ms,
+              'busy_ms': busy_ms, 'eval_rel': rel, 'best_step': best_step}
+
+    if camera:
+        grids = os.path.join(out, 'depth_gt')
+        t0 = time.perf_counter()
+        # one grid a camera of the frame: num_cameras must say as many
+        # (the JAX dataset refuses fewer grids than num_cameras)
+        filled, n_cams = write_depth_grids(root, grids, factory())
+        grid_s = time.perf_counter() - t0
+        print(f'depth_gt: grids of {sum(TREE_FRAMES.values())} frames x {n_cams} cameras written '
+              f'in {grid_s:.3f} s (the min depth of each frame\'s own points, '
+              f'ops/depth_labels.py::min_depth_grid_plain); {filled:.4f} of the cells hold a '
+              'depth', flush=True)
+        gt_metrics, gt_counts, gt_wall_s = counted_train(
+            ['--config', config, '--data-root', root, '--max-steps', '2', '--max-batches', '1',
+             'batch_size=4', 'num_workers=8', f'out_path={os.path.join(out, "depth_gt_run")!r}',
+             'num_sanity_val_steps=0', f'depth_gt_root={grids!r}', f'num_cameras={n_cams}',
+             f'seed={SEED + 52}'],
+            f'{config} depth_gt_root')
+        print(f'trainer {config} depth_gt_root: 2 steps, a val pass and a test batch in '
+              f'{gt_wall_s:.3f} s; test_depth_loss {gt_metrics["test_depth_loss"]:.4f}',
+              flush=True)
+        if gt_counts['depth_grid_to_onehot'] == 0 or gt_counts['depth_labels']:
+            raise AssertionError(f'depth_gt_root: K6 binning {gt_counts["depth_grid_to_onehot"]}'
+                                 f' launches, projection {gt_counts["depth_labels"]}')
+        result.update(depth_gt_counts=gt_counts, depth_gt_wall_s=gt_wall_s,
+                      depth_gt_filled=filled)
     leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
     if leaked:
         raise AssertionError(f'the trainer path imported {leaked}')
     with open(result_file, 'w') as f:
-        json.dump({'counts': counts, 'step_p50_ms': step_p50 * 1e3, 'wall_s': wall_s,
-                   'busy_share': busy, 'profiled_wall_ms': prof_wall_ms,
-                   'busy_ms': busy_ms, 'eval_rel': rel, 'best_step': best_step}, f)
+        json.dump(result, f)
 
 
-def run_trainer(root):
-    """Phases 21-23 (:func:`trainer_child`) in a child interpreter."""
+def run_trainer(root, config='lidar_radar'):
+    """:func:`trainer_child` in a child interpreter."""
     import os
     import tempfile
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out:
         result_file = os.path.join(out, 'result.json')
         code = (f'import chip_smoke; chip_smoke.trainer_child({root!r}, {out!r}, '
-                f'{result_file!r})')
-        proc = subprocess.run([sys.executable, '-c', code], timeout=600)
+                f'{result_file!r}, {config!r})')
+        proc = subprocess.run([sys.executable, '-c', code], timeout=900)
         if proc.returncode != 0:
-            raise AssertionError(f'the trainer phases failed ({proc.returncode})')
+            raise AssertionError(f'the {config} trainer phases failed ({proc.returncode})')
         with open(result_file) as f:
             return json.load(f)
 
@@ -2015,13 +2161,19 @@ def main() -> int:
     import shutil
     import tempfile
     tree = tempfile.mkdtemp(prefix='aim_tree_')
+    fisheye_tree = tempfile.mkdtemp(prefix='aim_fisheye_tree_')
     try:
-        tree_stats = write_tree(tree)
+        tree_stats = write_tree(tree, fisheye_tree)
+        shutil.rmtree(fisheye_tree, ignore_errors=True)
         trainer = run_trainer(tree)
+        cam_trainer = run_trainer(tree, 'lidar_cam_radar')
     finally:
         shutil.rmtree(tree, ignore_errors=True)
+        shutil.rmtree(fisheye_tree, ignore_errors=True)
     print(f'trainer phases on {card}: ' + json.dumps(dict(tree_stats, **{
         k: v for k, v in trainer.items() if k != 'counts'})), flush=True)
+    print(f'camera trainer phases on {card}: ' + json.dumps({
+        k: v for k, v in cam_trainer.items() if not k.endswith('counts')}), flush=True)
     leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
     if leaked:
         raise AssertionError(f'chip_smoke imported {leaked}')
@@ -2033,7 +2185,9 @@ def main() -> int:
                    'serve_camera': cam_counts[name], 'train_camera': cam_train_counts[name],
                    'serve_camera_raw': raw_counts[name],
                    'train_camera_raw': raw_train_counts[name],
-                   'trainer': trainer['counts'][name]}
+                   'trainer': trainer['counts'][name],
+                   'trainer_camera': cam_trainer['counts'][name],
+                   'trainer_camera_depth_gt': cam_trainer['depth_gt_counts'][name]}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,

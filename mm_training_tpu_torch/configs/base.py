@@ -258,6 +258,11 @@ class Config:
     look_back: int = 0
     look_forward: int = 0
     ckpt_path: Optional[str] = None
+    # root of a mirror tree of precomputed depth-GT grids (one
+    # <frame>_depth.npy a keyframe, [N, H/16, W/16] min depths): the batches
+    # carry them as 'depth_gt' and the train step bins them (kernel K6's
+    # depth_grid_to_onehot) instead of projecting the points
+    depth_gt_root: Optional[str] = None
 
     # --- trainer (conf_aim.py:29-32 + Lightning defaults, mm_training_aim.py:524-531,619-628)
     max_epochs: int = 999
@@ -284,6 +289,10 @@ class Config:
     max_objs: int = 500
     num_cameras: int = 4
     num_sweeps: int = 1
+    # each Mei fisheye -> two yaw+-30deg virtual pinholes (data_loader.py:
+    # 152-191); with both fisheyes on, set num_cameras=6. Off by default —
+    # the reference also ships with fisheye imreads commented out.
+    virtualize_fisheyes: bool = False
 
     backbone_conf: Optional[BackboneConf] = None
     head_conf: Optional[HeadConf] = None

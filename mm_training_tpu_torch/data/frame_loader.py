@@ -1,35 +1,45 @@
-"""Multimodal frame assembly (host-side), LiDAR and radar.
+"""Multimodal frame assembly (host-side).
 
-The port's copy of ``mm_training_tpu/data/frame_loader.py`` on the LiDAR
-and radar path, its arithmetic unchanged: lidar+radar concat into
-8-feature points (the native ``concat_filter``), range filtering,
-timestamp normalization, annotation -> array conversion with category
-mapping, and the >5-lidar-points annotation filter (JAX :75-134). The
-camera half (images, virtualization to zero-roll/pitch pinholes, the
-camera-only field-of-view filter) waits for the camera data slice: a
-``use_cam=True`` loader raises.
+The port's copy of ``mm_training_tpu/data/frame_loader.py``, its arithmetic
+unchanged (the camera re-render goes through the port's own remap,
+``data/sensor_models``). Re-design of dataset/src/data_loader.py (class
+DataLoader): orchestrates per-frame sensor loading — lidar+radar concat
+into 8-feature points, range filtering, camera virtualization to
+zero-roll/pitch pinholes, timestamp normalization, annotation -> array
+conversion with category mapping, and the >5-lidar-points annotation filter.
 
-Documented deviations from the reference, as in the JAX package:
-  * the pc-range filter tests x and y only: the reference's z test is lost
-    to a numpy 3-argument ``logical_and`` misuse (data_loader.py:332-337);
-    z is range-limited at voxelization anyway.
-  * with use_cam=False no image file is decoded (the reference still reads
-    the front JPG it never uses).
+Documented deviations:
+  * the reference's pc-range filter drops the z test through a numpy
+    3-arg ``logical_and(in_x, in_y, in_z)`` misuse (data_loader.py:332-337,
+    the third argument is an *out* parameter); we filter x and y only, which
+    reproduces the effective reference behavior (z is range-limited at
+    voxelization anyway).
+  * virtualized front/back cameras carry the *virtual* (zero-roll/pitch)
+    extrinsic; the reference re-renders the image but keeps the original
+    extrinsic (data_loader.py:164), mis-posing the virtual view by the
+    original roll/pitch.
+  * with use_cam=False no image files are decoded at all (the reference still
+    imreads the front JPG it never uses).
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
+from scipy.spatial.transform import Rotation
 
 from ..configs import CATEGORY_MAPPING
-from .formats import Annotation, object_to_array
-from .loaders import CAMERA_SLICE, CameraFrame, load_camera_data, load_lidar_data, load_radar_data
+from ..core.transforms import R_Z_FORWARD_TO_BODY
+from .formats import Annotation, CameraParams, object_to_array
+from .loaders import CameraFrame, load_camera_data, load_lidar_data, load_radar_data
 from .native import concat_filter_native
+from .sensor_models import CameraMei, CameraPinhole, CameraPinholeDistorted
 
-__all__ = ['FrameLoader', 'FrameData']
+__all__ = ['DEFAULT_VIRTUAL_IMAGE_SIZE', 'FrameLoader', 'FrameData']
+
+DEFAULT_VIRTUAL_IMAGE_SIZE = (704, 1280)  # reference network input (conf_aim.py:4-5)
 
 
 @dataclass
@@ -37,7 +47,7 @@ class FrameData:
     """One assembled keyframe (reference DataItem)."""
     path: str
     points: np.ndarray              # [N, F] (F=8 with radar, else 5)
-    cameras: List[CameraFrame]      # calibration only: no image
+    cameras: List[CameraFrame]      # virtualized when use_cam
     camera_timestamp: float
     objects: np.ndarray             # [K, 10] = box9 + class id
 
@@ -47,15 +57,18 @@ class FrameLoader:
 
     def __init__(self, split: str, pc_range, use_cam=True, use_lidar=True,
                  use_radar=True, look_back=0, look_forward=0,
+                 virtualize_fisheyes=False,
+                 image_size: Tuple[int, int] = DEFAULT_VIRTUAL_IMAGE_SIZE,
                  defer_processing: bool = False):
-        if use_cam:
-            raise NotImplementedError(CAMERA_SLICE)
         self.split = split
         self.pc_range = pc_range
+        self.use_cam = use_cam
         self.use_lidar = use_lidar
         self.use_radar = use_radar
         self.look_back = look_back
         self.look_forward = look_forward
+        self.virtualize_fisheyes = virtualize_fisheyes
+        self.image_size = image_size  # virtual pinhole target (H, W)
         # defer_processing: skip ts-normalization / intensity / cap here so
         # the dataset can run them fused with BDA+pad in the native packer
         self.defer_processing = defer_processing
@@ -68,7 +81,8 @@ class FrameLoader:
         ann = Annotation(path)
         lidar = load_lidar_data(data_folder, frame_id, self.look_back,
                                 self.look_forward)
-        camera_data = load_camera_data(data_folder, frame_id, False)
+        camera_data = load_camera_data(data_folder, frame_id, self.use_cam,
+                                       read_fisheyes=self.virtualize_fisheyes)
 
         if self.use_radar:
             radar = load_radar_data(data_folder, frame_id)
@@ -78,6 +92,11 @@ class FrameLoader:
                                           camera_data.timestamp)
         else:
             points = self._filter_range(lidar)
+
+        cameras = camera_data.items
+        if self.use_cam:
+            ref_intrinsic = camera_data.front_camera.camera_params.intrinsic
+            cameras = self._virtualize_cameras(cameras, ref_intrinsic)
 
         if self.defer_processing:
             cam_ts = float(camera_data.timestamp)  # raw; packer normalizes
@@ -92,8 +111,12 @@ class FrameLoader:
             cam_ts = (camera_data.timestamp - ts_min) / denom
             points = self._process_points(points)
 
+        objects = [object_to_array(o) for o in ann.objects]
+        if self.use_cam and not self.use_lidar:
+            objects = self._filter_objects_by_fov(
+                objects, [c.camera_params.extrinsic for c in cameras])
         rows = []
-        for arr, type_name in (object_to_array(o) for o in ann.objects):
+        for arr, type_name in objects:
             if type_name in CATEGORY_MAPPING:
                 rows.append(arr + [CATEGORY_MAPPING[type_name]])
         obj_arr = (np.asarray(rows, np.float32) if rows
@@ -107,7 +130,7 @@ class FrameLoader:
             lidar_only = points[points[:, 3] == 0.0] if self.use_radar else points
             obj_arr = self._filter_objects_by_num_points(obj_arr, lidar_only)
 
-        return FrameData(path=path, points=points, cameras=camera_data.items,
+        return FrameData(path=path, points=points, cameras=cameras,
                          camera_timestamp=cam_ts, objects=obj_arr)
 
     # ------------------------------------------------------------- helpers
@@ -134,6 +157,94 @@ class FrameLoader:
             perm = np.random.permutation(pc.shape[0])[:self.max_points]
             pc = pc[perm]
         return pc
+
+    # -------------------------------------------------------- virtualization
+    def _virtualize_cameras(self, cameras: List[CameraFrame],
+                            ref_intrinsic: np.ndarray) -> List[CameraFrame]:
+        """Front/back -> zero-roll/pitch pinholes at the reference intrinsic;
+        fisheyes (when enabled and loaded) -> two yaw+-30deg virtual pinholes
+        (data_loader.py:152-191)."""
+        out = []
+        for cam in cameras:
+            if cam.image is None:
+                continue
+            is_pinhole = 'front' in cam.name or 'back' in cam.name
+            if is_pinhole:
+                img, intr, extr = self._create_virtual_image(
+                    cam.image, cam.camera_params, ref_intrinsic,
+                    image_size=self.image_size)
+                params = CameraParams(intr, extr, cam.camera_params.dist_coeffs,
+                                      'pinhole')
+                out.append(CameraFrame(cam.name, img, params))
+            elif self.virtualize_fisheyes:
+                yaw = self._yaw_of(cam.camera_params)
+                for dy in (-30.0, 30.0):
+                    img, intr, extr = self._create_virtual_image(
+                        cam.image, cam.camera_params, ref_intrinsic,
+                        new_yaw=yaw + dy, image_size=self.image_size)
+                    params = CameraParams(intr, extr,
+                                          cam.camera_params.dist_coeffs,
+                                          'pinhole')
+                    out.append(CameraFrame(cam.name, img, params))
+        return out
+
+    @staticmethod
+    def _yaw_of(params: CameraParams) -> float:
+        ext = np.linalg.inv(params.extrinsic)
+        rot = Rotation.from_matrix(ext[:3, :3])
+        rz = Rotation.from_matrix(R_Z_FORWARD_TO_BODY)
+        return (rot * rz.inv()).as_euler('XYZ', degrees=True)[2]
+
+    @staticmethod
+    def _create_virtual_image(img: np.ndarray, params: CameraParams,
+                              new_intrinsic: np.ndarray,
+                              new_yaw: Optional[float] = None,
+                              image_size: Tuple[int, int] = DEFAULT_VIRTUAL_IMAGE_SIZE):
+        """Re-render to a zero-roll/pitch pinhole (data_loader.py:207-240)."""
+        ext = np.linalg.inv(params.extrinsic)
+        rot = Rotation.from_matrix(ext[:3, :3])
+        translation = ext[:3, 3]
+
+        if params.xi is None:
+            source = CameraPinholeDistorted(params.intrinsic[:, :3],
+                                            params.dist_coeffs, img.shape[:2],
+                                            rot.as_matrix(), translation)
+        else:
+            source = CameraMei(params.intrinsic[:, :3], params.xi,
+                               params.dist_coeffs, img.shape[:2],
+                               rot.as_matrix(), translation)
+
+        rz = Rotation.from_matrix(R_Z_FORWARD_TO_BODY)
+        euler = (rot * rz.inv()).as_euler('XYZ', degrees=True)
+        euler[0] = euler[1] = 0.0
+        if new_yaw is not None:
+            euler[2] = new_yaw
+        vrot = Rotation.from_euler('XYZ', euler, degrees=True) * rz
+
+        target = CameraPinhole(new_intrinsic[:, :3], image_size,
+                               vrot.as_matrix(), translation)
+        out_img = target.remap_from(source, img)
+
+        intr4 = np.eye(4)
+        intr4[:3, :3] = target.intrinsic
+        return out_img, intr4, target.body_to_cam
+
+    # ------------------------------------------------------------- filters
+    @staticmethod
+    def _filter_objects_by_fov(objects, extrinsics, fov: float = 60.0):
+        """Keep objects inside any camera's frustum cone (cam-only mode,
+        data_loader.py:262-280)."""
+        coef = np.tan(np.deg2rad(fov / 2.0))
+        kept = []
+        for arr, tname in objects:
+            p = np.array([arr[0], arr[1], arr[2], 1.0])
+            for ext in extrinsics:
+                c = np.asarray(ext) @ p
+                x_fwd, y_lat = c[2], c[0]
+                if (-coef * x_fwd < y_lat < coef * x_fwd) and x_fwd > 0.5:
+                    kept.append((arr, tname))
+                    break
+        return kept
 
     @staticmethod
     def _filter_objects_by_num_points(objects: np.ndarray,

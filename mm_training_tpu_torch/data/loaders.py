@@ -2,10 +2,12 @@
 
 The port's copy of ``mm_training_tpu/data/loaders.py``, its arithmetic
 unchanged. Re-design of dataset/src/loaders/{camera,lidar,radar}_loader.py:
-  * cameras: calibration.json (intrinsics/extrinsics/dist/xi per model) +
-    sync_frame2host.json timestamps. The image decode waits for the camera
-    data slice of the port: ``load_camera_data`` reads no image, and raises
-    when asked for one (``use_cam=True``).
+  * cameras: JPGs + calibration.json (intrinsics/extrinsics/dist/xi per
+    model) + sync_frame2host.json timestamps; fisheyes are defined in the
+    calibration but — like the reference (camera_loader.py:117) — not
+    loaded unless asked for. JPEGs are decoded by the port's own decoder
+    (``data/image.py::imread``, byte-equal to the JAX package's
+    ``cv2.imread``).
   * lidar: per-frame point files with temporal aggregation via
     egomotion.json pose compensation and an ego-car box filter. LAZ/LAS go
     through the port's native codec (``data/lasio.py``); ``.npy``/``.bin``
@@ -13,10 +15,13 @@ unchanged. Re-design of dataset/src/loaders/{camera,lidar,radar}_loader.py:
   * radar: front/back LRR target-list JSONs, polar -> Cartesian, sensor ->
     body via the inverse extrinsic, output [x, y, z, speed, power].
 
-One difference from the JAX package's reader: a ``.laz``/``.las`` frame the
+Two differences from the JAX package's reader: a ``.laz``/``.las`` frame the
 native codec cannot decode falls back to laspy when it is installed, else to
 a same-named ``.npy`` when there is one (the JAX package raises there
-without laspy, ``mm_training_tpu/data/loaders.py:172``).
+without laspy, ``mm_training_tpu/data/loaders.py:172``); and a camera JPEG
+the decoder cannot read exactly (progressive, arithmetic-coded, 12-bit, an
+EXIF rotation, ...) raises ValueError naming the file and the feature,
+where ``cv2.imread`` decodes it or returns None.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from . import lasio  # native LAS/LAZ codec
+from . import image, lasio  # native JPEG and LAS/LAZ codecs
 from .formats import CameraParams
 
 try:
@@ -38,9 +43,6 @@ except ImportError:  # pragma: no cover
 __all__ = ['CameraFrame', 'CameraData', 'load_camera_data', 'read_camera_params',
            'load_lidar_data', 'read_lidar', 'filter_ego_car',
            'load_radar_data', 'radar_json_to_pcd', 'read_radar_calibrations']
-
-CAMERA_SLICE = ('camera images are decoded by the camera data slice of the port '
-                '(JPEG decode without cv2 or PIL, virtualization); it is not ported yet')
 
 CAMERA_MAPPING = {
     'FrontCenter': 'F_STEREO_L',
@@ -95,30 +97,64 @@ def read_camera_params(cali_dir: str) -> Dict[str, CameraParams]:
     return out
 
 
+def _read_image(path: str) -> Optional[np.ndarray]:
+    """[H, W, 3] uint8 BGR, or None for a missing file (as cv2.imread)."""
+    if not os.path.isfile(path):
+        return None
+    return image.imread(path)
+
+
 def load_camera_data(data_folder: str, frame_id: str, use_cam: bool,
                      read_fisheyes: bool = False) -> CameraData:
-    """Calibration and the host timestamp of the front + back cameras (and
-    the fisheyes the calibration defines) with no image (camera_loader.py:
-    92-121): the ``use_cam=False`` branch of the JAX package's loader.
-    ``use_cam=True`` raises: the image decode is not ported yet."""
-    if use_cam or read_fisheyes:
-        raise NotImplementedError(CAMERA_SLICE)
+    """Front + back images (fisheyes skipped by default, matching the
+    reference's commented-out imreads, camera_loader.py:114; pass
+    ``read_fisheyes`` to load them for virtualization), calibration, and
+    the host timestamp (camera_loader.py:92-121)."""
     cam_base = os.path.join(data_folder, 'sensor', 'camera')
     fronts = sorted(c for c in os.listdir(cam_base)
                     if c and c[0] == 'F' and c[-1] == 'L')
     if not fronts:
         raise FileNotFoundError(
             f'no front camera directory (F...L) under {cam_base}')
+    front = fronts[0]  # sorted: deterministic when several rigs coexist
+    front_path = os.path.join(cam_base, front, f'{front}_{frame_id}.jpg')
+    back_path = os.path.join(cam_base, 'B_MIDRANGECAM_C',
+                             f'B_MIDRANGECAM_C_{frame_id}.jpg')
 
     with open(os.path.join(cam_base, 'sync_frame2host.json')) as f:
         timestamp = json.load(f)[str(int(frame_id))]
 
     params = read_camera_params(os.path.join(data_folder, 'sensor', 'calibration'))
-    items = [CameraFrame('front_cam', None, params['F_STEREO_L']),
-             CameraFrame('back_cam', None, params['B_MIDRANGECAM_C'])]
+
+    def read_required(path: str) -> np.ndarray:
+        img = _read_image(path)
+        if img is None:
+            # a silent None would give this sample fewer virtual cameras
+            # than its batch peers — collate crash far from the cause
+            raise FileNotFoundError(f'missing or unreadable camera image '
+                                    f'{path}')
+        return img
+
+    # use_cam=False decodes nothing (deviation from the reference, which
+    # imreads the front JPG it never uses — camera_loader.py:114)
+    front_img = read_required(front_path) if use_cam else None
+    back_img = read_required(back_path) if use_cam else None
+    items = [CameraFrame('front_cam', front_img, params['F_STEREO_L']),
+             CameraFrame('back_cam', back_img, params['B_MIDRANGECAM_C'])]
     for name, key in (('left_cam', 'M_FISHEYE_L'), ('right_cam', 'M_FISHEYE_R')):
         if key in params:
-            items.append(CameraFrame(name, None, params[key]))
+            img = None
+            if read_fisheyes and use_cam:
+                fpath = os.path.join(cam_base, key, f'{key}_{frame_id}.jpg')
+                img = _read_image(fpath)
+                if img is None:
+                    # silently skipping would yield a sample with fewer
+                    # virtual cameras than its batch peers (collate crash
+                    # far from the cause)
+                    raise FileNotFoundError(
+                        f'virtualize_fisheyes is on but {fpath} is missing '
+                        'or unreadable')
+            items.append(CameraFrame(name, img, params[key]))
     return CameraData(items=items, timestamp=float(timestamp))
 
 

@@ -9,8 +9,13 @@ egomotion, calibration, camera JPEGs, radar target JSONs), so the loaders,
 training and eval run without a download.
 
 Scenes contain a ground plane plus box-shaped objects with lidar returns on
-their faces (so the >5-point annotation filter keeps them). The JPEG
-encoder (cv2, else PIL) is imported only when ``write_images`` is on.
+their faces (so the >5-point annotation filter keeps them). Images are
+drawn as the JAX writer draws them (the same pixels, through the port's
+byte-equal ``cv2.resize``, ``data/image.py::resize_linear``) and encoded by
+the port's own baseline JPEG encoder at the JAX writer's quality (95, 85
+with ``image_detail``): their files differ from the JAX writer's, and any
+decoder, ``cv2.imread`` among them, reads them to the same pixels as the
+port's ``imread``.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from typing import Sequence
 
 import numpy as np
 
-from . import lasio
+from . import image, lasio
 
 __all__ = ['generate_synthetic_dataset']
 
@@ -166,30 +171,21 @@ def _annotation_json(objs):
 
 def _write_image(path: str, rng, img_hw=(704, 1280),
                  detail: bool = False):
-    try:
-        import cv2
-    except ImportError:  # pragma: no cover
-        cv2 = None
     h, w = img_hw
     img = rng.integers(0, 255, (h // 8, w // 8, 3), dtype=np.uint8)
-    if cv2 is not None:
-        img = cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)
-        if detail:
-            # full-res noise: real photos carry high-frequency content, and
-            # JPEG decode cost scales with entropy — the smooth default
-            # compresses to a tiny file that decodes unrealistically fast
-            # (loader benchmarks would overstate host throughput ~3x).
-            # Amplitude/quality calibrated against the reference repo's
-            # bundled real camera JPEGs (0.6-0.9 bpp, 2.4-4.6 ms/MP decode):
-            # +-10 @ q85 lands at 2.2 bpp, 4.6 ms/MP — the slow end of real
-            noise = rng.integers(-10, 10, (h, w, 3), dtype=np.int16)
-            img = np.clip(img.astype(np.int16) + noise, 0, 255).astype(np.uint8)
-            cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_QUALITY, 85])
-            return
-        cv2.imwrite(path, img)
-    else:  # pragma: no cover
-        from PIL import Image
-        Image.fromarray(np.repeat(np.repeat(img, 8, 0), 8, 1)).save(path)
+    img = image.resize_linear(img, h, w)
+    if detail:
+        # full-res noise: real photos carry high-frequency content, and
+        # JPEG decode cost scales with entropy — the smooth default
+        # compresses to a tiny file that decodes unrealistically fast
+        # (loader benchmarks would overstate host throughput ~3x).
+        # The JAX writer's amplitude and quality (+-10 at q85), calibrated
+        # there against the reference repo's bundled camera JPEGs
+        noise = rng.integers(-10, 10, (h, w, 3), dtype=np.int16)
+        img = np.clip(img.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+        image.imwrite_jpeg(path, img, 85)
+        return
+    image.imwrite_jpeg(path, img, 95)
 
 
 def generate_synthetic_dataset(root: str, splits=('train', 'val'),
@@ -207,7 +203,7 @@ def generate_synthetic_dataset(root: str, splits=('train', 'val'),
     """Write a synthetic dataset tree under ``root`` and return it. With
     ``fisheyes``, two Mei omni cameras (M_FISHEYE_L/R at yaw +-90) get
     calibrations + images so FrameLoader(virtualize_fisheyes=True) can be
-    exercised end-to-end (by the camera data slice of the port).
+    exercised end-to-end.
     ``n_ground_points``/``image_detail`` scale the fixture to production
     host-pipeline cost (~100k-point clouds, high-entropy JPEGs).
     ``lidar_format='laz'`` writes real LASzip-compressed frames through the

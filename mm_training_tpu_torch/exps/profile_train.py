@@ -20,7 +20,12 @@ general splat (kernels K8 and K8') with every camera of the fake rig
 pitched by 3 degrees.
 
     python -m mm_training_tpu_torch.exps.profile_train [--config lidar_cam_radar]
-        [--raw-rig] [--batch-size 4] [--steps 10] [--warmup 3] [--trace train_trace.json]
+        [--raw-rig] [--cameras 2] [--batch-size 4] [--steps 10] [--warmup 3]
+        [--trace train_trace.json]
+
+``--cameras`` sets the fake rig's camera count (the config's
+``num_cameras``, 4 by default): an aiMotive tree gives 2 (front and back)
+unless its fisheyes are virtualized.
 
 ``--ops-only`` prints only the device operations of one step after the
 warm-up (``exps/timing.py::device_ops``), as one JSON line.
@@ -124,6 +129,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument('--config', default='lidar_radar', choices=('lidar_radar', 'lidar_cam_radar'))
     p.add_argument('--raw-rig', action='store_true',
                    help='the general splat (K8, K8\') on a rig pitched by 3 degrees')
+    p.add_argument('--cameras', type=int, default=None,
+                   help="the fake rig's camera count (default the config's num_cameras)")
     p.add_argument('--batch-size', type=int, default=4)
     p.add_argument('--steps', type=int, default=10)
     p.add_argument('--warmup', type=int, default=3)
@@ -133,8 +140,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                    help='print only the device ops of one step after the warm-up')
     args = p.parse_args(argv)
 
-    cfg = getattr(variants, args.config)(batch_size=args.batch_size,
-                                         max_points_per_frame=100_000)
+    cfg = getattr(variants, args.config)(
+        batch_size=args.batch_size, max_points_per_frame=100_000,
+        **({'num_cameras': args.cameras} if args.cameras else {}))
     if args.raw_rig:
         cfg = raw_rig(cfg)
     model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(args.seed))
@@ -179,6 +187,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     result = {
         'device': torch.cuda.get_device_name(0), 'config': args.config,
         'raw_rig': args.raw_rig, 'batch_size': args.batch_size,
+        'cameras': cfg.num_cameras if cfg.use_cam else 0,
         'steps': args.steps, 'unprofiled': timed,
         'wall_ms_per_step': wall_ms, 'device_ms_per_step': device_ms,
         'device_busy_share': device_ms / wall_ms,
@@ -193,7 +202,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     }
     if cfg.use_cam:
         result['depth_loss_forward_backward_ms'] = depth_loss_ms(cfg)
-    if args.batch_size == 4 and args.config in BEFORE and not args.raw_rig:
+    if (args.batch_size == 4 and args.config in BEFORE and not args.raw_rig
+            and cfg.num_cameras == 4):
         result['before'] = BEFORE[args.config]
     print(json.dumps(result, indent=1))
     return result

@@ -14,8 +14,6 @@ from mm_training_tpu_torch.exps.common import build_config, parse_args
 # the JAX Config's fields the port has not taken yet, each with the module
 # that will read it; a field added to either Config shows in the diff below
 NOT_YET_PORTED = {
-    'depth_gt_root',          # the camera data slice (precomputed depth labels)
-    'virtualize_fisheyes',    # the camera data slice
     'ema_decay',              # EMA (training/ema.py)
     'use_tta',                # TTA (training/tta.py)
     'model_parallel',         # the TPU mesh; DDP replaces data parallelism

@@ -1,8 +1,9 @@
 """The port's host data pipeline against the JAX package's: the LAS/LAZ
 codec, the native point packer, the aiMotive dataset and its collate, and
 the synthetic tree writer, byte for byte on the same inputs and seeds. Also
-the two reader faults the port's copies repair, and the camera data path's
-refusal. Trees are written by the JAX writer in the test's own directory."""
+the two reader faults the port's copies repair. Trees are written by the JAX
+writer in the test's own directory (the camera data path's tests are
+``test_torch_data_camera.py``)."""
 import filecmp
 import os
 import struct
@@ -204,13 +205,3 @@ def test_writer_equals_jax(tmp_path, fmt, images):
             assert (tmp_path / 'p' / rel).is_file()
             continue
         assert filecmp.cmp(tmp_path / 'p' / rel, tmp_path / 'j' / rel, shallow=False), rel
-
-
-def test_camera_config_raises(tree):
-    """The camera data path (images, virtualization, depth_gt_root) waits
-    for its slice: a camera config's dataset says so."""
-    with pytest.raises(NotImplementedError, match='camera data slice'):
-        AiMotiveDataset(tree, tcfg.lidar_cam_radar(), 'train')
-    with pytest.raises(NotImplementedError, match='camera data slice'):
-        loaders.load_camera_data(os.path.join(tree, 'train', 'highway', 'seq000'),
-                                 '0000001', use_cam=True)

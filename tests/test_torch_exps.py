@@ -98,15 +98,23 @@ def test_device_ops_in_child_runs_the_named_calls_in_a_new_interpreter():
         timing.device_ops_in_child([[('ops.gaussian', 'no_such_function', (), {})]])
 
 
-def test_profile_loader_reports_each_stage(capsys):
-    """``exps/profile_loader.py`` at a small size: every stage timed, the
-    loader's rate for each worker count, one JSON line."""
+@pytest.mark.parametrize('images', [[], ['--images'], ['--images', '--fisheyes']],
+                         ids=['lidar', 'images', 'fisheyes'])
+def test_profile_loader_reports_each_stage(capsys, images):
+    """``exps/profile_loader.py`` at a small size: every stage timed (with
+    images also the decode, re-render and augmentation of 2 cameras, 6 with
+    the fisheyes), the loader's rate for each worker count, one JSON line."""
     import json
 
     from mm_training_tpu_torch.exps import profile_loader
     out = profile_loader.main(['--frames', '4', '--ground-points', '500', '--objects', '3',
-                               '--workers', '1', '2'])
+                               '--workers', '1', '2', '--img-hw', '64', '128'] + images)
     assert out['frames'] == 4 and out['points_a_frame'] > 500
     assert all(out[k] > 0 for k in ('decode_ms', 'frame_ms', 'box_filter_ms', 'sample_ms'))
     assert out['frame_ms'] >= out['decode_ms'] and sorted(out['loader_samples_per_s']) == [1, 2]
+    if images:
+        assert out['config'] == 'lidar_cam_radar'
+        assert out['cameras'] == (6 if '--fisheyes' in images else 2)
+        assert all(out[k] > 0 for k in ('jpeg_decode_ms', 'rerender_ms', 'augment_ms',
+                                        'lidar_frame_ms'))
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])['frames'] == 4

@@ -29,6 +29,8 @@ for name in ('mm_training_tpu_torch.ops.gaussian', 'mm_training_tpu_torch.traini
              'mm_training_tpu_torch.core.transforms', 'mm_training_tpu_torch.core.boxes',
              'mm_training_tpu_torch.data.formats', 'mm_training_tpu_torch.data.lasio',
              'mm_training_tpu_torch.data.native', 'mm_training_tpu_torch.data.loaders',
+             'mm_training_tpu_torch.data.image',
+             'mm_training_tpu_torch.data.sensor_models.cameras',
              'mm_training_tpu_torch.data.frame_loader',
              'mm_training_tpu_torch.data.aimotive_dataset', 'mm_training_tpu_torch.data.synthetic',
              'mm_training_tpu_torch.training.loader', 'mm_training_tpu_torch.training.trainer',
@@ -56,7 +58,7 @@ def test_port_and_chip_smoke_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     # every module of the package, the camera and runtime slices' included
-    assert int(out.stdout.split()[-1]) >= 58
+    assert int(out.stdout.split()[-1]) >= 61
 
 
 _NO_IMAGE_CODEC = '''
@@ -69,9 +71,9 @@ import mm_training_tpu_torch.exps.train, mm_training_tpu_torch.exps.evaluate
 
 
 def test_lidar_data_path_imports_no_image_codec():
-    """The LiDAR data path, the trainer and its CLIs import neither cv2 nor
-    PIL (the card's machine has neither; the image decode is the camera
-    data slice's)."""
+    """The data path (its JPEG decode and image ops are the port's own), the
+    trainer and its CLIs import neither cv2 nor PIL (the card's machine
+    promises neither)."""
     out = subprocess.run([sys.executable, '-c', _NO_IMAGE_CODEC], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
