@@ -140,7 +140,37 @@ Phases, each raising on failure:
      (the min depth of each frame's own points in each camera's cells,
      ``ops/depth_labels.py::min_depth_grid_plain``): K6's
      ``depth_grid_to_onehot`` launched, its projection ``depth_labels`` not;
- 28. cv2, PIL, jax and mm_training_tpu are not imported by these phases.
+ 28. cv2, PIL, jax and mm_training_tpu are not imported by these phases;
+ 29. TTA serving (``use_tta``, the 4-way flip ensemble) of full-width
+     ``lidar_radar`` and ``lidar_cam_radar`` at B=1: the launches of one
+     request (K1, K4, K5, K7 four times, K6 and K3 once, A four times the
+     plain request's), no plain version called, the ensembled pred maps
+     through the kernels against the plain versions, TTA and plain p50 in
+     alternating rounds (60 and 30 samples each) and each request's peak
+     memory;
+ 30. folded serving (``models/bn_fold.py::fold_model``) of the same models:
+     A launched at every folded tail with a unit scale, no plain version
+     called, pred maps against the unfolded model's and the boxes kept with
+     the same label and a score within 2e-3, folded and unfolded p50 in
+     alternating rounds; the fp32 tiny configs folded on the card against
+     the port's CPU folded path;
+ 31. ``use_ema`` training of full-width ``lidar_cam_radar`` at B=4: 2 warm-up
+     and 5 timed steps in turns with as many steps without the EMA update,
+     both p50s and peak memories, the EMA update's device ms, the shadow of
+     the last two EMA steps equal to a host ``ema_update`` of the stored
+     masters;
+ 32. in a process of its own, on the phase-20 tree: ``exps.train`` on
+     ``lidar_cam_radar`` with ``use_ema``, ``use_tta`` and
+     ``viz_every_n_steps=2`` (4 steps, a val pass, the test pass on 'best'):
+     the path's kernels launched, the eval kernels four times an eval batch,
+     no plain version called, the BEV, heatmap, depth and cam0 PNGs (IHDR
+     size, IDAT rows) and the .ply written; ``exps.train --profile``: a
+     trace.json with the kernels of A, A', K1, K4 and K5 (up to three
+     sessions); ``exps.inference`` on 'best' with and without ``--fold-bn``
+     (fp32, EMA weights): one JSON a val frame, the folded boxes the
+     unfolded ones by label and score within 2e-3; ``exps.evaluate`` on
+     'best' (EMA, TTA) within 1e-4 of the recorded val loss;
+ 33. cv2, PIL, jax and mm_training_tpu are not imported by phases 29-32.
 Each path's device-op count is printed beside the count before the
 one-launch K6 and K2 (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -748,10 +778,11 @@ def compare_plain(model, request):
     return worst
 
 
-def compare_cpu_reference(cfg=None, bda=None, pitch_deg=0.0):
-    """Phase 4b (and 9b, 16b with a camera config): the fp32 tiny config on
-    the card vs the port's CPU path; ``bda`` replaces the batch's identity
-    ``bda_mat``, ``pitch_deg`` pitches the rig's cameras."""
+def compare_cpu_reference(cfg=None, bda=None, pitch_deg=0.0, fold=False):
+    """Phase 4b (and 9b, 16b with a camera config; 30b with ``fold``): the
+    fp32 tiny config on the card vs the port's CPU path; ``bda`` replaces
+    the batch's identity ``bda_mat``, ``pitch_deg`` pitches the rig's
+    cameras, ``fold`` folds both models' conv+BN pairs first."""
     from mm_training_tpu_torch.configs import tiny_test_config
     from mm_training_tpu_torch.data import make_fake_batch
     from mm_training_tpu_torch.models import BEVDepthLiDAR
@@ -765,6 +796,10 @@ def compare_cpu_reference(cfg=None, bda=None, pitch_deg=0.0):
     _randomize_bn(cpu_model, gen)
     _randomize_offsets(cpu_model, gen)
     gpu_model = copy.deepcopy(cpu_model).to('cuda')
+    if fold:
+        from mm_training_tpu_torch.models.bn_fold import fold_model
+        fold_model(cpu_model)
+        fold_model(gpu_model)
     batch = make_fake_batch(cfg, seed=SEED + 2, pitch_deg=pitch_deg)
     if bda is not None:
         batch['bda_mat'] = bda
@@ -779,8 +814,8 @@ def compare_cpu_reference(cfg=None, bda=None, pitch_deg=0.0):
         worst = max(worst, float(np.abs(gb[b, same] - wb[b, i]).max(-1).min()))
     print(f'tiny fp32 card vs CPU (camera {cfg.use_cam}, depth oracle '
           f'{cfg.use_cam and cfg.use_depth_loss}, raw rig '
-          f'{not cfg.get_backbone_conf().factorized_splat}): {int(wv.sum())} kept boxes, '
-          f'worst box err {worst:.3g}', flush=True)
+          f'{not cfg.get_backbone_conf().factorized_splat}, folded {fold}): {int(wv.sum())} '
+          f'kept boxes, worst box err {worst:.3g}', flush=True)
     if not worst <= 1e-3:
         raise AssertionError(f'tiny fp32 boxes differ from the CPU path by {worst}')
 
@@ -1935,32 +1970,9 @@ def trainer_child(root, out, result_file, config='lidar_radar'):
 
     run = TRAINER_RUNS[config]
     camera = config != 'lidar_radar'
-    wrappers = _wrappers()
 
     def counted_train(argv, label):
-        """exps.train with every launch count reset before and read after,
-        and every plain version's calls counted."""
-        plain_calls = {}
-
-        def counting(name, fn):
-            def plain(*args, **kw):
-                plain_calls[name] = plain_calls.get(name, 0) + 1
-                return fn(*args, **kw)
-            return plain
-        with contextlib.ExitStack() as stack:
-            for mod, name, fn in _swaps():
-                stack.enter_context(mock.patch.object(mod, fn.__name__, counting(name, fn)))
-            for w in wrappers.values():
-                w.launches = 0
-            t0 = time.perf_counter()
-            metrics = train.main(argv)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-            counts = {n: w.launches for n, w in wrappers.items()}
-        print(f'trainer {label}: launches over the run {json.dumps(counts)}; plain versions '
-              f'called {json.dumps(plain_calls)}', flush=True)
-        if plain_calls:
-            raise AssertionError(f'the {label} trainer path called plain versions: {plain_calls}')
+        metrics, counts, wall_s = _counted_entry(train.main, argv, f'trainer {label}')
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f'non-finite test metrics {metrics}')
         return metrics, counts, wall_s
@@ -2100,6 +2112,524 @@ def run_trainer(root, config='lidar_radar'):
             return json.load(f)
 
 
+# --- phases 29-33: the eval and serving runtime (EMA, TTA, BN folding, the
+# trainer's predict, profile and viz panels)
+
+TTA_PER_REQUEST = {'pillar_encoder_input': 4, 'lift_splat_factorized': 4, 'deform_conv3x3': 4,
+                   'bda_bev_warp': 4, 'depth_labels': 1, 'circle_nms_mask': 1}
+
+
+def _alternating_p50(calls, samples, rounds=6):
+    """{label: (p50 ms, p90 ms)} of ``calls`` ({label: fn() -> outputs on the
+    card}) on the host clock, each call ending in a host read of its
+    outputs, taken in ``rounds`` alternating rounds of ``samples // rounds``
+    calls each (PERF.md section 7: two p50s only from one process, in turns)."""
+    lat = {k: [] for k in calls}
+    per = max(1, samples // rounds)
+    for r in range(rounds):
+        order = list(calls) if r % 2 == 0 else list(calls)[::-1]
+        for label in order:
+            for _ in range(per):
+                t0 = time.perf_counter()
+                [o.cpu() for o in calls[label]()]
+                lat[label].append((time.perf_counter() - t0) * 1e3)
+    return {k: (float(np.percentile(v, 50)), float(np.percentile(v, 90)), len(v))
+            for k, v in lat.items()}
+
+
+def _request_peak_gib(fn):
+    """(peak GiB of one call above what is held before it, held GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    [o.cpu() for o in fn()]
+    return torch.cuda.max_memory_allocated() / 2 ** 30 - base, base
+
+
+def _map_rel_diff(got, want):
+    return max(((g[k].float() - w[k].float()).abs().max()
+                / w[k].float().abs().max().clamp_min(1.0)).item()
+               for g, w in zip(got, want) for k in w)
+
+
+def _box_match(ref, got, tol, slots=83):
+    """(share of ``ref``'s kept boxes that ``got`` keeps with the same label,
+    a score within ``tol`` and its BEV centre within 0.5 m, the boxes a
+    task's top-k cut may trade excepted; the worst centre distance among
+    the matched, in m; the boxes counted)."""
+    (rb, rs, rl, rv), (gb, gs, gl, gv) = ([o.numpy() for o in x] for x in (ref, got))
+    matched, n, worst = 0, 0, 0.0
+    for b, i in zip(*np.nonzero(rv)):
+        block = slice(i // slots * slots, (i // slots + 1) * slots)
+        dist = np.abs(gb[b, :, :2] - rb[b, i, :2]).max(-1)
+        same = gv[b] & (gl[b] == rl[b, i]) & (np.abs(gs[b] - rs[b, i]) <= tol) & (dist <= 0.5)
+        if same.any():
+            matched += 1
+            worst = max(worst, float(dist[same].min()))
+        elif rs[b, i] - rs[b, block][rv[b, block]].min() <= tol:
+            continue            # at the cut: may be kept on one side only
+        n += 1
+    return matched / max(n, 1), worst, n
+
+
+def serve_tta_and_folded(cfg, samples):
+    """Phases 29 and 30 for one full-width model at B=1 (``lidar_radar`` or
+    ``lidar_cam_radar``; bf16, seeded random weights and BN statistics).
+
+    29: a ``use_tta`` request through ``make_predict_step``: the launches of
+    one request (K1, K4, K5, K7 four times, K6 and K3 once, A four times the
+    plain request's), no plain version called; its ensembled pred maps
+    through the kernels against the plain versions (bf16, 1/32 of the map's
+    scale, as phase 4a) and finite boxes; TTA and plain p50 in alternating
+    rounds and each request's peak memory.
+    30: the same model folded (``fold_model``): the same A launches a request,
+    each with a unit scale, no plain version called; its pred maps against
+    the unfolded model's (bf16, 1/32); in fp32 (TF32 off) every box of the
+    unfolded model kept by the folded one with the same label, a score
+    within 2e-3 and the centre within 0.5 m; folded and unfolded p50 in
+    alternating rounds."""
+    from mm_training_tpu_torch.data import make_fake_batch
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.models.bn_fold import FoldedBN, fold_model
+    from mm_training_tpu_torch.training import (camera_inputs, cast_floating,
+                                                make_predict_step)
+    from mm_training_tpu_torch.training.tta import tta_forward
+
+    camera = cfg.use_cam
+    label = cfg.experiment_name
+    gen = torch.Generator().manual_seed(SEED + 60)
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=gen)
+    _randomize_bn(model, gen)
+    if camera:
+        _randomize_offsets(model, gen)
+    plain = make_predict_step(cfg, model)
+    tta = make_predict_step(cfg.replace(use_tta=True), model)
+    request = make_fake_batch(cfg, batch_size=1, seed=SEED + 61)
+    result = {}
+
+    # --- phase 29: TTA
+    per = {}
+    for kind, fn in (('plain', plain), ('tta', tta)):
+        [o.cpu() for o in fn(request)]                      # warm
+        out, per[kind], plain_calls, _ = _counted(lambda: [o.cpu() for o in fn(request)])
+        if plain_calls:
+            raise AssertionError(f'the {kind} {label} request called plain versions {plain_calls}')
+        boxes, scores, _, valid = out
+        if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all() and valid.any()):
+            raise AssertionError(f'{kind} {label} request: non-finite or no boxes')
+    expect = {n: c for n, c in TTA_PER_REQUEST.items()
+              if camera or n in ('pillar_encoder_input', 'circle_nms_mask')}
+    wrong = {n: per['tta'][n] for n, c in expect.items() if per['tta'][n] != c}
+    if wrong or per['tta']['affine_act'] != 4 * per['plain']['affine_act']:
+        raise AssertionError(f'TTA {label} launches a request {per["tta"]} (plain '
+                             f'{per["plain"]}): expected {expect} and A 4x')
+    net = cast_floating(model, torch.bfloat16)
+    pts = torch.as_tensor(request['points'], device='cuda')
+    mask = torch.as_tensor(request['point_mask'], device='cuda')
+    with torch.inference_mode():
+        cam = camera_inputs(cfg, request, 'cuda', pts, mask) if camera else {}
+        got, _ = tta_forward(net, None, pts, mask, cam, return_depth=False)
+        before = {n: w.launches for n, w in _wrappers().items()}
+        with _plain_versions():
+            want, _ = tta_forward(net, None, pts, mask, cam, return_depth=False)
+        if {n: w.launches for n, w in _wrappers().items()} != before:
+            raise AssertionError('the plain TTA run launched a kernel')
+    del net
+    tta_vs_plain = _map_rel_diff(got, want)
+    if not tta_vs_plain <= 1 / 32:
+        raise AssertionError(f'TTA {label} pred maps: kernels vs plain {tta_vs_plain}')
+    peak = {k: _request_peak_gib(lambda: fn(request)) for k, fn in (('plain', plain), ('tta', tta))}
+    p50 = _alternating_p50({'plain': lambda: plain(request), 'tta': lambda: tta(request)}, samples)
+    print(f'TTA {label} B=1: launches a request {json.dumps({n: c for n, c in per["tta"].items() if c})}'
+          f' (plain: {json.dumps({n: c for n, c in per["plain"].items() if c})}); pred maps '
+          f'kernels vs plain {tta_vs_plain:.4g}; p50/p90 ms TTA {p50["tta"][0]:.3f}/'
+          f'{p50["tta"][1]:.3f}, plain {p50["plain"][0]:.3f}/{p50["plain"][1]:.3f} ({p50["tta"][2]}'
+          f' samples each, alternating rounds); peak GiB of a request above the held '
+          f'{peak["tta"][1]:.4f}: TTA {peak["tta"][0]:.4f}, plain {peak["plain"][0]:.4f}',
+          flush=True)
+    result['tta'] = {'launches_tta': per['tta'], 'launches_plain': per['plain'],
+                     'p50_ms': p50['tta'][0], 'p90_ms': p50['tta'][1],
+                     'plain_p50_ms': p50['plain'][0], 'plain_p90_ms': p50['plain'][1],
+                     'samples': p50['tta'][2], 'peak_above_held_gib': peak['tta'][0],
+                     'plain_peak_above_held_gib': peak['plain'][0],
+                     'maps_vs_plain_versions': tta_vs_plain}
+
+    # --- phase 30: the folded model
+    folded = copy.deepcopy(model)
+    pairs = fold_model(folded)
+    n_folded = sum(isinstance(m, FoldedBN) for m in folded.modules())
+    folded_step = make_predict_step(cfg, folded)
+    [o.cpu() for o in folded_step(request)]
+    scales = []
+    folded_forward = FoldedBN.forward
+
+    def recording(bn, *a, **k):      # the scale each folded tail hands to kernel A
+        scales.append(bn.scale_shift()[0])
+        return folded_forward(bn, *a, **k)
+    with mock.patch.object(FoldedBN, 'forward', recording):
+        fold_out, fold_counts, plain_calls, _ = _counted(
+            lambda: [o.cpu() for o in folded_step(request)])
+    unit = bool(torch.stack([s.eq(1).all() for s in scales]).all())
+    if plain_calls or fold_counts['affine_act'] != per['plain']['affine_act'] or not unit \
+            or len(scales) != fold_counts['affine_act']:
+        raise AssertionError(f'folded {label}: A launches {fold_counts["affine_act"]} (unfolded '
+                             f'{per["plain"]["affine_act"]}), unit scales {unit}, plain '
+                             f'versions {plain_calls}')
+    nets = [cast_floating(m, torch.bfloat16) for m in (model, folded)]
+    with torch.inference_mode():
+        ref_maps, fold_maps = (net(pts, mask, **cam) for net in nets)
+    del nets
+    fold_vs_unfolded = _map_rel_diff(fold_maps, ref_maps)
+    bf16_share, _, _ = _box_match([o.cpu() for o in plain(request)], fold_out, 2e-3)
+    # the boxes in fp32 (TF32 off), as the JAX CLI test compares them: in
+    # bf16 the fold rounds W * s where the unfolded model rounds W, which
+    # moves some scores of these random weights by more than 2e-3
+    fp32 = cfg.replace(precision='fp32')
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        share, worst, n_boxes = _box_match(
+            *([o.cpu() for o in make_predict_step(fp32, m)(request)] for m in (model, folded)),
+            2e-3)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not (fold_vs_unfolded <= 1 / 32 and share == 1.0):
+        raise AssertionError(f'folded {label} pred maps differ from the unfolded by '
+                             f'{fold_vs_unfolded}; {share} of the fp32 boxes kept')
+    p50f = _alternating_p50({'unfolded': lambda: plain(request),
+                             'folded': lambda: folded_step(request)}, samples)
+    print(f'folded {label} B=1: {len(pairs)} conv+BN pairs folded, {n_folded} FoldedBN, A '
+          f'{fold_counts["affine_act"]} launches a request (unfolded '
+          f'{per["plain"]["affine_act"]}), every scale 1; pred maps vs unfolded '
+          f'{fold_vs_unfolded:.4g} (bf16); in fp32 {share:.4f} of {n_boxes} kept boxes kept '
+          f'with the same label, a score within 2e-3 and the centre within 0.5 m (worst '
+          f'{worst:.4g} m; bf16: {bf16_share:.4f}); p50/p90 ms folded '
+          f'{p50f["folded"][0]:.3f}/{p50f["folded"][1]:.3f}, unfolded {p50f["unfolded"][0]:.3f}/'
+          f'{p50f["unfolded"][1]:.3f} ({p50f["folded"][2]} samples each, alternating rounds)',
+          flush=True)
+    result['folded'] = {'launches': fold_counts, 'p50_ms': p50f['folded'][0],
+                        'p90_ms': p50f['folded'][1], 'unfolded_p50_ms': p50f['unfolded'][0],
+                        'unfolded_p90_ms': p50f['unfolded'][1], 'pairs': len(pairs),
+                        'maps_vs_unfolded': fold_vs_unfolded, 'fp32_box_share_2e-3': share,
+                        'bf16_box_share_2e-3': bf16_share, 'boxes': n_boxes}
+    del model, folded, plain, tta, folded_step
+    torch.cuda.empty_cache()
+    return result
+
+
+def train_ema(cfg, steps=5):
+    """Phase 31: full-width ``lidar_cam_radar`` at B=4 with ``use_ema``: 2
+    warm-up and ``steps`` timed steps with the EMA update, in turns with as
+    many steps without it on the same state (bf16 compute, the fixed fake
+    batch of phase 11); both step p50s and peak memories, the EMA update's
+    device ms; the shadow after each of the last two EMA steps held to a
+    host recomputation of ``ema_update`` from the shadow before the step and
+    the float32 masters and statistics after it (the same bits)."""
+    from mm_training_tpu_torch.exps.profile_train import train_batch
+    from mm_training_tpu_torch.exps.timing import device_ms
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import create_train_state, make_train_step
+    from mm_training_tpu_torch.training.ema import ema_update
+
+    cfg = cfg.replace(batch_size=4, use_ema=True)
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=torch.Generator().manual_seed(SEED + 70))
+    state = create_train_state(cfg, model)
+    steps_of = {'ema': make_train_step(cfg), 'plain': make_train_step(cfg.replace(use_ema=False))}
+    batch = train_batch(cfg, SEED + 71)
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    for _ in range(2):
+        for fn in steps_of.values():
+            state, m = fn(state, batch)
+    float(m['train_loss'])
+    lat = {k: [] for k in steps_of}
+    peak = {k: 0.0 for k in steps_of}
+    worst, checked = 0, 0
+    for i in range(steps):
+        for kind, fn in steps_of.items():
+            check = kind == 'ema' and i >= steps - 2
+            if check:
+                prev = {k: v.detach().cpu().clone() for k, v in state.ema.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            torch.cuda.synchronize()
+            lat[kind].append((time.perf_counter() - t0) * 1e3)
+            peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated() / 2 ** 30)
+            if not np.isfinite(float(m['train_loss'])):
+                raise AssertionError(f'non-finite {kind} train loss')
+            if check:
+                stored = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+                want = ema_update(prev, stored, state.step, cfg.ema_decay)
+                for k, t in state.ema.items():
+                    got = t.cpu()
+                    if got.is_floating_point():
+                        worst = max(worst, int((got != want[k]).sum()))
+                    elif not torch.equal(got, want[k]):
+                        worst = max(worst, int((got != want[k]).sum()))
+                checked += 1
+    counts = {n: w.launches for n, w in wrappers.items()}
+    shadow = {k: v.clone() for k, v in state.ema.items()}
+    masters = state.model.state_dict()
+    ema_ms = device_ms(lambda: ema_update(shadow, masters, 1000, cfg.ema_decay), 20)
+    n_floats = sum(v.numel() for v in shadow.values() if v.is_floating_point())
+    bound_ms = 3 * 4 * n_floats / HBM_BYTES_PER_S * 1e3
+    p50 = {k: float(np.percentile(v, 50)) for k, v in lat.items()}
+    print(f'EMA training lidar_cam_radar B=4: step p50 with the EMA update {p50["ema"]:.3f} ms, '
+          f'without {p50["plain"]:.3f} ms ({steps} steps each, in turns after 2 warm-up each); '
+          f'peak device memory {peak["ema"]:.4f} / {peak["plain"]:.4f} GiB; the EMA update '
+          f'alone {ema_ms:.4f} ms of device time over {n_floats} float32 entries (bound '
+          f'{bound_ms:.4f} ms: two reads and one write at the HBM rate); shadow vs host '
+          f'ema_update after the last {checked} EMA steps: {worst} entries differ; launches '
+          f'{json.dumps({n: c for n, c in counts.items() if c})}', flush=True)
+    if worst or checked != 2:
+        raise AssertionError(f'the EMA shadow differs from ema_update in {worst} entries')
+    del state, model, shadow, masters
+    torch.cuda.empty_cache()
+    return {'p50_ms': p50['ema'], 'plain_p50_ms': p50['plain'], 'peak_gib': peak['ema'],
+            'plain_peak_gib': peak['plain'], 'ema_update_ms': ema_ms,
+            'ema_update_bound_ms': bound_ms, 'counts': counts, 'steps': 2 * (steps + 2)}
+
+
+def _png_checks(panels, cfg):
+    """Each panel PNG's IHDR against the panel's size, its IDAT inflated
+    with zlib to its rows (filter byte 0 and 3 bytes a pixel: the rendered
+    BGR panel stored as RGB), content drawn. Returns {kind: (h, w)}."""
+    import zlib
+    bb, head = cfg.get_backbone_conf(), cfg.get_head_conf()
+    pc = cfg.point_cloud_range
+    hh, hw = (n // cfg.out_size_factor for n in cfg.out_shape)
+    sizes = {'bev': (round((pc[4] - pc[1]) * 2), round((pc[3] - pc[0]) * 2)),
+             'heatmaps': (hh, len(head.tasks) * (hw + 2)), 'depth': tuple(bb.feat_hw),
+             'cam0': tuple(cfg.final_dim)}
+    seen = {}
+    for kind, (h, w) in sizes.items():
+        files = sorted(f for f in os.listdir(panels) if f.split('_')[1] == kind)
+        if not files:
+            raise AssertionError(f'no {kind} panel under {panels}')
+        for name in files:
+            data = open(os.path.join(panels, name), 'rb').read()
+            chunks, pos = {}, 8
+            while pos < len(data):
+                n = int.from_bytes(data[pos:pos + 4], 'big')
+                kind_ = data[pos + 4:pos + 8].decode()
+                chunks.setdefault(kind_, b'')
+                chunks[kind_] += data[pos + 8:pos + 8 + n]
+                pos += 12 + n
+            ih = chunks['IHDR']
+            size = (int.from_bytes(ih[4:8], 'big'), int.from_bytes(ih[0:4], 'big'))
+            raw = np.frombuffer(zlib.decompress(chunks['IDAT']), np.uint8)
+            if size != (h, w) or ih[8:10] != b'\x08\x02' or raw.size != h * (1 + 3 * w):
+                raise AssertionError(f'{name}: IHDR {size} {ih[8:10]!r}, {raw.size} bytes, '
+                                     f'expected {(h, w)}')
+            rows = raw.reshape(h, 1 + 3 * w)
+            if rows[:, 0].any() or rows[:, 1:].max() == rows[:, 1:].min():
+                raise AssertionError(f'{name}: a filter byte set or nothing drawn')
+        seen[kind] = (h, w, len(files))
+    return seen
+
+
+def _counted(fn):
+    """(``fn()``, every kernel wrapper's launches during it, the calls of
+    each plain version during it, its wall seconds ending in a
+    synchronize): the launch counts reset before and read after."""
+    plain_calls = {}
+    wrappers = _wrappers()
+
+    def counting(name, plain):
+        def call(*args, **kw):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return plain(*args, **kw)
+        return call
+    with contextlib.ExitStack() as stack:
+        for mod, name, plain in _swaps():
+            stack.enter_context(mock.patch.object(mod, plain.__name__, counting(name, plain)))
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {n: w.launches for n, w in wrappers.items()}
+    return out, counts, plain_calls, wall_s
+
+
+def _counted_entry(fn, argv, label):
+    """``fn(argv)`` (an exps entry point) through :func:`_counted`, printed;
+    raises when a plain version was called."""
+    out, counts, plain_calls, wall_s = _counted(lambda: fn(argv))
+    print(f'{label}: launches {json.dumps({n: c for n, c in counts.items() if c})}; plain '
+          f'versions called {json.dumps(plain_calls)}; {wall_s:.3f} s', flush=True)
+    if plain_calls:
+        raise AssertionError(f'{label} called plain versions: {plain_calls}')
+    return out, counts, wall_s
+
+
+TRACE_KERNELS = {'affine_act': 'affine_act_kernel', 'affine_act_backward': 'affine_act_bwd_kernel',
+                 'pillar_encoder_input': 'pillar_kernel',
+                 'lift_splat_factorized': 'lift_splat_kernel',
+                 'deform_conv3x3': 'deform_conv_kernel'}
+
+
+def runtime_child(root, out, result_file):
+    """Phases 32-33 in a process of their own: ``exps.train`` on full-width
+    ``lidar_cam_radar`` with ``use_ema``, ``use_tta`` and
+    ``viz_every_n_steps=2`` (B=4, 4 steps from the tree: a sanity val batch,
+    a val pass, the test pass on 'best'); every kernel of phase 25 launched,
+    the eval kernels four times an eval batch (K6 and K3 once), no plain
+    version called; the BEV, heatmap, depth and cam0 PNGs and the .ply
+    written (:func:`_png_checks`). Then ``exps.train --profile`` in a child
+    interpreter (retried up to three times while its trace holds no device
+    event): a trace.json that parses and holds the kernels of A, A', K1, K4
+    and K5. Then ``exps.inference`` on 'best' (EMA weights, fp32, TF32 off)
+    with and without ``--fold-bn``: one JSON a val frame, the folded boxes
+    those of the unfolded by label and score within 2e-3. Then
+    ``exps.evaluate`` on 'best' with EMA and TTA: the recorded val loss
+    within 1e-4 relative. Last, no cv2, PIL, jax or mm_training_tpu
+    imported."""
+    import glob
+    from mm_training_tpu_torch.configs import CLASSES, lidar_cam_radar
+    from mm_training_tpu_torch.data.formats import object_to_array
+    from mm_training_tpu_torch.exps import evaluate, inference, train
+
+    cfg = lidar_cam_radar()
+    train_out = os.path.join(out, 'train')
+    flags = ['use_ema=True', 'use_tta=True']
+    metrics, counts, wall_s = _counted_entry(train.main, [
+        '--config', 'lidar_cam_radar', '--data-root', root, '--max-steps', '4', 'batch_size=4',
+        'num_workers=8', f'out_path={train_out!r}', 'num_sanity_val_steps=1',
+        'viz_every_n_steps=2', f'seed={SEED + 80}'] + flags, 'runtime exps.train (EMA, TTA, viz)')
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f'non-finite test metrics {metrics}')
+    steps, evals = 4, counts['circle_nms_mask']
+    want = {n: steps for n in ('lift_splat_factorized_backward', 'deform_conv3x3_backward',
+                               'warp_backward')}
+    want.update({n: steps + 4 * evals for n in ('pillar_encoder_input', 'lift_splat_factorized',
+                                                 'deform_conv3x3', 'bda_bev_warp')})
+    want['depth_labels'] = steps + evals
+    wrong = {n: counts[n] for n, c in want.items() if counts[n] != c}
+    missing = [n for n in CAMERA_TRAIN_KERNELS if counts[n] == 0]
+    # a sanity val batch, a val pass of 2 batches, 2 train-batch panels, a
+    # test pass of 2 batches
+    if wrong or missing or evals != 7:
+        raise AssertionError(f'runtime launches {counts}: expected {want} with 7 eval batches, '
+                             f'missing {missing}')
+    panels = _png_checks(os.path.join(train_out, 'panels'), cfg)
+    scenes = sorted(os.listdir(os.path.join(train_out, 'scenes')))
+    plys = [f for f in scenes if f.endswith('.ply')]
+    if not plys or not all(os.path.getsize(os.path.join(train_out, 'scenes', f)) > 1000
+                           for f in plys):
+        raise AssertionError(f'scenes: {scenes}')
+    print(f'runtime panels (h, w, files): {json.dumps(panels)}; scenes {len(plys)} .ply',
+          flush=True)
+
+    # exps.train --profile in a fresh interpreter (a profiler session of a
+    # process that has run many kernels may record no device event)
+    import mm_training_tpu_torch
+    root_of_package = os.path.dirname(os.path.dirname(os.path.abspath(
+        mm_training_tpu_torch.__file__)))
+    found, tries = {}, 0
+    for tries in range(1, 4):
+        prof_out = os.path.join(out, f'profile{tries}')
+        proc = subprocess.run([sys.executable, '-m', 'mm_training_tpu_torch.exps.train',
+                               '--profile', '--config', 'lidar_cam_radar', '--data-root', root,
+                               '--max-steps', '3', 'batch_size=4', 'num_workers=8',
+                               f'out_path={prof_out!r}'], capture_output=True, text=True,
+                              timeout=600, cwd=root_of_package)
+        if proc.returncode != 0:
+            raise AssertionError(f'exps.train --profile failed:\n{proc.stderr[-3000:]}')
+        with open(os.path.join(prof_out, 'profile', 'trace.json')) as f:
+            trace = json.load(f)
+        kernels = [e['name'] for e in trace['traceEvents'] if e.get('cat') == 'kernel']
+        found = {k: sum(sub in n for n in kernels) for k, sub in TRACE_KERNELS.items()}
+        if kernels:
+            break
+    print(f'exps.train --profile: {len(trace["traceEvents"])} trace events, {len(kernels)} '
+          f'kernel events after {tries} session(s); port kernels {json.dumps(found)}',
+          flush=True)
+    if not all(found.values()):
+        raise AssertionError(f'the profile trace lacks port kernels: {found}')
+
+    best = os.path.join(train_out, 'saved_models', 'best')
+    torch.backends.cudnn.allow_tf32 = False        # fp32 comparison: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exported = {}
+    for fold in (False, True):
+        dst = os.path.join(out, f'inference_fold{int(fold)}')
+        _counted_entry(inference.main, ['--fold-bn'] * fold + [
+            '--config', 'lidar_cam_radar', '--data-root', root, f'ckpt_path={best!r}',
+            'batch_size=4', 'num_workers=8', 'precision="fp32"', 'use_ema=True',
+            f'out_path={dst!r}'], f'exps.inference {"--fold-bn " * fold}(fp32, EMA)')
+        files = sorted(glob.glob(os.path.join(dst, 'outputs', '**', '*.json'), recursive=True))
+        rows = []
+        for file in files:
+            objs = json.load(open(file))['CapturedObjects']
+            arrs = [object_to_array(o) for o in objs]
+            if not all(np.isfinite(a).all() and n in CLASSES for a, n in arrs):
+                raise AssertionError(f'bad exported box in {file}')
+            rows.append([(n, o['Score'], np.asarray(a[:3], np.float64))
+                         for (a, n), o in zip(arrs, objs)])
+        if len(files) != TREE_FRAMES['val']:
+            raise AssertionError(f'exps.inference wrote {len(files)} files')
+        exported[fold] = [os.path.relpath(f, dst) for f in files], rows
+    (names, plain), (fnames, folded) = exported[False], exported[True]
+    n, matched, worst = 0, 0, 0.0
+    for a, b in zip(plain, folded):
+        for name, score, xyz in a:
+            n += 1
+            dists = [float(np.abs(x[:2] - xyz[:2]).max()) for nm, sc, x in b
+                     if nm == name and abs(sc - score) <= 2e-3]
+            if dists and min(dists) <= 0.5:
+                matched += 1
+                worst = max(worst, min(dists))
+    print(f'exps.inference on best: {len(names)} JSON files, {n} boxes; --fold-bn: {matched} '
+          f'of them with the same label and a score within 2e-3, worst centre {worst:.4g} m',
+          flush=True)
+    if names != fnames or not n or matched < n:
+        raise AssertionError(f'folded export: {matched} of {n} boxes matched')
+
+    recorded = {}
+    for d in os.listdir(best):
+        with open(os.path.join(best, d, 'metrics.json')) as f:
+            recorded[int(d)] = json.load(f)['val_detection_loss']
+    best_step = min(recorded, key=lambda d: (recorded[d], -d))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ev = evaluate.main(['--config', 'lidar_cam_radar', '--data-root', root,
+                        f'ckpt_path={best!r}', 'batch_size=4', 'num_workers=8',
+                        f'out_path={os.path.join(out, "eval")!r}'] + flags)
+    rel = abs(ev['test_detection_loss'] - recorded[best_step]) / abs(recorded[best_step])
+    print(f'exps.evaluate on best (EMA, TTA): test_detection_loss '
+          f'{ev["test_detection_loss"]:.6f} against the recorded {recorded[best_step]:.6f}, '
+          f'relative {rel:.3e}', flush=True)
+    if rel > 1e-4:
+        raise AssertionError('exps.evaluate does not reproduce the recorded val loss on EMA')
+    leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
+    if leaked:
+        raise AssertionError(f'the runtime phases imported {leaked}')
+    with open(result_file, 'w') as f:
+        json.dump({'counts': counts, 'wall_s': wall_s, 'panels': panels,
+                   'profile_sessions': tries, 'profile_kernels': found,
+                   'export_boxes': n, 'eval_rel': rel}, f)
+
+
+def run_runtime(root):
+    """:func:`runtime_child` in a child interpreter."""
+    import tempfile
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        result_file = os.path.join(out, 'result.json')
+        code = (f'import chip_smoke; chip_smoke.runtime_child({root!r}, {out!r}, '
+                f'{result_file!r})')
+        proc = subprocess.run([sys.executable, '-c', code], timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f'the runtime phases failed ({proc.returncode})')
+        with open(result_file) as f:
+            return json.load(f)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2158,6 +2688,12 @@ def main() -> int:
     compare_plain_gradients_camera(raw_cfg, RAW_RIG_PITCH_DEG)
     compare_cpu_train(raw_rig(tiny_test_config(use_cam=True)), RAW_RIG_PITCH_DEG)
 
+    serving = {'lidar_radar': serve_tta_and_folded(cfg, 60),
+               'lidar_cam_radar': serve_tta_and_folded(cam_cfg, 30)}
+    for kw in (dict(use_cam=False), dict(use_cam=True)):
+        compare_cpu_reference(tiny_test_config(**kw), fold=True)
+    ema_train = train_ema(cam_cfg)
+
     import shutil
     import tempfile
     tree = tempfile.mkdtemp(prefix='aim_tree_')
@@ -2167,6 +2703,7 @@ def main() -> int:
         shutil.rmtree(fisheye_tree, ignore_errors=True)
         trainer = run_trainer(tree)
         cam_trainer = run_trainer(tree, 'lidar_cam_radar')
+        runtime = run_runtime(tree)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(fisheye_tree, ignore_errors=True)
@@ -2174,6 +2711,13 @@ def main() -> int:
         k: v for k, v in trainer.items() if k != 'counts'})), flush=True)
     print(f'camera trainer phases on {card}: ' + json.dumps({
         k: v for k, v in cam_trainer.items() if not k.endswith('counts')}), flush=True)
+    print(f'serving runtime phases (TTA, folded) on {card}: ' + json.dumps({
+        name: {kind: {k: v for k, v in r.items() if not k.startswith('launches')}
+               for kind, r in res.items()} for name, res in serving.items()}), flush=True)
+    print(f'EMA training phase on {card}: ' + json.dumps(
+        {k: v for k, v in ema_train.items() if k != 'counts'}), flush=True)
+    print(f'runtime phases (EMA, TTA, viz, profile, inference) on {card}: ' + json.dumps(
+        {k: v for k, v in runtime.items() if k != 'counts'}), flush=True)
     leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
     if leaked:
         raise AssertionError(f'chip_smoke imported {leaked}')
@@ -2187,14 +2731,23 @@ def main() -> int:
                    'train_camera_raw': raw_train_counts[name],
                    'trainer': trainer['counts'][name],
                    'trainer_camera': cam_trainer['counts'][name],
-                   'trainer_camera_depth_gt': cam_trainer['depth_gt_counts'][name]}
+                   'trainer_camera_depth_gt': cam_trainer['depth_gt_counts'][name],
+                   'serve_tta': sum(r['tta']['launches_tta'][name] for r in serving.values()),
+                   'serve_folded': sum(r['folded']['launches'][name]
+                                       for r in serving.values()),
+                   'train_ema': ema_train['counts'][name],
+                   'trainer_runtime': runtime['counts'][name]}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,
                                        'serve_camera': cam_counts[name] / cam_calls,
                                        'train_camera_step': cam_train_counts[name] / 13,
                                        'serve_camera_raw': raw_counts[name] / raw_calls,
-                                       'train_camera_raw_step': raw_train_counts[name] / 8}
+                                       'train_camera_raw_step': raw_train_counts[name] / 8,
+                                       'serve_tta_lidar_radar':
+                                           serving['lidar_radar']['tta']['launches_tta'][name],
+                                       'serve_tta_lidar_cam_radar':
+                                           serving['lidar_cam_radar']['tta']['launches_tta'][name]}
         if row['name'] in ops_per_call:
             row['device_kernels_per_call'] = ops_per_call[row['name']]
     print(json.dumps({'kernels': rows}))

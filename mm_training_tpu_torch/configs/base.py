@@ -267,7 +267,10 @@ class Config:
     # --- trainer (conf_aim.py:29-32 + Lightning defaults, mm_training_aim.py:524-531,619-628)
     max_epochs: int = 999
     log_every_n_steps: int = 50
-    viz_every_n_steps: int = 0     # the viz panels are not ported: 0 only
+    # decode + log scene/heatmap/depth panels on the current train batch
+    # every N steps (reference: wandb artifacts every 200 steps,
+    # mm_training_aim.py:270-284). 0 = per-eval-epoch panels only.
+    viz_every_n_steps: int = 0
     gradient_clip_val: float = 2.0
     weight_decay: float = 1e-7
     lr_milestones: Tuple[int, ...] = (19, 23)  # MultiStepLR epochs
@@ -279,7 +282,9 @@ class Config:
     # writes the file; fit() and restore() wait for it
     async_checkpointing: bool = True
     num_sanity_val_steps: int = 2
-    use_ema: bool = False     # EMA weights arrive with the runtime slice (refused)
+    use_ema: bool = False     # reference defines EMA but leaves it unregistered
+    ema_decay: float = 0.9999
+    use_tta: bool = False     # 4-way flip ensemble at eval/predict (training/tta.py)
     # K train steps a group of stacked batches (training/train_step.py::
     # make_train_step_multi); trailing batches take the single step
     steps_per_dispatch: int = 1

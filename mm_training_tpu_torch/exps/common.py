@@ -15,12 +15,20 @@ from typing import Optional, Sequence
 
 from ..configs import Config, variants
 
-__all__ = ['build_config', 'parse_args']
+__all__ = ['build_config', 'make_parser', 'parse_args']
 
 
 def parse_args(argv: Optional[Sequence[str]] = None,
                description: str = '',
                extra_flags: Sequence[str] = ()) -> argparse.Namespace:
+    return make_parser(description, extra_flags).parse_args(argv)
+
+
+def make_parser(description: str = '',
+                extra_flags: Sequence[str] = ()) -> argparse.ArgumentParser:
+    """The shared parser; ``extra_flags`` are entry-specific boolean
+    switches (``--profile`` of exps.train, ``--latency`` and ``--fold-bn``
+    of exps.inference)."""
     p = argparse.ArgumentParser(description=description)
     for flag in extra_flags:  # entry-specific boolean switches
         p.add_argument(f'--{flag}', action='store_true')
@@ -40,7 +48,7 @@ def parse_args(argv: Optional[Sequence[str]] = None,
     p.add_argument('overrides', nargs='*',
                    help='config overrides as key=value (value parsed as a'
                         ' python literal when possible)')
-    return p.parse_args(argv)
+    return p
 
 
 def _parse_value(v: str):

@@ -6,6 +6,9 @@ final test pass with the best checkpoint's weights — the reference's
 
     python -m mm_training_tpu_torch.exps.train --config lidar_radar \\
         --data-root /data/aimotive_dataset [--device cpu] [key=value ...]
+
+``--profile`` instead traces ``--max-steps`` (default 5) train steps with
+``torch.profiler`` into ``<out_path>/profile/trace.json`` and exits.
 """
 from __future__ import annotations
 
@@ -22,9 +25,13 @@ def main(argv=None):
     cfg = build_config(args)
     trainer = Trainer(cfg, device=args.device)
     try:
-        if args.profile:
-            return trainer.profile(n_steps=args.max_steps or 5)   # raises: not ported yet
         trainer.setup()
+        if args.profile:
+            # a device trace of a few train steps, then exit (view in
+            # Perfetto or chrome://tracing)
+            path = trainer.profile(n_steps=args.max_steps or 5)
+            print(f'device trace written under {path}')
+            return {}
         trainer.fit(max_epochs=args.max_epochs, max_steps=args.max_steps)
         # reload best checkpoint and run the test pass (mm_training_aim.py:639)
         best = trainer.out_path / 'saved_models' / 'best'

@@ -14,20 +14,32 @@ the ReLU and, in a BasicBlock, the residual add that follow it:
   variance).
 
 With gradients on, the affine goes through :class:`~mm_training_tpu_torch.
-ops.affine_act.AffineAct` (kernel A forward, kernel A' backward). Folding BN
-into the conv weights (``fold_conv_bn``) arrives with the checkpoint-import
-slice.
+ops.affine_act.AffineAct` (kernel A forward, kernel A' backward).
+
+Deploy-time folding (the mmcv ``fuse_conv_bn`` equivalent; the port of
+``fold_conv_bn``/``fold_state``, JAX :101-212): an eval BN is ``x * s + t``
+with ``s = weight / sqrt(var + eps)``, so the multiply moves into the conv
+before it (``W' = W * s`` over the conv's output channels) and the BN
+becomes a bias, :class:`FoldedBN`. Conv and BN pair by the port's mmdet
+names within one parent module (:func:`conv_bn_pairs`). A folded BN tail
+still runs through kernel A, with a unit scale and the folded shift, its
+residual and ReLU in the same pass: on the card the multiply the fold saves
+costs nothing inside A, and a bf16 tail gives the bits of ``x + t`` as the
+JAX ``FoldedBN`` adds its bias. Folding is an inference-only transform: a
+folded model refuses a train-mode forward.
 """
 from __future__ import annotations
 
-from typing import Optional
+import re
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops import affine_act
 
-__all__ = ['BatchNorm2d', 'StateCache', 'begin_step']
+__all__ = ['BatchNorm2d', 'FoldedBN', 'StateCache', 'begin_step', 'conv_bn_pairs',
+           'fold_conv_bn', 'fold_model', 'fold_state']
 
 
 class StateCache:
@@ -130,3 +142,136 @@ def begin_step(model: nn.Module) -> None:
     for m in model.modules():
         if isinstance(m, BatchNorm2d):
             m._first_update = True
+
+
+class FoldedBN(nn.Module):
+    """Bias-only stand-in for an eval :class:`BatchNorm2d` after folding:
+    ``act(x + bias [+ residual])`` through kernel A with a unit scale. Its
+    only state is ``bias`` (float32 [C]), under the BN's name."""
+
+    def __init__(self, num_features: int, relu: bool = False, device=None):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.relu = relu
+        self._scale_shift = StateCache()
+
+    def scale_shift(self):
+        """(ones, bias) float32 [C], made once per state of ``bias``."""
+        def make():
+            t = self.bias.float()
+            return torch.ones_like(t), t
+        return self._scale_shift.get((self.bias,), None, make)
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.training:
+            raise ValueError('BN folding is an inference-only transform; these weights were '
+                             'folded by fold_conv_bn/fold_state and cannot be trained '
+                             '(restore unfolded weights instead)')
+        x = x.contiguous(memory_format=torch.channels_last)
+        if residual is not None:
+            residual = residual.contiguous(memory_format=torch.channels_last)
+        s, t = self.scale_shift()
+        if torch.is_grad_enabled():
+            return affine_act.AffineAct.apply(x, s, t, residual, self.relu)
+        return affine_act.affine_act(x, s, t, residual, self.relu)
+
+
+# BN child name -> its conv's name in the same parent: ConvBN's ``bn`` ->
+# ``conv`` (ASPP's ``atrous_conv``), ``bn{i}`` -> ``conv{i}`` (ResNet stems
+# and blocks, ASPP), and in a Sequential index ``i`` -> ``i - 1`` (a
+# downsample, a SECONDFPN deblock, the DepthNet's reduce conv, ASPP's pooled
+# branch)
+_PARTNER_RULES = (
+    (re.compile(r'^bn$'), lambda m: ('conv', 'atrous_conv')),
+    (re.compile(r'^bn(\d+)$'), lambda m: (f'conv{m.group(1)}',)),
+    (re.compile(r'^(\d+)$'), lambda m: (str(int(m.group(1)) - 1),)),
+)
+
+
+def conv_bn_pairs(model: nn.Module) -> List[Tuple[str, str, int, float]]:
+    """(conv name, BN name, the conv weight's output-channel axis, the BN's
+    eps) of every :class:`BatchNorm2d` of ``model`` whose partner conv the
+    naming rules find. The output channels are axis 0 of a Conv2d weight
+    and axis 1 of a ConvTranspose2d's ([C_in, C_out, kH, kW])."""
+    pairs = []
+    for parent_name, parent in model.named_modules():
+        children = dict(parent.named_children())
+        for name, bn in children.items():
+            if not isinstance(bn, BatchNorm2d):
+                continue
+            for pat, partners in _PARTNER_RULES:
+                m = pat.match(name)
+                if m is None:
+                    continue
+                conv = next((p for p in partners(m) if isinstance(
+                    children.get(p), (nn.Conv2d, nn.ConvTranspose2d))), None)
+                if conv is not None:
+                    prefix = f'{parent_name}.' if parent_name else ''
+                    transposed = isinstance(children[conv], nn.ConvTranspose2d)
+                    pairs.append((prefix + conv, prefix + name, 1 if transposed else 0,
+                                  bn.eps))
+                break
+    return pairs
+
+
+_BN_ENTRIES = ('weight', 'running_mean', 'running_var', 'num_batches_tracked')
+
+
+def fold_conv_bn(state: Mapping[str, torch.Tensor],
+                 pairs: List[Tuple[str, str, int, float]]) -> Dict[str, torch.Tensor]:
+    """Pure transform of a state dict (the model's, or an EMA shadow keyed
+    like it) into the folded state dict.
+
+    Each pair becomes: conv weight' = weight * s over its output channels
+    with ``s = gamma / sqrt(var + eps)``; the BN keeps only ``bias`` = beta
+    + (conv bias - mean) * s; a conv bias, if present, is zeroed (its effect
+    moved into the folded bias). All in float32; entries of no pair pass
+    through."""
+    out = dict(state)
+    for conv, bn, axis, eps in pairs:
+        w = state[f'{conv}.weight'].float()
+        gamma, beta, mean, var = (state[f'{bn}.{k}'].float() for k in
+                                  ('weight', 'bias', 'running_mean', 'running_var'))
+        svec = gamma / torch.sqrt(var + eps)
+        conv_bias = state.get(f'{conv}.bias')
+        cb = torch.zeros_like(mean) if conv_bias is None else conv_bias.float()
+        out[f'{bn}.bias'] = beta + (cb - mean) * svec
+        shape = [1] * w.ndim
+        shape[axis] = -1
+        out[f'{conv}.weight'] = w * svec.reshape(shape)
+        if conv_bias is not None:
+            out[f'{conv}.bias'] = torch.zeros_like(conv_bias)
+        for k in _BN_ENTRIES:
+            out.pop(f'{bn}.{k}', None)
+    return out
+
+
+@torch.no_grad()
+def fold_model(model: nn.Module) -> List[Tuple[str, str, int, float]]:
+    """Fold every conv+BN pair of ``model`` in place: the convs' weights and
+    biases rewritten, each paired :class:`BatchNorm2d` replaced by a
+    :class:`FoldedBN` holding the folded bias. Returns the pairs; raises
+    when there are none (already folded, or no BN)."""
+    pairs = conv_bn_pairs(model)
+    if not pairs:
+        raise ValueError('fold_state found no conv+BN pairs to fold — '
+                         'wrong model or already folded?')
+    folded = fold_conv_bn(model.state_dict(), pairs)
+    for _, bn_name, _, _ in pairs:
+        parent_name, _, child = bn_name.rpartition('.')
+        parent = model.get_submodule(parent_name)
+        bn = getattr(parent, child)
+        setattr(parent, child, FoldedBN(bn.num_features, bn.relu,
+                                        device=bn.weight.device).train(bn.training))
+    model.load_state_dict(folded)
+    return pairs
+
+
+def fold_state(state):
+    """Fold a train state's model in place, and its EMA shadow when it has
+    one (JAX :205-209), for inference; returns the state."""
+    pairs = fold_model(state.model)
+    if state.ema is not None:
+        state.ema = fold_conv_bn(state.ema, pairs)
+    return state

@@ -2,7 +2,7 @@
 
 The port of ``mm_training_tpu/training/train_step.py``: ``TrainState`` and
 ``create_train_state``, ``make_train_step`` (JAX :183-257),
-``make_train_step_multi`` (:278-300),
+``make_train_step_multi`` (:278-300), ``_eval_weights`` (:303-308),
 ``make_eval_step`` (:311-367), ``make_predict_step`` (:369-398),
 ``cast_floating`` (:148-154), ``normalize_images`` (:74-81),
 ``_prepare_camera_inputs`` (:84-145: depth labels from a precomputed
@@ -29,9 +29,14 @@ cast of ``batch_stats`` does). Eval and predict cast the statistics too.
 
 A batch's arrays may be numpy (copied to the model's device by the step)
 or tensors on that device already (the trainer's pinned, non-blocking
-copies: ``training/trainer.py::_device_batches``). EMA weights
-(``use_ema``) arrive with a later part of the runtime slice and are refused
-until then.
+copies: ``training/trainer.py::_device_batches``).
+
+With ``use_ema`` the state carries an EMA shadow of the model's state dict
+(``training/ema.py``), updated after each step's optimizer update and BN
+statistics, and eval and predict run on it (``_eval_weights``). With
+``use_tta`` eval and predict run the 4-way flip ensemble
+(``training/tta.py``), the depth oracle computed once from the unflipped
+points.
 """
 from __future__ import annotations
 
@@ -47,12 +52,15 @@ from ..models import BEVDepthLiDAR, decode_boxes
 from ..models.bn_fold import begin_step
 from ..models.centerpoint_head import detection_loss, get_targets
 from ..ops import depth_labels as depth_label_ops
+from .ema import ema_update
 from .optim import AdamW, make_optimizer
+from .tta import tta_forward
 
 __all__ = ['HOST_FIELDS', 'IMAGENET_MEAN', 'IMAGENET_STD', 'TrainState', 'camera_inputs',
            'camera_train_inputs', 'cast_floating', 'create_train_state', 'depth_loss_fn',
            'draw_train_randoms', 'loss_and_grads', 'make_eval_step', 'make_predict_step',
-           'make_train_step', 'make_train_step_multi', 'normalize_images']
+           'make_state_predict_step', 'make_train_step', 'make_train_step_multi',
+           'normalize_images']
 
 # a batch's host-only entries (the loader's), never read by a step
 HOST_FIELDS = ('path', 'n_valid', 'n_valid_global')
@@ -77,21 +85,26 @@ def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
 @dataclass
 class TrainState:
     """What a train step advances: the step count, the model (float32
-    master parameters and BatchNorm statistics) and its optimizer."""
+    master parameters and BatchNorm statistics), its optimizer and, with
+    ``use_ema``, the EMA shadow: copies of every entry of the model's
+    ``state_dict()`` in its dtype (the JAX ``ema_params`` and
+    ``ema_batch_stats``), keyed as there."""
     step: int
     model: BEVDepthLiDAR
     optimizer: AdamW
+    ema: Optional[Dict[str, torch.Tensor]] = None
 
 
 def create_train_state(cfg: Config, model: BEVDepthLiDAR, steps_per_epoch: int = 1000,
                        global_batch_scale: int = 1) -> TrainState:
     """Step 0 with :func:`~mm_training_tpu_torch.training.optim.make_optimizer`
-    over the model's parameters (in ``named_parameters`` order)."""
-    if cfg.use_ema:
-        raise NotImplementedError('EMA weights (use_ema) arrive with the runtime '
-                                  'slice (slice 5) of the port')
+    over the model's parameters (in ``named_parameters`` order); with
+    ``use_ema`` the shadow starts as a copy of the model's state."""
     opt = make_optimizer(cfg, model.parameters(), steps_per_epoch, global_batch_scale)
-    return TrainState(step=0, model=model, optimizer=opt)
+    ema = None
+    if cfg.use_ema:
+        ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return TrainState(step=0, model=model, optimizer=opt, ema=ema)
 
 
 def _device(model: nn.Module) -> torch.device:
@@ -211,17 +224,16 @@ def make_train_step(cfg: Config) -> Callable[..., Tuple[TrainState, Dict[str, to
     ``bda_mat`` [B, 4, 4] and ``depth_gt`` [B, N, fH, fW] or the points.
     Targets (kernel K2), the camera's labels and flips, the forward in train
     mode, the detection loss plus the depth loss, their gradients, then the
-    clipped AdamW update of the float32 masters. A camera step's random
-    draws are ``draws`` when given, else drawn from a generator the step
-    owns, made on the model's device and seeded with ``cfg.seed``.
-    The state is updated in place (the JAX step donates its input) and
-    returned with ``step + 1``; ``metrics`` holds ``train_loss``,
-    ``train_detection_loss``, ``train_depth_loss`` (0 without the camera)
-    and ``grad_norm`` (before clipping) as 0-dim tensors on the device,
-    read without a host wait."""
-    if cfg.use_ema:
-        raise NotImplementedError('EMA weights (use_ema) arrive with the runtime '
-                                  'slice (slice 5) of the port')
+    clipped AdamW update of the float32 masters; with ``use_ema`` and a
+    shadow in the state, the EMA update of the shadow from the stored
+    masters and BN statistics (JAX :244-250), at the post-increment step.
+    A camera step's random draws are ``draws`` when given, else drawn from
+    a generator the step owns, made on the model's device and seeded with
+    ``cfg.seed``. The state is updated in place (the JAX step donates its
+    input) and returned with ``step + 1``; ``metrics`` holds
+    ``train_loss``, ``train_detection_loss``, ``train_depth_loss`` (0
+    without the camera) and ``grad_norm`` (before clipping) as 0-dim
+    tensors on the device, read without a host wait."""
     own = {}
 
     def train_step(state: TrainState, batch: Dict[str, Any],
@@ -233,6 +245,8 @@ def make_train_step(cfg: Config) -> Callable[..., Tuple[TrainState, Dict[str, to
         loss, grads, parts = loss_and_grads(cfg, state, batch, draws)
         grad_norm = state.optimizer.step(grads)
         state.step += 1
+        if cfg.use_ema and state.ema is not None:
+            ema_update(state.ema, state.model.state_dict(), state.step, cfg.ema_decay)
         metrics = {'train_loss': loss, 'train_detection_loss': parts['detection'],
                    'train_depth_loss': parts['depth'], 'grad_norm': grad_norm}
         return state, metrics
@@ -262,11 +276,43 @@ def make_train_step_multi(cfg: Config, k: int
     return train_step_multi
 
 
+def _eval_weights(cfg: Config, state: TrainState) -> Dict[str, torch.Tensor]:
+    """The tensors eval and predict run the model with: the EMA shadow when
+    ``use_ema`` and the state holds one (the reference's dormant
+    EMACallback saves them for exactly this), else the masters; their
+    floating entries, bf16 copies under ``precision == 'bf16'``."""
+    if cfg.use_ema and state.ema is not None:
+        named = {k: v for k, v in state.ema.items() if v.is_floating_point()}
+        if cfg.precision != 'bf16':
+            return named
+        return {k: v.to(torch.bfloat16) for k, v in named.items()}
+    return _compute_weights(cfg, state.model, True)
+
+
+def _forward(cfg: Config, model: nn.Module, weights: Optional[Dict[str, torch.Tensor]],
+             points: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+             cam: Dict[str, Any], return_depth: bool = True):
+    """(float32 preds, depth or None) of an eval-mode forward of ``model``
+    (through ``functional_call`` on ``weights`` when given), the 4-way flip
+    ensemble under ``use_tta``."""
+    if not cfg.use_lidar:
+        points = mask = None
+    if cfg.use_tta:
+        return tta_forward(model, weights, points, mask, cam, return_depth)
+    kw = dict(cam, return_depth=return_depth)
+    if weights is None:
+        out = model(points, mask, **kw)
+    else:
+        out = torch.func.functional_call(model, weights, (points, mask), kw)
+    preds, depth = out if return_depth else (out, None)
+    return cast_floating(preds, torch.float32), depth
+
+
 def make_eval_step(cfg: Config) -> Callable:
     """``eval_step(state, batch) -> (metrics, (boxes, scores, labels, valid),
-    viz)``: forward in eval mode (bf16 casts of the parameters and
-    statistics under ``precision == 'bf16'``; no image flipped), the
-    detection loss and, with the camera, the depth loss, both with the
+    viz)``: forward in eval mode on :func:`_eval_weights` (bf16 casts under
+    ``precision == 'bf16'``; no image flipped; the flip ensemble under
+    ``use_tta``), the detection loss and, with the camera, the depth loss, both with the
     batch's optional ``sample_valid`` [B] mask, decode with circle NMS.
     ``metrics``: ``detection_loss``, ``depth_loss`` (0 without the camera),
     ``loss``; ``viz``: ``heatmaps`` [T, H, W], each task's max-class heatmap
@@ -283,11 +329,7 @@ def make_eval_step(cfg: Config) -> Callable:
         cam: Dict[str, Any] = {}
         if cfg.use_cam:
             cam, labels = camera_train_inputs(cfg, batch, device, None, points, mask)
-        preds, depth = torch.func.functional_call(
-            model, _compute_weights(cfg, model, True),
-            (points, mask) if cfg.use_lidar else (None, None),
-            dict(cam, return_depth=True))
-        preds = cast_floating(preds, torch.float32)
+        preds, depth = _forward(cfg, model, _eval_weights(cfg, state), points, mask, cam)
         sample_valid: Optional[torch.Tensor] = None
         if 'sample_valid' in batch:
             sample_valid = _as(batch, 'sample_valid', torch.bool, device)
@@ -394,6 +436,19 @@ def camera_train_inputs(cfg: Config, batch: Dict[str, Any], device,
     return dict(imgs=imgs, flipped=flipped, depth_oracle=oracle, **mats), loss_labels
 
 
+def _predict(cfg: Config, model: nn.Module, weights: Optional[Dict[str, torch.Tensor]],
+             batch: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
+    """Forward (the flip ensemble under ``use_tta``) + decode of a request."""
+    device = _device(model)
+    points = mask = None
+    if cfg.use_lidar:
+        points = _as(batch, 'points', torch.float32, device)
+        mask = _as(batch, 'point_mask', torch.bool, device)
+    cam = camera_inputs(cfg, batch, device, points, mask) if cfg.use_cam else {}
+    preds, _ = _forward(cfg, model, weights, points, mask, cam, return_depth=False)
+    return decode_boxes(cfg.get_head_conf(), preds)
+
+
 def make_predict_step(cfg: Config, model: BEVDepthLiDAR
                       ) -> Callable[[Dict[str, Any]], Tuple[torch.Tensor, ...]]:
     """Forward + decode only (predict_step, mm_training_aim.py:344-369).
@@ -403,20 +458,30 @@ def make_predict_step(cfg: Config, model: BEVDepthLiDAR
     LiDAR; ``imgs`` uint8 [B, S, N, H, W, 3], ``sensor2ego``, ``intrin``,
     ``extrinsics`` [B, S, N, 4, 4] and ``bda_mat`` [B, 4, 4] with the
     camera) and returns (boxes [B, T*83, 9], scores, labels, valid) on the
-    model's device."""
-    head_conf = cfg.get_head_conf()
+    model's device. The model's weights are cast once, here (a bf16 copy
+    under ``precision == 'bf16'``); ``use_tta`` runs the flip ensemble, its
+    depth oracle made once from the unflipped points."""
     net = cast_floating(model, torch.bfloat16) if cfg.precision == 'bf16' else model
     net.eval()
-    device = _device(net)
 
     @torch.inference_mode()
     def predict_step(batch: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
-        points = mask = None
-        if cfg.use_lidar:
-            points = _as(batch, 'points', torch.float32, device)
-            mask = _as(batch, 'point_mask', torch.bool, device)
-        cam = camera_inputs(cfg, batch, device, points, mask) if cfg.use_cam else {}
-        preds = net(points, mask, **cam)
-        return decode_boxes(head_conf, cast_floating(preds, torch.float32))
+        return _predict(cfg, net, None, batch)
+
+    return predict_step
+
+
+def make_state_predict_step(cfg: Config
+                            ) -> Callable[[TrainState, Dict[str, Any]], Tuple[torch.Tensor, ...]]:
+    """``predict_step(state, batch) -> (boxes, scores, labels, valid)``:
+    :func:`make_predict_step`'s forward and decode on a train state's
+    :func:`_eval_weights` (the EMA shadow under ``use_ema``), as the JAX
+    package's ``make_predict_step`` takes its state; the trainer's
+    ``predict`` calls it."""
+
+    @torch.no_grad()     # not inference_mode: BatchNorm's s, t cache reads versions
+    def predict_step(state: TrainState, batch: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
+        state.model.eval()
+        return _predict(cfg, state.model, _eval_weights(cfg, state), batch)
 
     return predict_step

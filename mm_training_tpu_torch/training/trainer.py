@@ -11,11 +11,22 @@ BEVDepthLightningModel + create_trainer):
     (``steps_per_dispatch``) with the single-step tail, ``max_steps``.
   * validate/test: decode on the card, BEV mAP on the host via
     MAPCalculator (:291-342,416-422), aiMotive-format JSON export mirroring
-    the dataset tree (:514-519), PR curves.
+    the dataset tree (:514-519), PR curves; the first batch of each eval
+    pass logged as panels (BEV raster, heatmaps, depth, camera 0, the 3D
+    scene), and the same panels of the train batch every
+    ``viz_every_n_steps`` (:637-726); a renderer failure warns once and
+    does not stop the run.
+  * predict: decode and export the aiMotive JSONs of a split, batch i's
+    export overlapping batch i+1's step (:728-746); with ``use_ema`` and
+    ``use_tta`` eval and predict run on the EMA shadow and the flip
+    ensemble (``training/train_step.py``); ``fold_bn_for_inference`` folds
+    the weights for deploy (``models/bn_fold.py``); ``profile`` traces a
+    few train steps with ``torch.profiler`` (:578-608).
   * checkpoints: the JAX package's layout, ``saved_models/{best,latest}/
     <step>/``, with one ``torch.save`` file a step (``state.pt``: the step,
     the model's float32 masters and BN statistics, the optimizer's moments
-    and count, the loop state) and the step's metrics (``metrics.json``).
+    and count, the EMA shadow under ``use_ema``, the loop state) and the
+    step's metrics (``metrics.json``).
     A step is written into a temporary directory and renamed into place, so
     a killed run never leaves half a step; with ``async_checkpointing`` a
     thread writes a host copy. A port checkpoint does not load in the JAX
@@ -26,9 +37,7 @@ pinned memory and to the card with ``non_blocking=True`` on a side stream
 while step i runs; the step's stream waits on the copy's event, and the
 tensors are marked as used by it.
 
-Waiting for later slices, each raising NotImplementedError that names it:
-``profile``, ``predict``, ``fold_bn_for_inference``, the viz panels
-(``viz_every_n_steps``), EMA and TTA, and the multi-process helpers.
+Waiting for a later slice: the multi-process helpers (data parallelism).
 """
 from __future__ import annotations
 
@@ -37,6 +46,8 @@ import json
 import os
 import shutil
 import threading
+import traceback
+import warnings
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -50,21 +61,20 @@ from ..core.transforms import yaw_to_quat
 from ..data.aimotive_dataset import AiMotiveDataset
 from ..evaluation import MAPCalculator
 from ..models import BEVDepthLiDAR
+from ..models.bn_fold import fold_state
 from ..utils.logging import MetricsLogger
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, profile_trace
+from ..utils.renderer import (draw_boxes_camera, draw_points_camera, render_bev,
+                              render_depth_panel, render_heatmap_panel)
 from .loader import PrefetchLoader, stack_batches
 from .train_step import (HOST_FIELDS, TrainState, create_train_state, make_eval_step,
-                         make_train_step, make_train_step_multi)
+                         make_state_predict_step, make_train_step, make_train_step_multi)
 
 __all__ = ['Trainer', 'boxes_to_aimotive_dict']
 
 CKPT_FILE = 'state.pt'
 METRICS_FILE = 'metrics.json'
 BEST_METRIC = 'val_detection_loss'
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f'{what} arrives with {slice_name} of the port')
 
 
 def boxes_to_aimotive_dict(boxes: np.ndarray, scores: np.ndarray,
@@ -105,11 +115,6 @@ class Trainer:
 
     def __init__(self, cfg: Config, data_root: Optional[str] = None,
                  datasets: Optional[Dict[str, object]] = None, device=None):
-        if cfg.use_ema:
-            raise _later('EMA weights (use_ema)', 'a later part of the runtime slice')
-        if cfg.viz_every_n_steps:
-            raise _later('the viz panels (viz_every_n_steps)',
-                         'a later part of the runtime slice')
         self.cfg = cfg
         self.device = resolve_device(device)
         self.data_root = data_root or cfg.data_root
@@ -192,6 +197,7 @@ class Trainer:
         self._train_step_multi = (make_train_step_multi(cfg, cfg.steps_per_dispatch)
                                   if cfg.steps_per_dispatch > 1 else None)
         self._eval_step = make_eval_step(cfg)
+        self._predict_step = make_state_predict_step(cfg)
 
     def init_state(self, sample_batch: Dict[str, np.ndarray]):
         """Build the model (seeded from ``cfg.seed``) and its optimizer;
@@ -216,7 +222,16 @@ class Trainer:
         return self.state
 
     def fold_bn_for_inference(self):
-        raise _later('BN folding for inference', 'slice 6 (checkpoint import and deploy)')
+        """Fold this trainer's conv+BN pairs for inference, in place
+        (``models/bn_fold.py``; the EMA shadow too), and rebuild the steps.
+        The fold is the model's own: another Trainer in the process keeps
+        its BatchNorms. Inference-only: a train step on the folded model
+        raises ValueError. Call after init_state/restore."""
+        if self.state is None:
+            raise RuntimeError('fold_bn_for_inference requires an initialized state '
+                               '(call init_state first)')
+        self.state = fold_state(self.state)
+        self._build_steps()
 
     # ----------------------------------------------------------- checkpoint
     def save_checkpoint(self, name='best', metrics: Optional[dict] = None):
@@ -376,6 +391,10 @@ class Trainer:
                 self.loop_state['batch_in_epoch'] += kdisp if stacked else 1
                 timer.stop(n_samples=n)
                 self.logger.log_step(self.global_step, metrics)
+                if cfg.viz_every_n_steps and (
+                        self.global_step // cfg.viz_every_n_steps
+                        > prev_step // cfg.viz_every_n_steps):
+                    self._log_train_viz(batch, device_batch, kdisp if stacked else 1)
                 if cfg.latest_every_n_steps and (
                         self.global_step // cfg.latest_every_n_steps
                         > prev_step // cfg.latest_every_n_steps):
@@ -415,11 +434,13 @@ class Trainer:
         agg: Dict[str, float] = {}
         count = 0
 
-        def consume(batch, metrics, out):
+        def consume(bi, batch, metrics, out, viz):
             nonlocal count
             metrics = {k: float(v) for k, v in metrics.items()}
             boxes, scores, labels, valid = (t.cpu().numpy() for t in out)
             self._accumulate_map(batch, boxes, scores, labels, valid)
+            if log and bi == 0:
+                self._log_scene_panel(batch, boxes, scores, labels, valid, prefix, viz)
             if export:
                 self._export_results(batch, boxes, scores, labels, valid)
             # weight by valid samples so a padded trailing batch (pad_last)
@@ -433,11 +454,12 @@ class Trainer:
         # back, so the host's read and mAP accumulation of batch i overlap
         # the card's work on batch i+1
         pending = None
-        for batch, device_batch, _ in self._device_batches(loader, max_batches):
-            metrics, out, _ = self._eval_step(self.state, device_batch)
+        for bi, (batch, device_batch, _) in enumerate(self._device_batches(loader,
+                                                                           max_batches)):
+            metrics, out, viz = self._eval_step(self.state, device_batch)
             if pending is not None:
                 consume(*pending)
-            pending = (batch, metrics, out)
+            pending = (bi, batch, metrics, out, viz)
         if pending is not None:
             consume(*pending)
         out = {f'{prefix}_{k}': v / max(count, 1) for k, v in agg.items()}
@@ -454,12 +476,53 @@ class Trainer:
             self.logger.log_eval(self.global_step, out)
         return out
 
-    def profile(self, n_steps: int = 5):
-        raise _later('Trainer.profile (a device trace of train steps)',
-                     'a later part of the runtime slice')
+    def profile(self, n_steps: int = 5) -> str:
+        """Trace ``n_steps`` train steps (wrapping around the train loader)
+        with ``torch.profiler`` into ``out_path/profile/trace.json`` (a
+        Chrome trace; the card's kernels on a CUDA device) and return that
+        directory. Each step's loss is read on the host, so the trace holds
+        the steps' device work."""
+        loader = self.loader('train')
+        if not hasattr(self, '_train_step'):
+            self.setup()  # same guard as fit(): a fresh Trainer can profile
+        if self.state is None:
+            self.init_state(next(iter(loader)))
+
+        def batches():
+            while True:
+                empty = True
+                for item in self._device_batches(loader):
+                    empty = False
+                    yield item
+                if empty:
+                    raise ValueError('the train loader yields no batch to profile')
+
+        out = self.out_path / 'profile'
+        it = batches()
+        with profile_trace(str(out), cuda=self.device.type == 'cuda'):
+            for _ in range(n_steps):
+                _, device_batch, _ = next(it)
+                self.state, metrics = self._train_step(self.state, device_batch)
+                float(metrics['train_loss'])
+        it.close()
+        self.global_step = int(self.state.step)
+        return str(out)
 
     def predict(self, split='val', max_batches=None):
-        raise _later('Trainer.predict', 'a later part of the runtime slice')
+        """Decode ``split`` with the state's eval weights (the EMA shadow
+        under ``use_ema``; the flip ensemble under ``use_tta``) and write one
+        aiMotive JSON a frame under ``out_path/outputs``. Batch i is
+        exported while batch i+1's predict step runs on the card."""
+        if self.state is None:
+            raise RuntimeError('call init_state first')
+        pending = None
+        for batch, device_batch, _ in self._device_batches(self.loader(split), max_batches):
+            out = self._predict_step(self.state, device_batch)
+            if pending is not None:
+                self._export_results(pending[0], *(t.cpu().numpy() for t in pending[1]))
+            pending = (batch, out)
+        if pending is not None:
+            self._export_results(pending[0], *(t.cpu().numpy() for t in pending[1]))
 
     def validate(self, max_batches=None):
         return self._run_eval('val', max_batches=max_batches)
@@ -486,6 +549,73 @@ class Trainer:
                 old.close()
             out[odd] = self._run_eval(key, prefix=f'test_{odd}', max_batches=max_batches)
         return out
+
+    # ----------------------------------------------------------------- viz
+    def _log_train_viz(self, batch, device_batch, kdisp: int):
+        """Decode the current train batch with the eval step and log its
+        panels (reference: wandb Object3D/log_images every 200 train steps,
+        mm_training_aim.py:270-284)."""
+        try:
+            if kdisp > 1:  # stacked [K, B, ...]: take the last batch
+                batch = {k: (v[-1] if isinstance(v, np.ndarray) else v)
+                         for k, v in batch.items()}
+                device_batch = {k: v[-1] for k, v in device_batch.items()}
+            _, out, viz = self._eval_step(self.state, device_batch)
+            self._log_scene_panel(batch, *(t.cpu().numpy() for t in out), 'train', viz)
+        except Exception as e:  # noqa: BLE001 - viz must never break training
+            self._warn_viz_failure(e)
+
+    def _log_scene_panel(self, batch, boxes, scores, labels, valid, prefix, viz=None):
+        """First-batch panels: BEV raster (GT white, predictions
+        class-colored), per-task heatmaps, expected-depth map, and camera 0
+        with projected points and box wireframes, plus the 3D scene — the
+        reference's wandb Object3D / log_images artifacts
+        (mm_training_aim.py:379-404,491-499)."""
+        try:
+            v = np.asarray(valid[0]) & (np.asarray(scores[0]) > 0.3)
+            pts0 = np.asarray(batch['points'][0])[np.asarray(batch['point_mask'][0])]
+            gt0 = np.asarray(batch['gt_boxes'][0])[np.asarray(batch['gt_mask'][0])]
+            pred_b = np.asarray(boxes[0])[v]
+            pred_l = np.asarray(labels[0])[v]
+            if len(pred_b):
+                # decode returns bottom-center z (mmdet3d parity); every viz
+                # helper (box_corners_3d, log_scene_3d) and the GT use
+                # gravity-center z — shift once here
+                pred_b = pred_b.copy()
+                pred_b[:, 2] += pred_b[:, 5] / 2.0
+            img = render_bev(pts0, gt_boxes=gt0, pred_boxes=pred_b, pred_labels=pred_l,
+                             pc_range=self.cfg.point_cloud_range, px_per_m=2.0)
+            self.logger.log_image(self.global_step, f'{prefix}_bev', img)
+            self.logger.log_scene_3d(self.global_step, f'{prefix}_scene', pts0,
+                                     gt_boxes=gt0, pred_boxes=pred_b, pred_labels=pred_l)
+            if viz is not None and 'heatmaps' in viz:
+                hm = viz['heatmaps'].float().cpu().numpy()
+                self.logger.log_image(self.global_step, f'{prefix}_heatmaps',
+                                      render_heatmap_panel(list(hm)))
+            if viz is not None and 'depth' in viz:
+                self.logger.log_image(
+                    self.global_step, f'{prefix}_depth',
+                    render_depth_panel(viz['depth'].float().cpu().numpy(),
+                                       self.cfg.get_backbone_conf().d_bound))
+            if self.cfg.use_cam and 'imgs' in batch:
+                cam_img = np.asarray(batch['imgs'][0, 0, 0])[..., :3]
+                cam_img = np.ascontiguousarray(cam_img, np.uint8)
+                extr = np.asarray(batch['extrinsics'][0]).reshape(-1, 4, 4)[0]
+                intr = np.asarray(batch['intrin'][0]).reshape(-1, 4, 4)[0]
+                cam_img = draw_points_camera(cam_img, pts0, extr, intr)
+                cam_img = draw_boxes_camera(cam_img, gt0, extr, intr, color=(255, 255, 255))
+                cam_img = draw_boxes_camera(cam_img, pred_b, extr, intr, labels=pred_l)
+                self.logger.log_image(self.global_step, f'{prefix}_cam0', cam_img)
+        except Exception as e:  # noqa: BLE001 - viz must never break eval
+            self._warn_viz_failure(e)
+
+    def _warn_viz_failure(self, exc: Exception):
+        """Viz panels are best-effort, but a renderer regression should not
+        ship as silently-missing images: surface the first failure."""
+        if not getattr(self, '_viz_warned', False):
+            self._viz_warned = True
+            warnings.warn('visualization panel failed (suppressed for the rest of the run): '
+                          + ''.join(traceback.format_exception_only(exc)).strip())
 
     # -------------------------------------------------------------- helpers
     def _to_device(self, batch):
@@ -608,16 +738,27 @@ def _state_to_dict(state: TrainState, loop_state: dict) -> dict:
     def host(t):
         return t.detach().to('cpu', copy=True)
     opt = state.optimizer
-    return {'step': int(state.step),
+    tree = {'step': int(state.step),
             'model': {k: host(v) for k, v in state.model.state_dict().items()},
             'optimizer': {'mu': [host(t) for t in opt.mu], 'nu': [host(t) for t in opt.nu],
                           'count': int(opt.count)},
             'loop': dict(loop_state)}
+    if state.ema is not None:
+        tree['ema'] = {k: host(v) for k, v in state.ema.items()}
+    return tree
 
 
 @torch.no_grad()
 def _load_state(state: TrainState, tree: dict) -> None:
+    """Load a checkpoint's tree into ``state``, its EMA shadow too when the
+    state has one (``use_ema``), which the checkpoint must then hold."""
     state.model.load_state_dict(tree['model'])
+    if state.ema is not None:
+        if 'ema' not in tree:
+            raise KeyError('the checkpoint holds no EMA shadow (it was written without '
+                           'use_ema): restore it with use_ema=False')
+        for k, t in state.ema.items():
+            t.copy_(tree['ema'][k])
     opt = state.optimizer
     for dst, src in zip(opt.mu + opt.nu, tree['optimizer']['mu'] + tree['optimizer']['nu']):
         dst.copy_(src)

@@ -1,16 +1,42 @@
-"""Step-time statistics for the metrics log.
+"""Profiling and tracing: the device trace and step-time statistics.
 
-The port's copy of ``mm_training_tpu/utils/profiling.py::StepTimer``. The
-device trace (``profile_trace``) waits with ``Trainer.profile``.
+The port of ``mm_training_tpu/utils/profiling.py``: ``profile_trace``
+(:21-35) captures a trace with ``torch.profiler`` in place of the JAX
+profiler, the host's CPU activity always and the card's CUDA activity when
+the process has one, written as a Chrome trace (``trace.json``, viewable in
+Perfetto or chrome://tracing); ``StepTimer`` aggregates step-time
+percentiles for the metrics log.
 """
 from __future__ import annotations
 
+import contextlib
 import time
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ['StepTimer']
+__all__ = ['TRACE_FILE', 'StepTimer', 'profile_trace']
+
+TRACE_FILE = 'trace.json'
+
+
+@contextlib.contextmanager
+def profile_trace(out_dir: str, cuda: bool):
+    """Capture a trace of the ``with`` body under ``out_dir`` as
+    ``trace.json``; yields the ``torch.profiler.profile`` object. ``cuda``
+    adds the card's activity (the body runs on the card). Usage: ``with
+    profile_trace(out / 'profile', cuda=True): run_steps()``; the body ends
+    with a host read of its last result, so the trace holds the device
+    work."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(Path(out_dir) / TRACE_FILE))
 
 
 class StepTimer:

@@ -35,7 +35,8 @@ for name in ('mm_training_tpu_torch.ops.gaussian', 'mm_training_tpu_torch.traini
              'mm_training_tpu_torch.data.aimotive_dataset', 'mm_training_tpu_torch.data.synthetic',
              'mm_training_tpu_torch.training.loader', 'mm_training_tpu_torch.training.trainer',
              'mm_training_tpu_torch.exps.common', 'mm_training_tpu_torch.exps.train',
-             'mm_training_tpu_torch.exps.evaluate'):
+             'mm_training_tpu_torch.exps.evaluate', 'mm_training_tpu_torch.training.ema',
+             'mm_training_tpu_torch.training.tta', 'mm_training_tpu_torch.utils.renderer'):
     assert importlib.util.find_spec(name) is not None, name
 for banned in ('jax', 'flax', 'mm_training_tpu'):
     sys.modules[banned] = None        # any import of them raises ImportError
@@ -58,22 +59,27 @@ def test_port_and_chip_smoke_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     # every module of the package, the camera and runtime slices' included
-    assert int(out.stdout.split()[-1]) >= 61
+    assert int(out.stdout.split()[-1]) >= 64
 
 
 _NO_IMAGE_CODEC = '''
 import sys
-for banned in ('cv2', 'PIL'):
+for banned in ('cv2', 'PIL', 'jax', 'mm_training_tpu'):
     sys.modules[banned] = None        # any import of them raises ImportError
 import mm_training_tpu_torch.data, mm_training_tpu_torch.training.trainer
 import mm_training_tpu_torch.exps.train, mm_training_tpu_torch.exps.evaluate
+import mm_training_tpu_torch.exps.inference, mm_training_tpu_torch.utils.renderer
+import mm_training_tpu_torch.utils.logging, mm_training_tpu_torch.training.tta
+import mm_training_tpu_torch.training.ema
 '''
 
 
 def test_lidar_data_path_imports_no_image_codec():
     """The data path (its JPEG decode and image ops are the port's own), the
-    trainer and its CLIs import neither cv2 nor PIL (the card's machine
-    promises neither)."""
+    trainer and its CLIs, the renderer and logger of the viz panels (their
+    lines, circles, JET table and PNG encoder are the port's own), TTA and
+    EMA import neither cv2 nor PIL (the card's machine promises neither),
+    nor jax or mm_training_tpu."""
     out = subprocess.run([sys.executable, '-c', _NO_IMAGE_CODEC], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -64,16 +64,20 @@ def test_train_loss_falls_on_one_batch():
 
 
 def test_steps_refuse_what_later_slices_bring():
-    """EMA (the runtime slice) is still refused; the camera train and eval
-    steps are ported (the camera training slice) and build for L+C and
-    camera-only, and a camera step called without its random draws through
-    ``loss_and_grads`` says so."""
+    """EMA (the runtime slice) is no longer refused: a ``use_ema`` state
+    holds the shadow and a step moves it toward the stepped weights; the
+    camera train and eval steps are ported (the camera training slice) and
+    build for L+C and camera-only, and a camera step called without its
+    random draws through ``loss_and_grads`` says so."""
     from mm_training_tpu_torch.training import loss_and_grads
-    cfg = tiny_test_config(use_cam=False)
-    with pytest.raises(NotImplementedError, match='runtime slice .slice 5.'):
-        make_train_step(cfg.replace(use_ema=True))
-    with pytest.raises(NotImplementedError, match='runtime slice .slice 5.'):
-        create_train_state(cfg.replace(use_ema=True), BEVDepthLiDAR(cfg, device='cpu'))
+    cfg = tiny_test_config(use_cam=False, use_ema=True)
+    state = create_train_state(cfg, BEVDepthLiDAR(cfg, device='cpu'), steps_per_epoch=10)
+    before = {k: v.clone() for k, v in state.ema.items()}
+    state, _ = make_train_step(cfg)(state, make_fake_batch(cfg, seed=0))
+    live = state.model.state_dict()
+    name = 'head.shared_conv.conv.weight'
+    assert not torch.equal(state.ema[name], before[name])
+    assert (state.ema[name] - live[name]).abs().max() < (before[name] - live[name]).abs().max()
     for cam in (tiny_test_config(use_cam=True), tiny_test_config(use_cam=True, use_lidar=False)):
         assert callable(make_train_step(cam)) and callable(make_eval_step(cam))
     cam = tiny_test_config(use_cam=True)

@@ -207,7 +207,7 @@ def check_predict_parity(use_radar: bool) -> None:
 ZERO_GRAD_BIASES = ('head.shared_conv.conv.bias',)
 
 
-def train_parity_case(use_radar: bool, dtype=np.float32) -> dict:
+def train_parity_case(use_radar: bool, dtype=np.float32, use_ema: bool = False) -> dict:
     """One train step of both packages on ``tiny_test_config(use_cam=False)``
     at narrow widths from the same random flax variables (carried over by
     ``state_dict_from_flax``) and the same fake batch, with the weights in
@@ -223,7 +223,12 @@ def train_parity_case(use_radar: bool, dtype=np.float32) -> dict:
     largest entry, in either package alike. In float64 (JAX with x64, the
     port's plain versions computing in float64) the same step agrees to
     ~1e-7, the float32 heatmap targets' rounding; that is where the
-    gradients and the update are held to their tolerances."""
+    gradients and the update are held to their tolerances.
+
+    With ``use_ema`` both configs take ``use_ema=True``, and the result also
+    holds each package's EMA shadow after the step (``j_ema``, ``p_ema``),
+    the JAX running statistics folded with the step's input biases as
+    ``j_stats`` are."""
     import jax.numpy as jnp
 
     import mm_training_tpu.configs as jcfg
@@ -239,8 +244,9 @@ def train_parity_case(use_radar: bool, dtype=np.float32) -> dict:
     from mm_training_tpu_torch.training import (create_train_state, make_eval_step,
                                                 make_train_step)
 
-    jc = narrow(jcfg, jcfg.tiny_test_config(use_cam=False, use_radar=use_radar))
-    tc = narrow(tcfg, tcfg.tiny_test_config(use_cam=False, use_radar=use_radar))
+    kw = dict(use_cam=False, use_radar=use_radar, use_ema=use_ema)
+    jc = narrow(jcfg, jcfg.tiny_test_config(**kw))
+    tc = narrow(tcfg, tcfg.tiny_test_config(**kw))
     jbatch = j_fake_batch(jc, seed=3)
     batch = make_fake_batch(tc, seed=3)
     for k in batch:
@@ -257,7 +263,9 @@ def train_parity_case(use_radar: bool, dtype=np.float32) -> dict:
     try:
         tx = j_make_optimizer(jc, steps_per_epoch=10)
         jstate = JState(step=jnp.zeros((), jnp.int32), params=v['params'],
-                        batch_stats=v['batch_stats'], opt_state=tx.init(v['params']))
+                        batch_stats=v['batch_stats'], opt_state=tx.init(v['params']),
+                        ema_params=v['params'] if use_ema else None,
+                        ema_batch_stats=v['batch_stats'] if use_ema else None)
         j_eval = None
         if not fp64:
             pad = jnp.asarray([True, False])
@@ -265,8 +273,9 @@ def train_parity_case(use_radar: bool, dtype=np.float32) -> dict:
                 np.asarray, j_eval_step(jc, jm)(jstate, dict(jb, sample_valid=pad))[:2])
         new, j_met = j_train_step(jc, jm, tx)(jstate, jb, jax.random.PRNGKey(0))
         j_met = {k: float(x) for k, x in j_met.items()}
-        new = jax.tree_util.tree_map(np.asarray, (new.params, new.batch_stats,
-                                                  new.opt_state[1][0].mu))
+        ema = (new.ema_params, new.ema_batch_stats) if use_ema else None
+        new, ema = jax.tree_util.tree_map(np.asarray, ((new.params, new.batch_stats,
+                                                        new.opt_state[1][0].mu), ema))
     finally:
         jax.config.update('jax_enable_x64', x64)
     new_params, new_stats, new_mu = new
@@ -301,6 +310,10 @@ def train_parity_case(use_radar: bool, dtype=np.float32) -> dict:
         'p_stats': {n: b.numpy() for n, b in model.named_buffers()},
         'j_eval': j_eval,
         'p_eval': p_eval,
+        'j_ema': None if ema is None else dict(carry(ema[0], v['batch_stats']),
+                                               **{k: a for k, a in carry(v['params'], ema[1]).items()
+                                                  if k.endswith(('running_mean', 'running_var'))}),
+        'p_ema': None if state.ema is None else {k: t.numpy() for k, t in state.ema.items()},
     }
 
 
