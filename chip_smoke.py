@@ -170,7 +170,44 @@ Phases, each raising on failure:
      (fp32, EMA weights): one JSON a val frame, the folded boxes the
      unfolded ones by label and score within 2e-3; ``exps.evaluate`` on
      'best' (EMA, TTA) within 1e-4 of the recorded val loss;
- 33. cv2, PIL, jax and mm_training_tpu are not imported by phases 29-32.
+ 33. cv2, PIL, jax and mm_training_tpu are not imported by phases 29-32;
+ 34. (run after phase 6) K1's sparse-input mode (``sparse_encoder_input``:
+     the first-K cap inside the kernel) at B=1 and B=4 on LiDAR-like frames
+     of 100k points (``exps/kernel_inputs.py::lidar_like_points``, pillars
+     of up to ~450 points), on the fake batch's uniform ones and on
+     LiDAR-like ones with 20,000 points in one pillar (the input-order
+     rank's quadratic worst case, timed too), and kernel
+     A's and A''s masked forms at the sparse encoder's largest tail [4, 16,
+     256, 2048] bf16 with the B=4 frames' occupancy: the cap's kept set and
+     the occupancy bit for bit, the means within one bf16 ulp plus K1's
+     atomic-order slack, masked A and A''s dx, d residual bit for bit, its
+     per-channel sums to fp32 order; each timed beside its bound and its
+     plain version; the device ops of one call of each (phase 1);
+ 35. serve ``lidar_radar`` with ``LidarEncoderConf.variant='sparse_import'``
+     at B=1 and B=4 on LiDAR-like requests: the launches of one request (K1's
+     sparse mode once, masked A at each of the encoder's 21 tails, A at each
+     head tail, K3 once, the dense entry of K1 never, no plain version
+     called), sparse and dense p50 in alternating rounds in one process, a
+     B=4 request's peak memory, the device ops of one request; pred maps
+     through the kernels against the plain versions (bf16, 1/32); the tiny
+     fp32 sparse config on the card against the port's CPU path;
+ 36. train it at B=4: 2 warm-up and 5 timed steps (p50, samples/s, peak
+     memory), one eval step, the launches (masked A' at each encoder tail a
+     step), one step's gradients through the kernels against the plain
+     versions (1/32, L2, in float32 with TF32 off; the bf16 comparison and
+     the plain path's own run-to-run difference printed beside it), every
+     masked BN's batch statistics on the card against float64 (1e-5), the
+     tiny fp32 sparse train step against the CPU;
+ 37. in a process of its own, the import loop on a seeded full-width
+     ``sparse_import`` ``lidar_cam_radar`` exported to a reference-format
+     ``{'state_dict': {'model.…'}}`` checkpoint: ``scripts.import_checkpoint``
+     on it (zero unrecognized and skipped LiDAR keys, its smoke predict on
+     the card), the written state equal bit for bit to the source, fp32
+     boxes of the imported model those of the source (scores 1e-4, centres
+     1e-3 m), the folded model (the sparse encoder's 21 BNs unfolded) within
+     2e-3, and ``exps.parity`` on the phase-20 tree (one variant, one ODD, 2
+     batches) writing both reports; cv2, PIL, jax and mm_training_tpu not
+     imported.
 Each path's device-op count is printed beside the count before the
 one-launch K6 and K2 (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -212,6 +249,10 @@ def _swaps():
                                            gaussian, voxel_pooling, voxelize, warp)
     return ((affine_act, 'affine_act', affine_act.affine_act_plain),
             (affine_act, 'affine_act_backward', affine_act.affine_act_backward_plain),
+            (affine_act, 'affine_act_masked', affine_act.affine_act_masked_plain),
+            (affine_act, 'affine_act_masked_backward',
+             affine_act.affine_act_masked_backward_plain),
+            (voxelize, 'sparse_encoder_input', voxelize.sparse_encoder_input_plain),
             (voxelize, 'voxelize_pillars_dense', voxelize.voxelize_pillars_dense_plain),
             (voxelize, 'pillar_encoder_input', voxelize.pillar_encoder_input_plain),
             (gaussian, 'draw_heatmap', gaussian.draw_heatmap_plain),
@@ -434,14 +475,38 @@ def count_device_ops(cfg, cam_cfg):
                 raise AssertionError(f'{name}{s1}: {ops} a call, more than {bwd_limits[name]} '
                                      f'device ops or one not named {bwd_names[name]}')
     del gsp, img, dy, raw, graw
+    # phase 34's kernels: K1's sparse mode on a LiDAR-like B=1 frame, masked
+    # A and A' at the sparse encoder's largest tail, in a session of their own
+    from mm_training_tpu_torch.exps.kernel_inputs import lidar_like_points
+    sp_pts = lidar_like_points(cfg, 1, SEED + 71)
+    cap = cfg.get_lidar_conf().voxelization.max_num_points
+    sp_channels = _sparse_channels(cfg)
+    mx, mr, mg, ms, mt = bn_case(4, 16, 256, 2048)
+    mk = (torch.rand(4, 1, 256, 2048, generator=gen, device=dev) < 0.2).contiguous()
+    sparse_names = {'sparse_encoder_input': 'sparse_kernel', 'affine_act_masked':
+                    'affine_act_kernel', 'affine_act_masked_backward': 'affine_act_bwd'}
+    ops = device_ops(lambda: (
+        voxelize.sparse_encoder_input(*sp_pts, *geo, dtype=torch.bfloat16, channels=sp_channels,
+                                      max_points_per_voxel=cap),
+        affine_act.affine_act_masked(mx, ms, mt, mk, mr),
+        affine_act.affine_act_masked_backward(mg, mx, ms, mt, mk, mr)))
+    print(f'device ops of one call each of {list(sparse_names)} (torch.profiler): '
+          f'{json.dumps(ops)}', flush=True)
+    other = sum(n for name, n in ops.items()
+                if not any(v in name for v in sparse_names.values()))
+    for row, key in sparse_names.items():
+        per_call[row] = other + sum(n for name, n in ops.items() if key in name)
+    del mx, mr, mg, mk
     one = ('circle_nms_mask', 'bda_bev_warp', 'affine_act_backward_residual',
            'affine_act_backward_resnet50', 'deform_conv3x3', 'deform_conv3x3_b4',
            'pillar_encoder_input', 'pillar_encoder_input_b4', 'depth_labels',
-           'depth_labels_b4', 'depth_grid_to_onehot', 'draw_heatmap')
+           'depth_labels_b4', 'depth_grid_to_onehot', 'draw_heatmap',
+           'sparse_encoder_input', 'affine_act_masked', 'affine_act_masked_backward')
     if any(per_call[n] != 1 for n in one) or not all(
             1 <= per_call[n] <= 2 for n in ('lift_splat_factorized', 'lift_splat_factorized_b4')):
-        raise AssertionError(f"K1's encoder input, K2, K3, K5, K6, K7 and A' must each be one "
-                             f'device kernel a call, K4 at most two: {per_call}')
+        raise AssertionError(f"K1's encoder input and sparse mode, K2, K3, K5, K6, K7, A' and "
+                             f"masked A and A' must each be one device kernel a call, K4 at "
+                             f'most two: {per_call}')
     return per_call
 
 
@@ -2630,6 +2695,471 @@ def run_runtime(root):
             return json.load(f)
 
 
+# --- phases 34-37: the checkpoint-import path (the sparse-import encoder)
+
+SPARSE_TAILS = 21      # masked BN tails of the sparse-import encoder
+
+
+def _sparse(cfg):
+    from mm_training_tpu_torch.exps.kernel_inputs import sparse_import
+    return sparse_import(cfg)
+
+
+def _sparse_channels(cfg):
+    """The channels K1's sparse mode writes for the sparse-import encoder."""
+    from mm_training_tpu_torch.models.sparse_encoder import ImportSparseEncoder
+    with torch.device('meta'):
+        enc = ImportSparseEncoder(cfg.get_lidar_conf(), cfg.point_cloud_range, cfg.voxel_size,
+                                  cfg.out_shape)
+    return enc.input_channels
+
+
+def _lidar_like_batch(cfg, batch_size, seed):
+    """``make_fake_batch`` with LiDAR-like points (many pillars over the
+    first-K cap) in place of its uniform cloud."""
+    from mm_training_tpu_torch.data import make_fake_batch
+    from mm_training_tpu_torch.exps.kernel_inputs import with_lidar_like_points
+    return with_lidar_like_points(make_fake_batch(cfg, batch_size=batch_size, seed=seed), cfg,
+                                  seed)
+
+
+def _overfull(pts, mask, geo, cap):
+    """(pillars holding more than ``cap`` points, points in them, the most
+    points a pillar) of the first frame."""
+    from mm_training_tpu_torch.ops import voxelize
+    seg = voxelize.pillar_segments(pts[:1], mask[:1], *geo)[0]
+    c = torch.bincount(seg, minlength=geo[2][0] * geo[2][1] + 1)[:-1]
+    return int((c > cap).sum()), int(c[c > cap].sum()), int(c.max())
+
+
+def check_sparse_kernels(cfg):
+    """Phase 34: K1's sparse-input mode and masked A / A' at the sparse
+    path's shapes against their plain versions, each timed beside its
+    bound (bytes: each input read once, each output written once)."""
+    from mm_training_tpu_torch.exps.kernel_inputs import lidar_like_points
+    from mm_training_tpu_torch.exps.timing import device_ms, host_ms
+    from mm_training_tpu_torch.ops import affine_act, voxelize
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 72)
+    geo = (cfg.point_cloud_range, cfg.voxel_size, cfg.out_shape)
+    nf = cfg.get_lidar_conf().voxelization.num_features
+    cap = cfg.get_lidar_conf().voxelization.max_num_points
+    channels = _sparse_channels(cfg)
+    rows, occ4 = [], None
+    for name, bsz in (('sparse_encoder_input', 1), ('sparse_encoder_input_b4', 4)):
+        checks = {}
+        for kind in ('lidar_like', 'uniform', 'crowded'):
+            pts, mask = (_points(cfg, bsz, SEED + 70 + bsz) if kind == 'uniform'
+                         else lidar_like_points(cfg, bsz, SEED + 70 + bsz,
+                                                crowd=20_000 if kind == 'crowded' else 0))
+            args = (pts, mask, *geo, nf, torch.bfloat16, channels)
+            kw = dict(max_points_per_voxel=cap)
+            grid, occ, kept = voxelize.sparse_encoder_input(*args, **kw, return_kept=True)
+            w_grid, w_occ, w_kept = voxelize.sparse_encoder_input_plain(*args, **kw,
+                                                                        return_kept=True)
+            w = w_grid.float()
+            ulp = torch.where(w == 0, 0.0, torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
+            diff = (grid.float() - w).abs()
+            checks[kind] = dict(
+                kept_equal=bool(torch.equal(kept, w_kept)), occ_equal=bool(torch.equal(occ, w_occ)),
+                outside_tolerance=int((diff > ulp + 1e-5 * (1 + w.abs())).sum()),
+                max_abs_err=diff.max().item(), kept=int(kept.sum()), masked_in=int(mask.sum()),
+                occupied=int(occ.sum()), overfull=_overfull(pts, mask, geo, cap))
+            if kind == 'lidar_like':
+                timed = (args, grid, occ, mask)
+                if bsz == 4:
+                    occ4 = occ
+            if kind == 'crowded':
+                crowded = args
+        bad = {k: c for k, c in checks.items() if not (c['kept_equal'] and c['occ_equal']
+                                                       and c['outside_tolerance'] == 0)}
+        print(f'{name}: kernel vs plain {json.dumps(checks)}', flush=True)
+        if bad:
+            raise AssertionError(f'{name}: the kept set, the occupancy or the means differ {bad}')
+        args, grid, occ, mask = timed
+        # the mask, the xyz of each masked-in point, the other features of
+        # each kept one, the grid and the occupancy out
+        nbytes = (mask.numel() + int(mask.sum()) * 3 * 4
+                  + checks['lidar_like']['kept'] * (nf - 3) * 4 + grid.numel() * 2 + occ.numel())
+        rows.append(dict(
+            name=name, route='cuda', source='mm_training_tpu_torch/csrc/voxelize.cu',
+            replaces='mm_training_tpu/ops/voxelize.py:81 (+ models/sparse_encoder.py:136-150)',
+            max_abs_err=checks['lidar_like']['max_abs_err'],
+            ms=device_ms(lambda: voxelize.sparse_encoder_input(*args, **kw), 100),
+            call_ms=host_ms(lambda: voxelize.sparse_encoder_input(*args, **kw), 100),
+            plain_ms=device_ms(lambda: voxelize.sparse_encoder_input_plain(*args, **kw), 10),
+            crowded_ms=device_ms(lambda: voxelize.sparse_encoder_input(*crowded, **kw), 20),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes', library_ms=None,
+            checks=checks, shape=list(args[0].shape), out_shape=list(grid.shape),
+            dtype='bfloat16'))
+
+    # --- masked A and A' at the largest tail: [4, 16, 256, 2048] bf16 (the
+    # conv_input and stage-0 tails), the B=4 frames' occupancy as the mask
+    def cl(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    x, g = cl(4, 16, 256, 2048), cl(4, 16, 256, 2048)
+    r = (torch.relu(cl(4, 16, 256, 2048)) * occ4).contiguous(memory_format=torch.channels_last)
+    s, t = torch.randn(16, generator=gen, device=dev), torch.randn(16, generator=gen, device=dev)
+    fwd_equal = all(torch.equal(affine_act.affine_act_masked(x, s, t, occ4, res),
+                                affine_act.affine_act_masked_plain(x, s, t, occ4, res))
+                    for res in (None, r))
+    bwd = {}
+    for key, res in (('', None), ('_residual', r)):
+        got = affine_act.affine_act_masked_backward(g, x, s, t, occ4, res)
+        want = affine_act.affine_act_masked_backward_plain(g, x, s, t, occ4, res)
+        again = affine_act.affine_act_masked_backward(g, x, s, t, occ4, res)
+        bwd[key] = dict(dx_equal=bool(torch.equal(got[0], want[0])),
+                        dr_equal=res is None or bool(torch.equal(got[1], want[1])),
+                        sums_rel=max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                                     for a, b in zip(got[2:], want[2:])),
+                        same_bits=all(torch.equal(a, b) for a, b in zip(got, again)
+                                      if a is not None))
+    print(f'masked A at [4, 16, 256, 2048] bf16 ({int(occ4.sum())} active pixels of '
+          f'{occ4.numel()}): kernel equals plain {fwd_equal}; masked A\' {json.dumps(bwd)}',
+          flush=True)
+    if not fwd_equal or not all(b['dx_equal'] and b['dr_equal'] and b['same_bits']
+                                and b['sums_rel'] <= 1e-4 for b in bwd.values()):
+        raise AssertionError(f'masked A / A\' differ from their plain versions: {fwd_equal} {bwd}')
+    el, npix = x.numel() * 2, occ4.numel()
+    rows.append(dict(
+        name='affine_act_masked', route='cuda', source='mm_training_tpu_torch/csrc/affine_act.cu',
+        replaces='scripts/bn_elementwise_probe.py:88 (+ models/sparse_encoder.py:81-90, 101-111)',
+        max_abs_err=0.0 if fwd_equal else None,
+        ms=device_ms(lambda: affine_act.affine_act_masked(x, s, t, occ4), 100),
+        call_ms=host_ms(lambda: affine_act.affine_act_masked(x, s, t, occ4), 100),
+        residual_ms=device_ms(lambda: affine_act.affine_act_masked(x, s, t, occ4, r), 100),
+        plain_ms=device_ms(lambda: affine_act.affine_act_masked_plain(x, s, t, occ4), 20),
+        bound_ms=(2 * el + npix) / HBM_BYTES_PER_S * 1e3,
+        residual_bound_ms=(3 * el + npix) / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
+        library_ms=None, shape=list(x.shape), dtype='bfloat16'))
+    rows.append(dict(
+        name='affine_act_masked_backward', route='cuda',
+        source='mm_training_tpu_torch/csrc/affine_act_backward.cu',
+        replaces='scripts/bn_elementwise_probe.py:88 (its autodiff)',
+        max_abs_err=bwd[''], checks=bwd,
+        ms=device_ms(lambda: affine_act.affine_act_masked_backward(g, x, s, t, occ4), 50),
+        call_ms=host_ms(lambda: affine_act.affine_act_masked_backward(g, x, s, t, occ4), 50),
+        residual_ms=device_ms(lambda: affine_act.affine_act_masked_backward(g, x, s, t, occ4, r),
+                              50),
+        plain_ms=device_ms(lambda: affine_act.affine_act_masked_backward_plain(g, x, s, t, occ4),
+                           10),
+        bound_ms=(3 * el + npix) / HBM_BYTES_PER_S * 1e3,
+        residual_bound_ms=(5 * el + npix) / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
+        library_ms=None, shape=list(x.shape), dtype='bfloat16'))
+    rows[-1]['max_abs_err'] = 0.0 if bwd['']['dx_equal'] else None
+    for row in rows[:2]:
+        print(f'{row["name"]}: {row["ms"]:.5f} ms (host call {row["call_ms"]:.5f}), bound '
+              f'{row["bound_ms"]:.5f}, plain {row["plain_ms"]:.5f}; 20,000 points of each '
+              f'frame in one pillar {row["crowded_ms"]:.5f}', flush=True)
+    for row in rows[-2:]:
+        print(f'{row["name"]}: {row["ms"]:.5f} ms (host call {row["call_ms"]:.5f}), bound '
+              f'{row["bound_ms"]:.5f}, plain {row["plain_ms"]:.5f}; with a residual '
+              f'{row["residual_ms"]:.5f} (bound {row["residual_bound_ms"]:.5f})', flush=True)
+    del x, g, r
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_sparse(cfg, samples=(60, 20)):
+    """Phase 35: the ``sparse_import`` ``lidar_radar`` predict path at B=1
+    and B=4 on LiDAR-like requests, beside the dense encoder's (p50 in
+    alternating rounds, one process)."""
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import make_predict_step
+
+    scfg = _sparse(cfg)
+    gen = torch.Generator().manual_seed(SEED + 73)
+    model = BEVDepthLiDAR(scfg, device='cuda', generator=gen)
+    _randomize_bn(model, gen)
+    dense = BEVDepthLiDAR(cfg, device='cuda', generator=gen)
+    _randomize_bn(dense, gen)
+    predict, dense_predict = make_predict_step(scfg, model), make_predict_step(cfg, dense)
+    requests = [_lidar_like_batch(scfg, 1, SEED + 74 + i) for i in range(3)]
+    big = _lidar_like_batch(scfg, 4, SEED + 77)
+    for req in requests + [big]:
+        [o.cpu() for o in predict(req)]                     # warm
+    out, per, plain_calls, _ = _counted(lambda: [[o.cpu() for o in predict(r)]
+                                                 for r in requests])
+    n_req = len(requests)
+    dense_out, dense_per, _, _ = _counted(lambda: [o.cpu() for o in dense_predict(requests[0])])
+    head_tails = dense_per['affine_act'] - len(_encoder_tails(dense))
+    want = {'sparse_encoder_input': n_req, 'affine_act_masked': SPARSE_TAILS * n_req,
+            'affine_act': head_tails * n_req, 'circle_nms_mask': n_req,
+            'pillar_encoder_input': 0, 'voxelize_pillars_dense': 0}
+    wrong = {k: per[k] for k, v in want.items() if per[k] != v}
+    if plain_calls or wrong:
+        raise AssertionError(f'sparse serve launches {per}: expected {want}; plain versions '
+                             f'called {plain_calls}')
+    for boxes, scores, _, valid in out:
+        if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all() and valid.any()):
+            raise AssertionError('sparse serve: non-finite boxes or scores, or none')
+    p50 = {}
+    for b, reqs, n in ((1, requests[0], samples[0]), (4, big, samples[1])):
+        p50[b] = _alternating_p50({'sparse': lambda r=reqs: predict(r),
+                                   'dense': lambda r=reqs: dense_predict(r)}, n)
+    peak = {k: _request_peak_gib(lambda fn=fn: fn(big)) for k, fn in
+            (('sparse', predict), ('dense', dense_predict))}
+    ops = _path_device_ops('lidar_radar sparse_import B=1 request',
+                           lambda: [o.cpu() for o in predict(requests[0])])
+    maps_vs_plain = compare_plain(model, requests[0])
+    print(f'serve sparse_import lidar_radar: launches a B=1 request '
+          f'{json.dumps({k: v // n_req for k, v in per.items() if v})} (dense head tails '
+          f'{head_tails}); p50/p90 ms B=1 sparse {p50[1]["sparse"][0]:.3f}/{p50[1]["sparse"][1]:.3f}'
+          f', dense {p50[1]["dense"][0]:.3f}/{p50[1]["dense"][1]:.3f} ({p50[1]["sparse"][2]} '
+          f'samples each); B=4 sparse {p50[4]["sparse"][0]:.3f}/{p50[4]["sparse"][1]:.3f}, dense '
+          f'{p50[4]["dense"][0]:.3f}/{p50[4]["dense"][1]:.3f} ({p50[4]["sparse"][2]} each); peak '
+          f'GiB of a B=4 request above the held: sparse {peak["sparse"][0]:.4f}, dense '
+          f'{peak["dense"][0]:.4f}', flush=True)
+    del model, dense, predict, dense_predict
+    torch.cuda.empty_cache()
+    compare_cpu_reference(_sparse(_tiny()))
+    return {'counts': per, 'requests': n_req, 'p50': p50, 'peak': peak, 'device_ops': ops,
+            'maps_vs_plain': maps_vs_plain, 'head_tails': head_tails}
+
+
+def _tiny():
+    from mm_training_tpu_torch.configs import tiny_test_config
+    return tiny_test_config(use_cam=False)
+
+
+def _encoder_tails(model):
+    """The BN tails (kernel A launches) of a model's LiDAR encoder."""
+    from mm_training_tpu_torch.models.bn_fold import BatchNorm2d
+    return [m for m in model.lidar_encoder.modules() if isinstance(m, BatchNorm2d)]
+
+
+def train_sparse(cfg, steps=5):
+    """Phase 36: the ``sparse_import`` ``lidar_radar`` train path at B=4
+    (bf16 compute over float32 masters) on a LiDAR-like batch."""
+    from mm_training_tpu_torch.exps.profile_train import benchmark_train
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.models.bn_fold import MaskedBatchNorm2d
+    from mm_training_tpu_torch.training import (create_train_state, loss_and_grads,
+                                                make_eval_step, make_train_step)
+
+    scfg = _sparse(cfg).replace(batch_size=4)
+    model = BEVDepthLiDAR(scfg, device='cuda', generator=torch.Generator().manual_seed(SEED + 78))
+    state = create_train_state(scfg, model)
+    train_step, eval_step = make_train_step(scfg), make_eval_step(scfg)
+    batch = _lidar_like_batch(scfg, 4, SEED + 79)
+
+    def run():
+        box = [state]
+        for _ in range(2):
+            box[0], _ = train_step(box[0], batch)
+        stats = benchmark_train(train_step, box[0], batch, steps=steps)
+        ev = eval_step(box[0], batch)
+        return stats, ev
+    (stats, (ev_metrics, (boxes, scores, _, _), _)), counts, plain_calls, wall_s = _counted(run)
+    n = steps + 2
+    want = {'sparse_encoder_input': n + 1, 'affine_act_masked': SPARSE_TAILS * (n + 1),
+            'affine_act_masked_backward': SPARSE_TAILS * n, 'draw_heatmap': n + 1,
+            'circle_nms_mask': 1, 'pillar_encoder_input': 0}
+    wrong = {k: counts[k] for k, v in want.items() if counts[k] != v}
+    if plain_calls or wrong or counts['affine_act_backward'] == 0:
+        raise AssertionError(f'sparse train launches {counts}: expected {want}; plain versions '
+                             f'called {plain_calls}')
+    if not (all(np.isfinite(stats['losses'])) and torch.isfinite(ev_metrics['loss'])
+            and torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+        raise AssertionError('sparse train: non-finite loss or eval boxes')
+    print(f'train sparse_import lidar_radar B=4: step p50 {stats["p50_ms"]:.3f} ms p90 '
+          f'{stats["p90_ms"]:.3f} ms, {stats["samples_per_s"]:.3f} samples/s, '
+          f'max_memory_allocated {stats["max_memory_allocated_gb"]:.3f} GiB; losses '
+          f'{[round(v, 4) for v in stats["losses"]]}; eval loss {float(ev_metrics["loss"]):.4f};'
+          f' launches over {n} steps and 1 eval '
+          f'{json.dumps({k: v for k, v in counts.items() if v})}', flush=True)
+
+    # every masked BN's batch statistics on this step's own inputs: the
+    # card's float32 against float64 on the CPU
+    inputs = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: inputs.append((m, a[0].detach(), a[1])))
+             for m in state.model.modules() if isinstance(m, MaskedBatchNorm2d)]
+    buffers = {k: b.clone() for k, b in state.model.named_buffers()}
+    try:
+        loss_and_grads(scfg, state, batch)
+    finally:
+        for h in hooks:
+            h.remove()
+        state.model.load_state_dict(buffers, strict=False)
+    worst = 0.0
+    for m, x, mask in inputs:
+        got = m.batch_statistics(x, torch.float32, mask)
+        want64 = m.batch_statistics(x.cpu().double(), torch.float64, mask.cpu())
+        for a, b in zip(got, want64):
+            worst = max(worst, ((a.cpu().double() - b).abs() / (1 + b.abs())).max().item())
+    print(f'masked BN statistics of {len(inputs)} BNs, card float32 vs float64: worst '
+          f'{worst:.3g} (of 1 + |value|)', flush=True)
+    if len(inputs) != SPARSE_TAILS or not worst <= 1e-5:
+        raise AssertionError(f'masked BN statistics differ from float64 by {worst}')
+    grads_rel = compare_plain_gradients_sparse(scfg, state, batch)
+    del state, model
+    torch.cuda.empty_cache()
+    compare_cpu_train(_sparse(_tiny()))
+    return {'counts': counts, 'steps': n, 'stats': stats, 'bn_stats_worst': worst,
+            'grads_vs_plain': grads_rel}
+
+
+def compare_plain_gradients_sparse(cfg, state, batch):
+    """Phase 36b: one ``sparse_import`` step's gradients through the kernels
+    against the same step with every kernel swapped for its plain version,
+    each beside the plain path's own run-to-run difference (two plain runs),
+    in bf16 and in float32 compute (TF32 off); held within 1/32 (L2) in
+    float32, as phase 12 holds the camera step: in bf16 the plain path is no
+    yardstick here. K1's float sums (the kernel's atomics, the plain
+    version's CUDA ``index_add_``) add in no fixed order, a flipped bf16
+    rounding of the grid at full resolution reaches 21 train-mode masked
+    BNs, and their backward amplifies it."""
+    from mm_training_tpu_torch.training import loss_and_grads
+
+    names = [n for n, _ in state.model.named_parameters()]
+    buffers = {n: b.clone() for n, b in state.model.named_buffers()}
+
+    def l2(ts):
+        return torch.sqrt(sum((t.double() ** 2).sum() for t in ts))
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        for label, c in (('bf16', cfg), ('fp32', cfg.replace(precision='fp32'))):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            loss, got, _ = loss_and_grads(c, state, batch)
+            state.model.load_state_dict(buffers, strict=False)
+            before = {n: w.launches for n, w in _wrappers().items()}
+            plain = []
+            with _plain_versions():
+                for _ in range(2):
+                    plain.append(loss_and_grads(c, state, batch))
+                    state.model.load_state_dict(buffers, strict=False)
+            if {n: w.launches for n, w in _wrappers().items()} != before:
+                raise AssertionError('the plain run launched a kernel')
+            loss_p, want, _ = plain[0]
+            per = sorted(((((a - b).norm() / b.norm().clamp_min(1e-30)).item(), n)
+                          for a, b, n in zip(got, want, names)), reverse=True)
+            out[label] = {
+                'grad_rel_l2': (l2([a - b for a, b in zip(got, want)]) / l2(want)).item(),
+                'plain_run_to_run_rel_l2': (l2([a - b for a, b in zip(plain[1][1], want)])
+                                            / l2(want)).item(),
+                'loss_rel': abs(loss.item() - loss_p.item()) / abs(loss_p.item()),
+                'worst_tensors': [(n, round(v, 5)) for v, n in per[:4]]}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    print('sparse_import train gradients kernels vs plain (B=4): ' + json.dumps(out), flush=True)
+    if not (out['fp32']['grad_rel_l2'] <= 1 / 32 and out['fp32']['loss_rel'] <= 1 / 32):
+        raise AssertionError(f'kernel and plain sparse gradients differ: {out}')
+    return out
+
+
+def import_child(root, out, result_file):
+    """Phase 37 in a process of its own (see the module docstring)."""
+    import glob
+    from mm_training_tpu_torch.configs import lidar_cam_radar
+    from mm_training_tpu_torch.exps import parity
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.models.bn_fold import MaskedBatchNorm2d, fold_model
+    from mm_training_tpu_torch.models.torch_export import (export_reference_checkpoint,
+                                                           save_torch_checkpoint)
+    from mm_training_tpu_torch.scripts import import_checkpoint
+    from mm_training_tpu_torch.training import make_predict_step
+
+    cfg = _sparse(lidar_cam_radar(batch_size=1, max_points_per_frame=100_000))
+    gen = torch.Generator().manual_seed(SEED + 90)
+    src = BEVDepthLiDAR(cfg, device='cuda', generator=gen)
+    _randomize_bn(src, gen)
+    _randomize_offsets(src, gen)
+    ckpt_dir = os.path.join(out, 'ckpts')
+    os.makedirs(ckpt_dir)
+    ckpt = os.path.join(ckpt_dir, 'lidar_cam_radar.ckpt')
+    t0 = time.perf_counter()
+    save_torch_checkpoint(ckpt, export_reference_checkpoint(src.state_dict(), cfg))
+    export_s = time.perf_counter() - t0
+    converted = os.path.join(out, 'converted')
+    report, counts, import_s = _counted_entry(import_checkpoint.main, [
+        ckpt, '--config', 'lidar_cam_radar', '--out', converted,
+        'max_points_per_frame=100000'], 'scripts.import_checkpoint')
+    if not (report['unrecognized_keys'] == [] and report['skipped_lidar_encoder_keys'] == 0
+            and report['forward_smoke'] == 'ok' and report['skipped_dead_context_se_keys'] == 4):
+        raise AssertionError(f'import report {report}')
+    if counts['sparse_encoder_input'] != 1 or counts['affine_act_masked'] != SPARSE_TAILS:
+        raise AssertionError(f'the import smoke predict launched {counts}')
+    tree = torch.load(os.path.join(converted, '0', 'state.pt'), map_location='cpu',
+                      weights_only=True)
+    own = src.state_dict()
+    unequal = [k for k in own if not torch.equal(tree['model'][k], own[k].cpu())]
+    if set(tree['model']) != set(own) or unequal:
+        raise AssertionError(f'the imported state differs from the source: {unequal[:8]}')
+    imported = BEVDepthLiDAR(cfg, device='cuda', generator=torch.Generator().manual_seed(1))
+    imported.load_state_dict(tree['model'])
+    request = _lidar_like_batch(cfg, 1, SEED + 91)
+    fp32 = cfg.replace(precision='fp32')
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    ref = [o.cpu() for o in make_predict_step(fp32, src)(request)]
+    (got, got_counts, plain_calls, _) = _counted(
+        lambda: [o.cpu() for o in make_predict_step(fp32, imported)(request)])
+    share, worst, n_boxes = _box_match(ref, got, 1e-4)
+    folded = copy.deepcopy(imported)
+    pairs = fold_model(folded)
+    masked = sum(isinstance(m, MaskedBatchNorm2d) for m in folded.modules())
+    fold_out, fold_counts, fold_plain, _ = _counted(
+        lambda: [o.cpu() for o in make_predict_step(fp32, folded)(request)])
+    fold_share, fold_worst, _ = _box_match(ref, fold_out, 2e-3)
+    torch.backends.cudnn.allow_tf32 = True
+    print(f'import loop: exported in {export_s:.3f} s, imported in {import_s:.3f} s '
+          f'({report["converted_leaves"]} tensors, {report["source_keys"]} source keys); the '
+          f'state equal bit for bit; fp32 boxes imported vs source {share:.4f} of {n_boxes} '
+          f'(worst centre {worst:.3g} m); folded ({len(pairs)} pairs, {masked} masked BNs '
+          f'unfolded, masked A {fold_counts["affine_act_masked"]} a request) {fold_share:.4f} '
+          f'within 2e-3 (worst {fold_worst:.3g} m)', flush=True)
+    if not (share == 1.0 and worst <= 1e-3 and fold_share == 1.0 and masked == SPARSE_TAILS
+            and not plain_calls and not fold_plain
+            and fold_counts['affine_act_masked'] == SPARSE_TAILS
+            and not any(bn.startswith('lidar_encoder.') for _, bn, _, _ in pairs)):
+        raise AssertionError('the imported or folded model does not give the source\'s boxes')
+    del src, imported, folded
+    torch.cuda.empty_cache()
+    parity_out = os.path.join(out, 'parity')
+    t0 = time.perf_counter()
+    rep, parity_counts, _ = _counted_entry(parity.main, [
+        '--data-root', root, '--ckpt-dir', ckpt_dir, '--out', parity_out,
+        '--variants', 'lidar_cam_radar', '--odds', 'highway', '--max-batches', '2'],
+        'exps.parity')
+    parity_s = time.perf_counter() - t0
+    res = rep['results']['lidar_cam_radar']
+    reports = sorted(os.path.basename(f) for f in glob.glob(os.path.join(parity_out, '*')))
+    if ('error' in res or 'parity_report.md' not in reports or 'parity_report.json' not in reports
+            or not np.isfinite(res['per_odd']['highway']['test_highway_detection_loss'])):
+        raise AssertionError(f'exps.parity: {res}, {reports}')
+    print(f'exps.parity (lidar_cam_radar, highway, 2 batches): {parity_s:.3f} s, '
+          f'{json.dumps(res["per_odd"]["highway"])[:300]}', flush=True)
+    leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
+    if leaked:
+        raise AssertionError(f'the import phases imported {leaked}')
+    for key, c in (('fold', fold_counts), ('parity', parity_counts)):
+        for k, v in c.items():
+            counts[k] += v
+    for k, v in got_counts.items():
+        counts[k] += v
+    with open(result_file, 'w') as f:
+        json.dump({'counts': counts, 'export_s': export_s, 'import_s': import_s,
+                   'parity_s': parity_s, 'box_share': share, 'fold_share': fold_share,
+                   'boxes': n_boxes}, f)
+
+
+def run_import(root):
+    """:func:`import_child` in a child interpreter."""
+    import tempfile
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        result_file = os.path.join(out, 'result.json')
+        code = (f'import chip_smoke; chip_smoke.import_child({root!r}, {out!r}, '
+                f'{result_file!r})')
+        proc = subprocess.run([sys.executable, '-c', code], timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f'the import phases failed ({proc.returncode})')
+        with open(result_file) as f:
+            return json.load(f)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2661,6 +3191,10 @@ def main() -> int:
     compare_plain_gradients(cfg4, state, batch)
     del state
     compare_cpu_train()
+
+    rows += check_sparse_kernels(cfg)
+    sparse_serve = serve_sparse(cfg)
+    sparse_train = train_sparse(cfg)
 
     rows += check_camera_kernels(cam_cfg)
     cam_model, cam_request, cam_counts, cam_calls, _ = serve_camera(cam_cfg)
@@ -2704,6 +3238,7 @@ def main() -> int:
         trainer = run_trainer(tree)
         cam_trainer = run_trainer(tree, 'lidar_cam_radar')
         runtime = run_runtime(tree)
+        imported = run_import(tree)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(fisheye_tree, ignore_errors=True)
@@ -2718,6 +3253,11 @@ def main() -> int:
         {k: v for k, v in ema_train.items() if k != 'counts'}), flush=True)
     print(f'runtime phases (EMA, TTA, viz, profile, inference) on {card}: ' + json.dumps(
         {k: v for k, v in runtime.items() if k != 'counts'}), flush=True)
+    print(f'checkpoint-import phases (sparse_import serve, train, import loop) on {card}: '
+          + json.dumps({'serve': {k: v for k, v in sparse_serve.items() if k != 'counts'},
+                        'train': {k: v for k, v in sparse_train.items() if k != 'counts'},
+                        'import': {k: v for k, v in imported.items() if k != 'counts'}}),
+          flush=True)
     leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
     if leaked:
         raise AssertionError(f'chip_smoke imported {leaked}')
@@ -2736,7 +3276,10 @@ def main() -> int:
                    'serve_folded': sum(r['folded']['launches'][name]
                                        for r in serving.values()),
                    'train_ema': ema_train['counts'][name],
-                   'trainer_runtime': runtime['counts'][name]}
+                   'trainer_runtime': runtime['counts'][name],
+                   'serve_sparse': sparse_serve['counts'][name],
+                   'train_sparse': sparse_train['counts'][name],
+                   'import_loop': imported['counts'][name]}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,
@@ -2747,7 +3290,11 @@ def main() -> int:
                                        'serve_tta_lidar_radar':
                                            serving['lidar_radar']['tta']['launches_tta'][name],
                                        'serve_tta_lidar_cam_radar':
-                                           serving['lidar_cam_radar']['tta']['launches_tta'][name]}
+                                           serving['lidar_cam_radar']['tta']['launches_tta'][name],
+                                       'serve_sparse': sparse_serve['counts'][name]
+                                       / sparse_serve['requests'],
+                                       'train_sparse_step': sparse_train['counts'][name]
+                                       / sparse_train['steps']}
         if row['name'] in ops_per_call:
             row['device_kernels_per_call'] = ops_per_call[row['name']]
     print(json.dumps({'kernels': rows}))

@@ -22,6 +22,9 @@ class ImageBackboneConf:
     reference's 7x7/2 ``conv1`` (``models/weights.py``)."""
     depth: int = 50
     out_indices: Tuple[int, ...] = (0, 1, 2, 3)
+    # a torchvision-format ResNet state dict (.pth) the trainer merges into
+    # the image backbone at init (conf_aim.py:60's ImageNet init), or None
+    pretrained: Optional[str] = None
     stem_s2d: bool = True
 
 
@@ -186,8 +189,9 @@ class LidarEncoderConf:
     (conf_aim.py:202-212): a 2D conv pyramid with the SparseEncoder's channel
     progression at total stride 8, ending in the 256-channel BEV contract.
 
-    ``variant='sparse_import'`` (the checkpoint-import replica) is refused by
-    the port until the checkpoint-import slice.
+    ``variant='sparse_import'``: the masked-dense replica of the reference's
+    SparseEncoder (``models/sparse_encoder.py``), whose weights import from
+    the released checkpoints (``models/torch_import.py``).
     """
     in_channels: int = 5
     encoder_channels: Tuple[Tuple[int, ...], ...] = (

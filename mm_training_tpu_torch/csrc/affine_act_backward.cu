@@ -5,6 +5,10 @@
 //   dx = m * s[c]   (x's type),   dr = m   (r's type)
 //   ds[c] = sum over (N, H, W) of m * x,   dt[c] = sum of m   (float32)
 //
+// With a mask byte k[p] a pixel (kernel A's masked tail, z = (x * s + t) *
+// k + r, always a ReLU): m = g * [z > 0] as before, dr = m, and dx, ds, dt
+// take m * k in place of m. The unmasked instantiations are unchanged.
+//
 // Kernel A replaces the TPU kernel scripts/bn_elementwise_probe.py::
 // _pallas_affine, which has no backward kernel: JAX differentiates the XLA
 // formulation around it. Training needs one, because every train-mode
@@ -85,6 +89,7 @@ struct Args {
   const void* g;
   const void* x;
   const void* r;
+  const unsigned char* mask;  // one byte a pixel, or null
   const float* s;
   const float* t;
   void* dx;
@@ -169,7 +174,7 @@ __device__ __forceinline__ void sum_partials(const Args& a, int tile_c, const fl
   }
 }
 
-template <typename T, int VEC, bool RES, bool RELU>
+template <typename T, int VEC, bool RES, bool RELU, bool MASK>
 __global__ void __launch_bounds__(kThreads, 2) affine_act_bwd_kernel(const Args a) {
   extern __shared__ __align__(16) float red[];  // [2][rows][tile_c], then the sums' buffer
   const Plan& p = a.plan;
@@ -198,6 +203,7 @@ __global__ void __launch_bounds__(kThreads, 2) affine_act_bwd_kernel(const Args 
     const int64_t step = (int64_t)gridDim.x * p.rows;
     for (int64_t p0 = (int64_t)blockIdx.x * p.rows + row; p0 < a.npix; p0 += kUnroll * step) {
       P gv[kUnroll], xv[kUnroll], rv[kUnroll];
+      float kv[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {  // every load first
         const int64_t px = p0 + u * step;
@@ -206,6 +212,7 @@ __global__ void __launch_bounds__(kThreads, 2) affine_act_bwd_kernel(const Args 
           gv[u] = gp[off];
           xv[u] = xp[off];
           if (RES) rv[u] = rp[off];
+          if (MASK) kv[u] = a.mask[px] ? 1.f : 0.f;
         }
       }
 #pragma unroll
@@ -220,11 +227,13 @@ __global__ void __launch_bounds__(kThreads, 2) affine_act_bwd_kernel(const Args 
             float m = to_float(gv[u].v[j]);
             if (RELU) {
               float z = __fadd_rn(__fmul_rn(xf, sv[j]), tv[j]);
+              if (MASK) z = __fmul_rn(z, kv[u]);
               if (RES) z = __fadd_rn(z, to_float(rv[u].v[j]));
               m = (z > 0.f) ? m : 0.f;
             }
-            dxv.v[j] = from_float<T>(__fmul_rn(m, sv[j]));
             if (RES) drv.v[j] = from_float<T>(m);
+            if (MASK) m = __fmul_rn(m, kv[u]);
+            dxv.v[j] = from_float<T>(__fmul_rn(m, sv[j]));
             ds[j] = __fadd_rn(ds[j], __fmul_rn(m, xf));
             dt[j] = __fadd_rn(dt[j], m);
           }
@@ -277,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, 2) affine_act_bwd_kernel(const Args 
   else sum_partials<1>(a, tile_c, part, red);
 }
 
-template <typename T, int VEC, bool RES, bool RELU>
+template <typename T, int VEC, bool RES, bool RELU, bool MASK>
 cudaError_t make_plan(long long npix, int c, Plan* p) {
   p->groups = (c + VEC - 1) / VEC;
   const long long one_round = (npix + unroll(RES) - 1) / unroll(RES);  // pixel rows
@@ -306,8 +315,8 @@ cudaError_t make_plan(long long npix, int c, Plan* p) {
   const size_t rows_bytes = sizeof(float) * 2 * (size_t)p->threads * VEC;
   const size_t sums_bytes = piece * ((size_t)pieces + (size_t)(2048 / p->threads) * sms);
   p->smem = rows_bytes > sums_bytes ? rows_bytes : sums_bytes;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, affine_act_bwd_kernel<T, VEC, RES, RELU>,
-                                                    p->threads, p->smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, affine_act_bwd_kernel<T, VEC, RES, RELU, MASK>, p->threads, p->smem);
   if (e != cudaSuccess) return e;
   if (occ < 1) return cudaErrorInvalidConfiguration;
   // one unrolled round of pixel loads a thread, at most what the SMs hold at
@@ -321,33 +330,39 @@ cudaError_t make_plan(long long npix, int c, Plan* p) {
 }
 
 // plan and launch; the partials must fit in part
-template <typename T, int VEC, bool RES, bool RELU>
+template <typename T, int VEC, bool RES, bool RELU, bool MASK>
 int launch(Args a, cudaStream_t st) {
-  const cudaError_t e = make_plan<T, VEC, RES, RELU>(a.npix, a.c, &a.plan);
+  const cudaError_t e = make_plan<T, VEC, RES, RELU, MASK>(a.npix, a.c, &a.plan);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(a.plan.nb, a.plan.ctiles);
   if (a.plan.nb == 1) {  // no grid barrier, no partials
-    affine_act_bwd_kernel<T, VEC, RES, RELU><<<grid, a.plan.threads, a.plan.smem, st>>>(a);
+    affine_act_bwd_kernel<T, VEC, RES, RELU, MASK><<<grid, a.plan.threads, a.plan.smem, st>>>(a);
     return (int)cudaGetLastError();
   }
   if ((long long)a.plan.ctiles * a.plan.nb * 2 * a.plan.tile_groups * VEC > a.part_floats)
     return (int)cudaErrorInvalidValue;
   void* args[] = {&a};
   return (int)cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(affine_act_bwd_kernel<T, VEC, RES, RELU>), grid,
+      reinterpret_cast<const void*>(affine_act_bwd_kernel<T, VEC, RES, RELU, MASK>), grid,
       dim3(a.plan.threads), args, a.plan.smem, st);
 }
 
 template <typename T, int VEC>
 int launch_flags(int residual, int relu, const Args& a, cudaStream_t st) {
+  if (a.mask != nullptr)   // the masked tails always end in a ReLU
+    return residual ? launch<T, VEC, true, true, true>(a, st)
+                    : launch<T, VEC, false, true, true>(a, st);
   if (residual)
-    return relu ? launch<T, VEC, true, true>(a, st) : launch<T, VEC, true, false>(a, st);
-  return relu ? launch<T, VEC, false, true>(a, st) : launch<T, VEC, false, false>(a, st);
+    return relu ? launch<T, VEC, true, true, false>(a, st)
+                : launch<T, VEC, true, false, false>(a, st);
+  return relu ? launch<T, VEC, false, true, false>(a, st)
+              : launch<T, VEC, false, false, false>(a, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. r (and dr) may be null. vector: 1 when
+// dtype: 0 = float32, 1 = bfloat16. r (and dr) may be null; mask null, or
+// one byte a pixel (npix of them), then relu must be 1. vector: 1 when
 // every pointer is 16-byte aligned and c is a multiple of 16 bytes' worth of
 // values (then each thread moves 16-byte packs), 0 for one value a thread.
 // part: part_floats float32 values, 8 * (threads an SM) * SMs always
@@ -355,12 +370,13 @@ int launch_flags(int residual, int relu, const Args& a, cudaStream_t st) {
 // before the first call (every call leaves them so). Returns the
 // cudaError_t of the launch.
 extern "C" int affine_act_backward(int dtype, const void* g, const void* x, const void* r,
-                                   const float* s, const float* t, void* dx, void* dr,
+                                   const unsigned char* mask, const float* s, const float* t,
+                                   void* dx, void* dr,
                                    float* ds, float* dt, float* part, long long part_floats,
                                    unsigned* barrier, long long npix, int c, int relu,
                                    int vector, void* stream) {
-  if (c < 1 || npix < 0) return (int)cudaErrorInvalidValue;
-  const Args a{g, x, r, s, t, dx, dr, ds, dt, part, part_floats, barrier, npix, c, Plan{}};
+  if (c < 1 || npix < 0 || (mask != nullptr && !relu)) return (int)cudaErrorInvalidValue;
+  const Args a{g, x, r, mask, s, t, dx, dr, ds, dt, part, part_floats, barrier, npix, c, Plan{}};
   const int res = r != nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

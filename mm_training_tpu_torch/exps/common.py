@@ -11,7 +11,7 @@ from __future__ import annotations
 import argparse
 import ast
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 from ..configs import Config, variants
 
@@ -24,11 +24,12 @@ def parse_args(argv: Optional[Sequence[str]] = None,
     return make_parser(description, extra_flags).parse_args(argv)
 
 
-def make_parser(description: str = '',
-                extra_flags: Sequence[str] = ()) -> argparse.ArgumentParser:
+def make_parser(description: str = '', extra_flags: Sequence[str] = (),
+                positional: Sequence[Tuple[str, str]] = ()) -> argparse.ArgumentParser:
     """The shared parser; ``extra_flags`` are entry-specific boolean
     switches (``--profile`` of exps.train, ``--latency`` and ``--fold-bn``
-    of exps.inference)."""
+    of exps.inference); ``positional`` (name, help) arguments come before
+    the overrides (the checkpoint of scripts.import_checkpoint)."""
     p = argparse.ArgumentParser(description=description)
     for flag in extra_flags:  # entry-specific boolean switches
         p.add_argument(f'--{flag}', action='store_true')
@@ -45,6 +46,8 @@ def make_parser(description: str = '',
                    help='cap eval/predict batches (smoke runs)')
     p.add_argument('--device', default=None,
                    help='torch device (default cuda; cpu runs the plain versions)')
+    for name, text in positional:
+        p.add_argument(name, help=text)
     p.add_argument('overrides', nargs='*',
                    help='config overrides as key=value (value parsed as a'
                         ' python literal when possible)')

@@ -1,6 +1,7 @@
 """Kernel K4's, K8's, K5's and K6's inputs at a camera config's shapes, K4's
 and K8's laid out as the path hands them over (``models/lss_fpn.py``), the
-tolerance that holds the fused K5 to its plain version, and K2's edge cases.
+tolerance that holds the fused K5 to its plain version, K2's edge cases, and
+LiDAR-like points whose near-field pillars overflow K1's first-K cap.
 Shared by ``chip_smoke.py``, the card tests, the CPU tests and
 ``exps/ab_kernels.py``."""
 from __future__ import annotations
@@ -15,7 +16,8 @@ from ..ops import deform_conv
 
 __all__ = ['HEATMAP_CASES', 'SPLAT_LAYOUTS', 'deform_inputs', 'deform_outside_tolerance',
            'deform_shape', 'depth_label_case', 'depth_label_inputs', 'heatmap_case',
-           'raw_interval_stats', 'raw_splat_inputs', 'splat_inputs']
+           'lidar_like_points', 'raw_interval_stats', 'raw_splat_inputs', 'splat_inputs',
+           'sparse_import', 'with_lidar_like_points']
 
 # 'channels_last': the softmax over bins in channels-last memory, as the depth
 # oracle's ``where`` leaves it; 'slice': the softmax written into the
@@ -251,3 +253,64 @@ def heatmap_case(name: str, seed: int = 0):
     elif name == 'no_valid_map':
         valid[:, 1] = False
     return (centers.astype(np.int32), radii.astype(np.int32), valid, (h, w))
+
+
+def lidar_like_points(cfg: Config, batch_size: int, seed: int, device='cuda',
+                      points: int = 100_000, crowd: int = 0):
+    """(points [B, P, F] float32, mask [B, P] bool) on ``device``, shaped like
+    a LiDAR sweep around the sensor at the origin rather than
+    ``make_fake_batch``'s uniform cloud (where a pillar of 0.2 m holds a
+    point in five): half of each frame uniform over the range, 40% at a
+    range r from 2 m to ``pc_range``'s x extent with density falling as
+    1/r^2 (the near field's pillars hold tens of points), 10% a 1 m x 1 m
+    wall at (12, 4) m (~200 points a pillar); the last 2% of the slots
+    masked out. Many pillars hold more points than the first-K cap. With
+    ``crowd``, that many points of each frame, spread over the input order,
+    lie in one pillar at the grid's centre, masked in: the worst case of
+    K1's sparse mode, whose input-order rank is quadratic in a pillar's
+    points."""
+    rng = np.random.default_rng(seed)
+    pc = cfg.point_cloud_range
+    f = cfg.lidar_input_channels
+    b, p = batch_size, points
+    pts = np.zeros((b, p, f), np.float32)
+    n_uni, n_near = p // 2, 2 * p // 5
+    pts[:, :n_uni, 0] = rng.uniform(pc[0], pc[3], (b, n_uni))
+    pts[:, :n_uni, 1] = rng.uniform(pc[1], pc[4], (b, n_uni))
+    r = np.exp(rng.uniform(np.log(2.0), np.log(pc[3]), (b, n_near)))
+    th = rng.uniform(-np.pi, np.pi, (b, n_near))
+    near = slice(n_uni, n_uni + n_near)
+    pts[:, near, 0] = r * np.cos(th)
+    pts[:, near, 1] = np.clip(r * np.sin(th), pc[1], pc[4] - 1e-3)
+    wall = slice(n_uni + n_near, p)
+    pts[:, wall, 0] = rng.uniform(12.0, 13.0, (b, p - n_uni - n_near))
+    pts[:, wall, 1] = rng.uniform(4.0, 5.0, (b, p - n_uni - n_near))
+    pts[..., 2] = rng.uniform(pc[2], pc[5], (b, p))
+    pts[..., 3:] = rng.uniform(0, 1, (b, p, f - 3))
+    order = rng.permuted(np.tile(np.arange(p), (b, 1)), axis=1)   # sensor order: mixed
+    pts = np.take_along_axis(pts, order[..., None], 1)
+    mask = np.ones((b, p), bool)
+    mask[:, p - p // 50:] = False
+    if crowd:
+        sel = np.arange(0, p, p // crowd)[:crowd]
+        for axis in range(3):
+            mid = (pc[axis] + pc[axis + 3]) / 2
+            pts[:, sel, axis] = mid + cfg.voxel_size[axis] * np.linspace(0.1, 0.4, crowd)
+        mask[:, sel] = True
+    return (torch.as_tensor(pts, device=device), torch.as_tensor(mask, device=device))
+
+
+def with_lidar_like_points(batch, cfg: Config, seed: int):
+    """``batch`` (a ``make_fake_batch`` dict) with :func:`lidar_like_points`
+    (numpy, the batch's point capacity) in place of its uniform cloud."""
+    b, p = batch['points'].shape[:2]
+    pts, mask = lidar_like_points(cfg, b, seed, device='cpu', points=p)
+    return dict(batch, points=pts.numpy(), point_mask=mask.numpy())
+
+
+def sparse_import(cfg: Config) -> Config:
+    """``cfg`` with the sparse-import LiDAR encoder
+    (``LidarEncoderConf.variant='sparse_import'``)."""
+    import dataclasses
+    return cfg.replace(lidar_conf=dataclasses.replace(cfg.get_lidar_conf(),
+                                                      variant='sparse_import'))

@@ -16,7 +16,9 @@ on).
 train step's input [4, C, 128, 1024] for C = 20 (the space-to-depth of 5
 features) and the zero-padded 24 and 32: its forward, and its forward and
 backward as the train step runs it (a weight gradient; the input comes from
-kernel K1 and needs none). ``--train`` times every conv module of one B=4
+kernel K1 and needs none); ``--sparse-stem`` does so for the
+sparse-import encoder's ``conv_input`` at [4, C, 256, 2048] for C = 5 (its
+features), 8 (K1's sparse mode pads to it) and 16. ``--train`` times every conv module of one B=4
 ``lidar_radar`` train step alone, forward and backward with the gradients
 the step takes (the weight's, and the input's where the input carries one),
 on the input the step gave it, slowest first (the encoder's first conv, run
@@ -24,13 +26,15 @@ with its padded kernel, is ``--lidar-stem``'s); ``--train --config
 lidar_cam_radar`` does so for the camera train step (ResNet-50, the image
 neck, the DepthNet with ASPP and the DCN's offset conv, the fuse layer and
 the head), where a conv that falls to a cuDNN fallback kernel shows as the
-outlier.
+outlier; ``--train --sparse-import`` for the ``lidar_radar`` step with the
+sparse-import encoder on LiDAR-like points.
 
     python -m mm_training_tpu_torch.exps.profile_convs [--config lidar_cam_radar]
         [--batch-size 1] [--iters 5] [--top 20]
     python -m mm_training_tpu_torch.exps.profile_convs --lidar-stem [--iters 20]
+    python -m mm_training_tpu_torch.exps.profile_convs --sparse-stem [--iters 20]
     python -m mm_training_tpu_torch.exps.profile_convs --train [--config lidar_cam_radar]
-        [--iters 5] [--top 20]
+        [--sparse-import] [--iters 5] [--top 20]
 """
 from __future__ import annotations
 
@@ -51,17 +55,18 @@ from .timing import device_ms
 __all__ = ['lidar_stem', 'main', 'train_convs']
 
 
-def lidar_stem(iters: int, channels=(20, 24, 32), batch_size: int = 4) -> list:
+def lidar_stem(iters: int, channels=(20, 24, 32), batch_size: int = 4,
+               hw=(128, 1024)) -> list:
     """[{channels, forward_ms, forward_backward_ms}] of the LiDAR encoder's
-    first conv at [batch_size, C, 128, 1024] bf16 for each C."""
+    first conv (3x3, 16 out) at [batch_size, C, *hw] bf16 for each C."""
     gen = torch.Generator(device='cuda').manual_seed(0)
     rows = []
     for c in channels:
         conv = nn.Conv2d(c, 16, 3, 1, 1, bias=False).to(
             'cuda', torch.bfloat16, memory_format=torch.channels_last)
-        x = torch.randn(batch_size, c, 128, 1024, generator=gen, device='cuda').bfloat16()
+        x = torch.randn(batch_size, c, *hw, generator=gen, device='cuda').bfloat16()
         x = x.contiguous(memory_format=torch.channels_last)
-        g = torch.randn(batch_size, 16, 128, 1024, generator=gen, device='cuda').bfloat16()
+        g = torch.randn(batch_size, 16, *hw, generator=gen, device='cuda').bfloat16()
         g = g.contiguous(memory_format=torch.channels_last)
 
         def train():
@@ -74,13 +79,18 @@ def lidar_stem(iters: int, channels=(20, 24, 32), batch_size: int = 4) -> list:
     return rows
 
 
-def train_convs(iters: int, batch_size: int = 4, config: str = 'lidar_radar') -> list:
+def train_convs(iters: int, batch_size: int = 4, config: str = 'lidar_radar',
+                sparse: bool = False) -> list:
     """[{module, input, out_channels, conv, input_grad, ms}] of every conv
     module one ``config`` train step at ``batch_size`` runs, each timed
     alone forward and backward on the input and with the weights' dtype the
-    step gave it, slowest first."""
+    step gave it, slowest first. ``sparse``:
+    the sparse-import encoder on LiDAR-like points."""
+    from .kernel_inputs import sparse_import, with_lidar_like_points
     from .profile_train import train_batch
     cfg = getattr(variants, config)(batch_size=batch_size, max_points_per_frame=100_000)
+    if sparse:
+        cfg = sparse_import(cfg)
     model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(0))
     state = create_train_state(cfg, model)
     inputs = {}
@@ -92,7 +102,8 @@ def train_convs(iters: int, batch_size: int = 4, config: str = 'lidar_radar') ->
     for name, m in model.named_modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.register_forward_pre_hook(keep_input(name))
-    make_train_step(cfg)(state, train_batch(cfg, 0))
+    batch = train_batch(cfg, 0)
+    make_train_step(cfg)(state, with_lidar_like_points(batch, cfg, 0) if sparse else batch)
     del state
 
     rows = []
@@ -123,16 +134,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--lidar-stem', action='store_true',
                    help="time the LiDAR encoder's first conv at 20, 24 and 32 input channels")
+    p.add_argument('--sparse-stem', action='store_true',
+                   help="time the sparse-import encoder's conv_input at 5, 8 and 16 input "
+                        'channels')
     p.add_argument('--train', action='store_true',
                    help='time each conv of a B=4 train step, forward and backward')
+    p.add_argument('--sparse-import', action='store_true',
+                   help='with --train: the sparse-import LiDAR encoder on LiDAR-like points')
     args = p.parse_args(argv)
-    if args.lidar_stem:
-        result = {'device': torch.cuda.get_device_name(0), 'lidar_stem': lidar_stem(args.iters)}
+    if args.lidar_stem or args.sparse_stem:
+        rows = (lidar_stem(args.iters, (5, 8, 16), hw=(256, 2048)) if args.sparse_stem
+                else lidar_stem(args.iters))
+        result = {'device': torch.cuda.get_device_name(0),
+                  'sparse_stem' if args.sparse_stem else 'lidar_stem': rows}
         print(json.dumps(result))
         return result
     if args.train:
         config = args.config or 'lidar_radar'
-        rows = train_convs(args.iters, config=config)
+        rows = train_convs(args.iters, config=config, sparse=args.sparse_import)
         result = {'device': torch.cuda.get_device_name(0), 'config': config, 'convs': len(rows),
                   'sum_ms': sum(r['ms'] for r in rows), 'top': rows[:args.top]}
         print(json.dumps({k: v for k, v in result.items() if k != 'top'}))

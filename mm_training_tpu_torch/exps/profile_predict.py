@@ -12,6 +12,11 @@ the lift's eager use of the fp32 oracle (``models/lss_fpn.py``: the max
 over its bins, the comparison, the cast to the compute dtype, the
 ``where``), its ops found by their shapes.
 
+``--sparse-import`` takes the sparse-import LiDAR encoder
+(``LidarEncoderConf.variant='sparse_import'``) on LiDAR-like requests
+(``exps/kernel_inputs.py::lidar_like_points``: pillars over the first-K
+cap).
+
 ``--host-gap`` (a camera config) builds the factorized and the raw-rig
 model (the same seeded weights) in one process and attributes the
 difference of their request times: p50 of each over rounds in the order
@@ -20,7 +25,7 @@ self-time of every op and the ops whose host time differs most.
 
     python -m mm_training_tpu_torch.exps.profile_predict [--config lidar_radar]
         [--batch-size 1] [--requests 20] [--trace predict_trace.json]
-        [--host-gap]
+        [--host-gap] [--sparse-import]
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from ..configs import raw_rig, variants
 from ..data import make_fake_batch
 from ..models import BEVDepthLiDAR
 from ..training import make_predict_step
+from .kernel_inputs import sparse_import, with_lidar_like_points
 from .profile_train import RAW_RIG_PITCH_DEG
 
 __all__ = ['host_gap', 'main', 'oracle_lift_ms']
@@ -114,6 +120,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument('--trace', default=None, help='write a Chrome trace here')
     p.add_argument('--host-gap', action='store_true',
                    help='the factorized against the raw-rig model in one process')
+    p.add_argument('--sparse-import', action='store_true',
+                   help='the sparse-import LiDAR encoder on LiDAR-like points')
     args = p.parse_args(argv)
 
     cfg = getattr(variants, args.config)(batch_size=args.batch_size,
@@ -130,10 +138,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if not cfg.use_cam:
             raise SystemExit('--raw-rig takes a camera config')
         cfg = raw_rig(cfg)
+    if args.sparse_import:
+        cfg = sparse_import(cfg)
     model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(args.seed))
     predict = make_predict_step(cfg, model)
     batch = make_fake_batch(cfg, seed=args.seed,
                             pitch_deg=RAW_RIG_PITCH_DEG if args.raw_rig else 0.0)
+    if args.sparse_import:
+        batch = with_lidar_like_points(batch, cfg, args.seed)
     for _ in range(3):
         [o.cpu() for o in predict(batch)]
     torch.cuda.synchronize()
@@ -161,8 +173,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     top_host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     result = {
         'device': torch.cuda.get_device_name(0), 'config': args.config,
-        'raw_rig': args.raw_rig, 'batch_size': args.batch_size,
-        'requests': args.requests, 'wall_ms_per_request': wall_ms,
+        'raw_rig': args.raw_rig, 'sparse_import': args.sparse_import,
+        'batch_size': args.batch_size, 'requests': args.requests, 'wall_ms_per_request': wall_ms,
         'device_ms_per_request': device_ms,
         'device_busy_share': device_ms / wall_ms,
         'device_ops_per_request': launches,

@@ -45,6 +45,7 @@ from ..configs import raw_rig, variants
 from ..data import make_fake_batch, random_bda_matrices
 from ..models import BEVDepthLiDAR
 from ..training import TrainState, create_train_state, depth_loss_fn, make_train_step
+from .kernel_inputs import sparse_import, with_lidar_like_points
 from .timing import device_ms, device_ops
 
 __all__ = ['KERNEL_NAMES', 'RAW_RIG_PITCH_DEG', 'benchmark_train', 'depth_loss_ms', 'main',
@@ -53,7 +54,8 @@ __all__ = ['KERNEL_NAMES', 'RAW_RIG_PITCH_DEG', 'benchmark_train', 'depth_loss_m
 # the port's kernels by a substring of their device names (csrc/*.cu)
 KERNEL_NAMES = {
     'A affine_act': 'affine_act_kernel', "A' affine_act_backward": 'affine_act_bwd',
-    'K1 pillar_encoder_input': 'pillar_kernel', 'K2 draw_heatmap': 'heatmap_kernel',
+    'K1 pillar_encoder_input': 'pillar_kernel', 'K1 sparse_encoder_input': 'sparse_kernel',
+    'K2 draw_heatmap': 'heatmap_kernel',
     'K3 circle_nms': 'circle_nms', 'K4 lift_splat': 'lift_splat_kernel',
     "K4' lift_splat_backward": 'lift_splat_bwd', 'K5 deform_conv3x3': 'deform_conv_kernel',
     'K5 columns deform_sample': 'deform_sample_kernel', "K5' deform_conv3x3_backward":
@@ -138,6 +140,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument('--trace', default=None, help='write a Chrome trace here')
     p.add_argument('--ops-only', action='store_true',
                    help='print only the device ops of one step after the warm-up')
+    p.add_argument('--sparse-import', action='store_true',
+                   help='the sparse-import LiDAR encoder on LiDAR-like points')
     args = p.parse_args(argv)
 
     cfg = getattr(variants, args.config)(
@@ -145,10 +149,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         **({'num_cameras': args.cameras} if args.cameras else {}))
     if args.raw_rig:
         cfg = raw_rig(cfg)
+    if args.sparse_import:
+        cfg = sparse_import(cfg)
     model = BEVDepthLiDAR(cfg, generator=torch.Generator().manual_seed(args.seed))
     state = create_train_state(cfg, model)
     train_step = make_train_step(cfg)
     batch = train_batch(cfg, args.seed, RAW_RIG_PITCH_DEG if args.raw_rig else 0.0)
+    if args.sparse_import:
+        batch = with_lidar_like_points(batch, cfg, args.seed)
     for _ in range(args.warmup):
         state, _ = train_step(state, batch)
     torch.cuda.synchronize()
@@ -186,8 +194,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     top_host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     result = {
         'device': torch.cuda.get_device_name(0), 'config': args.config,
-        'raw_rig': args.raw_rig, 'batch_size': args.batch_size,
-        'cameras': cfg.num_cameras if cfg.use_cam else 0,
+        'raw_rig': args.raw_rig, 'sparse_import': args.sparse_import,
+        'batch_size': args.batch_size, 'cameras': cfg.num_cameras if cfg.use_cam else 0,
         'steps': args.steps, 'unprofiled': timed,
         'wall_ms_per_step': wall_ms, 'device_ms_per_step': device_ms,
         'device_busy_share': device_ms / wall_ms,

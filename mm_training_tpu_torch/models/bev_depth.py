@@ -2,13 +2,14 @@
 
 The port of ``mm_training_tpu/models/bev_depth.py::BEVDepthLiDAR``: the
 camera branch (``LSSFPN``, whose BEV the BEV augmentation warps, kernel K7)
-and the dense pillar encoder of the LiDAR (+radar) points, concatenated
-``[camera, lidar]`` on channels and gated by ``BEVFuseLayer``, feed the
-CenterPoint head. Either branch alone feeds the head directly. Both BEVs
-sit on the head's grid/8 input by construction; the JAX package's bilinear
-resize for other grids is not ported and shapes that differ raise. The
-checkpoint-import ``sparse_import`` encoder arrives with its own slice and
-raises until then.
+and the LiDAR (+radar) encoder the config names (``LidarEncoderConf.
+variant``: the dense pillar encoder, or ``'sparse_import'``, the masked-dense
+replica of the reference's SparseEncoder whose weights import from its
+checkpoints), concatenated ``[camera, lidar]`` on channels and gated by
+``BEVFuseLayer``, feed the CenterPoint head. Either branch alone feeds the
+head directly. Both BEVs sit on the head's grid/8 input by construction; the
+JAX package's bilinear resize for other grids is not ported and shapes that
+differ raise.
 """
 from __future__ import annotations
 
@@ -20,13 +21,16 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import Config
-from ..ops import circle_nms, voxel_pooling, warp
+from ..ops import circle_nms, voxel_pooling, voxelize, warp
 from .bn_fold import BatchNorm2d
 from .centerpoint_head import BEVDepthHead, SeparateHead
 from .depth_net import DeformConv2d
 from .fusion import BEVFuseLayer
 from .lidar_encoder import LidarBEVEncoder
 from .lss_fpn import LSSFPN
+from .sparse_encoder import ImportSparseEncoder
+
+LIDAR_VARIANTS = ('dense', 'sparse_import')
 
 __all__ = ['BEVDepthLiDAR', 'check_card_limits', 'init_weights']
 
@@ -63,11 +67,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def check_card_limits(cfg: Config, device) -> None:
     """Raise ValueError, naming the knob, when ``cfg`` asks a kernel for more
     than it takes on ``device``: the decode's circle NMS (kernel K3) takes at
-    most ``ops/circle_nms.py::MAX_SLOTS`` candidates a row on the card, and
-    the raw-rig splat (kernels K8, K8') camera features a multiple of 8 up
-    to ``ops/voxel_pooling.py::RAW_MAX_C`` channels, while the CPU path, like
-    the JAX package, takes any number. Refused where the model is built, so
-    a model that builds serves."""
+    most ``ops/circle_nms.py::MAX_SLOTS`` candidates a row on the card, the
+    raw-rig splat (kernels K8, K8') camera features a multiple of 8 up
+    to ``ops/voxel_pooling.py::RAW_MAX_C`` channels, and the sparse-import
+    encoder's voxelization (kernel K1's sparse mode) at most
+    ``ops/voxelize.py::MAX_FEATURES`` features and a point cap of at least 1
+    and below 2^31, while the CPU path, like the JAX package, takes any
+    number. Refused where the model is built, so a model that builds
+    serves."""
     if torch.device(device).type != 'cuda':
         return
     max_num = cfg.get_head_conf().bbox_coder.max_num
@@ -81,6 +88,22 @@ def check_card_limits(cfg: Config, device) -> None:
         raise ValueError(f'BackboneConf.output_channels = {c}: the card\'s raw-rig splat '
                          f'(factorized_splat=False, kernels K8 and K8\') takes a multiple of 8 '
                          f'up to {top}; change it or build the model on the CPU')
+    lconf = cfg.get_lidar_conf()
+    if cfg.use_lidar and lconf.variant == 'sparse_import':
+        vconf = lconf.voxelization
+        if vconf.num_features > voxelize.MAX_FEATURES:
+            raise ValueError(f'VoxelizationConf.num_features = {vconf.num_features}: the card\'s '
+                             f'sparse-import voxelization (kernel K1) averages at most '
+                             f'{voxelize.MAX_FEATURES}; lower it or build the model on the CPU')
+        if not 1 <= vconf.max_num_points < 2 ** 31:
+            raise ValueError(f'VoxelizationConf.max_num_points = {vconf.max_num_points}: the '
+                             'card\'s sparse-import voxelization (kernel K1) caps a pillar at '
+                             'between 1 and 2^31 - 1 points; change it or build the model on '
+                             'the CPU')
+        if cfg.max_points >= voxelize.MAX_FRAME_POINTS:
+            raise ValueError(f'{cfg.max_points} points a frame: the card\'s sparse-import '
+                             'voxelization (kernel K1) takes fewer than 2^24; lower '
+                             'max_points_per_frame or build the model on the CPU')
 
 
 class BEVDepthLiDAR(nn.Module):
@@ -104,15 +127,17 @@ class BEVDepthLiDAR(nn.Module):
             raise ValueError('the model needs use_cam or use_lidar')
         check_card_limits(cfg, dev)
         lconf = cfg.get_lidar_conf()
-        if cfg.use_lidar and lconf.variant != 'dense':
-            raise NotImplementedError(f'lidar encoder variant {lconf.variant!r} '
-                                      'arrives with the checkpoint-import slice (slice 6)')
+        if cfg.use_lidar and lconf.variant not in LIDAR_VARIANTS:
+            raise ValueError(f'LidarEncoderConf.variant = {lconf.variant!r}: one of '
+                             f'{LIDAR_VARIANTS}')
         self.cfg = cfg
         with torch.device('meta'):   # no init work, no global RNG draws
             if cfg.use_cam:
                 self.backbone = LSSFPN(cfg.get_backbone_conf())
             if cfg.use_lidar:
-                self.lidar_encoder = LidarBEVEncoder(
+                enc_cls = (ImportSparseEncoder if lconf.variant == 'sparse_import'
+                           else LidarBEVEncoder)
+                self.lidar_encoder = enc_cls(
                     lconf, pc_range=cfg.point_cloud_range,
                     voxel_size=cfg.voxel_size, grid_hw=cfg.out_shape)
             if cfg.use_cam and cfg.use_lidar:

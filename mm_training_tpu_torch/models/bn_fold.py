@@ -16,6 +16,13 @@ the ReLU and, in a BasicBlock, the residual add that follow it:
 With gradients on, the affine goes through :class:`~mm_training_tpu_torch.
 ops.affine_act.AffineAct` (kernel A forward, kernel A' backward).
 
+:class:`MaskedBatchNorm2d` is the sparse-import encoder's BN (the JAX
+``ImportSparseEncoder``'s ``nn.BatchNorm(mask=...)``, eps 1e-3, flax
+momentum 0.99): statistics over the active pixels of a [N, 1, H, W] mask
+only, and a tail ``relu((x*s + t) * mask [+ residual])`` through kernel A's
+masked form. It does not fold (JAX ``test_bn_fold.py::
+test_sparse_encoder_stats_pass_through``): :func:`conv_bn_pairs` skips it.
+
 Deploy-time folding (the mmcv ``fuse_conv_bn`` equivalent; the port of
 ``fold_conv_bn``/``fold_state``, JAX :101-212): an eval BN is ``x * s + t``
 with ``s = weight / sqrt(var + eps)``, so the multiply moves into the conv
@@ -38,8 +45,8 @@ from torch import nn
 
 from ..ops import affine_act
 
-__all__ = ['BatchNorm2d', 'FoldedBN', 'StateCache', 'begin_step', 'conv_bn_pairs',
-           'fold_conv_bn', 'fold_model', 'fold_state']
+__all__ = ['BatchNorm2d', 'FoldedBN', 'MaskedBatchNorm2d', 'StateCache', 'begin_step',
+           'conv_bn_pairs', 'fold_conv_bn', 'fold_model', 'fold_state']
 
 
 class StateCache:
@@ -94,8 +101,14 @@ class BatchNorm2d(nn.BatchNorm2d):
         return self._scale_shift.get(
             (self.weight, self.bias, self.running_mean, self.running_var), self.eps, make)
 
-    def batch_scale_shift(self, x: torch.Tensor):
-        """(s, t) [C] from the batch statistics of ``x``, in float32 (float64
+    def batch_statistics(self, x: torch.Tensor, ct: torch.dtype):
+        """(mean, biased variance) [C] of ``x`` over (N, H, W) in ``ct``."""
+        var, mean = torch.var_mean(x.to(ct), dim=(0, 2, 3), correction=0)
+        return mean, var
+
+    def batch_scale_shift(self, x: torch.Tensor, *stats_args):
+        """(s, t) [C] from the batch statistics of ``x`` (and ``stats_args``,
+        what :meth:`batch_statistics` takes besides), in float32 (float64
         for a float64 ``x``), with autograd history; updates the running
         statistics in place.
 
@@ -111,7 +124,7 @@ class BatchNorm2d(nn.BatchNorm2d):
                                'running average: momentum=None or '
                                'track_running_stats=False has no counterpart')
         ct = torch.promote_types(x.dtype, torch.float32)   # flax: at least fp32
-        var, mean = torch.var_mean(x.to(ct), dim=(0, 2, 3), correction=0)
+        mean, var = self.batch_statistics(x, ct, *stats_args)
         s = self.weight.to(ct) * torch.rsqrt(var + self.eps)
         t = self.bias.to(ct) - mean * s
         old_dtype = x.dtype if self._first_update else self.running_mean.dtype
@@ -133,6 +146,42 @@ class BatchNorm2d(nn.BatchNorm2d):
         if torch.is_grad_enabled():
             return affine_act.AffineAct.apply(x, s, t, residual, self.relu)
         return affine_act.affine_act(x, s, t, residual, self.relu)
+
+
+class MaskedBatchNorm2d(BatchNorm2d):
+    """BatchNorm of the sparse-import encoder: ``forward(x, mask,
+    residual=None)`` is ``relu((x*s + t) * mask [+ residual])``, ``mask``
+    [N, 1, H, W] bool (kernel A's masked form; the residual is zero outside
+    the mask already). Train mode takes flax's masked statistics in float32
+    (float64 for float64 inputs), its fast form: ``mean = sum(m x) / sum(m)``,
+    ``var = max(0, sum(m x^2) / sum(m) - mean^2)``; with no active pixel
+    both are NaN, as flax's ``mean(where=...)`` gives. eps 1e-3 and torch
+    momentum 0.01 (flax 0.99): mmdet3d's SparseEncoder ``norm_cfg``. The
+    running statistics update as :class:`BatchNorm2d` rounds them."""
+
+    def __init__(self, num_features: int, **kw):
+        super().__init__(num_features, relu=True, eps=1e-3, momentum=0.01, **kw)
+
+    def batch_statistics(self, x: torch.Tensor, ct: torch.dtype, mask: torch.Tensor):
+        xf = x.to(ct)
+        m = mask.to(ct)
+        n = m.sum()
+        mean = (xf * m).sum((0, 2, 3)) / n
+        mean2 = (xf * xf * m).sum((0, 2, 3)) / n
+        # torch.maximum, as jnp.maximum, keeps a NaN (an empty mask)
+        return mean, torch.maximum(mean2 - mean * mean, torch.zeros((), dtype=ct,
+                                                                    device=x.device))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x.contiguous(memory_format=torch.channels_last)
+        if residual is not None:
+            residual = residual.contiguous(memory_format=torch.channels_last)
+        mask = mask.contiguous()
+        s, t = self.batch_scale_shift(x, mask) if self.training else self.scale_shift()
+        if torch.is_grad_enabled():
+            return affine_act.AffineAct.apply(x, s, t, residual, True, mask)
+        return affine_act.affine_act_masked(x, s, t, mask, residual)
 
 
 def begin_step(model: nn.Module) -> None:
@@ -198,7 +247,9 @@ def conv_bn_pairs(model: nn.Module) -> List[Tuple[str, str, int, float]]:
     for parent_name, parent in model.named_modules():
         children = dict(parent.named_children())
         for name, bn in children.items():
-            if not isinstance(bn, BatchNorm2d):
+            # the sparse encoder's masked BNs pass through unfolded: the mask
+            # multiplies between their affine and the residual
+            if not isinstance(bn, BatchNorm2d) or isinstance(bn, MaskedBatchNorm2d):
                 continue
             for pat, partners in _PARTNER_RULES:
                 m = pat.match(name)

@@ -26,7 +26,22 @@ from ..ops import voxelize
 from .bn_fold import StateCache
 from .resnet import ConvBN
 
-__all__ = ['LidarBEVEncoder']
+__all__ = ['LidarBEVEncoder', 'padded_input_weight']
+
+
+def padded_input_weight(w: torch.Tensor, channels: int, cache: StateCache) -> torch.Tensor:
+    """A conv kernel [C_out, C_in, kh, kw] with zero input channels up to
+    ``channels`` (``w`` itself when there are none); without a gradient to
+    carry, padded once per state of ``w`` (``cache``)."""
+    pad = channels - w.shape[1]
+    if pad == 0:
+        return w
+
+    def make():
+        return F.pad(w, (0, 0, 0, 0, 0, pad)).contiguous(memory_format=torch.channels_last)
+    if torch.is_grad_enabled() and w.requires_grad:
+        return make()
+    return cache.get((w,), channels, make)
 
 
 class LidarBEVEncoder(nn.Module):
@@ -65,18 +80,9 @@ class LidarBEVEncoder(nn.Module):
 
     def first_conv_weight(self) -> torch.Tensor:
         """The first conv's kernel [C_out, input_channels, 3, 3], zero past
-        its own input channels (itself when there are none); without a
-        gradient to carry, padded once per state of the parameter."""
-        w = getattr(self, self.conv_names[0]).conv.weight
-        pad = self.input_channels - w.shape[1]
-        if pad == 0:
-            return w
-
-        def make():
-            return F.pad(w, (0, 0, 0, 0, 0, pad)).contiguous(memory_format=torch.channels_last)
-        if torch.is_grad_enabled() and w.requires_grad:
-            return make()
-        return self._padded.get((w,), None, make)
+        its own input channels (:func:`padded_input_weight`)."""
+        return padded_input_weight(getattr(self, self.conv_names[0]).conv.weight,
+                                   self.input_channels, self._padded)
 
     def forward(self, points: torch.Tensor, point_mask: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -20,6 +20,10 @@ optimizer moment, say) maps the same way:
   * the dense lidar encoder has no reference counterpart: its names mirror
     the flax scopes (``stage{si}_conv{ci}``, ``out_conv``), each a ConvBN
     with ``conv``/``bn`` children;
+  * the sparse-import lidar encoder's trees (``conv_input``,
+    ``stage{si}_block{j}``, ``stage{si}_down``, ``conv_out``) take the
+    reference's SparseEncoder names below ``pts_middle_encoder``
+    (:func:`sparse_encoder_state_dict`), its z-slice kernels HWIO -> OIHW;
   * the image backbone's space-to-depth stem kernel [4, 4, 4*cin, cout]
     becomes the reference's 7x7 ``conv1`` (:func:`stem_7x7_from_s2d`; the
     taps the JAX stem masks out never enter its map and are dropped);
@@ -42,7 +46,8 @@ from ..configs import Config, HeadConf, LidarEncoderConf
 from .resnet import DEPTH_CFG, Bottleneck
 
 __all__ = ['state_dict_from_flax', 'resnet_state_dict', 'second_fpn_state_dict',
-           'bev_head_state_dict', 'lidar_encoder_state_dict', 'depth_net_state_dict',
+           'bev_head_state_dict', 'lidar_encoder_state_dict', 'sparse_encoder_state_dict',
+           'sparse_encoder_names', 'depth_net_state_dict',
            'aspp_state_dict', 'deform_conv_state_dict', 'fuse_layer_state_dict',
            'stem_7x7_from_s2d']
 
@@ -197,6 +202,42 @@ def lidar_encoder_state_dict(params: Mapping, stats: Mapping,
     return out
 
 
+def sparse_encoder_names(encoder_channels) -> Dict[str, str]:
+    """{flax scope of the JAX ``ImportSparseEncoder``: the port's module
+    name below ``pts_middle_encoder``} of every masked ConvBN unit
+    (``conv_input``, ``stage{si}_down``, ``conv_out``: children ``0`` and
+    ``1``) and BasicBlock (``stage{si}_block{j}``: ``conv1``, ``bn1``,
+    ``conv2``, ``bn2``)."""
+    names = {'conv_input': 'conv_input'}
+    n = len(encoder_channels)
+    for si, stage in enumerate(encoder_channels):
+        has_down = si < n - 1
+        for j in range(len(stage) - int(has_down)):
+            names[f'stage{si}_block{j}'] = f'encoder_layers.encoder_layer{si + 1}.{j}'
+        if has_down:
+            names[f'stage{si}_down'] = f'encoder_layers.encoder_layer{si + 1}.{len(stage) - 1}'
+    names['conv_out'] = 'conv_out'
+    return names
+
+
+def sparse_encoder_state_dict(params: Mapping, stats: Mapping, conf: LidarEncoderConf,
+                              prefix: str = '') -> StateDict:
+    """flax ``ImportSparseEncoder`` -> the reference SparseEncoder's names
+    (``conv_input.0``/``.1``, ``encoder_layers.encoder_layer{i}.{j}.conv1``
+    ..., ``conv_out.0``/``.1``), the z-slice kernels OIHW."""
+    out: StateDict = {}
+    for scope, name in sparse_encoder_names(conf.encoder_channels).items():
+        p, s = params[scope], stats[scope]
+        if 'conv' in p:
+            _conv(out, f'{prefix}{name}.0', p['conv']['kernel'])
+            _bn(out, f'{prefix}{name}.1', p['bn'], s['bn'])
+        else:
+            for c in ('1', '2'):
+                _conv(out, f'{prefix}{name}.conv{c}', p[f'conv{c}']['kernel'])
+                _bn(out, f'{prefix}{name}.bn{c}', p[f'bn{c}'], s[f'bn{c}'])
+    return out
+
+
 _ASPP_NAMES = (('aspp1.atrous_conv', 'aspp1.bn'), ('aspp2.atrous_conv', 'aspp2.bn'),
                ('aspp3.atrous_conv', 'aspp3.bn'), ('aspp4.atrous_conv', 'aspp4.bn'),
                ('global_avg_pool.1', 'global_avg_pool.2'), ('conv1', 'bn1'))
@@ -276,7 +317,11 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
                                         prefix='backbone.depth_net.'))
     if 'bev_fuse' in params:
         out.update(fuse_layer_state_dict(params['bev_fuse'], prefix='bev_fuse.'))
-    if cfg.use_lidar:
+    if cfg.use_lidar and cfg.get_lidar_conf().variant == 'sparse_import':
+        out.update(sparse_encoder_state_dict(params['lidar_encoder'],
+                                             batch_stats['lidar_encoder'], cfg.get_lidar_conf(),
+                                             prefix='lidar_encoder.pts_middle_encoder.'))
+    elif cfg.use_lidar:
         out.update(lidar_encoder_state_dict(params['lidar_encoder'],
                                             batch_stats['lidar_encoder'],
                                             cfg.get_lidar_conf(), prefix='lidar_encoder.'))

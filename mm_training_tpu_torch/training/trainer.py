@@ -30,7 +30,8 @@ BEVDepthLightningModel + create_trainer):
     A step is written into a temporary directory and renamed into place, so
     a killed run never leaves half a step; with ``async_checkpointing`` a
     thread writes a host copy. A port checkpoint does not load in the JAX
-    package, nor the other way round (that import is slice 6's).
+    package, nor the other way round; the reference's torch checkpoints
+    do, through ``scripts/import_checkpoint.py``.
 
 Host-to-device copies (``_device_batches``): batch i+1 is copied into
 pinned memory and to the card with ``non_blocking=True`` on a side stream
@@ -62,6 +63,8 @@ from ..data.aimotive_dataset import AiMotiveDataset
 from ..evaluation import MAPCalculator
 from ..models import BEVDepthLiDAR
 from ..models.bn_fold import fold_state
+from ..models.torch_import import (convert_torchvision_resnet, load_reference_state_dict,
+                                   merge_state_dict)
 from ..utils.logging import MetricsLogger
 from ..utils.profiling import StepTimer, profile_trace
 from ..utils.renderer import (draw_boxes_camera, draw_points_camera, render_bev,
@@ -70,7 +73,7 @@ from .loader import PrefetchLoader, stack_batches
 from .train_step import (HOST_FIELDS, TrainState, create_train_state, make_eval_step,
                          make_state_predict_step, make_train_step, make_train_step_multi)
 
-__all__ = ['Trainer', 'boxes_to_aimotive_dict']
+__all__ = ['Trainer', 'boxes_to_aimotive_dict', 'initial_loop_state']
 
 CKPT_FILE = 'state.pt'
 METRICS_FILE = 'metrics.json'
@@ -109,6 +112,12 @@ def boxes_to_aimotive_dict(boxes: np.ndarray, scores: np.ndarray,
     return out
 
 
+def initial_loop_state() -> dict:
+    """The loop state of a run that has not started (what a checkpoint
+    carries besides the weights)."""
+    return {'epoch': 0, 'batch_in_epoch': 0, 'best_val': float('inf'), 'patience': 0}
+
+
 class Trainer:
     """Fit, validate and test one model on one device (default the card;
     ``device='cpu'`` runs the kernels' plain versions)."""
@@ -132,8 +141,7 @@ class Trainer:
         # restores Trainer + callback state on ckpt_path resume,
         # mm_training_aim.py:597,638: EarlyStopping counters, epoch, loader
         # position). _loop_restored flips when a checkpoint carried it.
-        self.loop_state = {'epoch': 0, 'batch_in_epoch': 0,
-                           'best_val': float('inf'), 'patience': 0}
+        self.loop_state = initial_loop_state()
         self._loop_restored = False
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == 'cuda'
                              else None)
@@ -201,9 +209,15 @@ class Trainer:
 
     def init_state(self, sample_batch: Dict[str, np.ndarray]):
         """Build the model (seeded from ``cfg.seed``) and its optimizer;
-        then restore ``cfg.ckpt_path`` when set. A camera rig with roll,
-        pitch or skew switches the model to the general splat first
-        (``configs.raw_rig``), as the JAX trainer does."""
+        then restore ``cfg.ckpt_path`` when set (a trainer checkpoint, or
+        one ``scripts/import_checkpoint.py`` wrote from a reference
+        checkpoint). A camera rig with roll, pitch or skew switches the
+        model to the general splat first (``configs.raw_rig``), as the JAX
+        trainer does. With the camera and
+        ``ImageBackboneConf.pretrained``, that torchvision-format file is
+        merged into the image backbone after the optimizer and the EMA
+        shadow are made, as JAX :209-224 does: the shadow starts from the
+        random init."""
         if not hasattr(self, '_train_step'):
             raise RuntimeError('call setup() before init_state()')
         cfg = self.cfg
@@ -217,6 +231,12 @@ class Trainer:
             self._build_steps()      # the splat is parameter-free: the same state
         model = BEVDepthLiDAR(self.cfg, device=self.device)
         self.state = create_train_state(self.cfg, model, self.steps_per_epoch)
+        pretrained = (self.cfg.use_cam and
+                      self.cfg.get_backbone_conf().img_backbone_conf.pretrained)
+        if pretrained:
+            prefix = 'backbone.img_backbone.'
+            merge_state_dict(model, convert_torchvision_resnet(
+                load_reference_state_dict(pretrained), prefix), strict_prefix=prefix)
         if self.cfg.ckpt_path:
             self.restore(self.cfg.ckpt_path)
         return self.state

@@ -39,6 +39,30 @@ def test_config_fields_match_jax_but_the_listed_ones():
                     ckpt_path='x')).items() if k not in NOT_YET_PORTED})
 
 
+# fields of the JAX sub-configs the port has not taken: nothing in the JAX
+# package reads ``aspp_mid_channels`` (only its configs/base.py:55 names it)
+SUB_NOT_YET_PORTED = {'DepthNetConf': {'aspp_mid_channels'}}
+
+
+@pytest.mark.parametrize('name', ['ImageBackboneConf', 'ImageNeckConf', 'DepthNetConf',
+                                  'BackboneConf', 'VoxelizationConf', 'LidarEncoderConf'])
+def test_sub_config_fields_match_jax(name):
+    """Each sub-config of the camera and LiDAR branches has the JAX one's
+    fields and defaults (``ImageBackboneConf.pretrained`` and
+    ``LidarEncoderConf.variant='sparse_import'`` among them), but the
+    listed ones."""
+    jf = {f.name: f for f in dataclasses.fields(getattr(jcfg, name))}
+    tf = {f.name: f for f in dataclasses.fields(getattr(tcfg, name))}
+    assert set(jf) - set(tf) == SUB_NOT_YET_PORTED.get(name, set()) and set(tf) <= set(jf)
+    skip = set().union(*SUB_NOT_YET_PORTED.values())
+
+    def ported(d):     # nested sub-configs too (BackboneConf holds a DepthNetConf)
+        return {k: ported(v) if isinstance(v, dict) else v for k, v in d.items()
+                if k not in skip}
+    assert (ported(dataclasses.asdict(getattr(tcfg, name)()))
+            == ported(dataclasses.asdict(getattr(jcfg, name)())))
+
+
 def test_variant_and_overrides():
     args = parse_args(['--config', 'lidar_cam_radar', '--seed', '7', 'batch_size=2',
                        'steps_per_dispatch=3', 'data_root=/data/x', 'base_learning_rate=1e-4'])

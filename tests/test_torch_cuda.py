@@ -1095,3 +1095,164 @@ def test_raw_rig_camera_train_step_runs_k8(gen):
     after = [k.launches for k in kernels]
     assert after == [before[0] + 1, before[1] + 1, before[2], before[3]], (before, after)
     assert torch.isfinite(metrics['train_loss'])
+
+
+# ------------------------------ the sparse-import path: K1's sparse mode, masked A / A'
+
+def _sparse_points(gen, kind, batch_size):
+    from mm_training_tpu_torch.configs import lidar_radar
+    from mm_training_tpu_torch.exps.kernel_inputs import lidar_like_points
+    if kind == 'uniform':
+        return _k1_points(gen, batch_size)
+    cfg = lidar_radar()
+    pts, mask = lidar_like_points(cfg, batch_size, seed=batch_size,
+                                  crowd=20_000 if kind == 'crowded' else 0)
+    return pts, mask, (cfg.point_cloud_range, cfg.voxel_size, cfg.out_shape)
+
+
+@pytest.mark.parametrize('kind', ['lidar_like', 'uniform', 'crowded'])
+@pytest.mark.parametrize('batch_size', [1, 4])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('cap', [15, 1])
+def test_sparse_encoder_input_kernel_matches_plain(gen, kind, batch_size, dtype, cap):
+    """K1's sparse-input mode at B=1 and B=4 (100k points a frame on the
+    full 256 x 2048 grid; LiDAR-like frames with pillars of up to ~450
+    points, the same with 20,000 points in one pillar, and uniform ones
+    with few points a pillar): the kept set of
+    the first-K cap and the occupancy bit for bit, the same bits on a
+    second call; the means within one bf16 ulp plus K1's atomic-order
+    slack; the pad zero; one launch a call."""
+    pts, mask, geo = _sparse_points(gen, kind, batch_size)
+    args = (pts, mask, *geo, 5, dtype, 16)   # the sparse encoder's 16 channels
+    kw = dict(max_points_per_voxel=cap, return_kept=True)
+    before = voxelize.sparse_encoder_input.launches
+    grid, occ, kept = voxelize.sparse_encoder_input(*args, **kw)
+    assert voxelize.sparse_encoder_input.launches == before + 1
+    w_grid, w_occ, w_kept = voxelize.sparse_encoder_input_plain(*args, **kw)
+    assert grid.shape == (batch_size, 256, 2048, 16) and grid.dtype == dtype
+    assert occ.shape == (batch_size, 1, 256, 2048) and occ.dtype == torch.bool
+    assert torch.equal(kept, w_kept) and torch.equal(occ, w_occ)
+    if kind != 'uniform':
+        assert int(kept.sum()) < int(mask.sum())       # the cap acted
+    assert _k1_outside_tolerance(grid, w_grid) == 0
+    assert not grid[..., 5:].any() and grid[..., :5].abs().sum() > 0
+    _, occ2, kept2 = voxelize.sparse_encoder_input(*args, **kw)
+    assert torch.equal(kept2, kept) and torch.equal(occ2, occ)
+
+
+def test_sparse_encoder_input_refuses_2_24_points_a_frame(gen):
+    """A pillar's arrival slots are float counts, exact below 2^24: a frame
+    of 2^24 points is refused before a launch."""
+    pts = torch.zeros(1, 1, 5, device='cuda').expand(1, 2 ** 24, 5)
+    mask = torch.ones(1, 1, dtype=torch.bool, device='cuda').expand(1, 2 ** 24)
+    before = voxelize.sparse_encoder_input.launches
+    with pytest.raises(ValueError, match='below 2\\^24'):
+        voxelize.sparse_encoder_input(pts, mask, (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
+                                      (0.5, 0.5, 2.0), (4, 4), max_points_per_voxel=15)
+    assert voxelize.sparse_encoder_input.launches == before
+
+
+def test_sparse_encoder_input_empty_out_of_range_and_one_device_op(gen):
+    """No masked-in point, and every point outside the grid: zeros, no
+    occupied pillar, nothing kept; calls at other batch sizes in turn see
+    their own points only; one device op a call."""
+    from mm_training_tpu_torch.exps.timing import device_ops_in_child
+    pts, mask, geo = _sparse_points(gen, 'lidar_like', 2)
+    far = pts.clone()
+    far[..., 0] += 1000.0
+    for p, m in ((pts, torch.zeros_like(mask)), (far, mask)):
+        grid, occ, kept = voxelize.sparse_encoder_input(p, m, *geo, 5, torch.bfloat16, 8,
+                                                        max_points_per_voxel=15,
+                                                        return_kept=True)
+        assert not grid.any() and not occ.any() and not kept.any()
+    for p, m in ((pts, mask), (pts[:1], mask[:1]), (pts, mask)):
+        kw = dict(max_points_per_voxel=15, return_kept=True)
+        got = voxelize.sparse_encoder_input(p, m, *geo, 5, torch.float32, 8, **kw)
+        want = voxelize.sparse_encoder_input_plain(p, m, *geo, 5, torch.float32, 8, **kw)
+        assert torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    ops, = device_ops_in_child([[('ops.voxelize', 'sparse_encoder_input', (pts, mask, *geo),
+                                  dict(dtype=torch.bfloat16, channels=8,
+                                       max_points_per_voxel=15))]])
+    assert list(ops.values()) == [1] and 'sparse' in next(iter(ops)), ops
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [(4, 16, 256, 2048), (1, 128, 32, 256), (2, 7, 3, 5),
+                                   (2, 3, 5, 7)])
+def test_affine_act_masked_kernels_match_plain(gen, dtype, shape):
+    """Kernel A's masked form and A''s at the sparse encoder's largest tail
+    ([4, 16, 256, 2048]), its last stage, and channel counts below a
+    16-byte vector: the forward, dx and d residual bit for bit, d scale and
+    d shift to fp32 order and the same bits on a second call; each form
+    counts its own launches, the unmasked counts stay."""
+    x, r, g, s, t = _backward_case(gen, shape, dtype)
+    n, _, h, w = shape
+    mask = (torch.rand(n, 1, h, w, generator=gen, device='cuda') < 0.3).contiguous()
+    counts = (affine_act.affine_act.launches, affine_act.affine_act_backward.launches)
+    for res in (None, (r * mask.to(dtype)).contiguous(memory_format=torch.channels_last), r):
+        before = affine_act.affine_act_masked.launches
+        got = affine_act.affine_act_masked(x, s, t, mask, res)
+        assert affine_act.affine_act_masked.launches == before + 1
+        assert torch.equal(got, affine_act.affine_act_masked_plain(x, s, t, mask, res))
+        before = affine_act.affine_act_masked_backward.launches
+        grads = affine_act.affine_act_masked_backward(g, x, s, t, mask, res)
+        assert affine_act.affine_act_masked_backward.launches == before + 1
+        want = affine_act.affine_act_masked_backward_plain(g, x, s, t, mask, res)
+        assert torch.equal(grads[0], want[0])
+        if res is not None:
+            assert torch.equal(grads[1], want[1])
+        for a, b in zip(grads[2:], want[2:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * n * h * w)
+        again = affine_act.affine_act_masked_backward(g, x, s, t, mask, res)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again) if a is not None)
+    assert counts == (affine_act.affine_act.launches, affine_act.affine_act_backward.launches)
+
+
+def test_masked_kernels_are_one_device_op_a_call(gen):
+    from mm_training_tpu_torch.exps.timing import device_ops_in_child
+    x, r, g, s, t = _backward_case(gen, (4, 16, 256, 2048), torch.bfloat16)
+    mask = (torch.rand(4, 1, 256, 2048, generator=gen, device='cuda') < 0.3).contiguous()
+    fwd, bwd = device_ops_in_child([
+        [('ops.affine_act', 'affine_act_masked', (x, s, t, mask, r), {})],
+        [('ops.affine_act', 'affine_act_masked_backward', (g, x, s, t, mask, r), {})]])
+    assert list(fwd.values()) == [1] and list(bwd.values()) == [1], (fwd, bwd)
+
+
+def test_sparse_import_model_runs_the_masked_kernels(gen):
+    """The tiny ``sparse_import`` model on the card: a request launches K1's
+    sparse mode once and masked A at each of the encoder's 21 tails, a train
+    step masked A' at each; float32 pred maps within 1e-4 of the CPU
+    model's (TF32 off)."""
+    import dataclasses
+
+    from mm_training_tpu_torch.configs import tiny_test_config
+    from mm_training_tpu_torch.data import make_fake_batch
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import create_train_state, make_train_step
+    cfg = tiny_test_config()
+    cfg = cfg.replace(lidar_conf=dataclasses.replace(cfg.get_lidar_conf(),
+                                                     variant='sparse_import'))
+    batch = make_fake_batch(cfg, seed=0)
+    cpu = BEVDepthLiDAR(cfg, device='cpu')
+    card = BEVDepthLiDAR(cfg, device='cuda')
+    card.load_state_dict(cpu.state_dict())
+    pts, mask = (torch.as_tensor(batch[k]) for k in ('points', 'point_mask'))
+    counts = (voxelize.sparse_encoder_input.launches, affine_act.affine_act_masked.launches)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = card(pts.cuda(), mask.cuda())
+            want = cpu(pts, mask)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert (voxelize.sparse_encoder_input.launches - counts[0],
+            affine_act.affine_act_masked.launches - counts[1]) == (1, 21)
+    for gp, wp in zip(got, want):
+        for k in wp:
+            torch.testing.assert_close(gp[k].cpu(), wp[k], rtol=1e-4, atol=1e-4)
+    state = create_train_state(cfg, card, steps_per_epoch=10)
+    before = affine_act.affine_act_masked_backward.launches
+    make_train_step(cfg)(state, batch)
+    assert affine_act.affine_act_masked_backward.launches - before == 21

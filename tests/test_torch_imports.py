@@ -36,7 +36,12 @@ for name in ('mm_training_tpu_torch.ops.gaussian', 'mm_training_tpu_torch.traini
              'mm_training_tpu_torch.training.loader', 'mm_training_tpu_torch.training.trainer',
              'mm_training_tpu_torch.exps.common', 'mm_training_tpu_torch.exps.train',
              'mm_training_tpu_torch.exps.evaluate', 'mm_training_tpu_torch.training.ema',
-             'mm_training_tpu_torch.training.tta', 'mm_training_tpu_torch.utils.renderer'):
+             'mm_training_tpu_torch.training.tta', 'mm_training_tpu_torch.utils.renderer',
+             'mm_training_tpu_torch.models.sparse_encoder',
+             'mm_training_tpu_torch.models.torch_import',
+             'mm_training_tpu_torch.models.torch_export',
+             'mm_training_tpu_torch.scripts.import_checkpoint',
+             'mm_training_tpu_torch.exps.parity'):
     assert importlib.util.find_spec(name) is not None, name
 for banned in ('jax', 'flax', 'mm_training_tpu'):
     sys.modules[banned] = None        # any import of them raises ImportError
@@ -58,8 +63,8 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # every module of the package, the camera and runtime slices' included
-    assert int(out.stdout.split()[-1]) >= 64
+    # every module of the package, the camera, runtime and import slices' included
+    assert int(out.stdout.split()[-1]) >= 70
 
 
 _NO_IMAGE_CODEC = '''
@@ -70,7 +75,9 @@ import mm_training_tpu_torch.data, mm_training_tpu_torch.training.trainer
 import mm_training_tpu_torch.exps.train, mm_training_tpu_torch.exps.evaluate
 import mm_training_tpu_torch.exps.inference, mm_training_tpu_torch.utils.renderer
 import mm_training_tpu_torch.utils.logging, mm_training_tpu_torch.training.tta
-import mm_training_tpu_torch.training.ema
+import mm_training_tpu_torch.training.ema, mm_training_tpu_torch.models.torch_import
+import mm_training_tpu_torch.models.torch_export, mm_training_tpu_torch.exps.parity
+import mm_training_tpu_torch.scripts.import_checkpoint
 '''
 
 
@@ -79,7 +86,8 @@ def test_lidar_data_path_imports_no_image_codec():
     trainer and its CLIs, the renderer and logger of the viz panels (their
     lines, circles, JET table and PNG encoder are the port's own), TTA and
     EMA import neither cv2 nor PIL (the card's machine promises neither),
-    nor jax or mm_training_tpu."""
+    nor jax or mm_training_tpu; nor do the checkpoint import and export,
+    the import script and the parity runbook."""
     out = subprocess.run([sys.executable, '-c', _NO_IMAGE_CODEC], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

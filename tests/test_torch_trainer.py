@@ -160,11 +160,11 @@ def test_test_pass_writes_one_json_per_frame(tree, tmp_path):
     tr.close()
 
 
-def test_later_slices_raise(tree, tmp_path):
+def test_runtime_and_sparse_import_trainers_build(tree, tmp_path):
     """What the eval and serving runtime brought (EMA, viz panels, profile,
-    predict, BN folding) now builds; the sparse-import lidar encoder (slice
-    6) is still refused, naming its slice, where the trainer builds the
-    model."""
+    predict, BN folding) builds, and predict and folding ask for a state;
+    the sparse-import LiDAR encoder (the checkpoint-import slice) builds,
+    inits and validates, its masked BNs unfolded by folding."""
     import dataclasses
     cfg = _cfg(tmp_path / 'out')
     for ok in (cfg.replace(viz_every_n_steps=2), cfg.replace(use_ema=True, use_tta=True)):
@@ -177,8 +177,13 @@ def test_later_slices_raise(tree, tmp_path):
     sparse = cfg.replace(lidar_conf=dataclasses.replace(cfg.get_lidar_conf(),
                                                         variant='sparse_import'))
     tr = _trainer(sparse, tree)
-    with pytest.raises(NotImplementedError, match='slice 6'):
-        tr.init_state(next(iter(tr.loader('val'))))
+    state = tr.init_state(next(iter(tr.loader('val'))))
+    assert any(k.startswith('lidar_encoder.pts_middle_encoder.') for k in
+               state.model.state_dict())
+    metrics = tr.validate(max_batches=1)
+    assert np.isfinite(metrics['val_detection_loss'])
+    tr.fold_bn_for_inference()
+    assert np.isfinite(tr.validate(max_batches=1)['val_detection_loss'])
     tr.close()
 
 

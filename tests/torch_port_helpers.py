@@ -207,7 +207,8 @@ def check_predict_parity(use_radar: bool) -> None:
 ZERO_GRAD_BIASES = ('head.shared_conv.conv.bias',)
 
 
-def train_parity_case(use_radar: bool, dtype=np.float32, use_ema: bool = False) -> dict:
+def train_parity_case(use_radar: bool, dtype=np.float32, use_ema: bool = False,
+                      lidar_variant: str = 'dense') -> dict:
     """One train step of both packages on ``tiny_test_config(use_cam=False)``
     at narrow widths from the same random flax variables (carried over by
     ``state_dict_from_flax``) and the same fake batch, with the weights in
@@ -228,7 +229,8 @@ def train_parity_case(use_radar: bool, dtype=np.float32, use_ema: bool = False) 
     With ``use_ema`` both configs take ``use_ema=True``, and the result also
     holds each package's EMA shadow after the step (``j_ema``, ``p_ema``),
     the JAX running statistics folded with the step's input biases as
-    ``j_stats`` are."""
+    ``j_stats`` are. ``lidar_variant='sparse_import'`` runs both packages'
+    sparse-import LiDAR encoder (its exact point cap on)."""
     import jax.numpy as jnp
 
     import mm_training_tpu.configs as jcfg
@@ -247,6 +249,8 @@ def train_parity_case(use_radar: bool, dtype=np.float32, use_ema: bool = False) 
     kw = dict(use_cam=False, use_radar=use_radar, use_ema=use_ema)
     jc = narrow(jcfg, jcfg.tiny_test_config(**kw))
     tc = narrow(tcfg, tcfg.tiny_test_config(**kw))
+    jc, tc = (c.replace(lidar_conf=dataclasses.replace(c.get_lidar_conf(), variant=lidar_variant))
+              for c in (jc, tc))
     jbatch = j_fake_batch(jc, seed=3)
     batch = make_fake_batch(tc, seed=3)
     for k in batch:
