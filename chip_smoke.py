@@ -2735,7 +2735,11 @@ def _overfull(pts, mask, geo, cap):
 def check_sparse_kernels(cfg):
     """Phase 34: K1's sparse-input mode and masked A / A' at the sparse
     path's shapes against their plain versions, each timed beside its
-    bound (bytes: each input read once, each output written once)."""
+    bound (bytes: each input read once, each output written once). K1 at
+    B=1 and B=4 on LiDAR-like, uniform and crowded frames (20,000 points in
+    one pillar of each frame), caps 1, the path's and 1000, bf16 and fp32,
+    the same bits on a second call; then a frame of 2^24 points in one
+    pillar (the selection's worst case) keeps exactly its first K."""
     from mm_training_tpu_torch.exps.kernel_inputs import lidar_like_points
     from mm_training_tpu_torch.exps.timing import device_ms, host_ms
     from mm_training_tpu_torch.ops import affine_act, voxelize
@@ -2753,39 +2757,53 @@ def check_sparse_kernels(cfg):
             pts, mask = (_points(cfg, bsz, SEED + 70 + bsz) if kind == 'uniform'
                          else lidar_like_points(cfg, bsz, SEED + 70 + bsz,
                                                 crowd=20_000 if kind == 'crowded' else 0))
-            args = (pts, mask, *geo, nf, torch.bfloat16, channels)
-            kw = dict(max_points_per_voxel=cap)
-            grid, occ, kept = voxelize.sparse_encoder_input(*args, **kw, return_kept=True)
-            w_grid, w_occ, w_kept = voxelize.sparse_encoder_input_plain(*args, **kw,
-                                                                        return_kept=True)
-            w = w_grid.float()
-            ulp = torch.where(w == 0, 0.0, torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
-            diff = (grid.float() - w).abs()
-            checks[kind] = dict(
-                kept_equal=bool(torch.equal(kept, w_kept)), occ_equal=bool(torch.equal(occ, w_occ)),
-                outside_tolerance=int((diff > ulp + 1e-5 * (1 + w.abs())).sum()),
-                max_abs_err=diff.max().item(), kept=int(kept.sum()), masked_in=int(mask.sum()),
-                occupied=int(occ.sum()), overfull=_overfull(pts, mask, geo, cap))
-            if kind == 'lidar_like':
-                timed = (args, grid, occ, mask)
-                if bsz == 4:
-                    occ4 = occ
-            if kind == 'crowded':
-                crowded = args
+            for dtype in (torch.bfloat16, torch.float32):
+                for k in (cap, 1, 1000):
+                    args = (pts, mask, *geo, nf, dtype, channels)
+                    kw = dict(max_points_per_voxel=k)
+                    grid, occ, kept = voxelize.sparse_encoder_input(*args, **kw,
+                                                                    return_kept=True)
+                    again = voxelize.sparse_encoder_input(*args, **kw, return_kept=True)
+                    w_grid, w_occ, w_kept = voxelize.sparse_encoder_input_plain(
+                        *args, **kw, return_kept=True)
+                    w = w_grid.float()
+                    ulp = (torch.where(w == 0, 0.0, torch.exp2(torch.floor(torch.log2(w.abs()))
+                                                               - 7))
+                           if dtype == torch.bfloat16 else torch.zeros_like(w))
+                    diff = (grid.float() - w).abs()
+                    key = f'{kind}, {str(dtype)[6:]}, cap {k}'
+                    checks[key] = dict(
+                        kept_equal=bool(torch.equal(kept, w_kept)),
+                        occ_equal=bool(torch.equal(occ, w_occ)),
+                        same_bits_twice=all(torch.equal(x, y)
+                                            for x, y in zip((grid, occ, kept), again)),
+                        outside_tolerance=int((diff > ulp + 1e-5 * (1 + w.abs())).sum()),
+                        max_abs_err=diff.max().item(), kept=int(kept.sum()),
+                        masked_in=int(mask.sum()), occupied=int(occ.sum()),
+                        overfull=_overfull(pts, mask, geo, k))
+                    if kind == 'lidar_like' and dtype == torch.bfloat16 and k == cap:
+                        timed, path = (args, grid, occ, mask), checks[key]
+                        if bsz == 4:
+                            occ4 = occ
+                    if kind == 'crowded' and dtype == torch.bfloat16 and k == cap:
+                        crowded = args
         bad = {k: c for k, c in checks.items() if not (c['kept_equal'] and c['occ_equal']
+                                                       and c['same_bits_twice']
                                                        and c['outside_tolerance'] == 0)}
         print(f'{name}: kernel vs plain {json.dumps(checks)}', flush=True)
         if bad:
-            raise AssertionError(f'{name}: the kept set, the occupancy or the means differ {bad}')
+            raise AssertionError(f'{name}: the kept set, the occupancy or the means differ, or '
+                                 f'a second call differs {bad}')
         args, grid, occ, mask = timed
+        kw = dict(max_points_per_voxel=cap)
         # the mask, the xyz of each masked-in point, the other features of
         # each kept one, the grid and the occupancy out
         nbytes = (mask.numel() + int(mask.sum()) * 3 * 4
-                  + checks['lidar_like']['kept'] * (nf - 3) * 4 + grid.numel() * 2 + occ.numel())
+                  + path['kept'] * (nf - 3) * 4 + grid.numel() * 2 + occ.numel())
         rows.append(dict(
             name=name, route='cuda', source='mm_training_tpu_torch/csrc/voxelize.cu',
             replaces='mm_training_tpu/ops/voxelize.py:81 (+ models/sparse_encoder.py:136-150)',
-            max_abs_err=checks['lidar_like']['max_abs_err'],
+            max_abs_err=path['max_abs_err'],
             ms=device_ms(lambda: voxelize.sparse_encoder_input(*args, **kw), 100),
             call_ms=host_ms(lambda: voxelize.sparse_encoder_input(*args, **kw), 100),
             plain_ms=device_ms(lambda: voxelize.sparse_encoder_input_plain(*args, **kw), 10),
@@ -2793,6 +2811,35 @@ def check_sparse_kernels(cfg):
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes', library_ms=None,
             checks=checks, shape=list(args[0].shape), out_shape=list(grid.shape),
             dtype='bfloat16'))
+        del pts, mask, grid, occ, kept, again, w_grid, w_occ, w_kept, timed, crowded
+
+    # --- 2^24 points of one frame in one pillar: the kept set exactly the
+    # first K indices, the mean theirs (features whose sums are exact in
+    # fp32 in any order)
+    n = 2 ** 24
+    i = torch.arange(n, device=dev)
+    big = torch.zeros(1, n, nf, device=dev)
+    big[0, :, 3] = (i % 97).float()
+    big[0, :, 4] = (i * 37 % 1024).float() / 1024
+    big_mask = torch.ones(1, n, dtype=torch.bool, device=dev)
+    big_geo = ((-1.0, -1.0, -1.0, 1.0, 1.0, 1.0), (0.5, 0.5, 2.0), (4, 4))
+    big_args = (big, big_mask, *big_geo, nf, torch.float32, channels)
+    grid, occ, kept = voxelize.sparse_encoder_input(*big_args, max_points_per_voxel=cap,
+                                                    return_kept=True)
+    want = big[0, :cap].double().mean(0).float()
+    one_pillar = dict(
+        kept_first_k=bool(kept[0, :cap].all()) and not bool(kept[0, cap:].any()),
+        occupied=int(occ.sum()), mean_err=(grid[0, 2, 2, :nf] - want).abs().max().item(),
+        ms=device_ms(lambda: voxelize.sparse_encoder_input(*big_args,
+                                                           max_points_per_voxel=cap), 3))
+    print(f'sparse_encoder_input, 2^24 points in one pillar: {json.dumps(one_pillar)}',
+          flush=True)
+    if not (one_pillar['kept_first_k'] and one_pillar['occupied'] == 1
+            and one_pillar['mean_err'] <= 1e-5 * float(want.abs().max())):
+        raise AssertionError(f'sparse_encoder_input on 2^24 points in one pillar: {one_pillar}')
+    rows[0]['one_pillar_2_24'] = one_pillar
+    del big, big_mask, grid, occ, kept, i
+    torch.cuda.empty_cache()
 
     # --- masked A and A' at the largest tail: [4, 16, 256, 2048] bf16 (the
     # conv_input and stage-0 tails), the B=4 frames' occupancy as the mask

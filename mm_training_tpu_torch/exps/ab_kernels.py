@@ -1,5 +1,5 @@
-"""Kernels A', K4, K5, K1, K6, K2, K5', K4', K7' and K8/K8' of this
-package against another copy of it, in one process.
+"""Kernels A', K4, K5, K1, K6, K2, K5', K4', K7', K8/K8' and K1's sparse
+mode of this package against another copy of it, in one process.
 
 The other copy (for example an earlier commit unpacked with ``git archive``
 into a git-ignored directory) is imported under another module name and
@@ -46,11 +46,16 @@ this, this, other, on the same inputs:
 - K8 and K8' as ``lift_splat`` and ``lift_splat_backward`` at the B=1 and
   the B=4 raw-rig splat (the fake rig pitched by 3 degrees, bf16, depth
   channels-last and NCHW), with the bound of each; a copy without them gets
-  ``null``.
+  ``null``;
+- K1's sparse-input mode as ``sparse_encoder_input`` at B=1 and B=4 on the
+  frames of ``exps/ablate_backward.py::sparse_inputs`` (100k points a
+  frame: LiDAR-like, uniform, LiDAR-like with 20,000 points in one pillar),
+  caps 15 and 1, bf16 into the sparse encoder's 16 channels, with its
+  bound; the two copies' kept sets and occupancies held equal.
 
 ``--only`` takes a subset of {backward, lift_splat, deform_conv,
 encoder_input, camera_memory, depth_labels, heatmap, deform_backward,
-splat_backward, warp_backward, raw_splat}. ``--raw-rig`` measures
+splat_backward, warp_backward, raw_splat, sparse_input}. ``--raw-rig`` measures
 ``camera_memory`` on the raw-rig model (the general splat, the pitched rig;
 a copy that refuses it gets ``null``). Prints one JSON object with the
 card's name and power limit.
@@ -91,7 +96,7 @@ __all__ = ['main']
 
 SECTIONS = ('backward', 'lift_splat', 'deform_conv', 'encoder_input', 'camera_memory',
             'depth_labels', 'heatmap', 'deform_backward', 'splat_backward', 'warp_backward',
-            'raw_splat')
+            'raw_splat', 'sparse_input')
 
 
 def load_copy(path: str, name: str = 'mm_training_tpu_torch_other'):
@@ -417,6 +422,37 @@ def raw_splat_rows(other: str, gen: torch.Generator) -> list:
     return rows
 
 
+def sparse_input_rows(other: str) -> list:
+    """K1's sparse mode: ``sparse_encoder_input`` of both copies at B=1 and
+    B=4 on each frame of ``sparse_inputs``, caps 15 and 1, bf16 into 16
+    channels; the kept sets and occupancies of the copies held equal."""
+    from .ablate_backward import sparse_inputs
+    other_vox = importlib.import_module(f'{other}.ops.voxelize')
+    cfg = lidar_radar()
+    geo = (cfg.point_cloud_range, cfg.voxel_size, cfg.out_shape)
+    nf = cfg.get_lidar_conf().voxelization.num_features
+    rows = []
+    for (batch_size, frame), (pts, mask) in sparse_inputs().items():
+        for cap in (15, 1):
+            a = (pts, mask, *geo, nf, torch.bfloat16, 16)
+            kw = dict(max_points_per_voxel=cap)
+            grid, occ, kept = voxelize.sparse_encoder_input(*a, **kw, return_kept=True)
+            _, that_occ, that_kept = other_vox.sparse_encoder_input(*a, **kw, return_kept=True)
+            # the mask, the xyz of each masked-in point, the other features of
+            # each kept one, the grid and the occupancy out
+            nbytes = (mask.numel() + int(mask.sum()) * 3 * 4 + int(kept.sum()) * (nf - 3) * 4
+                      + grid.numel() * 2 + occ.numel())
+            row = {'batch_size': batch_size, 'frame': frame, 'cap': cap,
+                   'kept': int(kept.sum()), 'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3,
+                   'kept_equal_to_other': torch.equal(kept, that_kept),
+                   'occ_equal_to_other': torch.equal(occ, that_occ)}
+            row.update(_alternate(lambda: other_vox.sparse_encoder_input(*a, **kw),
+                                  lambda: voxelize.sparse_encoder_input(*a, **kw), 20))
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--other', required=True, help='directory of the other package copy')
@@ -451,6 +487,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         result['warp_backward'] = warp_backward_rows(other, gen)
     if 'raw_splat' in args.only:
         result['raw_splat'] = raw_splat_rows(other, gen)
+    if 'sparse_input' in args.only:
+        result['sparse_input'] = sparse_input_rows(other)
     other_aa = importlib.import_module(f'{other}.ops.affine_act')
     other_vp = importlib.import_module(f'{other}.ops.voxel_pooling')
 

@@ -1,10 +1,11 @@
 """Where the time of the kernels K5' (the DCN's whole backward), K4' (the
-splat's backward) and K8 / K8' (the raw-rig splat and its backward) goes,
-by ablation on the card.
+splat's backward), K8 / K8' (the raw-rig splat and its backward) and K1's
+sparse-input mode goes, by ablation on the card.
 
 Each variant is a copy of ``csrc/deform_conv.cu``,
-``csrc/lift_splat_backward.cu`` or ``csrc/lift_splat_raw.cu`` with one
-phase cut out (its results are wrong; only its time is read), built by
+``csrc/lift_splat_backward.cu``, ``csrc/lift_splat_raw.cu`` or
+``csrc/voxelize.cu`` with one phase cut out (its results are wrong; only
+its time is read), built by
 ``nvcc`` into ``_build/ablate/`` and swapped in for the module's library.
 Each is timed with :func:`~mm_training_tpu_torch.exps.timing.device_ms` on
 the same inputs: K5' at the B=1 and the B=4 ``lidar_cam_radar`` train
@@ -18,9 +19,11 @@ variants keep every phase and add timer stamps: for K5''s d x kernel the
 cycles block 0's first thread spends in each phase (its own work and its
 waits at the barrier that ends the phase), summed over its tiles; for K8
 the global timer at each of its grid barriers and at the last block's
-end, the grid's time in each of its five phases.
+end, the grid's time in each of its five phases; for K1's sparse mode the
+same at its three barriers, at B=1 and B=4 on LiDAR-like, uniform and
+crowded frames (``sparse_inputs``), bf16, cap 15.
 
-    python -m mm_training_tpu_torch.exps.ablate_backward [--only raw_splat]
+    python -m mm_training_tpu_torch.exps.ablate_backward [--only raw_splat sparse_input]
 
 A variant whose text no longer matches the source raises: update it with
 the kernel.
@@ -37,13 +40,15 @@ from unittest import mock
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs import lidar_cam_radar
-from ..ops import build, deform_conv, voxel_pooling
-from .kernel_inputs import (deform_inputs, deform_shape, raw_interval_stats, raw_splat_inputs,
-                            splat_inputs)
+from ..configs import lidar_cam_radar, lidar_radar
+from ..data import make_fake_batch
+from ..ops import build, deform_conv, voxel_pooling, voxelize
+from .kernel_inputs import (deform_inputs, deform_shape, lidar_like_points, raw_interval_stats,
+                            raw_splat_inputs, splat_inputs)
 from .timing import device_ms
 
-__all__ = ['DEFORM_VARIANTS', 'RAW_SPLAT_VARIANTS', 'SECTIONS', 'SPLAT_VARIANTS', 'main']
+__all__ = ['DEFORM_VARIANTS', 'RAW_SPLAT_VARIANTS', 'SECTIONS', 'SPARSE_VARIANTS',
+           'SPLAT_VARIANTS', 'main', 'sparse_inputs']
 
 Patch = List[Tuple[str, str]]
 
@@ -170,7 +175,49 @@ RAW_SPLAT_VARIANTS: Dict[str, Patch] = {
         ('        if (!((any >> u) & 1u)) continue;\n', '')],
 }
 RAW_CLOCK_PHASES = ('(a) count', '(b) sum segments', '(b) scan', '(c) scatter', '(d) gather')
-SECTIONS = ('deform_backward', 'splat_backward', 'raw_splat')
+
+# K1's sparse-input mode (csrc/voxelize.cu, sparse_kernel): 'phase clocks'
+# stamps the global timer at the kernel's start and after each grid barrier
+# (block 0) and at each block's end (the latest), read back by
+# read_phase_clocks: the grid's time in each phase. 'no zero rows' skips
+# the zero rows of the empty pillars (phase 2's output stream), 'no small
+# pillars' the pillars of at most four points.
+SPARSE_CLOCK_PHASES = ('1 count', '2 occupancy, zero rows, intervals, small pillars',
+                       '3 fill the intervals', '4 queued pillars')
+_SPARSE_STAMPS = ('  grid_barrier(p.barrier);\n\n  // --- 2: every pillar',
+                  '  grid_barrier(p.barrier);\n\n  // --- 3: each later arrival',
+                  '  grid_barrier(p.barrier);\n\n  // --- 4: the queued pillars')
+SPARSE_VARIANTS: Dict[str, Patch] = {
+    'kernels as built': [],
+    'phase clocks': [
+        ('namespace {\n\nconstexpr int kThreads = 256;',
+         '__device__ unsigned long long g_clk[8];\n'
+         '__device__ __forceinline__ unsigned long long gtime() {\n'
+         '  unsigned long long t;\n'
+         '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n'
+         '  return t;\n'
+         '}\n\n'
+         'namespace {\n\nconstexpr int kThreads = 256;'),
+        ("  // --- 1: count; each point's pillar and arrival ordinal\n",
+         f'  if (blockIdx.x == 0 && tid == 0) {{ g_clk[0] = gtime(); '
+         f'g_clk[{len(SPARSE_CLOCK_PHASES)}] = 0; }}\n'
+         "  // --- 1: count; each point's pillar and arrival ordinal\n"),
+        *((old, old.replace('grid_barrier(p.barrier);\n',
+                            'grid_barrier(p.barrier);\n'
+                            f'  if (blockIdx.x == 0 && tid == 0) g_clk[{i + 1}] = gtime();\n', 1))
+          for i, old in enumerate(_SPARSE_STAMPS)),
+        ('    warp_pillar<T>(p, __ldcg(p.wlist + q), lane);\n}\n',
+         '    warp_pillar<T>(p, __ldcg(p.wlist + q), lane);\n  __syncthreads();\n'
+         f'  if (tid == 0) atomicMax(&g_clk[{len(SPARSE_CLOCK_PHASES)}], gtime());\n}}\n'),
+        ('extern "C" const char* error_string(int code) {',
+         'extern "C" int read_phase_clocks(unsigned long long* out) {\n'
+         '  return (int)cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk));\n'
+         '}\n\n'
+         'extern "C" const char* error_string(int code) {')],
+    'no zero rows': [('      if (n == 0) zero_row<T>(p, o);\n', '')],
+    'no small pillars': [('      if (n <= kInline) small_pillar<T>(p, sl.x, n);\n', '')],
+}
+SECTIONS = ('deform_backward', 'splat_backward', 'raw_splat', 'sparse_input')
 
 
 def build_variants(source: str, variants: Dict[str, Patch]) -> Dict[str, ctypes.CDLL]:
@@ -312,6 +359,62 @@ def _raw_splat_rows(gen) -> List[dict]:
     return rows
 
 
+def sparse_inputs(batch_sizes=(1, 4)) -> Dict[Tuple[int, str], tuple]:
+    """{(batch size, frame): (points, mask)} on the card: ``lidar_radar``
+    frames of 100k points, LiDAR-like, uniform (``make_fake_batch``) and
+    LiDAR-like with 20,000 points of each frame in one pillar."""
+    cfg = lidar_radar(max_points_per_frame=100_000)
+    out = {}
+    for b in batch_sizes:
+        for kind in ('lidar_like', 'uniform', 'crowded'):
+            if kind == 'uniform':
+                batch = make_fake_batch(cfg, batch_size=b, seed=b)
+                out[(b, kind)] = (torch.as_tensor(batch['points'], device='cuda'),
+                                  torch.as_tensor(batch['point_mask'], device='cuda'))
+            else:
+                out[(b, kind)] = lidar_like_points(cfg, b, seed=b,
+                                                   crowd=20_000 if kind == 'crowded' else 0)
+    return out
+
+
+def _sparse_rows() -> List[dict]:
+    """K1's sparse mode of every variant at B=1 and B=4 on each frame of
+    :func:`sparse_inputs`, bf16 into the sparse encoder's 16 channels, the
+    cap of ``lidar_radar`` (15); the phase clocks the median of 5 calls."""
+    cfg = lidar_radar()
+    geo = (cfg.point_cloud_range, cfg.voxel_size, cfg.out_shape)
+    vconf = cfg.get_lidar_conf().voxelization
+    inputs = sparse_inputs()
+    libs = build_variants('voxelize', SPARSE_VARIANTS)
+    ref = voxelize._lib()
+    rows = []
+    for name, lib in libs.items():
+        lib = _like(lib, ref, ('pillar_encoder_input', 'sparse_encoder_input',
+                               'sparse_encoder_input_workspace', 'error_string'))
+        with mock.patch.object(voxelize, '_lib', lambda lib=lib: lib):
+            for (b, kind), (pts, mask) in inputs.items():
+                def fn(pts=pts, mask=mask):
+                    return voxelize.sparse_encoder_input(
+                        pts, mask, *geo, vconf.num_features, torch.bfloat16, 16,
+                        max_points_per_voxel=vconf.max_num_points)
+                row = {'kernel': 'sparse_encoder_input', 'variant': name, 'batch_size': b,
+                       'frame': kind, 'ms': device_ms(fn, 20)}
+                if name == 'phase clocks':
+                    calls = []
+                    for _ in range(5):
+                        fn()
+                        torch.cuda.synchronize()
+                        clk = (ctypes.c_ulonglong * 8)()
+                        build.check(lib, lib.read_phase_clocks(clk), 'read_phase_clocks')
+                        calls.append([(clk[i + 1] - clk[i]) / 1e6
+                                      for i in range(len(SPARSE_CLOCK_PHASES))])
+                    row['phase_ms'] = {ph: sorted(c[i] for c in calls)[2]
+                                       for i, ph in enumerate(SPARSE_CLOCK_PHASES)}
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    return rows
+
+
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--only', nargs='+', choices=SECTIONS, default=SECTIONS)
@@ -329,6 +432,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         rows += _splat_rows(gen)
     if 'raw_splat' in args.only:
         rows += _raw_splat_rows(gen)
+    if 'sparse_input' in args.only:
+        rows += _sparse_rows()
     return rows
 
 

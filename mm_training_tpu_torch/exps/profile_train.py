@@ -29,6 +29,11 @@ unless its fisheyes are virtualized.
 
 ``--ops-only`` prints only the device operations of one step after the
 warm-up (``exps/timing.py::device_ops``), as one JSON line.
+
+``--sparse-import`` trains the sparse-import LiDAR encoder on LiDAR-like
+points; with ``--beside-dense`` the dense encoder's step on the same batch
+runs beside it, the two step p50s taken in alternating rounds in one
+process, with each step's device ms and device ops.
 """
 from __future__ import annotations
 
@@ -126,6 +131,46 @@ def benchmark_train(train_step: Callable, state: TrainState, batch: Dict[str, An
             'losses': losses}
 
 
+def beside_dense(cfg, state, train_step, batch, steps: int, warmup: int, seed: int,
+                 rounds: int = 4) -> dict:
+    """The sparse-import step (``cfg``, ``state``, ``train_step``) and the
+    dense encoder's on the same batch: step p50 / p90 on the host clock in
+    ``rounds`` alternating rounds of ``steps`` steps each (PERF.md section 7:
+    two p50s only from one process, in turns), and each step's profiled
+    device ms and device ops."""
+    import dataclasses
+    dense_cfg = cfg.replace(lidar_conf=dataclasses.replace(cfg.get_lidar_conf(),
+                                                           variant='dense'))
+    dense_step = make_train_step(dense_cfg)
+    states = {'sparse': state, 'dense': create_train_state(
+        dense_cfg, BEVDepthLiDAR(dense_cfg, generator=torch.Generator().manual_seed(seed)))}
+    steps_fn = {'sparse': train_step, 'dense': dense_step}
+    for _ in range(warmup):
+        states['dense'], _ = dense_step(states['dense'], batch)
+    lat = {k: [] for k in states}
+    for r in range(rounds):
+        for label in (('sparse', 'dense') if r % 2 == 0 else ('dense', 'sparse')):
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                states[label], _ = steps_fn[label](states[label], batch)
+                torch.cuda.synchronize()
+                lat[label].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for label in states:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                states[label], _ = steps_fn[label](states[label], batch)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type.name == 'CUDA' and e.self_device_time_total > 0]
+        out[label] = {'p50_ms': float(np.percentile(lat[label], 50)),
+                      'p90_ms': float(np.percentile(lat[label], 90)), 'samples': len(lat[label]),
+                      'device_ms_per_step': sum(e.self_device_time_total for e in kernels)
+                      / 1e3 / steps,
+                      'device_ops_per_step': sum(e.count for e in kernels) / steps}
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--config', default='lidar_radar', choices=('lidar_radar', 'lidar_cam_radar'))
@@ -142,7 +187,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                    help='print only the device ops of one step after the warm-up')
     p.add_argument('--sparse-import', action='store_true',
                    help='the sparse-import LiDAR encoder on LiDAR-like points')
+    p.add_argument('--beside-dense', action='store_true',
+                   help='with --sparse-import: also the dense encoder\'s step on the same batch, '
+                        'the two in alternating rounds')
     args = p.parse_args(argv)
+    if args.beside_dense and not args.sparse_import:
+        raise SystemExit('--beside-dense goes with --sparse-import')
 
     cfg = getattr(variants, args.config)(
         batch_size=args.batch_size, max_points_per_frame=100_000,
@@ -210,6 +260,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     }
     if cfg.use_cam:
         result['depth_loss_forward_backward_ms'] = depth_loss_ms(cfg)
+    if args.beside_dense:
+        result['alternating_with_dense'] = beside_dense(cfg, state, train_step, batch,
+                                                        args.steps, args.warmup, args.seed)
     if (args.batch_size == 4 and args.config in BEFORE and not args.raw_rig
             and cfg.num_cameras == 4):
         result['before'] = BEFORE[args.config]

@@ -100,10 +100,6 @@ def check_card_limits(cfg: Config, device) -> None:
                              'card\'s sparse-import voxelization (kernel K1) caps a pillar at '
                              'between 1 and 2^31 - 1 points; change it or build the model on '
                              'the CPU')
-        if cfg.max_points >= voxelize.MAX_FRAME_POINTS:
-            raise ValueError(f'{cfg.max_points} points a frame: the card\'s sparse-import '
-                             'voxelization (kernel K1) takes fewer than 2^24; lower '
-                             'max_points_per_frame or build the model on the CPU')
 
 
 class BEVDepthLiDAR(nn.Module):

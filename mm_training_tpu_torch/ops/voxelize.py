@@ -18,11 +18,14 @@ Points stay float32 whatever the model's compute type: bf16 cannot resolve
 
 :func:`sparse_encoder_input` is K1's sparse-input mode, the front of the
 sparse-import encoder (``mm_training_tpu/models/sparse_encoder.py:136-150``):
-mmdet3d's first-K-points-in-input-order cap inside the kernel (a count, then
-the input-order rank within each overfull pillar only; exact, whatever order
-the atomics take), the means at full resolution in the compute dtype,
-channels-last and padded with zero channels, and the occupancy ``count > 0``
-as a [B, 1, ny, nx] bool tensor, the mask operand of kernel A's masked form.
+mmdet3d's first-K-points-in-input-order cap inside the kernel (integer
+counts, an interval of point indices for each pillar of more than four, the
+K smallest selected in time linear in a pillar's points; exact, whatever
+order the atomics take), the means at full resolution in the compute dtype,
+each summed in ascending input order by one owner (the same bits on every
+call), channels-last and padded with zero channels, and the occupancy
+``count > 0`` as a [B, 1, ny, nx] bool tensor, the mask operand of kernel
+A's masked form.
 Its plain version is the JAX package's formulation: the stable-sort rank
 (:func:`_first_k_mask`) narrowing the mask, then
 :func:`voxelize_pillars_dense_plain` with the count.
@@ -46,7 +49,6 @@ __all__ = ['pillar_encoder_input', 'pillar_encoder_input_plain', 'pillar_segment
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_FEATURES = 8    # features the kernel averages
 MAX_CHANNELS = 32   # output channels a pixel the kernel writes
-MAX_FRAME_POINTS = 2 ** 24   # the sparse mode's arrival ordinals are exact floats below it
 
 
 def _num_z_bins(pc_range: Sequence[float], voxel_size: Sequence[float]) -> int:
@@ -128,9 +130,10 @@ def _lib() -> ctypes.CDLL:
                                          f32, i32, i32, i32, i32, i32, i32, p, p, p, p]
     lib.pillar_encoder_input.restype = ctypes.c_int
     lib.sparse_encoder_input.argtypes = [p, p, i64, i64, i32, i32, f32, f32, f32, f32, f32,
-                                         f32, i32, i32, i32, i32, i32, i32, p, p, p, p, p, p,
-                                         p, p, p, p]
+                                         f32, i32, i32, i32, i32, i32, i32, p, p, p, p, p, p]
     lib.sparse_encoder_input.restype = ctypes.c_int
+    lib.sparse_encoder_input_workspace.argtypes = [i64, i64, i32, i32, p, p]
+    lib.sparse_encoder_input_workspace.restype = None
     return lib
 
 
@@ -310,7 +313,7 @@ def sparse_encoder_input(points: torch.Tensor, mask: torch.Tensor,
     the [B, P] bool kept set (the points averaged). CPU tensors take
     :func:`sparse_encoder_input_plain`; CUDA tensors launch the kernel once
     (float32 or bfloat16, at most 8 features and 32 channels, fewer than
-    2^24 points a frame) or raise."""
+    2^31 pillars and points a batch) or raise."""
     _check_points(points, mask, num_features, 'sparse_encoder_input')
     channels = num_features if channels is None else channels
     if channels < num_features:
@@ -330,10 +333,8 @@ def sparse_encoder_input(points: torch.Tensor, mask: torch.Tensor,
     b, p, f = points.shape
     ny, nx = grid_hw
     cells, n_pts = b * ny * nx, b * p
-    if cells >= 2 ** 31 or n_pts >= 2 ** 31 or p >= MAX_FRAME_POINTS:
-        raise ValueError(f'{what}: {cells} pillars and {n_pts} points, each below 2^31, '
-                         f'and {p} points a frame, below 2^24 (the most a pillar can count '
-                         'exactly)')
+    if cells >= 2 ** 31 or n_pts >= 2 ** 31:
+        raise ValueError(f'{what}: {cells} pillars and {n_pts} points, each below 2^31')
     points, mask = points.contiguous(), mask.contiguous()
     out = torch.empty((b, ny, nx, channels), dtype=dtype, device=points.device)
     occ = torch.empty((b, 1, ny, nx), dtype=torch.bool, device=points.device)
@@ -342,23 +343,19 @@ def sparse_encoder_input(points: torch.Tensor, mask: torch.Tensor,
     if cells == 0:
         return (out, occ, kept) if return_kept else (out, occ)
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    row = (num_features + 4) // 4 * 4
-
-    def up4(n):   # 16-byte aligned pieces of the float32 scratch
-        return (n + 3) // 4 * 4
-    sizes = (cells * row, cells, 2 * n_pts, n_pts, 1)   # acc, off, slot, idx, glob
-    starts = [0]
-    for n in sizes:
-        starts.append(starts[-1] + up4(n))
-    buf, barrier = build.scratch('voxelize_sparse', points.device, stream, starts[-1], 2)
-    acc, off, slot, idx, glob = (buf.data_ptr() + 4 * o for o in starts[:-1])
     lib = _lib()
+    words, zeroed = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.sparse_encoder_input_workspace(b, p, nx, ny, ctypes.byref(words), ctypes.byref(zeroed))
+    # int32 scratch in the float32 buffer; the zeroed words (the grid
+    # barrier's and the per-pillar counts) are zero again after every call
+    buf, zero = build.scratch('voxelize_sparse', points.device, stream, words.value,
+                              zeroed.value)
     with torch.cuda.device(points.device):
         code = lib.sparse_encoder_input(
             points.data_ptr(), mask.data_ptr(), b, p, f, num_features,
             pc_range[0], pc_range[1], pc_range[2], voxel_size[0], voxel_size[1],
-            voxel_size[2], nx, ny, nz, int(max_points_per_voxel), _DTYPES[dtype], channels, acc, off, slot, idx,
-            glob, barrier.data_ptr(), out.data_ptr(), occ.data_ptr(),
+            voxel_size[2], nx, ny, nz, int(max_points_per_voxel), _DTYPES[dtype], channels,
+            buf.data_ptr(), zero.data_ptr(), out.data_ptr(), occ.data_ptr(),
             None if kept is None else kept.data_ptr(), stream)
     build.check(lib, code, what)
     sparse_encoder_input.launches += 1

@@ -1113,15 +1113,19 @@ def _sparse_points(gen, kind, batch_size):
 @pytest.mark.parametrize('kind', ['lidar_like', 'uniform', 'crowded'])
 @pytest.mark.parametrize('batch_size', [1, 4])
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('cap', [15, 1])
+@pytest.mark.parametrize('cap', [15, 1, 1000, 5000])
 def test_sparse_encoder_input_kernel_matches_plain(gen, kind, batch_size, dtype, cap):
     """K1's sparse-input mode at B=1 and B=4 (100k points a frame on the
     full 256 x 2048 grid; LiDAR-like frames with pillars of up to ~450
-    points, the same with 20,000 points in one pillar, and uniform ones
-    with few points a pillar): the kept set of
-    the first-K cap and the occupancy bit for bit, the same bits on a
-    second call; the means within one bf16 ulp plus K1's atomic-order
-    slack; the pad zero; one launch a call."""
+    points, the same with 20,000 points in one pillar of every frame, and
+    uniform ones with few points a pillar), at caps that take the warp
+    selection (15, 1; a block's warps for the crowded pillar), the block's
+    sort (1000: every pillar of more than four points) and its radix select
+    and walk in input order (1000 and 5000 on the crowded pillar): the kept
+    set of the first-K cap
+    and the occupancy bit for bit, the means within one bf16 ulp plus K1's
+    slack (the plain version's atomics add in no fixed order), the pad zero,
+    one launch a call, and every output the same bits on a second call."""
     pts, mask, geo = _sparse_points(gen, kind, batch_size)
     args = (pts, mask, *geo, 5, dtype, 16)   # the sparse encoder's 16 channels
     kw = dict(max_points_per_voxel=cap, return_kept=True)
@@ -1132,30 +1136,49 @@ def test_sparse_encoder_input_kernel_matches_plain(gen, kind, batch_size, dtype,
     assert grid.shape == (batch_size, 256, 2048, 16) and grid.dtype == dtype
     assert occ.shape == (batch_size, 1, 256, 2048) and occ.dtype == torch.bool
     assert torch.equal(kept, w_kept) and torch.equal(occ, w_occ)
-    if kind != 'uniform':
-        assert int(kept.sum()) < int(mask.sum())       # the cap acted
+    g = 256 * 2048
+    seg = voxelize.pillar_segments(pts, mask, *geo)
+    frames = seg + torch.arange(batch_size, device='cuda')[:, None] * (g + 1)
+    counts = torch.bincount(frames.flatten(), minlength=batch_size * (g + 1))
+    fullest = int(counts.view(batch_size, g + 1)[:, :g].max())
+    assert (int(kept.sum()) < int((seg < g).sum())) == (fullest > cap)   # the cap acted
     assert _k1_outside_tolerance(grid, w_grid) == 0
     assert not grid[..., 5:].any() and grid[..., :5].abs().sum() > 0
-    _, occ2, kept2 = voxelize.sparse_encoder_input(*args, **kw)
-    assert torch.equal(kept2, kept) and torch.equal(occ2, occ)
+    grid2, occ2, kept2 = voxelize.sparse_encoder_input(*args, **kw)
+    assert torch.equal(grid2, grid) and torch.equal(kept2, kept) and torch.equal(occ2, occ)
 
 
-def test_sparse_encoder_input_refuses_2_24_points_a_frame(gen):
-    """A pillar's arrival slots are float counts, exact below 2^24: a frame
-    of 2^24 points is refused before a launch."""
-    pts = torch.zeros(1, 1, 5, device='cuda').expand(1, 2 ** 24, 5)
-    mask = torch.ones(1, 1, dtype=torch.bool, device='cuda').expand(1, 2 ** 24)
+@pytest.mark.parametrize('cap', [15, 5000])
+def test_sparse_encoder_input_2_24_points_in_one_pillar(gen, cap):
+    """A frame of 2^24 points, all masked in and all in one pillar (the
+    selection's worst case; no longer refused now that the counts are
+    integers): the kept set is exactly the first K indices, the mean theirs,
+    one launch."""
+    n = 2 ** 24
+    pts = torch.zeros(1, n, 5, device='cuda')
+    i = torch.arange(n, device='cuda')
+    # features whose sums are exact in fp32 in any order: the mean is one rounding
+    pts[0, :, 3] = (i % 97).float()
+    pts[0, :, 4] = (i * 37 % 1024).float() / 1024
+    mask = torch.ones(1, n, dtype=torch.bool, device='cuda')
+    geo = ((-1.0, -1.0, -1.0, 1.0, 1.0, 1.0), (0.5, 0.5, 2.0), (4, 4))
     before = voxelize.sparse_encoder_input.launches
-    with pytest.raises(ValueError, match='below 2\\^24'):
-        voxelize.sparse_encoder_input(pts, mask, (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
-                                      (0.5, 0.5, 2.0), (4, 4), max_points_per_voxel=15)
-    assert voxelize.sparse_encoder_input.launches == before
+    grid, occ, kept = voxelize.sparse_encoder_input(pts, mask, *geo, 5, torch.float32, 8,
+                                                    max_points_per_voxel=cap,
+                                                    return_kept=True)
+    assert voxelize.sparse_encoder_input.launches == before + 1
+    assert kept[0, :cap].all() and not kept[0, cap:].any()
+    assert occ.sum() == 1 and occ[0, 0, 2, 2]
+    want = pts[0, :cap].double().mean(0).float()
+    torch.testing.assert_close(grid[0, 2, 2, :5], want, rtol=1e-5, atol=1e-6)
+    assert not grid[0, 2, 2, 5:].any() and int((grid != 0).any(-1).sum()) == 1
 
 
 def test_sparse_encoder_input_empty_out_of_range_and_one_device_op(gen):
     """No masked-in point, and every point outside the grid: zeros, no
     occupied pillar, nothing kept; calls at other batch sizes in turn see
-    their own points only; one device op a call."""
+    their own points only (the counts the kernel leaves zero), at rows that
+    are and are not a multiple of 16 bytes; one device op a call."""
     from mm_training_tpu_torch.exps.timing import device_ops_in_child
     pts, mask, geo = _sparse_points(gen, 'lidar_like', 2)
     far = pts.clone()
@@ -1165,12 +1188,13 @@ def test_sparse_encoder_input_empty_out_of_range_and_one_device_op(gen):
                                                         max_points_per_voxel=15,
                                                         return_kept=True)
         assert not grid.any() and not occ.any() and not kept.any()
-    for p, m in ((pts, mask), (pts[:1], mask[:1]), (pts, mask)):
-        kw = dict(max_points_per_voxel=15, return_kept=True)
-        got = voxelize.sparse_encoder_input(p, m, *geo, 5, torch.float32, 8, **kw)
-        want = voxelize.sparse_encoder_input_plain(p, m, *geo, 5, torch.float32, 8, **kw)
-        assert torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
-        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for dtype, channels in ((torch.float32, 8), (torch.bfloat16, 5), (torch.float32, 6)):
+        for p, m in ((pts, mask), (pts[:1], mask[:1]), (pts, mask)):
+            kw = dict(max_points_per_voxel=15, return_kept=True)
+            got = voxelize.sparse_encoder_input(p, m, *geo, 5, dtype, channels, **kw)
+            want = voxelize.sparse_encoder_input_plain(p, m, *geo, 5, dtype, channels, **kw)
+            assert torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+            assert _k1_outside_tolerance(got[0], want[0]) == 0
     ops, = device_ops_in_child([[('ops.voxelize', 'sparse_encoder_input', (pts, mask, *geo),
                                   dict(dtype=torch.bfloat16, channels=8,
                                        max_points_per_voxel=15))]])
