@@ -207,7 +207,28 @@ Phases, each raising on failure:
      1e-3 m), the folded model (the sparse encoder's 21 BNs unfolded) within
      2e-3, and ``exps.parity`` on the phase-20 tree (one variant, one ODD, 2
      batches) writing both reports; cv2, PIL, jax and mm_training_tpu not
-     imported.
+     imported;
+ 38. (run after phase 31) data parallelism on a one-rank NCCL process group
+     (``parallel/``): the full-width ``lidar_cam_radar`` train step at B=4
+     through the collective code path (global BN statistics, normalizers,
+     bucketed gradient all-reduce): 2 bf16 steps and an eval step with
+     every kernel's launch count reset before and read after (A, A', K1,
+     K2, K4, K4', K5, K5', K6, K7, K7' and K3 launched), the all-reduces of
+     one step and their bytes, the step p50 against the plain step (no
+     group) in alternating rounds, the gradient all-reduce's device time;
+     its float32 twin (TF32 off) against the plain step from the same
+     weights, batch and draws (the plain step's own run-to-run difference
+     printed beside it);
+ 39. two processes in a gloo group on the one card (CUDA tensors, gloo
+     all-reduces; NCCL takes no two ranks on one device): the full-width
+     ``lidar_radar`` float32 step at B=2 a rank against the one-process step
+     at B=4 on the same 4 frames, the ranks' parameters the same bits, A
+     and A' launched on each rank;
+ 40. (on the phase-20 tree) ``exps.train`` under ``torchrun
+     --nproc_per_node 1`` (``lidar_radar``, B=4, 2 steps, a val pass, the
+     test pass on 'best'): rank 0's one checkpoint and ``config.json``,
+     finite test metrics. Phases 38-40 each print their wall seconds
+     (``phase_s``) in the data-parallel summary line.
 Each path's device-op count is printed beside the count before the
 one-launch K6 and K2 (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -226,6 +247,8 @@ from unittest import mock
 import numpy as np
 import torch
 
+from mm_training_tpu_torch.exps.step_checks import (step_comparison, step_diffs,
+                                                     within_step_tolerances)
 from mm_training_tpu_torch.exps.timing import BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S
 
 SEED = 0
@@ -1004,23 +1027,8 @@ def compare_cpu_train(cfg=None, pitch_deg=0.0):
     ws, wm = step(create_train_state(cfg, cpu_model), batch, draws['cpu'])
     lr = cfg.learning_rate
     loss_rel = abs(float(gm['train_loss']) - float(wm['train_loss'])) / float(wm['train_loss'])
-    worst_all = worst_strong = stats_err = 0.0
-    for (n, p_gpu), p_cpu, mu in zip(gpu_model.named_parameters(), cpu_model.parameters(),
-                                     ws.optimizer.mu):
-        d = ((p_gpu.detach().cpu() - old[n]) - (p_cpu.detach() - old[n])).abs()
-        worst_all = max(worst_all, d.max().item())
-        # fp32 gradients of a random init are ill-conditioned (BN subtracts a
-        # near-constant gradient, so sums in another order move small entries
-        # by up to ~10% of a tensor's largest): hold the update to 1e-3 lr
-        # only where |g| is a quarter of its tensor's largest or more and
-        # 400 x Adam's eps or more, where Adam's step is sign(g) to 1e-3
-        g = mu.abs() / 0.1
-        strong = (g >= 0.25 * g.max()) & (g >= 400 * 1e-8)
-        worst_strong = max(worst_strong, torch.where(strong, d, 0.0).max().item())
-    for (n, b_gpu), b_cpu in zip(gpu_model.named_buffers(), cpu_model.buffers()):
-        if n.endswith(('running_mean', 'running_var')):
-            stats_err = max(stats_err, ((b_gpu.cpu() - b_cpu).abs()
-                                        / (1 + b_cpu.abs())).max().item())
+    worst_all, worst_strong, stats_err, _ = step_diffs(gpu_model, cpu_model, old,
+                                                       ws.optimizer.mu)
     print(f'tiny fp32 train step card vs CPU (camera {cfg.use_cam}, raw rig '
           f'{not cfg.get_backbone_conf().factorized_splat}): loss rel diff '
           f'{loss_rel:.3g}, update diff {worst_all / lr:.4g} lr everywhere, '
@@ -3207,6 +3215,284 @@ def run_import(root):
             return json.load(f)
 
 
+# --- phases 38-40: data parallelism (parallel/, torch.distributed)
+
+# the kernels of the camera train step through the collective code path
+# (phase 38); K3 is the eval step's
+DDP_KERNELS = ('affine_act', 'affine_act_backward', 'pillar_encoder_input', 'draw_heatmap',
+               'lift_splat_factorized', 'lift_splat_factorized_backward', 'deform_conv3x3',
+               'deform_conv3x3_backward', 'depth_labels', 'bda_bev_warp', 'warp_backward',
+               'circle_nms_mask')
+GLOO_KERNELS = ('affine_act', 'affine_act_backward')
+
+
+@contextlib.contextmanager
+def _without_group():
+    """The port's steps as one process with no group: ``torch.distributed``
+    reports none, so no collective runs (the plain step of phase 38)."""
+    with mock.patch.object(torch.distributed, 'is_initialized', lambda: False):
+        yield
+
+
+def _kill_all(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def train_ddp_one_rank(cfg, rounds=2, steps=3):
+    """Phase 38: a one-rank NCCL process group on the card (a file store),
+    and the full-width ``lidar_cam_radar`` train step at B=4 through the
+    collective code path (global BN statistics, normalizers, the gradient
+    buckets and the losses all-reduced over the group of one). bf16: 2 steps
+    and one eval step with every kernel's launch count reset before and read
+    after (each kernel of the camera train path launched), the all-reduces
+    of one step with their bytes, the step p50 against the plain step (no
+    group) in ``rounds`` alternating rounds of ``steps`` steps, and the
+    device time of the gradient all-reduce alone. Its float32 twin (TF32
+    off) from the same weights, batch and draws equals the plain step
+    (:func:`within_step_tolerances`); the plain step's own run-to-run
+    difference is printed beside it."""
+    import tempfile
+
+    from mm_training_tpu_torch import parallel
+    from mm_training_tpu_torch.exps.profile_train import train_batch
+    from mm_training_tpu_torch.exps.timing import device_ms
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import (create_train_state, make_eval_step,
+                                                make_train_step)
+
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.initialize(backend='nccl', device='cuda:0',
+                            init_method=f'file://{os.path.join(tmp, "rendezvous")}',
+                            world_size=1, rank=0)
+        try:
+            cfg = cfg.replace(batch_size=4)
+            model = BEVDepthLiDAR(cfg, device='cuda',
+                                  generator=torch.Generator().manual_seed(SEED + 40))
+            state = create_train_state(cfg, model)
+            train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
+            batch = train_batch(cfg, SEED + 41)
+            wrappers = _wrappers()
+            for w in wrappers.values():
+                w.launches = 0
+            parallel.reset_counts()
+            state, m1 = train_step(state, batch)
+            torch.cuda.synchronize()
+            per_step = dict(parallel.COUNTS)
+            state, m2 = train_step(state, batch)
+            ev, (boxes, _, _, _), _ = eval_step(state, batch)
+            torch.cuda.synchronize()
+            counts = {n: w.launches for n, w in wrappers.items()}
+            missing = [n for n in DDP_KERNELS if counts[n] == 0]
+            if missing:
+                raise AssertionError(f'kernels never launched on the DDP camera path: {missing}')
+            losses = [float(m['train_loss']) for m in (m1, m2)] + [float(ev['loss'])]
+            if not (np.isfinite(losses).all() and torch.isfinite(boxes).all()):
+                raise AssertionError(f'non-finite DDP losses or boxes: {losses}')
+
+            lat = {'ddp': [], 'plain': []}
+            for r in range(rounds):
+                for label in (('ddp', 'plain') if r % 2 == 0 else ('plain', 'ddp')):
+                    ctx = _without_group() if label == 'plain' else contextlib.nullcontext()
+                    with ctx:
+                        for _ in range(steps):
+                            t0 = time.perf_counter()
+                            state, m = train_step(state, batch)
+                            float(m['train_loss'])
+                            lat[label].append((time.perf_counter() - t0) * 1e3)
+            grads = [torch.randn_like(p) for p in model.parameters()]
+            parallel.reset_counts()
+            parallel.all_reduce_buckets(grads)
+            grad_buckets = parallel.COUNTS['all_reduce']
+            grad_ms = device_ms(lambda: parallel.all_reduce_buckets(grads), 5)
+            out['bf16'] = {
+                'losses': losses, 'all_reduces_a_step': per_step['all_reduce'],
+                'all_reduce_bytes_a_step': per_step['all_reduce_bytes'],
+                'step_p50_ms': {k: float(np.percentile(v, 50)) for k, v in lat.items()},
+                'step_p90_ms': {k: float(np.percentile(v, 90)) for k, v in lat.items()},
+                'step_samples': {k: len(v) for k, v in lat.items()},
+                'grad_all_reduce_device_ms': grad_ms, 'grad_buckets': grad_buckets,
+                'grad_bytes': sum(g.numel() * 4 for g in grads)}
+            del state, model, grads
+            torch.cuda.empty_cache()
+
+            torch.backends.cudnn.allow_tf32 = False        # fp32 comparison: no TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            cfg32 = cfg.replace(precision='fp32')
+            gen = torch.Generator().manual_seed(SEED + 42)
+            ddp_model = BEVDepthLiDAR(cfg32, device='cuda', generator=gen)
+            _randomize_offsets(ddp_model, gen)
+            plain_models = [copy.deepcopy(ddp_model) for _ in range(2)]
+            old = {n: p.detach().cpu() for n, p in ddp_model.named_parameters()}
+            draws = _camera_draws(cfg32, batch['imgs'].shape, SEED + 43, 'cuda')
+            step32 = make_train_step(cfg32)
+            _, dm = step32(create_train_state(cfg32, ddp_model), batch, draws)
+            with _without_group():
+                plain = [step32(create_train_state(cfg32, m), batch, draws)
+                         for m in plain_models]
+            for label, got, got_m in (('ddp_vs_plain', ddp_model, dm),
+                                      ('plain_run_to_run', plain_models[1], plain[1][1])):
+                out[label] = step_comparison(got, got_m, plain_models[0], *plain[0], old)
+            del ddp_model, plain_models, plain
+            torch.cuda.empty_cache()
+        finally:
+            torch.distributed.destroy_process_group()
+    print('phase 38, the DDP camera train step on a one-rank NCCL group: '
+          + json.dumps(out), flush=True)
+    if not within_step_tolerances(out['ddp_vs_plain']):
+        raise AssertionError(f'the fp32 DDP step differs from the plain step: {out}')
+    return counts, out
+
+
+def _gloo_case():
+    """(config, model, batch) of phase 39: full-width ``lidar_radar`` in
+    float32 at B=4, a seeded model on the card, a fake batch of 4 frames."""
+    from mm_training_tpu_torch.configs import lidar_radar
+    from mm_training_tpu_torch.exps.profile_train import train_batch
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    cfg = lidar_radar(batch_size=4, max_points_per_frame=100_000, precision='fp32')
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=torch.Generator().manual_seed(SEED + 44))
+    return cfg, model, train_batch(cfg, SEED + 45)
+
+
+def gloo_rank_child(rank, world, rendezvous, result_file):
+    """Phase 39, one rank in a process of its own: a gloo group over CUDA
+    tensors on the one card, this rank's 2 of the 4 frames through the
+    float32 train step (TF32 off), every kernel's launch count reset before
+    and read after; writes the metrics, the parameters after the step, the
+    BN statistics and the counts."""
+    from mm_training_tpu_torch import parallel
+    from mm_training_tpu_torch.training import create_train_state, make_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize(backend='gloo', device='cuda:0', init_method=f'file://{rendezvous}',
+                        world_size=world, rank=rank)
+    try:
+        cfg, model, batch = _gloo_case()
+        cfg = cfg.replace(batch_size=cfg.batch_size // world)
+        state = create_train_state(cfg, model)
+        wrappers = _wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        parallel.reset_counts()
+        state, m = make_train_step(cfg)(state, parallel.shard_batch(batch, 'cuda:0'))
+        torch.cuda.synchronize()
+        torch.save({'metrics': {k: float(v) for k, v in m.items()},
+                    'params': {n: p.detach().cpu() for n, p in model.named_parameters()},
+                    'buffers': {n: b.cpu() for n, b in model.named_buffers()},
+                    'counts': {n: w.launches for n, w in wrappers.items()},
+                    'collectives': dict(parallel.COUNTS)}, result_file)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def train_gloo_two_ranks():
+    """Phase 39: two processes, gloo all-reduces of CUDA tensors on the one
+    card (NCCL takes no two ranks on one device): full-width ``lidar_radar``
+    in float32, B=2 a rank, against the one-process step at B=4 on the same
+    4 frames from the same weights (:func:`within_step_tolerances`; the
+    one-process step's own run-to-run difference printed beside it); the two ranks'
+    parameters the same bits; A and A' launched on each rank. A
+    collective gloo cannot carry fails the phase."""
+    import tempfile
+
+    from mm_training_tpu_torch.training import create_train_state, make_train_step
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [os.path.join(tmp, f'rank{r}.pt') for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, '-c', (
+            f'import chip_smoke; chip_smoke.gloo_rank_child({r}, 2, '
+            f'{os.path.join(tmp, "rendezvous")!r}, {files[r]!r})')]) for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            _kill_all(procs)
+        if any(rcs):
+            raise AssertionError(f'the gloo ranks failed: exit codes {rcs}')
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(f, weights_only=True) for f in files]
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, batch = _gloo_case()
+    old = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    models = [model, copy.deepcopy(model)]
+    plain = [make_train_step(cfg)(create_train_state(cfg, m), batch) for m in models]
+    got = copy.deepcopy(model)
+    with torch.no_grad():
+        for n, p in got.named_parameters():
+            p.copy_(ranks[0]['params'][n])
+        for n, b in got.named_buffers():
+            b.copy_(ranks[0]['buffers'][n])
+    same = all(torch.equal(ranks[0]['params'][n], ranks[1]['params'][n]) for n in old)
+    out = {'two_ranks_vs_one': step_comparison(got, ranks[0]['metrics'], model, *plain[0],
+                                               old),
+           'plain_run_to_run': step_comparison(models[1], plain[1][1], model, *plain[0], old),
+           'ranks_same_bits': same, 'wall_s': wall_s,
+           'all_reduces_a_rank': ranks[0]['collectives']['all_reduce'],
+           'all_reduce_bytes_a_rank': ranks[0]['collectives']['all_reduce_bytes'],
+           'launches_a_rank': [{n: r['counts'][n] for n in GLOO_KERNELS} for r in ranks]}
+    print('phase 39, two gloo ranks on the card against one process (lidar_radar fp32): '
+          + json.dumps(out), flush=True)
+    del model, models, plain, got
+    torch.cuda.empty_cache()
+    if not (within_step_tolerances(out['two_ranks_vs_one']) and same):
+        raise AssertionError(f'two gloo ranks differ from the one-process step: {out}')
+    if not all(r['counts'][n] for r in ranks for n in GLOO_KERNELS):
+        raise AssertionError(f'A or A\' not launched on each rank: {out}')
+    return {n: sum(r['counts'][n] for r in ranks) for n in ranks[0]['counts']}, out
+
+
+def run_torchrun_trainer(root):
+    """Phase 40: ``exps.train`` under ``torchrun --nproc_per_node 1`` on the
+    phase-20 tree (full-width ``lidar_radar``, B=4, 2 steps, a val pass, the
+    test pass on 'best'; the rank joins a one-rank NCCL group): the one
+    checkpoint and ``config.json`` written by rank 0, the printed test
+    metrics finite. The launcher runs in a session of its own, killed whole
+    if it outlives its time."""
+    import signal
+    import tempfile
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        argv = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+                '--nproc_per_node=1', '-m', 'mm_training_tpu_torch.exps.train',
+                '--config', 'lidar_radar', '--data-root', root, '--max-steps', '2',
+                'batch_size=4', 'num_workers=8', 'num_sanity_val_steps=0',
+                'latest_every_n_steps=0', f'out_path={out!r}', f'seed={SEED + 46}']
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            stdout, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f'exps.train under torchrun failed ({proc.returncode})')
+        lines = stdout.splitlines()
+        start = max(i for i, line in enumerate(lines) if line == '{')
+        metrics = json.loads('\n'.join(lines[start:lines.index('}', start) + 1]))
+        saved = sorted(os.listdir(os.path.join(out, 'saved_models', 'best')))
+        files = sorted(os.listdir(os.path.join(out, 'saved_models', 'best', saved[0])))
+        config_written = os.path.isfile(os.path.join(out, 'config.json'))
+    result = {'wall_s': wall_s, 'saved_best': saved, 'files': files,
+              'test_detection_loss': metrics.get('test_detection_loss'),
+              'test_ap_auc': metrics.get('test_ap_auc')}
+    print('phase 40, exps.train under torchrun --nproc_per_node 1 (lidar_radar, 2 steps): '
+          + json.dumps(result), flush=True)
+    if not (saved == ['2'] and files == ['metrics.json', 'state.pt'] and config_written
+            and 'test_ap_auc' in metrics and all(np.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f'exps.train under torchrun: {result}, metrics {metrics}')
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3274,6 +3560,12 @@ def main() -> int:
     for kw in (dict(use_cam=False), dict(use_cam=True)):
         compare_cpu_reference(tiny_test_config(**kw), fold=True)
     ema_train = train_ema(cam_cfg)
+    t_phase = time.perf_counter()
+    ddp_counts, ddp_train = train_ddp_one_rank(cam_cfg)
+    ddp_train['phase_s'] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    gloo_counts, gloo_train = train_gloo_two_ranks()
+    gloo_train['phase_s'] = time.perf_counter() - t_phase
 
     import shutil
     import tempfile
@@ -3286,6 +3578,9 @@ def main() -> int:
         cam_trainer = run_trainer(tree, 'lidar_cam_radar')
         runtime = run_runtime(tree)
         imported = run_import(tree)
+        t_phase = time.perf_counter()
+        torchrun_trainer = run_torchrun_trainer(tree)
+        torchrun_trainer['phase_s'] = time.perf_counter() - t_phase
     finally:
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(fisheye_tree, ignore_errors=True)
@@ -3305,6 +3600,9 @@ def main() -> int:
                         'train': {k: v for k, v in sparse_train.items() if k != 'counts'},
                         'import': {k: v for k, v in imported.items() if k != 'counts'}}),
           flush=True)
+    print(f'data-parallel phases (one-rank NCCL step, two gloo ranks, torchrun) on {card}: '
+          + json.dumps({'ddp_one_rank': ddp_train, 'gloo_two_ranks': gloo_train,
+                        'torchrun': torchrun_trainer}), flush=True)
     leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
     if leaked:
         raise AssertionError(f'chip_smoke imported {leaked}')
@@ -3326,7 +3624,9 @@ def main() -> int:
                    'trainer_runtime': runtime['counts'][name],
                    'serve_sparse': sparse_serve['counts'][name],
                    'train_sparse': sparse_train['counts'][name],
-                   'import_loop': imported['counts'][name]}
+                   'import_loop': imported['counts'][name],
+                   'train_ddp_one_rank': ddp_counts[name],
+                   'train_gloo_two_ranks': gloo_counts[name]}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,

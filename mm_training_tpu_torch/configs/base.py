@@ -43,6 +43,8 @@ class DepthNetConf:
     mid_channels: int = 512
     use_dcn: bool = True      # deformable conv in the depth branch (kernel K5)
     num_blocks: int = 3       # BasicBlocks in the depth branch
+    # the JAX config's field, which nothing of either package reads
+    aspp_mid_channels: int = -1  # -1 => mid_channels
 
 
 @dataclass(frozen=True)
@@ -289,6 +291,11 @@ class Config:
     use_ema: bool = False     # reference defines EMA but leaves it unregistered
     ema_decay: float = 0.9999
     use_tta: bool = False     # 4-way flip ensemble at eval/predict (training/tta.py)
+    # the JAX package's TPU mesh: a model axis that shards the BEV and
+    # several pod slices over DCN. Not ported: data parallelism is
+    # torch.distributed ranks (parallel/), and any other value raises
+    model_parallel: int = 1
+    num_slices: int = 1
     # K train steps a group of stacked batches (training/train_step.py::
     # make_train_step_multi); trailing batches take the single step
     steps_per_dispatch: int = 1
@@ -307,6 +314,13 @@ class Config:
     head_conf: Optional[HeadConf] = None
     lidar_conf: Optional[LidarEncoderConf] = None
     bda_aug_conf: BDAAugConf = field(default_factory=BDAAugConf)
+
+    def __post_init__(self):
+        for knob in ('model_parallel', 'num_slices'):
+            if getattr(self, knob) != 1:
+                raise ValueError(f'{knob}={getattr(self, knob)}: the TPU mesh is not ported; '
+                                 'the port is data-parallel over torch.distributed ranks '
+                                 '(launch with torchrun), so leave it at 1')
 
     # ------------------------------------------------------------------ derived
     @property

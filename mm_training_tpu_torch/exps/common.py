@@ -5,17 +5,43 @@ reference's argparse-over-Lightning-Trainer surface
 (exps/mm_training_aim.py:610-631): a named config variant plus key=value
 overrides, with the same reproducibility knobs (--seed; the config snapshot
 is written by the Trainer). The port adds ``--device`` (default: the card).
+
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) an entry point runs
+as one rank of a data-parallel group (:func:`process_group`): NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``; ``batch_size`` counts a
+rank's samples and only rank 0 prints the result.
 """
 from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import os
+from typing import Iterator, Optional, Sequence, Tuple
 
+import torch
+
+from .. import parallel
 from ..configs import Config, variants
 
-__all__ = ['build_config', 'make_parser', 'parse_args']
+__all__ = ['build_config', 'make_parser', 'parse_args', 'process_group']
+
+
+@contextlib.contextmanager
+def process_group(device=None) -> Iterator[torch.device]:
+    """This process's device: under ``torchrun`` it joins the process group
+    first (``parallel.initialize``; a group that cannot form raises) and
+    leaves it on exit; otherwise ``device`` as given (the card unless
+    'cpu')."""
+    if 'WORLD_SIZE' not in os.environ:
+        yield device
+        return
+    dev = parallel.initialize(device=device)
+    try:
+        yield dev
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def parse_args(argv: Optional[Sequence[str]] = None,
@@ -81,4 +107,7 @@ def build_config(args: argparse.Namespace) -> Config:
         kw['data_root'] = args.data_root
     if args.max_epochs is not None:
         kw['max_epochs'] = args.max_epochs
-    return factory(**kw)
+    try:
+        return factory(**kw)
+    except ValueError as e:    # a knob the port refuses (model_parallel, num_slices)
+        raise SystemExit(str(e)) from None

@@ -34,11 +34,18 @@ warm-up (``exps/timing.py::device_ops``), as one JSON line.
 points; with ``--beside-dense`` the dense encoder's step on the same batch
 runs beside it, the two step p50s taken in alternating rounds in one
 process, with each step's device ms and device ops.
+
+``--one-rank-group`` runs the step as the one rank of an NCCL process group
+(``parallel/``: the BN statistics, normalizers, gradients and losses
+all-reduced over the group of one) and adds the all-reduces a step and their
+bytes; the same command without it gives the plain step to set beside it.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .. import parallel
 from ..configs import raw_rig, variants
 from ..data import make_fake_batch, random_bda_matrices
 from ..models import BEVDepthLiDAR
@@ -190,10 +198,25 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument('--beside-dense', action='store_true',
                    help='with --sparse-import: also the dense encoder\'s step on the same batch, '
                         'the two in alternating rounds')
+    p.add_argument('--one-rank-group', action='store_true',
+                   help='the step as the one rank of an NCCL process group')
     args = p.parse_args(argv)
     if args.beside_dense and not args.sparse_import:
         raise SystemExit('--beside-dense goes with --sparse-import')
+    if not args.one_rank_group:
+        return _profile(args)
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.initialize(backend='nccl', device='cuda',
+                            init_method=f'file://{os.path.join(tmp, "rendezvous")}',
+                            world_size=1, rank=0)
+        try:
+            return _profile(args)
+        finally:
+            torch.distributed.destroy_process_group()
 
+
+def _profile(args) -> dict:
+    """:func:`main`'s measurements for its parsed ``args``."""
     cfg = getattr(variants, args.config)(
         batch_size=args.batch_size, max_points_per_frame=100_000,
         **({'num_cameras': args.cameras} if args.cameras else {}))
@@ -210,6 +233,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     for _ in range(args.warmup):
         state, _ = train_step(state, batch)
     torch.cuda.synchronize()
+    parallel.reset_counts()
+    state, _ = train_step(state, batch)
+    collectives = dict(parallel.COUNTS)
     if args.ops_only:
         box = [state]
 
@@ -242,14 +268,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
            for label, key in KERNEL_NAMES.items()}
     host = [e for e in events if e.device_type.name == 'CPU']
     top_host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    launches = sum(e.count for e in host if e.key.startswith('cudaLaunchKernel')) / args.steps
     result = {
         'device': torch.cuda.get_device_name(0), 'config': args.config,
         'raw_rig': args.raw_rig, 'sparse_import': args.sparse_import,
         'batch_size': args.batch_size, 'cameras': cfg.num_cameras if cfg.use_cam else 0,
-        'steps': args.steps, 'unprofiled': timed,
+        'steps': args.steps, 'unprofiled': timed, 'one_rank_group': args.one_rank_group,
+        'collectives_per_step': collectives,
         'wall_ms_per_step': wall_ms, 'device_ms_per_step': device_ms,
         'device_busy_share': device_ms / wall_ms,
         'device_ops_per_step': sum(e.count for e in kernels) / args.steps,
+        'kernel_launch_calls_per_step': launches,
+        'host_self_ms_per_step': sum(e.self_cpu_time_total for e in host) / 1e3 / args.steps,
         'top_device_ms_per_step': [
             (e.key[:80], e.self_device_time_total / 1e3 / args.steps, e.count / args.steps)
             for e in top_dev],

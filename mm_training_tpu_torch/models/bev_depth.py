@@ -7,9 +7,8 @@ variant``: the dense pillar encoder, or ``'sparse_import'``, the masked-dense
 replica of the reference's SparseEncoder whose weights import from its
 checkpoints), concatenated ``[camera, lidar]`` on channels and gated by
 ``BEVFuseLayer``, feed the CenterPoint head. Either branch alone feeds the
-head directly. Both BEVs sit on the head's grid/8 input by construction; the
-JAX package's bilinear resize for other grids is not ported and shapes that
-differ raise.
+head directly. Where the two grids differ, the LiDAR BEV is resized to the
+camera BEV's shape (``ops/warp.py::resize_bilinear``, JAX :91-92).
 """
 from __future__ import annotations
 
@@ -182,9 +181,7 @@ class BEVDepthLiDAR(nn.Module):
             bevs.append(self.lidar_encoder(points, point_mask, dtype))
         if len(bevs) == 2:
             if bevs[0].shape[2:] != bevs[1].shape[2:]:
-                raise ValueError(f'camera BEV {tuple(bevs[0].shape[2:])} and lidar BEV '
-                                 f'{tuple(bevs[1].shape[2:])} differ: the bilinear resize '
-                                 'between them is not ported')
+                bevs[1] = warp.resize_bilinear(bevs[1], bevs[0].shape[2:])
             fused = self.bev_fuse(torch.cat(bevs, dim=1))
         else:
             fused = bevs[0]

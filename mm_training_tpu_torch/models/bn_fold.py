@@ -11,7 +11,8 @@ the ReLU and, in a BasicBlock, the residual add that follow it:
   (N, H, W), computed with torch ops so that autograd carries their
   gradient, and the running statistics updated as flax does,
   ``0.9 * old + 0.1 * batch`` (no ``num_batches_tracked``, the biased
-  variance).
+  variance). In a process group the statistics are those of the global
+  batch, every rank's rows (:func:`group_moments`).
 
 With gradients on, the affine goes through :class:`~mm_training_tpu_torch.
 ops.affine_act.AffineAct` (kernel A forward, kernel A' backward).
@@ -41,12 +42,14 @@ import re
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops import affine_act
 
 __all__ = ['BatchNorm2d', 'FoldedBN', 'MaskedBatchNorm2d', 'StateCache', 'begin_step',
-           'conv_bn_pairs', 'fold_conv_bn', 'fold_model', 'fold_state']
+           'conv_bn_pairs', 'fold_conv_bn', 'fold_model', 'fold_state', 'group_moments']
 
 
 class StateCache:
@@ -71,6 +74,26 @@ class StateCache:
                 self.value = make()
             self.key = (key, extra)
         return self.value
+
+
+def group_moments(n: torch.Tensor, mean: torch.Tensor, m2: torch.Tensor):
+    """(mean, biased variance) [C] of the global batch from this rank's
+    count ``n`` [1], mean [C] and sum of squared deviations from it ``m2``
+    [C]: the ranks' rows meet in one all-reduce (each rank fills its own row
+    of a [world, 2C+1] matrix of zeros), and every rank combines them in
+    rank order as Chan et al.'s parallel variance, ``sum(m2_r + n_r (mean_r
+    - mean)^2) / sum(n_r)``, which adds no cancellation to the ranks' own
+    two-pass moments. Differentiable: the backward is the same all-reduce,
+    so each rank's input gradient sees the global statistics' gradient. A
+    global count of 0 gives NaN, as flax's masked mean does."""
+    world, rank = parallel.process_count(), parallel.process_index()
+    row = torch.cat([n, mean, m2])
+    rows = parallel.all_reduce_sum(F.pad(row[None], (0, 0, rank, world - 1 - rank)))
+    ch = mean.shape[0]
+    ns, means, m2s = rows[:, :1], rows[:, 1:ch + 1], rows[:, ch + 1:]
+    total = ns.sum(0)
+    global_mean = (ns * means).sum(0) / total
+    return global_mean, (m2s + ns * (means - global_mean) ** 2).sum(0) / total
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -102,9 +125,13 @@ class BatchNorm2d(nn.BatchNorm2d):
             (self.weight, self.bias, self.running_mean, self.running_var), self.eps, make)
 
     def batch_statistics(self, x: torch.Tensor, ct: torch.dtype):
-        """(mean, biased variance) [C] of ``x`` over (N, H, W) in ``ct``."""
+        """(mean, biased variance) [C] of ``x`` over (N, H, W) in ``ct``; in
+        a process group over every rank's rows (:func:`group_moments`)."""
         var, mean = torch.var_mean(x.to(ct), dim=(0, 2, 3), correction=0)
-        return mean, var
+        if not parallel.active():
+            return mean, var
+        n = mean.new_full((1,), x.numel() // x.shape[1])
+        return group_moments(n, mean, var * n)
 
     def batch_scale_shift(self, x: torch.Tensor, *stats_args):
         """(s, t) [C] from the batch statistics of ``x`` (and ``stats_args``,
@@ -155,7 +182,9 @@ class MaskedBatchNorm2d(BatchNorm2d):
     the mask already). Train mode takes flax's masked statistics in float32
     (float64 for float64 inputs), its fast form: ``mean = sum(m x) / sum(m)``,
     ``var = max(0, sum(m x^2) / sum(m) - mean^2)``; with no active pixel
-    both are NaN, as flax's ``mean(where=...)`` gives. eps 1e-3 and torch
+    both are NaN, as flax's ``mean(where=...)`` gives. In a process group
+    each rank's two-pass moments of its active pixels (none: zeros) are
+    combined over the ranks (:func:`group_moments`). eps 1e-3 and torch
     momentum 0.01 (flax 0.99): mmdet3d's SparseEncoder ``norm_cfg``. The
     running statistics update as :class:`BatchNorm2d` rounds them."""
 
@@ -165,6 +194,11 @@ class MaskedBatchNorm2d(BatchNorm2d):
     def batch_statistics(self, x: torch.Tensor, ct: torch.dtype, mask: torch.Tensor):
         xf = x.to(ct)
         m = mask.to(ct)
+        if parallel.active():
+            n = m.sum().reshape(1)
+            mean = (xf * m).sum((0, 2, 3)) / n.clamp_min(1.0)
+            d = (xf - mean.view(1, -1, 1, 1)) * m
+            return group_moments(n, mean, (d * d).sum((0, 2, 3)))
         n = m.sum()
         mean = (xf * m).sum((0, 2, 3)) / n
         mean2 = (xf * xf * m).sum((0, 2, 3)) / n

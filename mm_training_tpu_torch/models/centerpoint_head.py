@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from .. import parallel
 from ..configs import HeadConf
 from ..ops import circle_nms, gaussian
 from .resnet import ConvBN, ResNet
@@ -215,23 +216,31 @@ def detection_loss(conf: HeadConf, targets, preds: List[Dict[str, torch.Tensor]]
     targets: :func:`get_targets`'s lists; preds: list over tasks of dicts of
     NHWC float32 maps. ``sample_mask`` [B] drops padded eval samples from
     every sum and normalizer, so a padded batch's loss equals that of its
-    valid prefix. The normalizers are this process's sums (the JAX
-    package's ``pmean`` over devices becomes an all-reduce under data
-    parallelism, which the port does not run yet).
+    valid prefix. In a process group the normalizers (each task's positive
+    cells and objects) are summed over the ranks in one all-reduce and
+    clamped after the sum, as the JAX package's global-view step clamps the
+    global count; the loss is then this rank's share of the global batch's,
+    and the shares sum to it.
     """
     heatmaps, anno_boxes, inds, masks = targets
     sm = None if sample_mask is None else sample_mask.to(torch.float32)
     cw = torch.tensor(conf.train_cfg.code_weights, dtype=torch.float32,
                       device=anno_boxes[0].device)
-    total = 0.0
-    for t, pred in enumerate(preds):
-        hm_pred = clip_sigmoid(pred['heatmap'])                  # [B, H, W, C]
+    hm_ws, pos_counts, obj_ms = [], [], []
+    for t in range(len(preds)):
         hm_tgt = heatmaps[t].permute(0, 2, 3, 1)                 # NCHW -> NHWC
         pos = (hm_tgt == 1.0).to(torch.float32)
         hm_w = None if sm is None else sm[:, None, None, None]
-        num_pos = (pos if hm_w is None else pos * hm_w).sum()
-        loss_hm = gaussian_focal_loss(hm_pred, hm_tgt, torch.clamp_min(num_pos, 1.0),
-                                      weight=hm_w)
+        hm_ws.append(hm_w)
+        pos_counts.append((pos if hm_w is None else pos * hm_w).sum())
+        obj_ms.append(masks[t] if sm is None else masks[t] * sm[:, None])
+    counts = parallel.all_reduce_sum(torch.stack(pos_counts + [m.sum() for m in obj_ms]))
+    total = 0.0
+    for t, pred in enumerate(preds):
+        hm_pred = clip_sigmoid(pred['heatmap'])                  # [B, H, W, C]
+        hm_tgt = heatmaps[t].permute(0, 2, 3, 1)
+        loss_hm = gaussian_focal_loss(hm_pred, hm_tgt, torch.clamp_min(counts[t], 1.0),
+                                      weight=hm_ws[t])
 
         anno_pred = torch.cat([pred['reg'], pred['height'], pred['dim'], pred['rot'],
                                pred['vel']], dim=-1)             # [B, H, W, 10]
@@ -240,10 +249,9 @@ def detection_loss(conf: HeadConf, targets, preds: List[Dict[str, torch.Tensor]]
         gathered = torch.gather(flat, 1, inds[t][..., None].expand(-1, -1, flat.shape[-1]))
 
         tgt = anno_boxes[t]                                      # [B, K, 10]
-        obj_m = masks[t] if sm is None else masks[t] * sm[:, None]
         finite = torch.isfinite(tgt)
-        m = obj_m[..., None] * finite.to(torch.float32)
-        avg = torch.clamp_min(obj_m.sum(), 1e-4)
+        m = obj_ms[t][..., None] * finite.to(torch.float32)
+        avg = torch.clamp_min(counts[len(preds) + t], 1e-4)
         tgt_safe = torch.where(finite, tgt, 0.0)
         loss_bbox = (torch.abs(gathered - tgt_safe) * m * cw).sum() / avg
         total = total + loss_hm + conf.loss_bbox_weight * loss_bbox

@@ -9,8 +9,10 @@ about pixel (0, 0)) and ``hflip``. The CUDA source is
 ``csrc/bev_warp.cu``: one launch a call, which forms the pixel matrix (for
 ``bda_bev_warp``) and inverts it in closed form itself, so the path's warp
 needs no other device op and no host-to-device copy. ``resize_bilinear``
-is not ported: both BEVs sit on the grid/8 by construction, and the model
-raises where they would not.
+(:114-118) is ``jax.image.resize(..., 'bilinear')``, which antialiases
+when it shrinks: ``F.interpolate(mode='bilinear', antialias=True)``, in
+float32 and rounded to the map's dtype (PyTorch's CPU path has no bf16
+form of it). It is no TPU kernel and stays a library call.
 
 The inverse is the adjugate over the determinant, each product and sum
 rounded in one fixed order, and the bilinear blend is float32 in the JAX
@@ -39,11 +41,12 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
 __all__ = ['BevWarp', 'bda_bev_warp', 'bda_bev_warp_plain', 'bda_pixel_matrix', 'hflip',
-           'warp_affine_nhwc', 'warp_affine_nhwc_plain', 'warp_backward', 'warp_backward_plain']
+           'resize_bilinear', 'warp_affine_nhwc', 'warp_affine_nhwc_plain', 'warp_backward', 'warp_backward_plain']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -293,3 +296,12 @@ class BevWarp(torch.autograd.Function):
 def hflip(img: torch.Tensor) -> torch.Tensor:
     """Horizontal flip of [..., H, W, C]."""
     return torch.flip(img, dims=(-2,))
+
+
+def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize of an NCHW map to ``out_hw`` (align_corners False,
+    antialiased when it shrinks, as ``jax.image.resize`` is), computed in
+    float32 (float64 for a float64 map) and rounded to ``x``'s dtype."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    return F.interpolate(x.to(ct), size=tuple(out_hw), mode='bilinear', align_corners=False,
+                         antialias=True).to(x.dtype)

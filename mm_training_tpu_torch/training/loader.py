@@ -19,7 +19,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -63,12 +63,21 @@ class PrefetchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, seed: int = 0, drop_last: bool = True,
                  prefetch: int = 4, pad_last: bool = False,
+                 process_rows: Optional[Tuple[int, int]] = None,
                  worker_mode: str = 'thread'):
         """With ``pad_last`` (eval loaders), a short trailing batch is padded
         to full size by repeating its last sample and carries an 'n_valid'
-        host-only count (also as 'n_valid_global', the JAX loader's key for
-        a multi-process run's global count; the port's loader serves one
-        process) — fixed shapes, no dropped eval frames."""
+        host-only count — fixed shapes, no dropped eval frames.
+
+        ``process_rows`` (lo, hi): a data-parallel rank loads only rows
+        [lo, hi) of each global batch (``parallel.process_batch_bounds``),
+        the port of Lightning's DistributedSampler. The plan of global
+        batches (the shuffle's seed and epoch, the padding of the trailing
+        eval batch to the global size) is the same on every rank, so the
+        ranks load disjoint slices of it. ``batch_size`` is the global
+        batch; 'n_valid' and 'sample_valid' count the slice (a rank may hold
+        only padding rows of a trailing batch), 'n_valid_global' the global
+        batch's valid samples, which weight the pooled eval losses."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -77,6 +86,7 @@ class PrefetchLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.pad_last = pad_last
+        self.process_rows = process_rows
         if worker_mode not in ('thread', 'process'):
             raise ValueError(f'worker_mode {worker_mode!r}')
         self.worker_mode = worker_mode
@@ -146,6 +156,10 @@ class PrefetchLoader:
                     [indices, np.repeat(indices[-1:],
                                         self.batch_size - n_valid)])
             valid_rows = np.arange(self.batch_size) < n_valid
+            if self.process_rows is not None:
+                lo, hi = self.process_rows
+                indices = indices[lo:hi]
+                valid_rows = valid_rows[lo:hi]
             if self.worker_mode == 'process':
                 samples = self._process_pool().map(
                     _load_indexed, [(int(i), self.epoch) for i in indices])
@@ -154,6 +168,8 @@ class PrefetchLoader:
                                               indices))
             batch = collate_aim(samples)
             if self.pad_last:
+                # the slice's count for per-row consumers (mAP, the export),
+                # the global count for the pooled loss means
                 batch['n_valid'] = int(valid_rows.sum())
                 batch['n_valid_global'] = n_valid
                 # device-side validity: the eval step excludes padded

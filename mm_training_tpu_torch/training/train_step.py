@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import parallel
 from ..configs import Config
 from ..models import BEVDepthLiDAR, decode_boxes
 from ..models.bn_fold import begin_step
@@ -96,10 +97,15 @@ class TrainState:
 
 
 def create_train_state(cfg: Config, model: BEVDepthLiDAR, steps_per_epoch: int = 1000,
-                       global_batch_scale: int = 1) -> TrainState:
+                       global_batch_scale: Optional[int] = None) -> TrainState:
     """Step 0 with :func:`~mm_training_tpu_torch.training.optim.make_optimizer`
     over the model's parameters (in ``named_parameters`` order); with
-    ``use_ema`` the shadow starts as a copy of the model's state."""
+    ``use_ema`` the shadow starts as a copy of the model's state.
+    ``global_batch_scale`` defaults to the process group's size: ``batch_size``
+    counts a rank's samples, and the learning rate follows the global batch
+    (JAX ``trainer.py:168-176``)."""
+    if global_batch_scale is None:
+        global_batch_scale = parallel.process_count()
     opt = make_optimizer(cfg, model.parameters(), steps_per_epoch, global_batch_scale)
     ema = None
     if cfg.use_ema:
@@ -152,7 +158,9 @@ def depth_loss_fn(depth_labels: torch.Tensor, depth_preds: torch.Tensor,
     [B*N, D, fH, fW] (the port's: the model's key-frame depth), rounded to
     float32 first as the JAX step does (also under x64), clipped to [1e-7,
     1 - 1e-7]. ``sample_mask`` [B] drops a padded eval sample's pixels
-    exactly. Plain torch: the JAX package leaves it to XLA."""
+    exactly. In a process group the foreground count is the group's, as
+    :func:`~mm_training_tpu_torch.models.centerpoint_head.detection_loss`
+    takes its normalizers. Plain torch: the JAX package leaves it to XLA."""
     d = depth_labels.shape[-1]
     t = depth_labels.reshape(-1, d)
     p = depth_preds.float().permute(0, 2, 3, 1).reshape(-1, d).clamp(1e-7, 1 - 1e-7)
@@ -161,25 +169,32 @@ def depth_loss_fn(depth_labels: torch.Tensor, depth_preds: torch.Tensor,
         fg = fg * sample_mask.to(p.dtype).repeat_interleave(fg.shape[0] // sample_mask.shape[0])
     bce = -(t * torch.log(p) + (1 - t) * torch.log(1 - p))
     per_px = bce.sum(-1) * fg
-    return 3.0 * per_px.sum() / fg.sum().clamp_min(1.0)
+    return 3.0 * per_px.sum() / parallel.all_reduce_sum(fg.sum()).clamp_min(1.0)
 
 
 def draw_train_randoms(cfg: Config, imgs_shape, generator: torch.Generator,
-                       device) -> Dict[str, Any]:
+                       device, rows: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
     """A camera train step's random draws for images [B, S, N, ...] from
     ``generator`` (on ``device``): ``flipped`` [B*S*N] bool, each image
     flipped with probability 0.5 (JAX :124), and ``dropout``, ASPP's keep
     masks, one [B*N, mid, fH, fW] bool a sweep (channels-last memory, the
     activations' layout), each element kept with probability 0.5 (JAX
     ``nn.Dropout(0.5)``). Not the JAX package's bits: its tests pass JAX's
-    draws instead."""
+    draws instead.
+
+    With ``rows`` (lo, hi) the draws are those of the whole batch of B
+    samples and only samples [lo, hi) of them are kept: a data-parallel
+    rank, its generator seeded as every rank's, draws what one process
+    would draw for the global batch and takes its own rows (``flipped`` is
+    ordered by sample, sweep, camera; ``dropout`` by sample, camera)."""
     b, s, n = imgs_shape[:3]
+    lo, hi = (0, b) if rows is None else rows
     bb = cfg.get_backbone_conf()
     mid, (fh, fw) = bb.depth_net_conf.mid_channels, bb.feat_hw
     flipped = torch.rand(b * s * n, generator=generator, device=device) < 0.5
     keep = [(torch.rand(b * n, fh, fw, mid, generator=generator, device=device) < 0.5
-             ).permute(0, 3, 1, 2) for _ in range(s)]
-    return {'flipped': flipped, 'dropout': keep}
+             )[lo * n:hi * n].permute(0, 3, 1, 2) for _ in range(s)]
+    return {'flipped': flipped[lo * s * n:hi * s * n], 'dropout': keep}
 
 
 def loss_and_grads(cfg: Config, state: TrainState, batch: Dict[str, Any],
@@ -188,7 +203,15 @@ def loss_and_grads(cfg: Config, state: TrainState, batch: Dict[str, Any],
     ``named_parameters`` order (float32 masters), {'detection': loss,
     'depth': loss}). The loss is the detection loss plus, with the camera,
     the depth loss. Updates the BatchNorm running statistics in place. A
-    camera model takes ``draws`` (:func:`draw_train_randoms`)."""
+    camera model takes ``draws`` (:func:`draw_train_randoms`) for the
+    batch's rows.
+
+    In a process group (``parallel``) ``batch`` is this rank's rows of the
+    global batch; the BatchNorm statistics and the loss normalizers are the
+    global batch's, each rank's loss is its rows' share, and the gradients
+    and losses returned are summed over the ranks (the gradients in flat
+    buckets, one all-reduce each): every rank returns what one process
+    returns on the global batch."""
     model = state.model
     device = _device(model)
     targets = _targets(cfg, batch, device)
@@ -210,7 +233,9 @@ def loss_and_grads(cfg: Config, state: TrainState, batch: Dict[str, Any],
     det = detection_loss(cfg.get_head_conf(), targets, cast_floating(preds, torch.float32))
     dep = depth_loss_fn(labels, depth) if cfg.use_cam else torch.zeros((), device=device)
     loss = det + dep
-    grads = torch.autograd.grad(loss, params)
+    grads = parallel.all_reduce_buckets(torch.autograd.grad(loss, params))
+    if parallel.active():
+        loss, det, dep = parallel.all_reduce_sum(torch.stack([loss, det, dep]).detach())
     return loss.detach(), grads, {'detection': det.detach(), 'depth': dep.detach()}
 
 
@@ -229,8 +254,10 @@ def make_train_step(cfg: Config) -> Callable[..., Tuple[TrainState, Dict[str, to
     masters and BN statistics (JAX :244-250), at the post-increment step.
     A camera step's random draws are ``draws`` when given, else drawn from
     a generator the step owns, made on the model's device and seeded with
-    ``cfg.seed``. The state is updated in place (the JAX step donates its
-    input) and returned with ``step + 1``; ``metrics`` holds
+    ``cfg.seed``; in a process group each rank draws for the global batch
+    and keeps its rows (:func:`draw_train_randoms`). The state is updated
+    in place (the JAX step donates its input) and returned with ``step +
+    1``; ``metrics`` holds
     ``train_loss``, ``train_detection_loss``, ``train_depth_loss`` (0
     without the camera) and ``grad_norm`` (before clipping) as 0-dim
     tensors on the device, read without a host wait."""
@@ -241,7 +268,10 @@ def make_train_step(cfg: Config) -> Callable[..., Tuple[TrainState, Dict[str, to
         if cfg.use_cam and draws is None:
             device = _device(state.model)
             gen = own.setdefault(device, torch.Generator(device=device).manual_seed(cfg.seed))
-            draws = draw_train_randoms(cfg, batch['imgs'].shape, gen, device)
+            shape = tuple(batch['imgs'].shape)
+            world = parallel.process_count()
+            draws = draw_train_randoms(cfg, (shape[0] * world,) + shape[1:], gen, device,
+                                       parallel.process_batch_bounds(shape[0] * world))
         loss, grads, parts = loss_and_grads(cfg, state, batch, draws)
         grad_norm = state.optimizer.step(grads)
         state.step += 1
@@ -313,7 +343,9 @@ def make_eval_step(cfg: Config) -> Callable:
     viz)``: forward in eval mode on :func:`_eval_weights` (bf16 casts under
     ``precision == 'bf16'``; no image flipped; the flip ensemble under
     ``use_tta``), the detection loss and, with the camera, the depth loss, both with the
-    batch's optional ``sample_valid`` [B] mask, decode with circle NMS.
+    batch's optional ``sample_valid`` [B] mask (in a process group the losses
+    of the global batch, the same on every rank), decode with circle NMS of
+    the batch's rows.
     ``metrics``: ``detection_loss``, ``depth_loss`` (0 without the camera),
     ``loss``; ``viz``: ``heatmaps`` [T, H, W], each task's max-class heatmap
     of the first sample in sigmoid space, and with the camera ``depth`` [fH,
@@ -337,6 +369,8 @@ def make_eval_step(cfg: Config) -> Callable:
                              sample_mask=sample_valid)
         dep = (depth_loss_fn(labels, depth, sample_mask=sample_valid) if cfg.use_cam
                else torch.zeros((), device=device))
+        if parallel.active():
+            det, dep = parallel.all_reduce_sum(torch.stack([det, dep]))
         viz = {'heatmaps': torch.stack([torch.sigmoid(p['heatmap'][0].amax(-1))
                                         for p in preds])}
         if depth is not None:

@@ -1,8 +1,8 @@
 """Training runtime: epoch loop, checkpoints, early stopping, eval, export.
 
-The port of ``mm_training_tpu/training/trainer.py`` on one card, which
-re-designs the reference's Lightning wiring (exps/mm_training_aim.py:
-BEVDepthLightningModel + create_trainer):
+The port of ``mm_training_tpu/training/trainer.py``, on one card or as one
+rank of a data-parallel group, which re-designs the reference's Lightning
+wiring (exps/mm_training_aim.py: BEVDepthLightningModel + create_trainer):
   * fit: epoch loop over the train step, sanity val steps, per-epoch
     validation, top-k checkpoints by val_detection_loss + a 'latest'
     checkpoint every N steps (mm_training_aim.py:590-604), early stopping
@@ -38,7 +38,16 @@ pinned memory and to the card with ``non_blocking=True`` on a side stream
 while step i runs; the step's stream waits on the copy's event, and the
 tensors are marked as used by it.
 
-Waiting for a later slice: the multi-process helpers (data parallelism).
+Data parallelism (``parallel/``, a process group formed before the trainer
+is made, e.g. under ``torchrun``): each rank loads its rows of every global
+batch of ``batch_size`` x world samples, starts from rank 0's weights and
+runs the steps, whose statistics, normalizers and gradients are the global
+batch's (``training/train_step.py``); the learning rate follows the global
+batch. Rank 0 alone logs and writes ``config.json`` and the checkpoints
+(every rank waits for each write and reads it on restore); each rank exports
+the JSONs of its own rows; eval pools the ranks' mAP accumulations on rank
+0 and weights each batch's global losses by its global count of valid
+samples, so every rank sees the same val loss and stops at the same epoch.
 """
 from __future__ import annotations
 
@@ -55,7 +64,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import parallel, resolve_device
 from ..configs import CLASSES, Config, raw_rig
 from ..core.geometry import rig_is_row_independent
 from ..core.transforms import yaw_to_quat
@@ -65,7 +74,7 @@ from ..models import BEVDepthLiDAR
 from ..models.bn_fold import fold_state
 from ..models.torch_import import (convert_torchvision_resnet, load_reference_state_dict,
                                    merge_state_dict)
-from ..utils.logging import MetricsLogger
+from ..utils.logging import MetricsLogger, NullLogger
 from ..utils.profiling import StepTimer, profile_trace
 from ..utils.renderer import (draw_boxes_camera, draw_points_camera, render_bev,
                               render_depth_panel, render_heatmap_panel)
@@ -120,7 +129,8 @@ def initial_loop_state() -> dict:
 
 class Trainer:
     """Fit, validate and test one model on one device (default the card;
-    ``device='cpu'`` runs the kernels' plain versions)."""
+    ``device='cpu'`` runs the kernels' plain versions), alone or as this
+    process's rank of the process group."""
 
     def __init__(self, cfg: Config, data_root: Optional[str] = None,
                  datasets: Optional[Dict[str, object]] = None, device=None):
@@ -132,8 +142,9 @@ class Trainer:
         self._datasets = datasets or {}
         self._loaders: Dict[str, PrefetchLoader] = {}
         self.out_path = Path(cfg.output_path)
-        self.logger = MetricsLogger(self.out_path, cfg.experiment_name,
-                                    log_every=cfg.log_every_n_steps)
+        self.logger = (MetricsLogger(self.out_path, cfg.experiment_name,
+                                     log_every=cfg.log_every_n_steps)
+                       if parallel.is_main_process() else NullLogger())
         self._ckpt_writes: Dict[str, threading.Thread] = {}
         self._ckpt_errors: list = []
         self.global_step = 0
@@ -154,15 +165,18 @@ class Trainer:
         return self._datasets[split]
 
     def loader(self, split: str) -> PrefetchLoader:
-        """Host loader of ``cfg.batch_size`` batches. Eval loaders pad the
-        trailing batch (n_valid marker) so no frame is dropped from the
-        metric."""
+        """Host loader of this rank's ``cfg.batch_size`` rows of each global
+        batch of ``cfg.batch_size`` x world samples (JAX :125-146). Eval
+        loaders pad the trailing global batch (n_valid marker) so no frame
+        is dropped from the metric."""
         if split not in self._loaders:
             train = split == 'train'
+            global_bs = self.cfg.batch_size * parallel.process_count()
             self._loaders[split] = PrefetchLoader(
-                self.dataset(split), self.cfg.batch_size,
+                self.dataset(split), global_bs,
                 shuffle=train, num_workers=self.cfg.num_workers,
                 seed=self.cfg.seed, drop_last=train, pad_last=not train,
+                process_rows=parallel.process_batch_bounds(global_bs),
                 worker_mode=self.cfg.loader_worker_mode)
         return self._loaders[split]
 
@@ -177,7 +191,8 @@ class Trainer:
     # ---------------------------------------------------------------- setup
     def setup(self, steps_per_epoch: Optional[int] = None):
         """Fix the LR schedule's ``steps_per_epoch`` (default: the train
-        loader's length), build the steps and write ``config.json``."""
+        loader's length in global batches), build the steps and write
+        ``config.json`` (rank 0)."""
         if steps_per_epoch is None:
             try:
                 steps_per_epoch = max(1, len(self.loader('train')))
@@ -196,8 +211,9 @@ class Trainer:
         self.steps_per_epoch = steps_per_epoch
         self._build_steps()
         self.out_path.mkdir(parents=True, exist_ok=True)
-        with open(self.out_path / 'config.json', 'w') as f:
-            json.dump(dataclasses.asdict(self.cfg), f, indent=2, default=str)
+        if parallel.is_main_process():
+            with open(self.out_path / 'config.json', 'w') as f:
+                json.dump(dataclasses.asdict(self.cfg), f, indent=2, default=str)
 
     def _build_steps(self):
         cfg = self.cfg
@@ -217,7 +233,9 @@ class Trainer:
         ``ImageBackboneConf.pretrained``, that torchvision-format file is
         merged into the image backbone after the optimizer and the EMA
         shadow are made, as JAX :209-224 does: the shadow starts from the
-        random init."""
+        random init. In a process group every rank starts from rank 0's
+        parameters and floating buffers (one broadcast a bucket), and the
+        learning rate is scaled by the world size."""
         if not hasattr(self, '_train_step'):
             raise RuntimeError('call setup() before init_state()')
         cfg = self.cfg
@@ -230,6 +248,8 @@ class Trainer:
             self.cfg = raw_rig(cfg)
             self._build_steps()      # the splat is parameter-free: the same state
         model = BEVDepthLiDAR(self.cfg, device=self.device)
+        parallel.broadcast_buckets([t for t in model.state_dict().values()
+                                    if t.is_floating_point()])
         self.state = create_train_state(self.cfg, model, self.steps_per_epoch)
         pretrained = (self.cfg.use_cam and
                       self.cfg.get_backbone_conf().img_backbone_conf.pretrained)
@@ -259,14 +279,21 @@ class Trainer:
         keeps the ``save_top_k`` steps of least val_detection_loss,
         'latest' the newest step only. With ``async_checkpointing`` a thread
         writes a host copy of the state; a new save of ``name`` first waits
-        for the previous one."""
+        for the previous one. In a process group rank 0 writes, at once, and
+        every rank waits for the write before it goes on."""
         if self.state is None:
             return
-        self._join_write(name)
         root = self.out_path / 'saved_models' / name
         step = int(self.state.step)
-        snapshot = _state_to_dict(self.state, self.loop_state)   # host copy
         keep = self.cfg.save_top_k if name == 'best' else 1
+        if parallel.process_count() > 1:
+            if parallel.is_main_process():
+                _write_checkpoint(root, step, _state_to_dict(self.state, self.loop_state),
+                                  metrics, keep, name == 'best')
+            parallel.barrier()
+            return
+        self._join_write(name)
+        snapshot = _state_to_dict(self.state, self.loop_state)   # host copy
         args = (root, step, snapshot, metrics, keep, name == 'best')
         if not self.cfg.async_checkpointing:
             _write_checkpoint(*args)
@@ -459,13 +486,14 @@ class Trainer:
             metrics = {k: float(v) for k, v in metrics.items()}
             boxes, scores, labels, valid = (t.cpu().numpy() for t in out)
             self._accumulate_map(batch, boxes, scores, labels, valid)
-            if log and bi == 0:
+            if log and bi == 0 and parallel.is_main_process():
                 self._log_scene_panel(batch, boxes, scores, labels, valid, prefix, viz)
             if export:
                 self._export_results(batch, boxes, scores, labels, valid)
             # weight by valid samples so a padded trailing batch (pad_last)
-            # contributes proportionally, not as a full batch
-            w = int(batch.get('n_valid', boxes.shape[0]))
+            # contributes proportionally, not as a full batch; the global
+            # count (JAX :522-530): the losses are the global batch's
+            w = int(batch.get('n_valid_global', boxes.shape[0]))
             for k, v in metrics.items():
                 agg[k] = agg.get(k, 0.0) + v * w
             count += w
@@ -483,6 +511,15 @@ class Trainer:
         if pending is not None:
             consume(*pending)
         out = {f'{prefix}_{k}': v / max(count, 1) for k, v in agg.items()}
+        if parallel.process_count() > 1:
+            # pool the ranks' accumulations on rank 0 (JAX :552-560)
+            pooled = parallel.all_gather_object((self.map_calculator.gts,
+                                                 self.map_calculator.preds,
+                                                 self.map_calculator.img_names))
+            self.map_calculator.reset()
+            if parallel.is_main_process():
+                for gts, preds, names in pooled:
+                    self.map_calculator.update(gts, preds, names)
         if count and len(self.map_calculator):
             bev = self.map_calculator.compute_bev(iou_thr=0.3, x_range=cfg.point_cloud_range[3])
             out.update({f'{prefix}_{k}': float(v) for k, v in bev.items()})
@@ -574,7 +611,10 @@ class Trainer:
     def _log_train_viz(self, batch, device_batch, kdisp: int):
         """Decode the current train batch with the eval step and log its
         panels (reference: wandb Object3D/log_images every 200 train steps,
-        mm_training_aim.py:270-284)."""
+        mm_training_aim.py:270-284). Not in a process group of more than one
+        rank (JAX :641-644): the eval batches' panels remain."""
+        if parallel.process_count() > 1:
+            return
         try:
             if kdisp > 1:  # stacked [K, B, ...]: take the last batch
                 batch = {k: (v[-1] if isinstance(v, np.ndarray) else v)

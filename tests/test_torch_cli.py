@@ -16,11 +16,9 @@ from mm_training_tpu_torch.exps import inference, train
 from mm_training_tpu_torch.exps.common import build_config, parse_args
 
 # the JAX Config's fields the port has not taken yet, each with the module
-# that will read it; a field added to either Config shows in the diff below
-NOT_YET_PORTED = {
-    'model_parallel',         # the TPU mesh; DDP replaces data parallelism
-    'num_slices',             # the TPU mesh
-}
+# that will read it; a field added to either Config shows in the diff below.
+# None: model_parallel and num_slices are taken, and refuse any value but 1
+NOT_YET_PORTED = set()
 
 
 def test_config_fields_match_jax_but_the_listed_ones():
@@ -39,9 +37,9 @@ def test_config_fields_match_jax_but_the_listed_ones():
                     ckpt_path='x')).items() if k not in NOT_YET_PORTED})
 
 
-# fields of the JAX sub-configs the port has not taken: nothing in the JAX
-# package reads ``aspp_mid_channels`` (only its configs/base.py:55 names it)
-SUB_NOT_YET_PORTED = {'DepthNetConf': {'aspp_mid_channels'}}
+# fields of the JAX sub-configs the port has not taken: none
+# (``aspp_mid_channels``, which nothing in either package reads, is taken)
+SUB_NOT_YET_PORTED = {}
 
 
 @pytest.mark.parametrize('name', ['ImageBackboneConf', 'ImageNeckConf', 'DepthNetConf',
@@ -76,11 +74,23 @@ def test_variant_and_overrides():
 @pytest.mark.parametrize('argv', [['--config', 'nope'], ['--config', 'lidar_only', 'oops'],
                                   ['--config', 'lidar_only', 'model_parallel=2']])
 def test_bad_variant_or_override_errors(argv):
-    """An unknown variant, an override without '=', and a field the port's
-    Config does not have (the JAX CLI takes ``model_parallel``, a TPU-mesh
-    knob) exit."""
+    """An unknown variant, an override without '=', and a value the port's
+    Config refuses (``model_parallel`` other than 1: the TPU mesh is not
+    ported) exit."""
     with pytest.raises(SystemExit):
         build_config(parse_args(argv))
+
+
+@pytest.mark.parametrize('knob', ['model_parallel', 'num_slices'])
+def test_tpu_mesh_knobs_raise_naming_the_knob(knob):
+    """``model_parallel`` and ``num_slices`` take the JAX default 1; any
+    other value raises, naming the knob and saying the TPU mesh is not
+    ported, from the Config and through the CLI."""
+    assert getattr(tcfg.Config(), knob) == 1
+    with pytest.raises(ValueError, match=f'{knob}=2: the TPU mesh is not ported'):
+        tcfg.lidar_radar(**{knob: 2})
+    with pytest.raises(SystemExit, match=knob):
+        build_config(parse_args(['--config', 'lidar_only', f'{knob}=2']))
 
 
 def test_extra_flags_and_device():
