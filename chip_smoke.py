@@ -136,9 +136,11 @@ Phases, each raising on failure:
      step p50 and the busy share of one profiled epoch;
  26. ``exps.evaluate`` on its 'best' reproduces the recorded val loss within
      1e-4 relative and writes one aiMotive JSON a val frame;
- 27. 2 steps of ``exps.train`` with ``depth_gt_root`` on grids written here
-     (the min depth of each frame's own points in each camera's cells,
-     ``ops/depth_labels.py::min_depth_grid_plain``): K6's
+ 27. 2 steps of ``exps.train`` with ``depth_gt_root`` on grids the port's
+     ``scripts/gen_depth_gt.py`` writes in its aiMotive mode, held against
+     the card's projection of the same frames (K6's order of operations,
+     in float64: the same empty cells and depths; in float32, the former
+     writer here, the cells that differ counted): K6's
      ``depth_grid_to_onehot`` launched, its projection ``depth_labels`` not;
  28. cv2, PIL, jax and mm_training_tpu are not imported by these phases;
  29. TTA serving (``use_tta``, the 4-way flip ensemble) of full-width
@@ -228,7 +230,33 @@ Phases, each raising on failure:
      --nproc_per_node 1`` (``lidar_radar``, B=4, 2 steps, a val pass, the
      test pass on 'best'): rank 0's one checkpoint and ``config.json``,
      finite test metrics. Phases 38-40 each print their wall seconds
-     (``phase_s``) in the data-parallel summary line.
+     (``phase_s``) in the data-parallel summary line;
+ 41. the nuScenes path (``data/nuscenes_dataset.py``): a nuScenes tree at
+     nuScenes' sizes written by ``exps/nuscenes_tree.py`` (six 1600 x 900
+     JPEGs a sample by the port's encoder, cameras yawed 0, +-55, +-110 and
+     180 degrees with about 1 degree of roll and pitch; a LIDAR_TOP key
+     frame and 9 sweeps of 34,720 points; 40 boxes of the ten classes; 8
+     train and 4 val samples; the infos of ``scripts/gen_info.py``), then
+     ``scripts/gen_depth_gt.py --dataset nuscenes`` (the files and seconds);
+ 42. ``NuscMVDetDataset`` alone: host ms a sample of the JPEG decode, the
+     resize and the LiDAR with its sweeps, the loader's samples/s at B=4
+     with 8 threads;
+ 43. the repo's ``lidar_cam`` at full width on a raw rig with six cameras
+     and BEVDepth's six nuScenes tasks (``configs.nuscenes_tasks``), bf16
+     over float32 masters, trained at B=4 from that loader: 2 warm-up and
+     5 timed steps (step p50, samples/s, peak memory, each kernel's
+     launches a step: A, A', K1, K2, K5, K5', K6, K7, K7', K8 and K8' once a
+     step, K4 and K4' never), then one eval pass over the val samples into
+     the port's ``NuScenesEvaluator`` (mAP, NDS and the TP errors finite)
+     and ``format_results``;
+ 44. the LiDAR files removed, a camera-only nuScenes config with
+     ``depth_gt_root`` on the phase-41 bins: one full-width step with K6's
+     ``depth_grid_to_onehot`` launched, its depth loss unlike the same
+     batch's without ``depth_gt`` from the same weights;
+ 45. the fp32 tiny nuScenes config (six cameras, raw rig, six tasks) on the
+     card against the port's CPU path on a nuScenes batch: boxes within
+     1e-3, scores within 1e-4, one train step's loss within 1e-5. The five
+     phases print their seconds in the nuScenes summary line.
 Each path's device-op count is printed beside the count before the
 one-launch K6 and K2 (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -866,11 +894,12 @@ def compare_plain(model, request):
     return worst
 
 
-def compare_cpu_reference(cfg=None, bda=None, pitch_deg=0.0, fold=False):
-    """Phase 4b (and 9b, 16b with a camera config; 30b with ``fold``): the
-    fp32 tiny config on the card vs the port's CPU path; ``bda`` replaces
-    the batch's identity ``bda_mat``, ``pitch_deg`` pitches the rig's
-    cameras, ``fold`` folds both models' conv+BN pairs first."""
+def compare_cpu_reference(cfg=None, bda=None, pitch_deg=0.0, fold=False, batch=None):
+    """Phase 4b (and 9b, 16b with a camera config; 30b with ``fold``; 45
+    with a nuScenes ``batch`` in place of the fake one): the fp32 tiny
+    config on the card vs the port's CPU path; ``bda`` replaces the batch's
+    identity ``bda_mat``, ``pitch_deg`` pitches the rig's cameras, ``fold``
+    folds both models' conv+BN pairs first."""
     from mm_training_tpu_torch.configs import tiny_test_config
     from mm_training_tpu_torch.data import make_fake_batch
     from mm_training_tpu_torch.models import BEVDepthLiDAR
@@ -888,7 +917,8 @@ def compare_cpu_reference(cfg=None, bda=None, pitch_deg=0.0, fold=False):
         from mm_training_tpu_torch.models.bn_fold import fold_model
         fold_model(cpu_model)
         fold_model(gpu_model)
-    batch = make_fake_batch(cfg, seed=SEED + 2, pitch_deg=pitch_deg)
+    if batch is None:
+        batch = make_fake_batch(cfg, seed=SEED + 2, pitch_deg=pitch_deg)
     if bda is not None:
         batch['bda_mat'] = bda
     gb, gs, gl, gv = (o.cpu().numpy() for o in make_predict_step(cfg, gpu_model)(batch))
@@ -997,12 +1027,22 @@ def compare_plain_gradients(cfg, state, batch):
     return rel
 
 
-def compare_cpu_train(cfg=None, pitch_deg=0.0):
-    """Phase 6 (and 13, 19 with a camera config): the fp32 tiny config's
-    train step on the card against the port's CPU step (TF32 off); with the
-    camera, random DCN offsets, a rotated BEV augmentation and the same
-    random draws (flips, dropout) on both; ``pitch_deg`` pitches the rig's
-    cameras."""
+def compare_cpu_train(cfg=None, pitch_deg=0.0, batch=None, float64_floor=False):
+    """Phase 6 (and 13, 19 with a camera config; 45 with a nuScenes
+    ``batch`` in place of the fake one): the fp32 tiny config's train step
+    on the card against the port's CPU step (TF32 off); with the camera,
+    random DCN offsets, a rotated BEV augmentation and the same random
+    draws (flips, dropout) on both; ``pitch_deg`` pitches the rig's
+    cameras.
+
+    ``float64_floor``, for a batch whose float32 step is worse conditioned
+    than the fake batch's (the nuScenes batch of phase 45, 40 boxes a
+    sample): the step is also taken in float64 on the CPU, and in float32
+    on one CPU thread (another order of every sum); where the gradient is
+    strong the card's update is held to the float64 one within 1e-3 lr
+    plus twice the larger distance of the two CPU float32 updates from it
+    (measured on the CPU: 1.9e-3 lr on 3 or 8 threads, 3.0e-3 on one). A
+    fault moves a strong entry's update by ~lr (its sign)."""
     from mm_training_tpu_torch.configs import tiny_test_config
     from mm_training_tpu_torch.data import make_fake_batch, random_bda_matrices
     from mm_training_tpu_torch.models import BEVDepthLiDAR
@@ -1014,13 +1054,18 @@ def compare_cpu_train(cfg=None, pitch_deg=0.0):
     gen = torch.Generator().manual_seed(SEED + 5)
     cpu_model = BEVDepthLiDAR(cfg, device='cpu', generator=gen)
     _randomize_bn(cpu_model, gen)
-    batch = make_fake_batch(cfg, seed=SEED + 6, pitch_deg=pitch_deg)
+    fake = batch is None
+    if fake:
+        batch = make_fake_batch(cfg, seed=SEED + 6, pitch_deg=pitch_deg)
     draws = {'cuda': None, 'cpu': None}
     if cfg.use_cam:
         _randomize_offsets(cpu_model, gen)
-        batch['bda_mat'] = random_bda_matrices(cfg.batch_size, SEED + 38)
+        if fake:
+            batch['bda_mat'] = random_bda_matrices(cfg.batch_size, SEED + 38)
         draws = {d: _camera_draws(cfg, batch['imgs'].shape, SEED + 39, d) for d in draws}
     gpu_model = copy.deepcopy(cpu_model).to('cuda')
+    ref_model = copy.deepcopy(cpu_model).double() if float64_floor else None
+    one_thread_model = copy.deepcopy(cpu_model) if float64_floor else None
     old = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
     step = make_train_step(cfg)
     _, gm = step(create_train_state(cfg, gpu_model), batch, draws['cuda'])
@@ -1029,13 +1074,29 @@ def compare_cpu_train(cfg=None, pitch_deg=0.0):
     loss_rel = abs(float(gm['train_loss']) - float(wm['train_loss'])) / float(wm['train_loss'])
     worst_all, worst_strong, stats_err, _ = step_diffs(gpu_model, cpu_model, old,
                                                        ws.optimizer.mu)
+    floor = ''
+    strong_ok = worst_strong <= 1e-3 * lr
+    if float64_floor:
+        rs, _ = step(create_train_state(cfg, ref_model), batch, draws['cpu'])
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            step(create_train_state(cfg, one_thread_model), batch, draws['cpu'])
+        finally:
+            torch.set_num_threads(threads)
+        card64, cpu64, one64 = (step_diffs(m, ref_model, old, rs.optimizer.mu)[1]
+                                for m in (gpu_model, cpu_model, one_thread_model))
+        floor = (f'; against the float64 step where |g| is strong: the card {card64 / lr:.4g} '
+                 f'lr, the CPU float32 step {cpu64 / lr:.4g} lr ({one64 / lr:.4g} on one '
+                 'thread)')
+        strong_ok = card64 <= 1e-3 * lr + 2 * max(cpu64, one64)
     print(f'tiny fp32 train step card vs CPU (camera {cfg.use_cam}, raw rig '
           f'{not cfg.get_backbone_conf().factorized_splat}): loss rel diff '
           f'{loss_rel:.3g}, update diff {worst_all / lr:.4g} lr everywhere, '
-          f'{worst_strong / lr:.4g} lr where |g| is strong; BN stats {stats_err:.3g}',
+          f'{worst_strong / lr:.4g} lr where |g| is strong; BN stats {stats_err:.3g}{floor}',
           flush=True)
     # everywhere: two opposite Adam steps of lr (1 + weight decay) at most
-    if not (loss_rel <= 1e-5 and worst_all <= 2.001 * lr and worst_strong <= 1e-3 * lr
+    if not (loss_rel <= 1e-5 and worst_all <= 2.001 * lr and strong_ok
             and stats_err <= 1e-5):
         raise AssertionError('tiny fp32 train step on the card differs from the CPU step')
 
@@ -1983,41 +2044,75 @@ def write_tree(root, fisheye_root):
     return stats
 
 
-def write_depth_grids(root, out, cfg):
-    """The depth-GT mirror tree of ``depth_gt_root``: for each keyframe of
-    ``root``, the min depth of its own aggregated LiDAR points in each
-    virtual camera's 16 x 16 cells (0 where no point lands), computed by the
-    port's ``ops/depth_labels.py::min_depth_grid_plain`` on the card, saved
-    as ``<out>/<frame path without extension>_depth.npy`` [N, fH, fW]
-    float32 (the layout the JAX package's scripts/gen_depth_gt.py writes).
-    Returns (the share of non-empty cells, the cameras a frame)."""
-    import os
-    from mm_training_tpu_torch.data import FrameLoader, get_frames
-    from mm_training_tpu_torch.ops.depth_labels import EMPTY, min_depth_grid_plain
+def _min_depth_grid(points, extrinsics, intrinsics, img_hw, dtype):
+    """[N, fH, fW] float32 min-depth grids of one frame's points in each of
+    its N cameras (0 where none), projected in ``dtype`` in the order of
+    operations of kernel K6 (``ops/depth_labels.py::_projection``), with
+    its validity rules."""
+    from mm_training_tpu_torch.ops.depth_labels import _projection
+    h, w = img_hw
+    fh, fw = h // 16, w // 16
+    depth, u, v = _projection(points.to(dtype), extrinsics.to(dtype), intrinsics.to(dtype))
+    valid = (depth > 1.0) & (u > 1) & (u < w - 1) & (v > 1) & (v < h - 1)
+    seg = (v.to(torch.int32) // 16) * fw + u.to(torch.int32) // 16
+    seg = torch.where(valid & (seg < fh * fw), seg, fh * fw).to(torch.int64)
+    n = extrinsics.shape[1]
+    grid = torch.full((n, fh * fw + 1), 1e5, dtype=torch.float32, device=points.device)
+    grid.scatter_reduce_(1, seg.reshape(n, -1),
+                         torch.where(valid, depth, 1e5).to(torch.float32).reshape(n, -1), 'amin')
+    return torch.where(grid >= 1e5, 0.0, grid)[:, :fh * fw].reshape(n, fh, fw)
 
-    loader = FrameLoader('train', (-1e9, -1e9, -1e9, 1e9, 1e9, 1e9), use_cam=True,
+
+def check_depth_gt_tool(root, out, cfg, device='cuda'):
+    """The depth-GT mirror tree of ``depth_gt_root``, written by the port's
+    ``scripts/gen_depth_gt.py`` in its aiMotive mode (float64 numpy, one
+    process) for each split of ``root``, held against the grids of the
+    card's projection (kernel K6's order of operations) of the same frames
+    on ``device``: carried out in float64, the same empty cells and the
+    same depths to float32's rounding (1e-6 relative); in float32, as the
+    writer this tool replaced computed them, the cells that differ are
+    counted (a point within float32's rounding of a cell's edge lands in
+    the neighbouring cell). Returns (the share of non-empty cells, the
+    cameras a frame, the tool's seconds, and for float64 and float32 the
+    cells empty in one grid only and the largest relative depth difference
+    where both hold one)."""
+    from mm_training_tpu_torch.data import FrameLoader, get_frames
+    from mm_training_tpu_torch.scripts import gen_depth_gt
+
+    h, w = cfg.final_dim
+    # the frame loader caps a frame's points with a draw of numpy's global
+    # generator: one process and one seed, for the tool and for the frames
+    # read again here, so that both see the same points
+    np.random.seed(SEED + 53)
+    t0 = time.perf_counter()
+    for split in TREE_FRAMES:
+        gen_depth_gt.main(['--data-root', root, '--split', split, '--out', out, '--workers', '1',
+                           '--height', str(h), '--width', str(w)])
+    tool_s = time.perf_counter() - t0
+    np.random.seed(SEED + 53)
+    loader = FrameLoader('val', (-1e9, -1e9, -1e9, 1e9, 1e9, 1e9), use_cam=True,
                          use_lidar=True, use_radar=False, image_size=cfg.final_dim)
-    filled = []
+    filled, diffs = [], {torch.float64: [0, 0.0], torch.float32: [0, 0.0]}
     for split in TREE_FRAMES:
         for path in get_frames(root, split):
             frame = loader[path]
-            pts = torch.as_tensor(frame.points[None, :, :3], device='cuda')
+            got = np.load(os.path.join(out, os.path.splitext(os.path.relpath(path, root))[0]
+                                       + '_depth.npy'))
+            pts = torch.as_tensor(frame.points[None, :, :3], device=device)
             ext = torch.as_tensor(np.stack([c.camera_params.extrinsic for c in frame.cameras])[
-                None], dtype=torch.float32, device='cuda')
-            intr = np.tile(np.eye(4, dtype=np.float32), (len(frame.cameras), 1, 1))
+                None], device=device)
+            intr = np.tile(np.eye(4), (len(frame.cameras), 1, 1))
             intr[:, :3, :4] = [c.camera_params.intrinsic[:3, :4] for c in frame.cameras]
-            grid = min_depth_grid_plain(pts, torch.ones(pts.shape[:2], dtype=torch.bool,
-                                                        device='cuda'), ext,
-                                        torch.as_tensor(intr[None], device='cuda'),
-                                        cfg.final_dim, 16)
-            grid = torch.where(grid >= EMPTY, 0.0, grid).reshape(
-                len(frame.cameras), cfg.final_dim[0] // 16, cfg.final_dim[1] // 16)
-            rel = os.path.relpath(path, root)
-            file = os.path.join(out, os.path.splitext(rel)[0] + '_depth.npy')
-            os.makedirs(os.path.dirname(file), exist_ok=True)
-            np.save(file, grid.cpu().numpy())
-            filled.append(float((grid > 0).float().mean()))
-    return float(np.mean(filled)), len(frame.cameras)
+            for dtype, d in diffs.items():
+                ref = _min_depth_grid(pts, ext, torch.as_tensor(intr[None], device=device),
+                                      cfg.final_dim, dtype).cpu().numpy()
+                both = (got > 0) & (ref > 0)
+                d[0] += int(((got > 0) != (ref > 0)).sum())
+                d[1] = max(d[1], float((np.abs(got - ref) / np.maximum(ref, 1e-30))[both].max(
+                    initial=0.0)))
+            filled.append(float((got > 0).mean()))
+    return (float(np.mean(filled)), got.shape[0], tool_s, *diffs[torch.float64],
+            *diffs[torch.float32])
 
 
 def trainer_child(root, out, result_file, config='lidar_radar'):
@@ -2029,8 +2124,8 @@ def trainer_child(root, out, result_file, config='lidar_radar'):
     read after and every plain version counted; one more epoch under
     torch.profiler for the device's busy share; then ``exps.evaluate`` on
     'best'; with the camera, 2 steps of ``exps.train`` with
-    ``depth_gt_root`` on grids this process writes
-    (:func:`write_depth_grids`), counted the same way; and the imports
+    ``depth_gt_root`` on grids the port's ``scripts/gen_depth_gt.py``
+    writes (:func:`check_depth_gt_tool`), counted the same way; and the imports
     check. Writes its numbers to ``result_file``."""
     import glob
     import os
@@ -2139,15 +2234,17 @@ def trainer_child(root, out, result_file, config='lidar_radar'):
 
     if camera:
         grids = os.path.join(out, 'depth_gt')
-        t0 = time.perf_counter()
         # one grid a camera of the frame: num_cameras must say as many
         # (the JAX dataset refuses fewer grids than num_cameras)
-        filled, n_cams = write_depth_grids(root, grids, factory())
-        grid_s = time.perf_counter() - t0
+        filled, n_cams, grid_s, empty64, worst64, empty32, worst32 = check_depth_gt_tool(
+            root, grids, factory())
         print(f'depth_gt: grids of {sum(TREE_FRAMES.values())} frames x {n_cams} cameras written '
-              f'in {grid_s:.3f} s (the min depth of each frame\'s own points, '
-              f'ops/depth_labels.py::min_depth_grid_plain); {filled:.4f} of the cells hold a '
-              'depth', flush=True)
+              f'by scripts/gen_depth_gt.py in {grid_s:.3f} s; {filled:.4f} of the cells hold a '
+              f'depth; against the card\'s projection in float64: {empty64} cells empty in one '
+              f'only, largest relative depth difference {worst64:.3g}; in float32 (the former '
+              f'writer): {empty32} cells, {worst32:.3g}', flush=True)
+        if empty64 or worst64 > 1e-6:
+            raise AssertionError('the depth-GT tool\'s grids differ from the card\'s projection')
         gt_metrics, gt_counts, gt_wall_s = counted_train(
             ['--config', config, '--data-root', root, '--max-steps', '2', '--max-batches', '1',
              'batch_size=4', 'num_workers=8', f'out_path={os.path.join(out, "depth_gt_run")!r}',
@@ -2161,7 +2258,8 @@ def trainer_child(root, out, result_file, config='lidar_radar'):
             raise AssertionError(f'depth_gt_root: K6 binning {gt_counts["depth_grid_to_onehot"]}'
                                  f' launches, projection {gt_counts["depth_labels"]}')
         result.update(depth_gt_counts=gt_counts, depth_gt_wall_s=gt_wall_s,
-                      depth_gt_filled=filled)
+                      depth_gt_filled=filled, depth_gt_tool_s=grid_s,
+                      depth_gt_cells_off_float32=empty32)
     leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
     if leaked:
         raise AssertionError(f'the trainer path imported {leaked}')
@@ -3493,6 +3591,277 @@ def run_torchrun_trainer(root):
     return result
 
 
+# --- phases 41-45: the nuScenes path (data/nuscenes_dataset.py, the
+# evaluator, scripts/gen_depth_gt.py --dataset nuscenes)
+
+NUSC_SPLITS = {'train': 8, 'val': 4}
+NUSC_TRAIN_KERNELS = ('affine_act', 'affine_act_backward', 'pillar_encoder_input', 'draw_heatmap',
+                      'deform_conv3x3', 'deform_conv3x3_backward', 'depth_labels', 'bda_bev_warp',
+                      'warp_backward', 'lift_splat', 'lift_splat_backward')
+
+
+def nuscenes_config(**kw):
+    """The repo's ``lidar_cam`` at full width on a raw rig (the general
+    splat K8) with six cameras and BEVDepth's six nuScenes tasks."""
+    from mm_training_tpu_torch.configs import lidar_cam, nuscenes_tasks, raw_rig
+    return nuscenes_tasks(raw_rig(lidar_cam(**dict(dict(num_cameras=6), **kw))))
+
+
+def write_nuscenes(root):
+    """Phase 41: a nuScenes tree at nuScenes' sizes
+    (``exps/nuscenes_tree.py``: six 1600 x 900 JPEGs a sample, a LIDAR_TOP
+    key frame and 9 sweeps of 34,720 points, 40 boxes of the ten classes,
+    8 train and 4 val samples, the infos of ``generate_info``), then the
+    port's ``gen_depth_gt --dataset nuscenes`` on both splits."""
+    from mm_training_tpu_torch.exps.nuscenes_tree import write_nuscenes_tree
+    from mm_training_tpu_torch.scripts import gen_depth_gt
+
+    t0 = time.perf_counter()
+    tree = write_nuscenes_tree(root, splits=NUSC_SPLITS, seed=SEED + 60)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for split in NUSC_SPLITS:
+        gen_depth_gt.main(['--dataset', 'nuscenes', '--data-root', root, '--out', root,
+                           '--split', split, '--workers', '8'])
+    bins_s = time.perf_counter() - t0
+    bins = [os.path.join(root, 'depth_gt', f) for f in os.listdir(os.path.join(root, 'depth_gt'))]
+    points_a_bin = np.mean([os.path.getsize(f) / 12 for f in bins])
+    stats = {'files': tree['files'], 'write_s': write_s, 'depth_bins': len(bins),
+             'depth_bins_s': bins_s, 'uvd_points_a_bin': float(points_a_bin),
+             'megabytes': sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                              for f in fs) / 1e6}
+    print(f'phase 41, nuScenes tree: {stats["files"]} files ({stats["megabytes"]:.1f} MB) '
+          f'written in {write_s:.3f} s; gen_depth_gt --dataset nuscenes: {len(bins)} bins '
+          f'({points_a_bin:.0f} points each) in {bins_s:.3f} s', flush=True)
+    if len(bins) != 6 * sum(NUSC_SPLITS.values()) or points_a_bin < 100:
+        raise AssertionError(f'depth bins: {len(bins)}, {points_a_bin} points each')
+    return stats
+
+
+def nuscenes_loader(root, cfg):
+    """Phase 42: ``NuscMVDetDataset`` (train mode) alone: host ms a sample
+    of the JPEG decode, the resize and the LiDAR with its sweeps (timed
+    inside the samples' own calls), of a whole sample, and the samples/s of
+    ``PrefetchLoader`` at B=4 with 8 thread workers (an epoch's second
+    pass)."""
+    from mm_training_tpu_torch.data import NuscMVDetDataset, nuscenes_dataset
+    from mm_training_tpu_torch.data.loader_bench import loader_samples_per_s, mean_ms, stage_clock
+    from mm_training_tpu_torch.training.loader import PrefetchLoader
+
+    ds = NuscMVDetDataset(os.path.join(root, 'nuscenes_infos_train.pkl'), cfg, root)
+    ds[0]                                             # builds the image library
+    n = len(ds)
+    with stage_clock(nuscenes_dataset, 'imread') as dec, \
+            stage_clock(nuscenes_dataset, 'resize_linear') as res, \
+            stage_clock(NuscMVDetDataset, '_load_lidar_points') as lid:
+        sample_ms = mean_ms(ds.__getitem__, range(n))
+    loader = PrefetchLoader(ds, 4, shuffle=True, num_workers=8, seed=SEED + 61)
+    try:
+        rate = loader_samples_per_s(loader, len(loader), warmup=len(loader))
+    finally:
+        loader.close()
+    out = {'sample_ms': sample_ms, 'jpeg_decode_ms': sum(dec) * 1e3 / n,
+           'resize_ms': sum(res) * 1e3 / n, 'lidar_sweeps_ms': sum(lid) * 1e3 / n,
+           'jpegs_a_sample': len(dec) / n, 'loader_samples_per_s': rate}
+    print('phase 42, the nuScenes loader alone (host ms a sample; B=4, 8 threads): '
+          + json.dumps(out), flush=True)
+    if len(dec) != 6 * n or not rate > 0:
+        raise AssertionError(f'nuScenes loader: {out}')
+    return out
+
+
+def _nusc_eval(cfg, eval_step, state, root, out_dir):
+    """One eval pass over the val samples into ``NuScenesEvaluator``; the
+    submission JSON of ``format_results``. Returns (metrics, launches)."""
+    from mm_training_tpu_torch.data import NUSC_CLASSES, NuscMVDetDataset
+    from mm_training_tpu_torch.evaluation import NuScenesEvaluator, format_results
+    from mm_training_tpu_torch.training.loader import PrefetchLoader
+
+    names = np.asarray(NUSC_CLASSES, object)
+    ds = NuscMVDetDataset(os.path.join(root, 'nuscenes_infos_val.pkl'), cfg, root,
+                          is_train=False)
+    loader = PrefetchLoader(ds, cfg.batch_size, num_workers=8, drop_last=False)
+    evaluator = NuScenesEvaluator(NUSC_CLASSES)
+    sub = {'tokens': [], 'boxes': [], 'scores': [], 'names': []}
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        for batch in loader:
+            _, (boxes, scores, labels, valid), _ = eval_step(state, batch)
+            boxes, scores, labels, valid = (t.cpu().numpy() for t in (boxes, scores, labels, valid))
+            for i, token in enumerate(batch['path']):
+                gm, v = batch['gt_mask'][i], valid[i]
+                evaluator.update(batch['gt_boxes'][i][gm], names[batch['gt_labels'][i][gm]],
+                                 boxes[i][v], scores[i][v], names[labels[i][v]])
+                for k, x in zip(sub, (token, boxes[i][v], scores[i][v], names[labels[i][v]])):
+                    sub[k].append(x)
+    finally:
+        loader.close()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    metrics = evaluator.compute()
+    path = os.path.join(out_dir, 'nuscenes_results.json')
+    written = format_results(sub['tokens'], sub['boxes'], sub['scores'], sub['names'], path)
+    with open(path) as f:
+        if json.load(f) != json.loads(json.dumps(written)):
+            raise AssertionError('format_results wrote another JSON than it returned')
+    return metrics, counts, len(sub['tokens']), sum(len(b) for b in sub['boxes'])
+
+
+def train_nuscenes(root, cfg, steps=5):
+    """Phase 43: the nuScenes model (:func:`nuscenes_config`, bf16 compute
+    over float32 masters) trained at B=``cfg.batch_size`` from the phase-41
+    tree through ``NuscMVDetDataset`` and ``PrefetchLoader`` (8 threads,
+    shuffled, an epoch's draws each epoch): 2 warm-up steps and ``steps``
+    timed steps (the host clock of the step alone, a synchronize after
+    each), peak memory, every kernel's launch count reset before and read
+    after; then one eval pass over the val samples through
+    ``make_eval_step`` into ``NuScenesEvaluator`` (mAP, NDS and the TP
+    errors finite) and ``format_results``."""
+    import tempfile
+
+    from mm_training_tpu_torch.data import NuscMVDetDataset
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import (create_train_state, make_eval_step,
+                                                make_train_step)
+    from mm_training_tpu_torch.training.loader import PrefetchLoader
+
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=torch.Generator().manual_seed(SEED + 62))
+    state = create_train_state(cfg, model, steps_per_epoch=NUSC_SPLITS['train'] // cfg.batch_size)
+    train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
+    ds = NuscMVDetDataset(os.path.join(root, 'nuscenes_infos_train.pkl'), cfg, root)
+    loader = PrefetchLoader(ds, cfg.batch_size, shuffle=True, num_workers=8, seed=SEED + 63)
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    lat, losses, parts, done = [], [], [], 0
+    t_wall = time.perf_counter()
+    try:
+        for epoch in range(100):
+            loader.set_epoch(epoch)
+            for batch in loader:
+                t0 = time.perf_counter()
+                state, m = train_step(state, batch)
+                torch.cuda.synchronize()
+                if done >= 2:
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m['train_loss']))
+                parts.append((float(m['train_detection_loss']), float(m['train_depth_loss'])))
+                done += 1
+                if done == 2:
+                    t_wall = time.perf_counter()
+                if done == steps + 2:
+                    break
+            if done == steps + 2:
+                break
+    finally:
+        loader.close()
+    wall_s = time.perf_counter() - t_wall
+    counts = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    p50 = float(np.percentile(lat, 50))
+    with tempfile.TemporaryDirectory() as out_dir:
+        metrics, eval_counts, frames, boxes = _nusc_eval(cfg, eval_step, state, root, out_dir)
+    out = {'batch_size': cfg.batch_size, 'step_p50_ms': p50,
+           'step_p90_ms': float(np.percentile(lat, 90)),
+           'samples_per_s': cfg.batch_size / p50 * 1e3,
+           'samples_per_s_with_loader': cfg.batch_size * steps / wall_s,
+           'peak_gib': peak, 'losses': losses, 'detection_depth_losses': parts,
+           'launches_a_step': {n: counts[n] / (steps + 2) for n in NUSC_TRAIN_KERNELS},
+           'eval_frames': frames, 'eval_boxes': boxes,
+           'nuscenes_metrics': {k: v for k, v in metrics.items() if k != 'per_class'}}
+    print('phase 43, the nuScenes model trained from the loader and evaluated: '
+          + json.dumps(out), flush=True)
+    missing = [n for n in NUSC_TRAIN_KERNELS if counts[n] == 0]
+    if missing:
+        raise AssertionError(f'kernels never launched on the nuScenes train path: {missing}')
+    never = [n for n in ('lift_splat_factorized', 'lift_splat_factorized_backward',
+                         'deform_sample', 'voxelize_pillars_dense') if counts[n]]
+    if never:
+        raise AssertionError(f'the nuScenes train path launched {never}')
+    if (counts['lift_splat'], counts['lift_splat_backward']) != (steps + 2, steps + 2):
+        raise AssertionError(f'K8 and K8\' are not launched once a step: {counts}')
+    if eval_counts['circle_nms_mask'] == 0 or eval_counts['lift_splat'] == 0:
+        raise AssertionError(f'the nuScenes eval pass launched {eval_counts}')
+    if not (np.isfinite(losses).all() and np.isfinite(parts).all()):
+        raise AssertionError('non-finite nuScenes train loss')
+    if frames != NUSC_SPLITS['val'] or not np.isfinite(
+            [metrics[k] for k in ('mAP', 'NDS', 'mATE', 'mASE', 'mAOE', 'mAVE', 'mAAE')]).all():
+        raise AssertionError(f'nuScenes evaluation: {frames} frames, {metrics}')
+    del state, model
+    torch.cuda.empty_cache()
+    return counts, eval_counts, out
+
+
+def train_nuscenes_depth_gt(root, batch_size):
+    """Phase 44: the LiDAR files removed, a camera-only nuScenes config with
+    ``depth_gt_root`` on the phase-41 bins: one full-width step (K6's
+    ``depth_grid_to_onehot`` launched, its projection ``depth_labels`` not),
+    and from the same weights the same batch without ``depth_gt`` (labels
+    from no points): the two depth losses must differ."""
+    import shutil
+
+    from mm_training_tpu_torch.data import NuscMVDetDataset, collate_aim
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import create_train_state, make_train_step
+
+    shutil.rmtree(os.path.join(root, 'sweeps'))
+    shutil.rmtree(os.path.join(root, 'samples', 'LIDAR_TOP'))
+    cfg = nuscenes_config(use_lidar=False, depth_gt_root=root, batch_size=batch_size)
+    ds = NuscMVDetDataset(os.path.join(root, 'nuscenes_infos_train.pkl'), cfg, root)
+    batch = collate_aim([ds[i] for i in range(batch_size)])
+    if batch['point_mask'].any() or not (batch['depth_gt'] > 0).any():
+        raise AssertionError('phase 44: points left, or empty depth grids')
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=torch.Generator().manual_seed(SEED + 64))
+    states = [create_train_state(cfg, model), create_train_state(cfg, copy.deepcopy(model))]
+    step = make_train_step(cfg)
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    _, with_gt = step(states[0], batch)
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    _, without = step(states[1], {k: v for k, v in batch.items() if k != 'depth_gt'})
+    a, b = float(with_gt['train_depth_loss']), float(without['train_depth_loss'])
+    out = {'depth_loss_with_depth_gt': a, 'depth_loss_without': b,
+           'loss': float(with_gt['train_loss']), 'depth_grid_to_onehot':
+           counts['depth_grid_to_onehot'], 'depth_labels': counts['depth_labels']}
+    print('phase 44, camera-only nuScenes step on the precomputed depth bins: '
+          + json.dumps(out), flush=True)
+    if counts['depth_grid_to_onehot'] == 0 or counts['depth_labels']:
+        raise AssertionError(f'phase 44 launches: {counts}')
+    if not (np.isfinite([a, b]).all() and abs(a - b) > 1e-4):
+        raise AssertionError(f'the depth loss does not depend on the depth bins: {out}')
+    del states, model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def compare_cpu_nuscenes():
+    """Phase 45: the fp32 tiny nuScenes config (six cameras on the general
+    splat, the six tasks) on the card against the port's CPU path, on a
+    batch of a small nuScenes tree: predict boxes within 1e-3, scores within
+    1e-4, one train step's loss within 1e-5 (phases 4b and 6; the update
+    where the gradient is strong against the float64 step, see
+    :func:`compare_cpu_train`)."""
+    import tempfile
+
+    from mm_training_tpu_torch.configs import nuscenes_tasks, raw_rig, tiny_test_config
+    from mm_training_tpu_torch.data import NuscMVDetDataset, collate_aim
+    from mm_training_tpu_torch.exps.nuscenes_tree import write_nuscenes_tree
+
+    cfg = nuscenes_tasks(raw_rig(tiny_test_config(use_cam=True, use_radar=False,
+                                                  num_cameras=6)))
+    with tempfile.TemporaryDirectory() as root:
+        info = write_nuscenes_tree(root, splits={'val': 2}, img_hw=(90, 160), points=3000,
+                                   sweeps=2, anns=40, seed=SEED + 65)['info_paths']['val']
+        ds = NuscMVDetDataset(info, cfg, root, is_train=False)
+        batch = collate_aim([ds[0], ds[1]])
+    compare_cpu_reference(cfg, batch=batch)
+    compare_cpu_train(cfg, batch=batch, float64_floor=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3584,6 +3953,28 @@ def main() -> int:
     finally:
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(fisheye_tree, ignore_errors=True)
+
+    nusc_tree = tempfile.mkdtemp(prefix='nusc_tree_')
+    nusc = {}
+    try:
+        t_phase = time.perf_counter()
+        nusc['tree'] = write_nuscenes(nusc_tree)
+        nusc['tree']['phase_s'] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        nusc['loader'] = nuscenes_loader(nusc_tree, nuscenes_config(batch_size=4))
+        nusc['loader']['phase_s'] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        nusc_counts, nusc_eval_counts, nusc['train'] = train_nuscenes(
+            nusc_tree, nuscenes_config(batch_size=4))
+        nusc['train']['phase_s'] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        nusc_gt_counts, nusc['depth_gt'] = train_nuscenes_depth_gt(nusc_tree, 4)
+        nusc['depth_gt']['phase_s'] = time.perf_counter() - t_phase
+    finally:
+        shutil.rmtree(nusc_tree, ignore_errors=True)
+    t_phase = time.perf_counter()
+    compare_cpu_nuscenes()
+    nusc['cpu_reference'] = {'phase_s': time.perf_counter() - t_phase}
     print(f'trainer phases on {card}: ' + json.dumps(dict(tree_stats, **{
         k: v for k, v in trainer.items() if k != 'counts'})), flush=True)
     print(f'camera trainer phases on {card}: ' + json.dumps({
@@ -3603,6 +3994,9 @@ def main() -> int:
     print(f'data-parallel phases (one-rank NCCL step, two gloo ranks, torchrun) on {card}: '
           + json.dumps({'ddp_one_rank': ddp_train, 'gloo_two_ranks': gloo_train,
                         'torchrun': torchrun_trainer}), flush=True)
+    print(f'nuScenes phases (tree, loader, train and eval, precomputed depth, tiny vs CPU) on '
+          f'{card}: ' + json.dumps(nusc) + '; seconds: ' + json.dumps(
+              {k: round(v['phase_s'], 3) for k, v in nusc.items()}), flush=True)
     leaked = [m for m in ('cv2', 'PIL', 'jax', 'mm_training_tpu') if m in sys.modules]
     if leaked:
         raise AssertionError(f'chip_smoke imported {leaked}')
@@ -3626,7 +4020,10 @@ def main() -> int:
                    'train_sparse': sparse_train['counts'][name],
                    'import_loop': imported['counts'][name],
                    'train_ddp_one_rank': ddp_counts[name],
-                   'train_gloo_two_ranks': gloo_counts[name]}
+                   'train_gloo_two_ranks': gloo_counts[name],
+                   'train_nuscenes': nusc_counts[name],
+                   'eval_nuscenes': nusc_eval_counts[name],
+                   'train_nuscenes_depth_gt': nusc_gt_counts[name]}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,
@@ -3641,7 +4038,8 @@ def main() -> int:
                                        'serve_sparse': sparse_serve['counts'][name]
                                        / sparse_serve['requests'],
                                        'train_sparse_step': sparse_train['counts'][name]
-                                       / sparse_train['steps']}
+                                       / sparse_train['steps'],
+                                       'train_nuscenes_step': nusc_counts[name] / 7}
         if row['name'] in ops_per_call:
             row['device_kernels_per_call'] = ops_per_call[row['name']]
     print(json.dumps({'kernels': rows}))

@@ -6,7 +6,7 @@ import dataclasses
 from typing import Optional
 
 from .base import (BackboneConf, Config, DepthNetConf, ImageBackboneConf,
-                   ImageNeckConf, LidarEncoderConf, VoxelizationConf)
+                   ImageNeckConf, LidarEncoderConf, TaskConf, VoxelizationConf)
 
 
 def lidar_only(**kw) -> Config:
@@ -98,3 +98,20 @@ def raw_rig(cfg: Config) -> Config:
     (``mm_training_tpu/training/trainer.py::_disable_factorized_splat``)."""
     return cfg.replace(backbone_conf=dataclasses.replace(cfg.get_backbone_conf(),
                                                          factorized_splat=False))
+
+
+# BEVDepth's six nuScenes tasks (its exps/base_exp.py), in order; their
+# classes taken in order are data/nuscenes_dataset.py::NUSC_CLASSES
+NUSC_TASK_CLASSES = (('car',), ('truck', 'construction_vehicle'), ('bus', 'trailer'),
+                     ('barrier',), ('motorcycle', 'bicycle'), ('pedestrian', 'traffic_cone'))
+# and their circle-NMS radii (its test_cfg min_radius), one a task
+NUSC_MIN_RADIUS = (4.0, 12.0, 10.0, 1.0, 0.85, 0.175)
+
+
+def nuscenes_tasks(cfg: Config) -> Config:
+    """``cfg`` with the head of BEVDepth's six nuScenes tasks and their NMS
+    radii, so that label ids are the indices of ``NUSC_CLASSES``."""
+    head = cfg.get_head_conf()
+    return cfg.replace(head_conf=dataclasses.replace(
+        head, tasks=tuple(TaskConf(len(c), c) for c in NUSC_TASK_CLASSES),
+        test_cfg=dataclasses.replace(head.test_cfg, min_radius=NUSC_MIN_RADIUS)))

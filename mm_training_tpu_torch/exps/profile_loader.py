@@ -5,9 +5,10 @@ Writes an aiMotive tree with the port's writer (LAZ frames of
 ``--images`` also 704 x 1280 front and back JPEGs of the writer's
 ``image_detail``, and with ``--fisheyes`` the two fisheyes) into a
 temporary directory, then prints one JSON line: the host ms a frame of
-the LAZ decode, of a whole assembled frame (decode, radar, range filter,
-the >5-point box filter; with images also the cameras), of the box filter
-alone and of a whole sample (the frame plus BDA and the native packer;
+a whole assembled frame (decode, radar, range filter, the >5-point box
+filter; with images also the cameras) and of the LAZ decodes inside it
+(timed within the frame's own calls, so never more than the frame), of
+the box filter alone and of a whole sample (the frame plus BDA and the native packer;
 with images also the image augmentation), one frame at a time; with
 ``--images`` the frame's camera cost split into the JPEG decode, the
 re-render to virtual pinholes and the augmentation, beside its LiDAR part;
@@ -23,28 +24,20 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import tempfile
-import time
 from typing import Optional, Sequence
 
 import numpy as np
 
 from ..configs import lidar_cam_radar, lidar_radar
 from ..core.boxes import points_in_boxes_mask
-from ..data import AiMotiveDataset, FrameLoader, generate_synthetic_dataset
+from ..data import AiMotiveDataset, FrameLoader, generate_synthetic_dataset, loaders
 from ..data.aimotive_dataset import augment_image_np
-from ..data.loaders import load_camera_data, read_lidar
+from ..data.loader_bench import loader_samples_per_s, mean_ms, stage_clock
+from ..data.loaders import load_camera_data
 from ..training.loader import PrefetchLoader
 
 __all__ = ['main']
-
-
-def _ms(fn, items) -> float:
-    t0 = time.perf_counter()
-    for x in items:
-        fn(x)
-    return (time.perf_counter() - t0) * 1e3 / len(items)
 
 
 def _camera_split(ds: AiMotiveDataset, paths, fisheyes: bool) -> dict:
@@ -63,13 +56,13 @@ def _camera_split(ds: AiMotiveDataset, paths, fisheyes: bool) -> dict:
     rng = np.random.default_rng(0)
     return {
         'cameras': len(virt[0][:cfg.num_cameras]),
-        'jpeg_decode_ms': _ms(lambda w: load_camera_data(*w, True, read_fisheyes=fisheyes),
-                              where),
-        'rerender_ms': _ms(lambda c: fl._virtualize_cameras(
+        'jpeg_decode_ms': mean_ms(
+            lambda w: load_camera_data(*w, True, read_fisheyes=fisheyes), where),
+        'rerender_ms': mean_ms(lambda c: fl._virtualize_cameras(
             c.items, c.front_camera.camera_params.intrinsic), cams),
-        'augment_ms': _ms(lambda v: [augment_image_np(c.image, rng)
-                                     for c in v[:cfg.num_cameras]], virt),
-        'lidar_frame_ms': _ms(lidar_fl.__getitem__, paths),
+        'augment_ms': mean_ms(lambda v: [augment_image_np(c.image, rng)
+                                         for c in v[:cfg.num_cameras]], virt),
+        'lidar_frame_ms': mean_ms(lidar_fl.__getitem__, paths),
     }
 
 
@@ -104,30 +97,27 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         ds = AiMotiveDataset(root, cfg, 'train')
         ds[0]                                         # builds the native libraries
         paths = ds.dataset_index
-        laz = [os.path.join(os.path.dirname(p).replace(os.path.join('box', '3d_body'),
-                                                       'raw-revolutions'),
-                            os.path.basename(p).replace('.json', '.laz')) for p in paths]
         frames = [ds.frame_loader[p] for p in paths]
+        with stage_clock(loaders, 'read_lidar') as decode_s:
+            frame_ms = mean_ms(ds.frame_loader.__getitem__, paths)
         result = {
             'config': 'lidar_cam_radar' if args.images else 'lidar_radar',
             'frames': len(paths),
             'points_a_frame': float(np.mean([len(f.points) for f in frames])),
-            'decode_ms': _ms(read_lidar, laz),
-            'frame_ms': _ms(ds.frame_loader.__getitem__, paths),
-            'box_filter_ms': _ms(lambda f: points_in_boxes_mask(
+            'decode_ms': sum(decode_s) * 1e3 / len(paths),
+            'frame_ms': frame_ms,
+            'box_filter_ms': mean_ms(lambda f: points_in_boxes_mask(
                 f.points[f.points[:, 3] == 0.0], f.objects), frames),
-            'sample_ms': _ms(ds.__getitem__, range(len(ds))),
+            'sample_ms': mean_ms(ds.__getitem__, range(len(ds))),
             'loader_samples_per_s': {},
         }
         if args.images:
             result.update(_camera_split(ds, paths, args.fisheyes))
         for n in args.workers:
             loader = PrefetchLoader(ds, 4, num_workers=n)
-            try:
-                list(loader)
-                t0 = time.perf_counter()
-                count = sum(b['points'].shape[0] for b in loader)
-                result['loader_samples_per_s'][n] = count / (time.perf_counter() - t0)
+            try:                                      # the second pass of an epoch
+                result['loader_samples_per_s'][n] = loader_samples_per_s(
+                    loader, len(loader), warmup=len(loader))
             finally:
                 loader.close()
     print(json.dumps(result))

@@ -307,6 +307,9 @@ def decode_boxes(conf: HeadConf, preds: List[Dict[str, torch.Tensor]]):
                          '(max_num <= H * W * C of each task)')
     boxes, scores, cls, valid = (torch.stack(z, dim=1) for z in zip(*parts))
     b, t, k, _ = boxes.shape                                   # [B, T, K, 9]
+    if len(tc.min_radius) < t:                # the JAX decode indexes min_radius[task]
+        raise ValueError(f'decode_boxes: TestCfg.min_radius holds {len(tc.min_radius)} radii '
+                         f'for {t} tasks; give one a task')
     # rows (batch, task); each task's min_radius goes to the kernel by value
     keep = circle_nms.circle_nms_mask(
         boxes[..., :2].reshape(b * t, k, 2), scores.reshape(b * t, k),

@@ -33,6 +33,10 @@ once. :class:`LiftSplat` joins the two as a
 ``torch.autograd.Function``, which :func:`lift_splat_factorized` takes for
 a CUDA call that needs a gradient; on the CPU the plain version is
 differentiated by autograd, as XLA differentiates the JAX formulation.
+
+Also, in plain PyTorch, the JAX package's two formulations that no path
+calls: :func:`voxel_pooling` (a scatter of point features onto the grid)
+and :func:`lift_splat_matrix` (the ray-matrix form of the splat).
 """
 from __future__ import annotations
 
@@ -46,8 +50,8 @@ from . import build
 __all__ = ['LiftSplat', 'LiftSplatRaw', 'RAW_CHUNK', 'RAW_MAX_C', 'lift_splat',
            'lift_splat_backward', 'lift_splat_backward_plain', 'lift_splat_factorized',
            'lift_splat_factorized_backward', 'lift_splat_factorized_backward_plain',
-           'lift_splat_factorized_plain', 'lift_splat_plain',
-           'raw_splat_atomic_adds', 'splat_atomic_adds']
+           'lift_splat_factorized_plain', 'lift_splat_matrix', 'lift_splat_plain',
+           'raw_splat_atomic_adds', 'splat_atomic_adds', 'voxel_pooling']
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # K8 and K8' keep 8 channels a lane; K8' a warp per 8 channels of a block
@@ -522,3 +526,46 @@ class LiftSplatRaw(torch.autograd.Function):
         depth, ctx, flat_idx = fctx.saved_tensors
         d_depth, d_ctx = lift_splat_backward(g, depth, ctx, flat_idx, fctx.n_cells)
         return d_depth, d_ctx, None, None
+
+
+# ---------------------------------------- the two formulations on no path
+
+def voxel_pooling(geom_xyz: torch.Tensor, features: torch.Tensor, voxel_num) -> torch.Tensor:
+    """Scatter-add point features onto a BEV grid, in plain PyTorch (the
+    port of the JAX package's ``voxel_pooling``, :38-60; the reference's
+    CUDA scatter, ops/voxel_pooling/src/voxel_pooling_forward_cuda.cu:9-36).
+    No path of either package calls it: the camera branch splats through
+    K4 or K8.
+
+    geom_xyz [B, N, 3] integer voxel coordinates (x, y, z), out-of-range
+    points dropped; features [B, N, C]; ``voxel_num`` (nx, ny, nz). Returns
+    [B, ny, nx, C] in the features' dtype (the JAX package's NHWC layout;
+    the reference returns NCHW). Autograd's backward is the gather of the
+    output gradient at each kept point's cell, as the reference's."""
+    nx, ny, nz = (int(v) for v in voxel_num)
+    b, n, c = features.shape
+    g = nx * ny
+    x, y, z = geom_xyz[..., 0], geom_xyz[..., 1], geom_xyz[..., 2]
+    valid = (x >= 0) & (x < nx) & (y >= 0) & (y < ny) & (z >= 0) & (z < nz)
+    flat = torch.where(valid, y * nx + x, g).long()
+    seg = flat + (g + 1) * torch.arange(b, device=flat.device)[:, None]
+    out = torch.zeros(b * (g + 1), c, dtype=features.dtype, device=features.device)
+    out = out.index_add(0, seg.reshape(-1), features.reshape(b * n, c))
+    return out.reshape(b, g + 1, c)[:, :g].reshape(b, ny, nx, c)
+
+
+def lift_splat_matrix(depth: torch.Tensor, ctx: torch.Tensor, flat_idx: torch.Tensor,
+                      n_cells: int) -> torch.Tensor:
+    """The ray-matrix (MatrixVT) form of :func:`lift_splat`, in plain
+    PyTorch (the port of the JAX package's ``lift_splat_matrix``, :115-124;
+    on no path): per camera the depths are summed in float32 into a
+    [n_cells, P] matrix (the trash cell dropped), which multiplies ctx in
+    float32; the result in ctx's dtype. Equal to :func:`lift_splat` up to
+    the order of the sums."""
+    m, d, p = depth.shape
+    pix = torch.arange(p, device=depth.device)
+    seg = (flat_idx.long() * p + pix).reshape(m, d * p)
+    a = torch.zeros(m, (n_cells + 1) * p, dtype=torch.float32, device=depth.device)
+    a.scatter_add_(1, seg, depth.reshape(m, d * p).float())
+    a = a.reshape(m, n_cells + 1, p)[:, :n_cells]
+    return torch.bmm(a, ctx.float()).to(ctx.dtype)

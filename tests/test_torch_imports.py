@@ -1,5 +1,6 @@
 """The port stands alone: no jax, flax or mm_training_tpu import anywhere in
-``mm_training_tpu_torch`` or ``chip_smoke.py``; and its entry points refuse
+``mm_training_tpu_torch`` or ``chip_smoke.py``, nor cv2, PIL or the
+nuscenes-devkit when a module is imported; and its entry points refuse
 to fall back to the CPU when no device is named and there is no card."""
 import os
 import subprocess
@@ -41,9 +42,15 @@ for name in ('mm_training_tpu_torch.ops.gaussian', 'mm_training_tpu_torch.traini
              'mm_training_tpu_torch.models.torch_import',
              'mm_training_tpu_torch.models.torch_export',
              'mm_training_tpu_torch.scripts.import_checkpoint',
-             'mm_training_tpu_torch.exps.parity'):
+             'mm_training_tpu_torch.exps.parity',
+             'mm_training_tpu_torch.data.nuscenes_dataset',
+             'mm_training_tpu_torch.evaluation.nuscenes_eval',
+             'mm_training_tpu_torch.scripts.gen_depth_gt',
+             'mm_training_tpu_torch.scripts.gen_info',
+             'mm_training_tpu_torch.scripts.export_openpcdet',
+             'mm_training_tpu_torch.data.loader_bench'):
     assert importlib.util.find_spec(name) is not None, name
-for banned in ('jax', 'flax', 'mm_training_tpu'):
+for banned in ('jax', 'flax', 'mm_training_tpu', 'cv2', 'PIL', 'nuscenes'):
     sys.modules[banned] = None        # any import of them raises ImportError
 import mm_training_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mm_training_tpu_torch.__path__,
@@ -52,7 +59,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 leaked = [m for m, v in sys.modules.items() if v is not None
-          and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mm_training_tpu')]
+          and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mm_training_tpu', 'cv2', 'PIL',
+                                  'nuscenes')]
 assert not leaked, leaked
 print(len(names))
 """
@@ -78,6 +86,9 @@ import mm_training_tpu_torch.utils.logging, mm_training_tpu_torch.training.tta
 import mm_training_tpu_torch.training.ema, mm_training_tpu_torch.models.torch_import
 import mm_training_tpu_torch.models.torch_export, mm_training_tpu_torch.exps.parity
 import mm_training_tpu_torch.scripts.import_checkpoint
+import mm_training_tpu_torch.data.nuscenes_dataset, mm_training_tpu_torch.data.loader_bench
+import mm_training_tpu_torch.evaluation.nuscenes_eval, mm_training_tpu_torch.scripts.gen_info
+import mm_training_tpu_torch.scripts.gen_depth_gt, mm_training_tpu_torch.scripts.export_openpcdet
 '''
 
 
@@ -87,7 +98,8 @@ def test_lidar_data_path_imports_no_image_codec():
     lines, circles, JET table and PNG encoder are the port's own), TTA and
     EMA import neither cv2 nor PIL (the card's machine promises neither),
     nor jax or mm_training_tpu; nor do the checkpoint import and export,
-    the import script and the parity runbook."""
+    the import script and the parity runbook, the nuScenes dataset and
+    evaluator, the offline tools and the loader bench."""
     out = subprocess.run([sys.executable, '-c', _NO_IMAGE_CODEC], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

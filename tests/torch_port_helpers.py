@@ -366,7 +366,8 @@ def _true_division_normalize(imgs):
 def camera_train_parity_case(use_radar: bool = False, use_lidar: bool = True,
                              use_depth_loss: bool = True, num_sweeps: int = 1,
                              dtype=np.float32, with_eval: bool = True,
-                             rotated_bda: bool = True, pitch_deg: float = 0.0) -> dict:
+                             rotated_bda: bool = True, pitch_deg: float = 0.0,
+                             config_fn=None, batch_fn=None) -> dict:
     """One camera train step of both packages on ``tiny_test_config(
     use_cam=True)`` at narrow widths (:func:`narrow_cam`: 2 cameras of 64 x
     128, 50 depth bins, ResNet-10, DepthNet mid 32) from the same random
@@ -432,7 +433,12 @@ def camera_train_parity_case(use_radar: bool = False, use_lidar: bool = True,
     which move the sample points, and the amplification above turns that
     into float64 gradient differences of up to ~5% of a tensor's largest
     entry (measured). The rotated warp's gradient is held against
-    ``jax.vjp`` on its own (``test_torch_camera_grads.py``)."""
+    ``jax.vjp`` on its own (``test_torch_camera_grads.py``).
+
+    ``config_fn(cfgmod, cfg)``, when given, changes both packages' configs
+    after :func:`narrow_cam` (``cfgmod`` is each package's ``configs``);
+    ``batch_fn(jc, tc)`` gives (JAX batch, port batch) in place of the fake
+    batches (the nuScenes slice's dataset batches)."""
     import jax.numpy as jnp
 
     import mm_training_tpu.configs as jcfg
@@ -453,8 +459,13 @@ def camera_train_parity_case(use_radar: bool = False, use_lidar: bool = True,
               use_depth_loss=use_depth_loss, num_sweeps=num_sweeps)
     jc = narrow_cam(jcfg, jcfg.tiny_test_config(**kw))
     tc = narrow_cam(tcfg, tcfg.tiny_test_config(**kw))
-    jbatch = j_fake_batch(jc, seed=3)
-    batch = make_fake_batch(tc, seed=3)
+    if config_fn is not None:
+        jc, tc = config_fn(jcfg, jc), config_fn(tcfg, tc)
+    if batch_fn is not None:
+        jbatch, batch = batch_fn(jc, tc)
+    else:
+        jbatch = j_fake_batch(jc, seed=3)
+        batch = make_fake_batch(tc, seed=3)
     for k in batch:
         if k in jbatch:
             np.testing.assert_array_equal(batch[k], jbatch[k])
