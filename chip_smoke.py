@@ -256,7 +256,17 @@ Phases, each raising on failure:
  45. the fp32 tiny nuScenes config (six cameras, raw rig, six tasks) on the
      card against the port's CPU path on a nuScenes batch: boxes within
      1e-3, scores within 1e-4, one train step's loss within 1e-5. The five
-     phases print their seconds in the nuScenes summary line.
+     phases print their seconds in the nuScenes summary line;
+ 46. the model axis (``parallel/spatial.py``): two processes in a gloo group
+     on the one card laid out as ``model_parallel=2`` (the head on W halves
+     of the fused BEV, halos and maps through pinned host buffers), full-width
+     ``lidar_radar`` on the 4 frames of phase 39: the float32 step against
+     the one-process step (the step gates), the ranks' parameters the same
+     bits, the eval step's boxes against one process (1e-3 m, 1e-4), each
+     rank's A, A', K1, K2 and K3 launches equal to one process's; the bf16
+     step p50 of the two ranks beside the unsharded step in alternating
+     rounds, the peak memory a rank, the gradient all-reduce and the
+     all-gathers alone; its wall seconds.
 Each path's device-op count is printed beside the count before the
 one-launch K6 and K2 (the tree they replaced).
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -3332,11 +3342,13 @@ def _without_group():
         yield
 
 
-def _kill_all(procs):
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
+def _launches():
+    return {n: w.launches for n, w in _wrappers().items()}
+
+
+def _zero_launches():
+    for w in _wrappers().values():
+        w.launches = 0
 
 
 def train_ddp_one_rank(cfg, rounds=2, steps=3):
@@ -3457,35 +3469,27 @@ def _gloo_case():
     return cfg, model, train_batch(cfg, SEED + 45)
 
 
-def gloo_rank_child(rank, world, rendezvous, result_file):
-    """Phase 39, one rank in a process of its own: a gloo group over CUDA
-    tensors on the one card, this rank's 2 of the 4 frames through the
-    float32 train step (TF32 off), every kernel's launch count reset before
-    and read after; writes the metrics, the parameters after the step, the
-    BN statistics and the counts."""
+def gloo_rank():
+    """Phase 39, one rank of two in a gloo group over CUDA tensors on the
+    one card (``parallel/dryrun.py::spawn_ranks``): this rank's 2 of the 4
+    frames through the float32 train step (TF32 off), every kernel's launch
+    count reset before and read after; returns the metrics, the parameters
+    after the step, the BN statistics and the counts."""
     from mm_training_tpu_torch import parallel
     from mm_training_tpu_torch.training import create_train_state, make_train_step
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    parallel.initialize(backend='gloo', device='cuda:0', init_method=f'file://{rendezvous}',
-                        world_size=world, rank=rank)
-    try:
-        cfg, model, batch = _gloo_case()
-        cfg = cfg.replace(batch_size=cfg.batch_size // world)
-        state = create_train_state(cfg, model)
-        wrappers = _wrappers()
-        for w in wrappers.values():
-            w.launches = 0
-        parallel.reset_counts()
-        state, m = make_train_step(cfg)(state, parallel.shard_batch(batch, 'cuda:0'))
-        torch.cuda.synchronize()
-        torch.save({'metrics': {k: float(v) for k, v in m.items()},
-                    'params': {n: p.detach().cpu() for n, p in model.named_parameters()},
-                    'buffers': {n: b.cpu() for n, b in model.named_buffers()},
-                    'counts': {n: w.launches for n, w in wrappers.items()},
-                    'collectives': dict(parallel.COUNTS)}, result_file)
-    finally:
-        torch.distributed.destroy_process_group()
+    cfg, model, batch = _gloo_case()
+    cfg = cfg.replace(batch_size=cfg.batch_size // parallel.process_count())
+    state = create_train_state(cfg, model)
+    _zero_launches()
+    parallel.reset_counts()
+    state, m = make_train_step(cfg)(state, parallel.shard_batch(batch, 'cuda:0'))
+    torch.cuda.synchronize()
+    return {'metrics': {k: float(v) for k, v in m.items()},
+            'params': {n: p.detach().cpu() for n, p in model.named_parameters()},
+            'buffers': {n: b.cpu() for n, b in model.named_buffers()},
+            'counts': _launches(), 'collectives': dict(parallel.COUNTS)}
 
 
 def train_gloo_two_ranks():
@@ -3496,24 +3500,12 @@ def train_gloo_two_ranks():
     one-process step's own run-to-run difference printed beside it); the two ranks'
     parameters the same bits; A and A' launched on each rank. A
     collective gloo cannot carry fails the phase."""
-    import tempfile
-
+    from mm_training_tpu_torch.parallel import dryrun
     from mm_training_tpu_torch.training import create_train_state, make_train_step
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        files = [os.path.join(tmp, f'rank{r}.pt') for r in range(2)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, '-c', (
-            f'import chip_smoke; chip_smoke.gloo_rank_child({r}, 2, '
-            f'{os.path.join(tmp, "rendezvous")!r}, {files[r]!r})')]) for r in range(2)]
-        try:
-            rcs = [p.wait(timeout=600) for p in procs]
-        finally:
-            _kill_all(procs)
-        if any(rcs):
-            raise AssertionError(f'the gloo ranks failed: exit codes {rcs}')
-        wall_s = time.perf_counter() - t0
-        ranks = [torch.load(f, weights_only=True) for f in files]
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn_ranks(2, 'chip_smoke:gloo_rank', device='cuda:0', backend='gloo')
+    wall_s = time.perf_counter() - t0
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3862,6 +3854,214 @@ def compare_cpu_nuscenes():
     compare_cpu_train(cfg, batch=batch, float64_floor=True)
 
 
+# the kernels of the model-parallel step and eval step (phase 46)
+MP_TRAIN_KERNELS = ('affine_act', 'affine_act_backward', 'pillar_encoder_input', 'draw_heatmap')
+MP_EVAL_KERNELS = ('affine_act', 'pillar_encoder_input', 'draw_heatmap', 'circle_nms_mask')
+
+
+def model_parallel_rank(rounds, steps):
+    """Phase 46, one rank of two in a gloo group on the one card laid out as
+    ``model_parallel=2`` (``parallel/dryrun.py::spawn_ranks``): full-width
+    ``lidar_radar`` on phase 39's 4 frames and weights, the head on this
+    rank's W half of the fused BEV. Float32 (TF32 off): the eval step on the
+    fresh weights, then one train step, every kernel's launch count reset
+    before and read after each. bf16 (TF32 on): the step's peak memory
+    above what is held before it, then ``rounds`` alternating rounds of
+    ``steps`` timed steps of the two ranks together and of the unsharded
+    B=4 step on rank 0 alone (no group: rank 1 waits at a barrier)."""
+    from mm_training_tpu_torch import parallel
+    from mm_training_tpu_torch.configs import lidar_radar
+    from mm_training_tpu_torch.exps.profile_train import train_batch
+    from mm_training_tpu_torch.models import BEVDepthLiDAR
+    from mm_training_tpu_torch.training import (create_train_state, make_eval_step,
+                                                make_train_step)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, batch = _gloo_case()
+    cfg = cfg.replace(model_parallel=2)
+    rows = parallel.shard_batch(batch, 'cuda')
+    state = create_train_state(cfg, model)
+    _zero_launches()
+    parallel.reset_counts()
+    _, (boxes, scores, labels, valid), _ = make_eval_step(cfg)(state, rows)
+    torch.cuda.synchronize()
+    out = {'eval_counts': _launches(), 'eval_collectives': dict(parallel.COUNTS),
+           'eval': [t.cpu() for t in (boxes, scores, labels, valid)]}
+    _zero_launches()
+    parallel.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, m = make_train_step(cfg)(state, rows)
+    torch.cuda.synchronize()
+    out.update(train_counts=_launches(), collectives=dict(parallel.COUNTS),
+               metrics={k: float(v) for k, v in m.items()},
+               fp32_step_above_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               params={n: p.detach().cpu() for n, p in model.named_parameters()},
+               buffers={n: b.cpu() for n, b in model.named_buffers()})
+    del state, model
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg16 = lidar_radar(batch_size=4, max_points_per_frame=100_000, model_parallel=2)
+    gen = torch.Generator().manual_seed(SEED + 46)
+    mp_state = create_train_state(cfg16, BEVDepthLiDAR(cfg16, device='cuda', generator=gen))
+    step16 = make_train_step(cfg16)
+    batch16 = train_batch(cfg16, SEED + 47)
+    rows16 = parallel.shard_batch(batch16, 'cuda')
+    mp_state, _ = step16(mp_state, rows16)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mp_state, _ = step16(mp_state, rows16)
+    torch.cuda.synchronize()
+    out['bf16_step_above_gib'] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    out['bf16_peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    plain = None
+    if parallel.process_index() == 0:
+        with _without_group():
+            cfg1 = cfg16.replace(model_parallel=1)
+            plain = (create_train_state(cfg1, copy.deepcopy(mp_state.model)),
+                     make_train_step(cfg1))
+            plain[1](plain[0], batch16)                        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            plain[1](plain[0], batch16)
+            torch.cuda.synchronize()
+            out['plain_bf16_step_above_gib'] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    lat = {'model_parallel': [], 'plain': []}
+    for r in range(rounds):
+        for label in (('model_parallel', 'plain') if r % 2 == 0 else ('plain', 'model_parallel')):
+            parallel.barrier()
+            if label == 'plain' and plain is None:
+                continue
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                if label == 'plain':
+                    with _without_group():
+                        _, m = plain[1](plain[0], batch16)
+                else:
+                    mp_state, m = step16(mp_state, rows16)
+                float(m['train_loss'])
+                lat[label].append((time.perf_counter() - t0) * 1e3)
+    parallel.barrier()
+    out['bf16_ms'] = lat
+    # where the step's time goes under gloo: the gradient buckets' all-reduce
+    # and a step's all-gathers (as many, of the mean size), alone
+    grads = [torch.randn_like(p) for p in mp_state.model.parameters()]
+    n, nbytes = out['collectives']['all_gather'], out['collectives']['all_gather_bytes']
+    edge = torch.zeros(max(1, nbytes // max(n, 1) // 4), device='cuda')
+    axis = parallel.model_axis()
+    for label, fn in (('grad_all_reduce_ms', lambda: parallel.all_reduce_buckets(grads)),
+                      ('all_gathers_ms', lambda: [parallel.all_gather(edge, axis.group)
+                                                  for _ in range(n)])):
+        times = []
+        for _ in range(3):
+            parallel.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[label] = float(np.median(times))
+    return out
+
+
+def train_model_parallel(rounds=2, steps=4):
+    """Phase 46: the model axis on the card. Two processes in a gloo group on
+    the one card laid out as ``model_parallel=2``, ``data_parallel=1``
+    (:func:`model_parallel_rank`; both ranks read the same 4 frames, the
+    halos and maps cross through pinned host buffers): the float32 step of
+    full-width ``lidar_radar`` against the one-process step at B=4 on the
+    same frames and weights (:func:`within_step_tolerances`; the
+    one-process step's run-to-run difference beside it), the two ranks'
+    parameters the same bits, the eval step's boxes against one process
+    (1e-3 m on centres, 1e-4 on scores), each rank's launches of A, A', K1
+    and K2 a train step and of A, K1, K2 and K3 an eval step equal to the
+    one-process step's; then the bf16 step p50 of the two ranks beside the
+    unsharded step and the peak memory a rank. Prints its wall seconds."""
+    from mm_training_tpu_torch.parallel import dryrun
+    from mm_training_tpu_torch.training import (create_train_state, make_eval_step,
+                                                make_train_step)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn_ranks(2, 'chip_smoke:model_parallel_rank', (rounds, steps),
+                               model_parallel=2, device='cuda:0', backend='gloo', timeout=600)
+    ranks_s = time.perf_counter() - t0
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, batch = _gloo_case()
+    _zero_launches()
+    _, ref, _ = make_eval_step(cfg)(create_train_state(cfg, model), batch)
+    torch.cuda.synchronize()
+    eval_counts = _launches()
+    ref = [t.cpu() for t in ref]
+    old = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    models = [model, copy.deepcopy(model)]
+    _zero_launches()
+    plain = [make_train_step(cfg)(create_train_state(cfg, models[0]), batch)]
+    torch.cuda.synchronize()
+    train_counts = _launches()
+    plain.append(make_train_step(cfg)(create_train_state(cfg, models[1]), batch))
+    got = copy.deepcopy(model)
+    with torch.no_grad():
+        for n, p in got.named_parameters():
+            p.copy_(ranks[0]['params'][n])
+        for n, b in got.named_buffers():
+            b.copy_(ranks[0]['buffers'][n])
+    same = all(torch.equal(ranks[0][k][n], ranks[1][k][n])
+               for k in ('params', 'buffers') for n in ranks[0][k])
+    boxes = [_box_match(ref, r['eval'], 1e-4) for r in ranks]
+    out = {'two_ranks_vs_one': step_comparison(got, ranks[0]['metrics'], model, *plain[0],
+                                               old),
+           'plain_run_to_run': step_comparison(models[1], plain[1][1], model, *plain[0], old),
+           'ranks_same_bits': same,
+           'eval_boxes_matched_worst_m_counted': boxes,
+           'launches_a_rank': {'train': [{n: r['train_counts'][n] for n in MP_TRAIN_KERNELS}
+                                         for r in ranks],
+                               'eval': [{n: r['eval_counts'][n] for n in MP_EVAL_KERNELS}
+                                        for r in ranks]},
+           'launches_one_process': {'train': {n: train_counts[n] for n in MP_TRAIN_KERNELS},
+                                    'eval': {n: eval_counts[n] for n in MP_EVAL_KERNELS}},
+           'collectives_a_rank': {'train': ranks[0]['collectives'],
+                                  'eval': ranks[0]['eval_collectives']},
+           'bf16_step_p50_ms': {k: [float(np.percentile(r['bf16_ms'][k], 50))
+                                    for r in ranks if r['bf16_ms'][k]]
+                                for k in ('model_parallel', 'plain')},
+           'bf16_ms': [r['bf16_ms'] for r in ranks],
+           'bf16_alone_ms': [{k: r[k] for k in ('grad_all_reduce_ms', 'all_gathers_ms')}
+                             for r in ranks],
+           'peak_gib_a_rank': {'bf16_step_above_held': [r['bf16_step_above_gib'] for r in ranks],
+                               'bf16_peak': [r['bf16_peak_gib'] for r in ranks],
+                               'plain_bf16_step_above_held':
+                                   ranks[0]['plain_bf16_step_above_gib'],
+                               'fp32_step_above_held': [r['fp32_step_above_gib']
+                                                        for r in ranks]},
+           'ranks_s': ranks_s}
+    del model, models, plain, got
+    torch.cuda.empty_cache()
+    out['phase_s'] = time.perf_counter() - t0
+    print('phase 46, the model axis: two gloo ranks on the card at model_parallel=2 against '
+          'one process (lidar_radar): ' + json.dumps(out), flush=True)
+    if not (within_step_tolerances(out['two_ranks_vs_one']) and same):
+        raise AssertionError(f'the model-parallel step differs from the one-process step: {out}')
+    if not all(share == 1.0 and worst <= 1e-3 for share, worst, _ in boxes):
+        raise AssertionError(f'the model-parallel eval boxes differ from one process: {boxes}')
+    for r in ranks:
+        if ({n: r['train_counts'][n] for n in MP_TRAIN_KERNELS}
+                != out['launches_one_process']['train']
+                or {n: r['eval_counts'][n] for n in MP_EVAL_KERNELS}
+                != out['launches_one_process']['eval']
+                or r['eval_counts']['circle_nms_mask'] != 1
+                or r['train_counts']['draw_heatmap'] != 1):
+            raise AssertionError(f'model-parallel launches differ from one process: {out}')
+    counts = {n: sum(r['train_counts'][n] + r['eval_counts'][n] for r in ranks)
+              for n in ranks[0]['train_counts']}
+    return counts, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3975,6 +4175,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     compare_cpu_nuscenes()
     nusc['cpu_reference'] = {'phase_s': time.perf_counter() - t_phase}
+    mp_counts, mp_train = train_model_parallel()
     print(f'trainer phases on {card}: ' + json.dumps(dict(tree_stats, **{
         k: v for k, v in trainer.items() if k != 'counts'})), flush=True)
     print(f'camera trainer phases on {card}: ' + json.dumps({
@@ -4023,7 +4224,8 @@ def main() -> int:
                    'train_gloo_two_ranks': gloo_counts[name],
                    'train_nuscenes': nusc_counts[name],
                    'eval_nuscenes': nusc_eval_counts[name],
-                   'train_nuscenes_depth_gt': nusc_gt_counts[name]}
+                   'train_nuscenes_depth_gt': nusc_gt_counts[name],
+                   'train_model_parallel': mp_counts[name]}
         row['launches'] = sum(by_path.values())
         row['launches_by_path'] = by_path
         row['launches_per_request'] = {'serve': counts[name] / calls,

@@ -291,9 +291,10 @@ class Config:
     use_ema: bool = False     # reference defines EMA but leaves it unregistered
     ema_decay: float = 0.9999
     use_tta: bool = False     # 4-way flip ensemble at eval/predict (training/tta.py)
-    # the JAX package's TPU mesh: a model axis that shards the BEV and
-    # several pod slices over DCN. Not ported: data parallelism is
-    # torch.distributed ranks (parallel/), and any other value raises
+    # the (model, data) layout of the ranks (parallel/mesh.py::make_mesh):
+    # model_parallel ranks hold W shards of the fused BEV through the head
+    # (parallel/spatial.py); num_slices nodes lay the data axis out
+    # node-major. Each is at least 1
     model_parallel: int = 1
     num_slices: int = 1
     # K train steps a group of stacked batches (training/train_step.py::
@@ -317,10 +318,9 @@ class Config:
 
     def __post_init__(self):
         for knob in ('model_parallel', 'num_slices'):
-            if getattr(self, knob) != 1:
-                raise ValueError(f'{knob}={getattr(self, knob)}: the TPU mesh is not ported; '
-                                 'the port is data-parallel over torch.distributed ranks '
-                                 '(launch with torchrun), so leave it at 1')
+            if getattr(self, knob) < 1:
+                raise ValueError(f'{knob}={getattr(self, knob)}: the rank layout takes a '
+                                 'count of at least 1')
 
     # ------------------------------------------------------------------ derived
     @property

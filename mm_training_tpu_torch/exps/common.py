@@ -7,9 +7,10 @@ overrides, with the same reproducibility knobs (--seed; the config snapshot
 is written by the Trainer). The port adds ``--device`` (default: the card).
 
 Under ``torchrun`` (``WORLD_SIZE`` in the environment) an entry point runs
-as one rank of a data-parallel group (:func:`process_group`): NCCL on
-``cuda:LOCAL_RANK``, gloo with ``--device cpu``; ``batch_size`` counts a
-rank's samples and only rank 0 prints the result.
+as one rank of a process group (:func:`process_group`): NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``; the trainer lays the ranks
+out by the ``model_parallel`` and ``num_slices`` overrides, ``batch_size``
+counts a data rank's samples and only rank 0 prints the result.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ def process_group(device=None) -> Iterator[torch.device]:
     try:
         yield dev
     finally:
+        parallel.reset_mesh()
         torch.distributed.destroy_process_group()
 
 
@@ -109,5 +111,5 @@ def build_config(args: argparse.Namespace) -> Config:
         kw['max_epochs'] = args.max_epochs
     try:
         return factory(**kw)
-    except ValueError as e:    # a knob the port refuses (model_parallel, num_slices)
+    except ValueError as e:    # a value the Config refuses (model_parallel=0, ...)
         raise SystemExit(str(e)) from None

@@ -1,20 +1,36 @@
-"""Data parallelism over several cards: NCCL ranks, one a card.
+"""Data and model parallelism over several cards: NCCL ranks, one a card.
 
     python -m mm_training_tpu_torch.exps.ddp_cards [--world 4]
+    python -m mm_training_tpu_torch.exps.ddp_cards --world 4 --model-parallel 2
 
-On a machine with ``--world`` cards (and the kernels' toolchain):
+On a machine with ``--world`` cards (and the kernels' toolchain), the ranks
+started by ``parallel/dryrun.py`` (``spawn_ranks``, ``run_one_train_step``)
+and laid out as ``--model-parallel`` M x ``world / M`` (M 1 by default: the
+data axis alone):
 
-1. full-width ``lidar_radar`` in float32 (TF32 off): one train step of
-   ``--world`` ranks at B=2 each against one process at B=2 x world on the
-   same frames from the same weights, beside the one process against itself
-   (``exps/step_checks.py``); the ranks' parameters the same bits;
-2. full-width ``lidar_cam_radar`` in bf16 at B=4 a rank: the step p50 of
-   the ranks (2 warm-up and 6 timed steps, at the same time on their cards)
-   beside one process at B=4 without a group on card 0;
+1. full-width ``lidar_radar`` in float32 (TF32 off): one train step of the
+   ranks against one process on the same frames from the same weights,
+   beside the one process against itself (``exps/step_checks.py``); the
+   ranks' parameters the same bits. The global batch is 2 x world with the
+   data axis alone (B=2 a rank), else 4;
+2. full-width ``lidar_cam_radar`` in bf16: the step p50 (2 warm-up and 6
+   timed steps, the ranks at the same time on their cards) and the peak
+   memory a card, beside one card at B=4. With the data axis alone at B=4
+   a rank (a global batch of 4 x world); else at a global B=4 in the
+   (M, world / M) layout and in the data axis alone (1, world);
+
+with the data axis alone,
+
 3. ``exps.train`` under ``torchrun --nproc_per_node world`` (``lidar_radar``,
    float32, ``batch_size=1``, 2 steps, a val pass, the test pass) against
    one process at ``batch_size=world`` on one tree of LAZ frames: the test
-   losses and the pooled predictions.
+   losses and the pooled predictions;
+
+and with M > 1,
+
+3. the nuScenes config (``lidar_cam`` on a raw rig with six cameras and
+   BEVDepth's six tasks, bf16) at a global B=4: the peak memory a card of
+   the two layouts and of one card.
 
 Each line it prints is a JSON object; the last is ``{"ok": ...}``, and it
 exits non-zero when a check fails.
@@ -36,71 +52,128 @@ import torch
 
 from .step_checks import step_comparison, within_step_tolerances
 
-__all__ = ['main', 'rank_child']
+__all__ = ['layout_rank', 'main']
 
 SEED = 44
 
 
-def _lidar_case(batch_size, device):
-    from ..configs import lidar_radar
-    from ..models import BEVDepthLiDAR
-    from .profile_train import train_batch
-    cfg = lidar_radar(batch_size=batch_size, max_points_per_frame=100_000, precision='fp32')
-    model = BEVDepthLiDAR(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
-    return cfg, model, train_batch(cfg, SEED + 1)
+def _nuscenes_config(**kw):
+    from ..configs import lidar_cam, nuscenes_tasks, raw_rig
+    return nuscenes_tasks(raw_rig(lidar_cam(**dict(dict(num_cameras=6), **kw))))
 
 
-def _camera_p50(device, steps=8, warmup=2):
-    """(p50 ms, each timed step's ms) of the bf16 ``lidar_cam_radar`` step at
-    B=4 on ``device``, each step ending in a host read of its loss."""
+def _memory_and_p50(config, global_batch, steps, warmup, timed):
+    """(peak GiB, the step's peak above what is held before it, p50 ms or
+    None, each timed step's ms) of the bf16 train step of ``config``
+    (``'lidar_cam_radar'`` or ``'nuscenes'``) on this rank's rows of a
+    global batch (one card: all of it), each step ending in a host read of
+    its loss."""
+    from .. import parallel
     from ..configs import lidar_cam_radar
     from ..models import BEVDepthLiDAR
     from ..training import create_train_state, make_train_step
-    from .profile_train import train_batch
-    cfg = lidar_cam_radar(batch_size=4, max_points_per_frame=100_000)
-    model = BEVDepthLiDAR(cfg, device=device, generator=torch.Generator().manual_seed(SEED + 2))
-    state, step, batch = create_train_state(cfg, model), make_train_step(cfg), train_batch(
-        cfg, SEED + 3)
+    from .profile_train import RAW_RIG_PITCH_DEG, train_batch
+    dp = parallel.data_parallel_size()
+    kw = dict(batch_size=global_batch, max_points_per_frame=100_000,
+              model_parallel=parallel.current_mesh().model_parallel)
+    cfg = lidar_cam_radar(**kw) if config == 'lidar_cam_radar' else _nuscenes_config(**kw)
+    batch = train_batch(cfg, SEED + 3, pitch_deg=0.0 if config == 'lidar_cam_radar'
+                        else RAW_RIG_PITCH_DEG)
+    cfg = cfg.replace(batch_size=global_batch // dp)
+    model = BEVDepthLiDAR(cfg, device='cuda', generator=torch.Generator().manual_seed(SEED + 2))
+    state, step = create_train_state(cfg, model), make_train_step(cfg)
+    rows = parallel.shard_batch(batch, 'cuda')
     lat = []
     for i in range(steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        state, m = step(state, batch)
+        state, m = step(state, rows)
         float(m['train_loss'])
         if i >= warmup:
             lat.append((time.perf_counter() - t0) * 1e3)
-    return float(np.percentile(lat, 50)), lat
+    above = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    out = (torch.cuda.max_memory_allocated() / 2 ** 30, above,
+           float(np.percentile(lat, 50)) if timed else None, lat if timed else [])
+    del state, model
+    torch.cuda.empty_cache()
+    return out
 
 
-def rank_child(rank, world, rendezvous, result_file):
-    """Checks 1 and 2 as rank ``rank`` of an NCCL group on ``cuda:rank``;
-    writes the step's metrics, parameters, BN statistics and all-reduces,
-    and the camera step's times, to ``result_file``."""
-    from .. import parallel
+def layout_rank(global_batch, configs):
+    """Check 2 (and with the model axis 3) on this rank, or on one card
+    without a group (module docstring): ``{config: _memory_and_p50(...)}``."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return {c: (_memory_and_p50(c, global_batch, 8, 2, True) if c == 'lidar_cam_radar'
+                else _memory_and_p50(c, global_batch, 2, 1, False)) for c in configs}
+
+
+def _step_check(world, m, global_batch):
+    """Check 1 (module docstring); True when it passes."""
+    from ..configs import lidar_radar
+    from ..models import BEVDepthLiDAR
+    from ..parallel import dryrun
     from ..training import create_train_state, make_train_step
+    from .profile_train import train_batch
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = parallel.initialize(backend='nccl', device=f'cuda:{rank}',
-                                 init_method=f'file://{rendezvous}', world_size=world,
-                                 rank=rank)
-    try:
-        cfg, model, batch = _lidar_case(2 * world, device)
-        cfg = cfg.replace(batch_size=2)
-        parallel.reset_counts()
-        _, m = make_train_step(cfg)(create_train_state(cfg, model),
-                                    parallel.shard_batch(batch, device))
-        torch.cuda.synchronize()
-        result = {'metrics': {k: float(v) for k, v in m.items()},
-                  'params': {n: p.detach().cpu() for n, p in model.named_parameters()},
-                  'buffers': {n: b.cpu() for n, b in model.named_buffers()},
-                  'collectives': dict(parallel.COUNTS)}
-        del model
-        torch.cuda.empty_cache()
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
-        result['camera_p50_ms'], result['camera_ms'] = _camera_p50(device)
-        torch.save(result, result_file)
-    finally:
-        torch.distributed.destroy_process_group()
+    cfg = lidar_radar(batch_size=global_batch, max_points_per_frame=100_000, precision='fp32')
+    model = BEVDepthLiDAR(cfg, device='cuda:0', generator=torch.Generator().manual_seed(SEED))
+    batch = train_batch(cfg, SEED + 1)
+    ranks = dryrun.run_one_train_step(
+        world, m, global_batch, device='cuda:{rank}', backend='nccl',
+        modalities=dict(use_cam=False, use_lidar=True, use_radar=True), batch_np=batch,
+        cfg_factory='mm_training_tpu_torch.configs:lidar_radar', all_ranks=True, seed=SEED,
+        tf32=False, max_points_per_frame=100_000, precision='fp32')
+    old = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    models = [model, copy.deepcopy(model)]
+    plain = [make_train_step(cfg)(create_train_state(cfg, mm), batch) for mm in models]
+    got = copy.deepcopy(model)
+    with torch.no_grad():
+        for n, p in got.named_parameters():
+            p.copy_(torch.from_numpy(ranks[0]['params'][n]))
+        for n, b in got.named_buffers():
+            b.copy_(torch.from_numpy(ranks[0]['buffers'][n]))
+    step = {'ranks_vs_one': step_comparison(got, ranks[0]['metrics'], model, *plain[0], old),
+            'plain_run_to_run': step_comparison(models[1], plain[1][1], model, *plain[0], old),
+            'ranks_same_bits': all(np.array_equal(r[k][n], ranks[0][k][n]) for r in ranks
+                                   for k in ('params', 'buffers') for n in r[k]),
+            'collectives_a_rank': ranks[0]['collectives']}
+    print(json.dumps({f'lidar_radar fp32 step, {world} ranks at model_parallel={m} vs one '
+                      f'process, global B={global_batch}': step}), flush=True)
+    del model, models, plain, got
+    torch.cuda.empty_cache()
+    return step['ranks_same_bits'] and within_step_tolerances(step['ranks_vs_one'])
+
+
+def _layouts(world, m):
+    """Check 2 (and with the model axis 3): each layout's ranks, then one
+    card without a group."""
+    from ..parallel.dryrun import spawn_ranks
+    if m > 1:
+        configs, runs = ('lidar_cam_radar', 'nuscenes'), ((m, 4), (1, 4))
+    else:
+        configs, runs = ('lidar_cam_radar',), ((1, 4 * world),)
+    layouts = {f'({mp}, {world // mp}) at global B={gb}': spawn_ranks(
+        world, 'mm_training_tpu_torch.exps.ddp_cards:layout_rank', (gb, configs),
+        device='cuda:{rank}', model_parallel=mp, backend='nccl', timeout=900)
+        for mp, gb in runs}
+    one = layout_rank(4, configs)
+    for config in configs:
+        print(json.dumps({f'{config} bf16 step, (model, data) layouts on {world} cards beside '
+                          'one card at B=4': {
+                              **{k: {'peak_gib': [r[config][0] for r in rs],
+                                     'step_above_held_gib': [r[config][1] for r in rs],
+                                     'p50_ms': [r[config][2] for r in rs],
+                                     'ms': [r[config][3] for r in rs]}
+                                 for k, rs in layouts.items()},
+                              'one card': {'peak_gib': one[config][0],
+                                           'step_above_held_gib': one[config][1],
+                                           'p50_ms': one[config][2], 'ms': one[config][3]}}}),
+              flush=True)
 
 
 def _run(argv, timeout):
@@ -138,10 +211,11 @@ def _train(world, tree, out):
 def main(argv=None) -> int:
     from ..data import generate_synthetic_dataset
     from ..ops import build
-    from ..training import create_train_state, make_train_step
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument('--world', type=int, default=4)
-    world = args.parse_args(argv).world
+    args.add_argument('--model-parallel', type=int, default=1)
+    parsed = args.parse_args(argv)
+    world = parsed.world
     if torch.cuda.device_count() < world:
         raise RuntimeError(f'{world} ranks need {world} cards, found '
                            f'{torch.cuda.device_count()}')
@@ -150,58 +224,13 @@ def main(argv=None) -> int:
                           check=True).stdout.strip().splitlines()
     print(json.dumps({'cards': card}), flush=True)
     build.build_kernels()
-    ok = True
+    ok = _step_check(world, parsed.model_parallel,
+                     4 if parsed.model_parallel > 1 else 2 * world)
+    _layouts(world, parsed.model_parallel)
+    if parsed.model_parallel > 1:
+        print(json.dumps({'ok': bool(ok)}))
+        return 0 if ok else 1
     with tempfile.TemporaryDirectory() as tmp:
-        files = [os.path.join(tmp, f'rank{r}.pt') for r in range(world)]
-        procs = [subprocess.Popen([sys.executable, '-c', (
-            'from mm_training_tpu_torch.exps import ddp_cards; '
-            f'ddp_cards.rank_child({r}, {world}, {os.path.join(tmp, "rendezvous")!r}, '
-            f'{files[r]!r})')]) for r in range(world)]
-        try:
-            codes = [p.wait(timeout=600) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        if any(codes):
-            raise RuntimeError(f'the ranks exited with {codes}')
-        ranks = [torch.load(f, weights_only=True) for f in files]
-
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        cfg, model, batch = _lidar_case(2 * world, 'cuda:0')
-        old = {n: p.detach().cpu() for n, p in model.named_parameters()}
-        models = [model, copy.deepcopy(model)]
-        plain = [make_train_step(cfg)(create_train_state(cfg, m), batch) for m in models]
-        got = copy.deepcopy(model)
-        with torch.no_grad():
-            for n, p in got.named_parameters():
-                p.copy_(ranks[0]['params'][n])
-            for n, b in got.named_buffers():
-                b.copy_(ranks[0]['buffers'][n])
-        step = {'ranks_vs_one': step_comparison(got, ranks[0]['metrics'], model, *plain[0], old),
-                'plain_run_to_run': step_comparison(models[1], plain[1][1], model, *plain[0],
-                                                    old),
-                'ranks_same_bits': all(torch.equal(r['params'][n], ranks[0]['params'][n])
-                                       for r in ranks for n in old),
-                'collectives_a_rank': ranks[0]['collectives']}
-        ok &= step['ranks_same_bits'] and within_step_tolerances(step['ranks_vs_one'])
-        print(json.dumps({f'lidar_radar fp32 step, {world} ranks at B=2 vs one process at '
-                          f'B={2 * world}': step}), flush=True)
-        del model, models, plain, got
-        torch.cuda.empty_cache()
-
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
-        one_p50, one_ms = _camera_p50('cuda:0')
-        rank_p50 = [r['camera_p50_ms'] for r in ranks]
-        print(json.dumps({f'lidar_cam_radar bf16 step at B=4 a rank, {world} ranks': {
-            'p50_ms': rank_p50, 'samples_per_s': 4 * world / max(rank_p50) * 1e3,
-            'one_process_p50_ms': one_p50, 'one_process_samples_per_s': 4 / one_p50 * 1e3,
-            'ms': [r['camera_ms'] for r in ranks], 'one_process_ms': one_ms}}), flush=True)
-        torch.cuda.empty_cache()
-
         tree = os.path.join(tmp, 'tree')
         for i, (split, n) in enumerate((('train', 16), ('val', 8))):
             generate_synthetic_dataset(tree, splits=(split,), frames_per_sequence=n,

@@ -1,6 +1,7 @@
 """Evaluation entry point (the port of ``mm_training_tpu/exps/evaluate.py``):
 load a checkpoint, run the test pass (losses + BEV mAP + aiMotive-JSON
-export), in one process or under ``torchrun`` as ``exps/train.py`` says.
+export), in one process or under ``torchrun`` as ``exps/train.py`` says
+(``model_parallel`` and ``num_slices`` overrides included).
 
     python -m mm_training_tpu_torch.exps.evaluate --config eval_lidar_radar \\
         --data-root /data/aimotive_dataset ckpt_path=output/lidar_radar/saved_models/best

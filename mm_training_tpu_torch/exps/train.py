@@ -7,11 +7,15 @@ final test pass with the best checkpoint's weights — the reference's
     python -m mm_training_tpu_torch.exps.train --config lidar_radar \\
         --data-root /data/aimotive_dataset [--device cpu] [key=value ...]
 
-Under ``torchrun`` each process is one rank of a data-parallel group
-(``exps/common.py::process_group``):
+Under ``torchrun`` each process is one rank of a process group
+(``exps/common.py::process_group``), data-parallel by default, with
+``model_parallel=2`` two ranks a W-sharded head (``num_slices=2``: the data
+axis node-major over two nodes):
 
     torchrun --nproc_per_node 2 -m mm_training_tpu_torch.exps.train \\
         --config tiny_test_config --device cpu --data-root ROOT [key=value ...]
+    torchrun --nproc_per_node 2 -m mm_training_tpu_torch.exps.train \\
+        --config tiny_test_config --device cpu --data-root ROOT model_parallel=2
 
 ``--profile`` instead traces ``--max-steps`` (default 5) train steps with
 ``torch.profiler`` into ``<out_path>/profile/trace.json`` and exits.

@@ -9,6 +9,11 @@ checkpoints), concatenated ``[camera, lidar]`` on channels and gated by
 ``BEVFuseLayer``, feed the CenterPoint head. Either branch alone feeds the
 head directly. Where the two grids differ, the LiDAR BEV is resized to the
 camera BEV's shape (``ops/warp.py::resize_bilinear``, JAX :91-92).
+
+On a model axis (``parallel.make_mesh(model_parallel > 1)``) the model peers
+run the encoders and the fusion replicated on the same rows, and the head on
+this rank's W range of the fused BEV (``parallel/spatial.py``, JAX :99-102):
+the forward returns this rank's W shard of every pred map.
 """
 from __future__ import annotations
 
@@ -18,9 +23,10 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .. import resolve_device
+from .. import parallel, resolve_device
 from ..configs import Config
 from ..ops import circle_nms, voxel_pooling, voxelize, warp
+from ..parallel import spatial
 from .bn_fold import BatchNorm2d
 from .centerpoint_head import BEVDepthHead, SeparateHead
 from .depth_net import DeformConv2d
@@ -31,7 +37,7 @@ from .sparse_encoder import ImportSparseEncoder
 
 LIDAR_VARIANTS = ('dense', 'sparse_import')
 
-__all__ = ['BEVDepthLiDAR', 'check_card_limits', 'init_weights']
+__all__ = ['BEVDepthLiDAR', 'check_card_limits', 'init_weights', 'sharded_parameters']
 
 
 @torch.no_grad()
@@ -187,5 +193,15 @@ class BEVDepthLiDAR(nn.Module):
             fused = bevs[0]
         if fused.dtype != dtype:
             raise TypeError(f'the fused BEV is {fused.dtype}, not the compute dtype {dtype}')
-        preds = self.head(fused)
+        axis = parallel.model_axis()
+        spatial.check_columns(fused.shape[-1], self.head.total_stride, axis)
+        preds = self.head(spatial.shard_w(fused, axis), axis)
         return (preds, depth) if return_depth else preds
+
+
+def sharded_parameters(model: nn.Module):
+    """For each parameter of ``model`` (``named_parameters`` order): True
+    for the head's, whose gradient a model rank holds a W shard's share of
+    (summed over the world), False for the encoders' and the fusion's, which
+    the model peers run replicated on the same rows (counted once)."""
+    return [n.startswith('head.') for n, _ in model.named_parameters()]

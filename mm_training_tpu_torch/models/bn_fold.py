@@ -85,7 +85,15 @@ def group_moments(n: torch.Tensor, mean: torch.Tensor, m2: torch.Tensor):
     - mean)^2) / sum(n_r)``, which adds no cancellation to the ranks' own
     two-pass moments. Differentiable: the backward is the same all-reduce,
     so each rank's input gradient sees the global statistics' gradient. A
-    global count of 0 gives NaN, as flax's masked mean does."""
+    global count of 0 gives NaN, as flax's masked mean does.
+
+    On a model axis (``parallel/spatial.py``) the rows are the world's: a
+    head pixel lies in one W shard, so it counts once; the encoders run
+    alike on the model peers, so their counts and sums both scale by
+    ``model_parallel``, which leaves the statistics and (each peer adding
+    its share of the backward) the gradients those of the data ranks'
+    rows (``tests/test_torch_model_parallel.py`` holds both to one
+    process)."""
     world, rank = parallel.process_count(), parallel.process_index()
     row = torch.cat([n, mean, m2])
     rows = parallel.all_reduce_sum(F.pad(row[None], (0, 0, rank, world - 1 - rank)))

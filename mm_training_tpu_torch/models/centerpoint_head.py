@@ -10,6 +10,11 @@ box decode, post-centre range, circle NMS through kernel K3, top
 ``post_max_size`` survivors). Names follow mmdet3d (``trunk``, ``neck``,
 ``shared_conv``, ``task_heads.{t}.{head}.{i}``). The head has no layer that
 changes in train mode other than its BatchNorms (``model.train()``).
+
+On a model axis (``parallel/spatial.py``) the head runs on a W shard of the
+fused BEV and returns the shard of every map; ``targets_on_columns`` cuts
+the targets to it, so that ``detection_loss`` covers the shard's cells and
+objects and its normalizers, summed over the world, count each once.
 """
 from __future__ import annotations
 
@@ -21,11 +26,13 @@ from torch import nn
 from .. import parallel
 from ..configs import HeadConf
 from ..ops import circle_nms, gaussian
+from ..parallel import spatial
 from .resnet import ConvBN, ResNet
 from .second_fpn import SECONDFPN
 
 __all__ = ['SeparateHead', 'BEVDepthHead', 'decode_boxes', 'clip_sigmoid',
-           'heatmap_inputs', 'get_targets', 'gaussian_focal_loss', 'detection_loss']
+           'heatmap_inputs', 'get_targets', 'targets_on_columns', 'gaussian_focal_loss',
+           'detection_loss']
 
 
 class SeparateHead(nn.Module):
@@ -50,8 +57,23 @@ class SeparateHead(nn.Module):
                                     padding=final_kernel // 2, bias=True))
             self.add_module(name, nn.Sequential(*layers))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {name: getattr(self, name)(x) for name in self.head_names}
+    def forward(self, x: torch.Tensor, axis=None, padded: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        """Each branch on ``x``; on a model axis ``x`` is a W shard, which
+        with ``padded`` holds the halo of the branches' first convs already
+        (every branch's first conv has the same kernel)."""
+        if axis is None:
+            return {name: getattr(self, name)(x) for name in self.head_names}
+        out = {}
+        for name in self.head_names:
+            y = x
+            for i, layer in enumerate(getattr(self, name)):
+                conv = layer.conv if isinstance(layer, ConvBN) else layer
+                y = spatial.conv2d(conv, y, axis, padded=padded and i == 0)
+                if isinstance(layer, ConvBN):
+                    y = layer.bn(y)
+            out[name] = y
+        return out
 
 
 class BEVDepthHead(nn.Module):
@@ -59,7 +81,8 @@ class BEVDepthHead(nn.Module):
 
     Input [B, C, H/8, W/8] (channels_last); output a list over tasks of
     dicts of NHWC [B, H/4, W/4, ch] maps, the JAX package's layout (views of
-    the channels_last results, no copy)."""
+    the channels_last results, no copy). On a model ``axis`` the input and
+    the maps are this rank's W shards."""
 
     def __init__(self, conf: HeadConf):
         super().__init__()
@@ -77,9 +100,21 @@ class BEVDepthHead(nn.Module):
                          final_kernel=conf.final_kernel, init_bias=conf.init_bias)
             for t in conf.tasks)
 
-    def forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
-        shared = self.shared_conv(self.neck(self.trunk(x)))
-        return [{k: v.permute(0, 2, 3, 1) for k, v in head(shared).items()}
+    @property
+    def total_stride(self) -> int:
+        """The stride of the trunk's last stage: a W shard of the input is
+        a multiple of it."""
+        return self.trunk.total_stride
+
+    def forward(self, x: torch.Tensor, axis=None) -> List[Dict[str, torch.Tensor]]:
+        # the SECONDFPN's convs and transposed convs have kernel = stride:
+        # no halo
+        shared = self.shared_conv(self.neck(self.trunk(x, axis)), axis)
+        padded = axis is not None
+        if padded:       # one halo for the first conv of every branch
+            k = self.conf.final_kernel
+            shared = spatial.halo_pad(shared, *spatial.halo(k, 1, k // 2), axis)
+        return [{k: v.permute(0, 2, 3, 1) for k, v in head(shared, axis, padded).items()}
                 for head in self.task_heads]
 
 
@@ -186,6 +221,23 @@ def get_targets(conf: HeadConf, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
         inds.append(ind[:, :max_objs])
         masks.append(msk[:, :max_objs])
     return heatmaps, anno_boxes, inds, masks
+
+
+def targets_on_columns(targets, lo: int, hi: int):
+    """:func:`get_targets`'s lists cut to the map columns ``[lo, hi)`` of a W
+    shard: the heatmaps sliced, each slot's flat cell index mapped into the
+    shard and its mask cleared where the cell lies in another shard (each
+    object's cell lies in one shard, so the masks summed over the shards
+    count every object once)."""
+    heatmaps, anno_boxes, inds, masks = targets
+    w = heatmaps[0].shape[-1]
+    out_inds, out_masks = [], []
+    for ind, msk in zip(inds, masks):
+        x = ind % w
+        inside = (x >= lo) & (x < hi)
+        out_inds.append(torch.where(inside, ind // w * (hi - lo) + x - lo, 0))
+        out_masks.append(msk * inside.to(msk.dtype))
+    return [h[..., lo:hi] for h in heatmaps], anno_boxes, out_inds, out_masks
 
 
 # -------------------------------------------------------------------- losses

@@ -8,6 +8,12 @@ parameter names are mmdet's (``conv1``/``bn1``, ``layer{i}.{j}.conv1``,
 BatchNorm tail (with its ReLU and, in a block, the residual add) runs
 through kernel A.
 
+On a model axis (``parallel/spatial.py``) the BEV head's trunk runs on a W
+shard: each module's ``forward`` takes the rank's ``axis``, and every conv
+and the stem's max-pool read their halo from the neighbouring shards. With
+``axis`` None (the image backbone, a run without a model axis) they are the
+plain modules.
+
 The stem is the reference's 7x7/2 conv. The JAX image backbone runs the
 same map as its exact space-to-depth form (``_S2DStem``, a masked 4x4 conv
 on the 2x2-blocked image); ``models/weights.py`` turns that kernel back into
@@ -15,12 +21,13 @@ the 7x7 one (``stem_7x7_from_s2d``), so the port needs no second stem.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .bn_fold import BatchNorm2d
 
 __all__ = ['ConvBN', 'BasicBlock', 'Bottleneck', 'DEPTH_CFG', 'ResNet', 'space_to_depth_2x2']
@@ -40,8 +47,8 @@ class ConvBN(nn.Module):
         self.conv = _conv(cin, cout, kernel, stride, conv_bias)
         self.bn = BatchNorm2d(cout, relu=relu)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(self.conv(x))
+    def forward(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        return self.bn(spatial.conv2d(self.conv, x, axis))
 
 
 class BasicBlock(nn.Module):
@@ -60,10 +67,11 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
                                             BatchNorm2d(cout, relu=False))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.bn1(self.conv1(x))
+    def forward(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        out = self.bn1(spatial.conv2d(self.conv1, x, axis))
+        # a 1x1 (strided) conv reads no column beyond a stride-aligned shard
         identity = x if self.downsample is None else self.downsample(x)
-        return self.bn2(self.conv2(out), identity)
+        return self.bn2(spatial.conv2d(self.conv2, out, axis), identity)
 
 
 class Bottleneck(nn.Module):
@@ -86,8 +94,8 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
                                             BatchNorm2d(cout, relu=False))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.bn2(self.conv2(self.bn1(self.conv1(x))))
+    def forward(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        out = self.bn2(spatial.conv2d(self.conv2, self.bn1(self.conv1(x)), axis))
         identity = x if self.downsample is None else self.downsample(x)
         return self.bn3(self.conv3(out), identity)
 
@@ -116,6 +124,8 @@ class ResNet(nn.Module):
             raise ValueError(f'ResNet-{depth}: depths {sorted(DEPTH_CFG)}')
         block, stage_blocks = DEPTH_CFG[depth]
         self.out_indices = tuple(out_indices)
+        # the last stage's stride: the stem's 4 times the stages'
+        self.total_stride = 4 * math.prod(strides[:num_stages])
         self.conv1 = _conv(in_channels, base_channels, 7, 2)
         self.bn1 = BatchNorm2d(base_channels, relu=True)
         cin, width = base_channels, base_channels
@@ -129,11 +139,13 @@ class ResNet(nn.Module):
             self.stage_names.append(f'layer{i + 1}')
             width *= 2
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        x = F.max_pool2d(self.bn1(self.conv1(x)), 3, 2, 1)
+    def forward(self, x: torch.Tensor, axis=None) -> Tuple[torch.Tensor, ...]:
+        x = self.bn1(spatial.conv2d(self.conv1, x, axis))
+        x = spatial.max_pool2d(x, 3, 2, 1, axis)
         outs = []
         for i, name in enumerate(self.stage_names):
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = block(x, axis)
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)

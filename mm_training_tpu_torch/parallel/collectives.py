@@ -17,10 +17,12 @@ summed over the group here, by hand:
   normalizers) in flat buckets before the optimizer reads their norm
   (:func:`all_reduce_buckets`), and the reported losses.
 
-Only all-reduces run on a step's path (gloo reduces CUDA tensors but gathers
-none). Without a process group every helper is the identity, and a single
-process computes what it did before. ``COUNTS`` counts the all-reduces and
-their bytes since the last :func:`reset_counts`.
+On the model axis (``parallel/spatial.py``) the W shards of the head meet in
+all-gathers over the model group (:func:`all_gather`): gloo gathers no CUDA
+tensor, so there a gather goes through pinned host buffers (the compute stays
+on the card). Without a process group every helper is the identity, and a
+single process computes what it did before. ``COUNTS`` counts the
+collectives and their bytes since the last :func:`reset_counts`.
 """
 from __future__ import annotations
 
@@ -31,14 +33,14 @@ import torch.distributed as dist
 
 from .multihost import active
 
-__all__ = ['COUNTS', 'BUCKET_BYTES', 'all_reduce_buckets', 'all_reduce_sum',
+__all__ = ['COUNTS', 'BUCKET_BYTES', 'all_gather', 'all_reduce_buckets', 'all_reduce_sum',
            'broadcast_buckets', 'reset_counts']
 
 # flat buffers of at most this many bytes a collective (a bucket holds one
 # tensor at least, whatever its size)
 BUCKET_BYTES = 25 << 20
 COUNTS: Dict[str, int] = {'all_reduce': 0, 'all_reduce_bytes': 0, 'broadcast': 0,
-                          'broadcast_bytes': 0}
+                          'broadcast_bytes': 0, 'all_gather': 0, 'all_gather_bytes': 0}
 
 
 def reset_counts() -> None:
@@ -67,6 +69,29 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _all_reduce_(grad.clone(memory_format=torch.contiguous_format))
+
+
+def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """``t`` of every rank of ``group``, in the group's rank order, on
+    ``t``'s device (not differentiable; ``parallel/spatial.py`` wraps it).
+    NCCL gathers into one tensor. gloo gathers the bytes of CPU tensors, and
+    a CUDA tensor there goes through a pinned host copy and back."""
+    t = t.contiguous()
+    n = dist.get_world_size(group)
+    COUNTS['all_gather'] += 1
+    COUNTS['all_gather_bytes'] += t.numel() * t.element_size()
+    if dist.get_backend(group) != 'gloo':
+        out = t.new_empty((n,) + tuple(t.shape))
+        dist.all_gather_into_tensor(out, t, group=group)
+        return list(out.unbind(0))
+    host = t
+    if t.is_cuda:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+    raw = host.reshape(-1).view(torch.uint8)       # any dtype: gloo moves the bytes
+    parts = [torch.empty_like(raw) for _ in range(n)]
+    dist.all_gather(parts, raw, group=group)
+    return [p.view(t.dtype).view(t.shape).to(t.device) for p in parts]
 
 
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:

@@ -87,18 +87,21 @@ def is_main_process() -> bool:
     return process_index() == 0
 
 
-def barrier() -> None:
-    """Every rank waits here for the others (torch_dist.synchronize)."""
+def barrier(group=None) -> None:
+    """Every rank of ``group`` (default the world) waits here for the
+    others (torch_dist.synchronize)."""
     if active():
-        dist.barrier()
+        dist.barrier(group)
 
 
-def all_gather_object(obj: Any) -> List[Any]:
-    """``obj`` of every rank, in rank order (torch_dist.all_gather_object):
-    the trainer pools the ranks' mAP accumulations with it. Pickled; the
-    ranks are this program's own processes."""
+def all_gather_object(obj: Any, group=None) -> List[Any]:
+    """``obj`` of every rank of ``group`` (default the world), in the
+    group's rank order (torch_dist.all_gather_object): the trainer pools
+    the data ranks' mAP accumulations with it (``parallel.data_group()``:
+    model peers hold the same rows). Every rank of the group calls it.
+    Pickled; the ranks are this program's own processes."""
     if not active():
         return [obj]
-    out: List[Any] = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
+    out: List[Any] = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out

@@ -102,7 +102,9 @@ def make_optimizer(cfg: Config, params: Iterable[torch.Tensor],
                    steps_per_epoch: int = 1000, global_batch_scale: int = 1) -> AdamW:
     """The config's optimizer over ``params``: lr = ``cfg.learning_rate *
     global_batch_scale``, stepped down by ``lr_gamma`` at each of
-    ``lr_milestones`` (epochs of ``steps_per_epoch`` steps)."""
+    ``lr_milestones`` (epochs of ``steps_per_epoch`` steps). The scale is the
+    data-parallel size (JAX ``trainer.py:176``), not the world's: model
+    peers share their rows."""
     schedule = multistep_schedule(cfg.learning_rate * global_batch_scale,
                                   cfg.lr_milestones, cfg.lr_gamma, steps_per_epoch)
     return AdamW(params, schedule, cfg.gradient_clip_val, cfg.weight_decay)

@@ -50,9 +50,11 @@ from torch import nn
 from .. import parallel
 from ..configs import Config
 from ..models import BEVDepthLiDAR, decode_boxes
+from ..models.bev_depth import sharded_parameters
 from ..models.bn_fold import begin_step
-from ..models.centerpoint_head import detection_loss, get_targets
+from ..models.centerpoint_head import detection_loss, get_targets, targets_on_columns
 from ..ops import depth_labels as depth_label_ops
+from ..parallel import spatial
 from .ema import ema_update
 from .optim import AdamW, make_optimizer
 from .tta import tta_forward
@@ -101,11 +103,15 @@ def create_train_state(cfg: Config, model: BEVDepthLiDAR, steps_per_epoch: int =
     """Step 0 with :func:`~mm_training_tpu_torch.training.optim.make_optimizer`
     over the model's parameters (in ``named_parameters`` order); with
     ``use_ema`` the shadow starts as a copy of the model's state.
-    ``global_batch_scale`` defaults to the process group's size: ``batch_size``
-    counts a rank's samples, and the learning rate follows the global batch
-    (JAX ``trainer.py:168-176``)."""
+    ``global_batch_scale`` defaults to the data-parallel size: ``batch_size``
+    counts a data rank's samples, and the learning rate follows the global
+    batch (JAX ``trainer.py:168-176``); model peers share their rows, so
+    scaling by the world would train at ``model_parallel`` x that rate.
+    Raises unless ``cfg.model_parallel`` is the current mesh's
+    (``parallel.check_layout``), as the step builders do."""
+    parallel.check_layout(cfg.model_parallel)
     if global_batch_scale is None:
-        global_batch_scale = parallel.process_count()
+        global_batch_scale = parallel.data_parallel_size()
     opt = make_optimizer(cfg, model.parameters(), steps_per_epoch, global_batch_scale)
     ema = None
     if cfg.use_ema:
@@ -160,7 +166,8 @@ def depth_loss_fn(depth_labels: torch.Tensor, depth_preds: torch.Tensor,
     1 - 1e-7]. ``sample_mask`` [B] drops a padded eval sample's pixels
     exactly. In a process group the foreground count is the group's, as
     :func:`~mm_training_tpu_torch.models.centerpoint_head.detection_loss`
-    takes its normalizers. Plain torch: the JAX package leaves it to XLA."""
+    takes its normalizers (model peers hold the same rows: counted once).
+    Plain torch: the JAX package leaves it to XLA."""
     d = depth_labels.shape[-1]
     t = depth_labels.reshape(-1, d)
     p = depth_preds.float().permute(0, 2, 3, 1).reshape(-1, d).clamp(1e-7, 1 - 1e-7)
@@ -169,7 +176,7 @@ def depth_loss_fn(depth_labels: torch.Tensor, depth_preds: torch.Tensor,
         fg = fg * sample_mask.to(p.dtype).repeat_interleave(fg.shape[0] // sample_mask.shape[0])
     bce = -(t * torch.log(p) + (1 - t) * torch.log(1 - p))
     per_px = bce.sum(-1) * fg
-    return 3.0 * per_px.sum() / parallel.all_reduce_sum(fg.sum()).clamp_min(1.0)
+    return 3.0 * per_px.sum() / parallel.all_reduce_sum(parallel.once(fg.sum())).clamp_min(1.0)
 
 
 def draw_train_randoms(cfg: Config, imgs_shape, generator: torch.Generator,
@@ -211,7 +218,10 @@ def loss_and_grads(cfg: Config, state: TrainState, batch: Dict[str, Any],
     global batch's, each rank's loss is its rows' share, and the gradients
     and losses returned are summed over the ranks (the gradients in flat
     buckets, one all-reduce each): every rank returns what one process
-    returns on the global batch."""
+    returns on the global batch. On a model axis the head's loss and
+    gradients are this rank's W shard's share; the encoders' and the
+    fusion's gradients and the depth loss, which the model peers compute
+    alike, are model index 0's (``parallel.once``) in the sum."""
     model = state.model
     device = _device(model)
     targets = _targets(cfg, batch, device)
@@ -230,12 +240,20 @@ def loss_and_grads(cfg: Config, state: TrainState, batch: Dict[str, Any],
         model, _compute_weights(cfg, model, False),
         (points, mask) if cfg.use_lidar else (None, None),
         dict(cam, return_depth=True))
+    axis = parallel.model_axis()
+    if axis is not None:
+        targets = targets_on_columns(targets, *spatial.columns(targets[0][0].shape[-1], axis))
     det = detection_loss(cfg.get_head_conf(), targets, cast_floating(preds, torch.float32))
     dep = depth_loss_fn(labels, depth) if cfg.use_cam else torch.zeros((), device=device)
     loss = det + dep
-    grads = parallel.all_reduce_buckets(torch.autograd.grad(loss, params))
+    grads = torch.autograd.grad(loss, params)
+    if axis is not None and axis.index:
+        grads = [g if head else torch.zeros_like(g)
+                 for g, head in zip(grads, sharded_parameters(model))]
+    grads = parallel.all_reduce_buckets(grads)
     if parallel.active():
-        loss, det, dep = parallel.all_reduce_sum(torch.stack([loss, det, dep]).detach())
+        dep = parallel.once(dep)
+        loss, det, dep = parallel.all_reduce_sum(torch.stack([det + dep, det, dep]).detach())
     return loss.detach(), grads, {'detection': det.detach(), 'depth': dep.detach()}
 
 
@@ -261,6 +279,7 @@ def make_train_step(cfg: Config) -> Callable[..., Tuple[TrainState, Dict[str, to
     ``train_loss``, ``train_detection_loss``, ``train_depth_loss`` (0
     without the camera) and ``grad_norm`` (before clipping) as 0-dim
     tensors on the device, read without a host wait."""
+    parallel.check_layout(cfg.model_parallel)
     own = {}
 
     def train_step(state: TrainState, batch: Dict[str, Any],
@@ -269,9 +288,9 @@ def make_train_step(cfg: Config) -> Callable[..., Tuple[TrainState, Dict[str, to
             device = _device(state.model)
             gen = own.setdefault(device, torch.Generator(device=device).manual_seed(cfg.seed))
             shape = tuple(batch['imgs'].shape)
-            world = parallel.process_count()
-            draws = draw_train_randoms(cfg, (shape[0] * world,) + shape[1:], gen, device,
-                                       parallel.process_batch_bounds(shape[0] * world))
+            dp = parallel.data_parallel_size()
+            draws = draw_train_randoms(cfg, (shape[0] * dp,) + shape[1:], gen, device,
+                                       parallel.process_batch_bounds(shape[0] * dp))
         loss, grads, parts = loss_and_grads(cfg, state, batch, draws)
         grad_norm = state.optimizer.step(grads)
         state.step += 1
@@ -324,7 +343,8 @@ def _forward(cfg: Config, model: nn.Module, weights: Optional[Dict[str, torch.Te
              cam: Dict[str, Any], return_depth: bool = True):
     """(float32 preds, depth or None) of an eval-mode forward of ``model``
     (through ``functional_call`` on ``weights`` when given), the 4-way flip
-    ensemble under ``use_tta``."""
+    ensemble under ``use_tta``; on a model axis the whole maps, gathered
+    from the model peers' W shards."""
     if not cfg.use_lidar:
         points = mask = None
     if cfg.use_tta:
@@ -335,6 +355,7 @@ def _forward(cfg: Config, model: nn.Module, weights: Optional[Dict[str, torch.Te
     else:
         out = torch.func.functional_call(model, weights, (points, mask), kw)
     preds, depth = out if return_depth else (out, None)
+    preds = spatial.gather_w(preds, parallel.model_axis())
     return cast_floating(preds, torch.float32), depth
 
 
@@ -350,6 +371,7 @@ def make_eval_step(cfg: Config) -> Callable:
     ``loss``; ``viz``: ``heatmaps`` [T, H, W], each task's max-class heatmap
     of the first sample in sigmoid space, and with the camera ``depth`` [fH,
     fW, D] float32, the first camera's depth distribution."""
+    parallel.check_layout(cfg.model_parallel)
     head_conf = cfg.get_head_conf()
 
     @torch.no_grad()     # not inference_mode: BatchNorm's s, t cache reads versions
@@ -365,12 +387,17 @@ def make_eval_step(cfg: Config) -> Callable:
         sample_valid: Optional[torch.Tensor] = None
         if 'sample_valid' in batch:
             sample_valid = _as(batch, 'sample_valid', torch.bool, device)
-        det = detection_loss(head_conf, _targets(cfg, batch, device), preds,
-                             sample_mask=sample_valid)
+        targets, mine = _targets(cfg, batch, device), preds
+        axis = parallel.model_axis()
+        if axis is not None:       # the loss of this rank's columns
+            targets = targets_on_columns(targets, *spatial.columns(
+                targets[0][0].shape[-1], axis))
+            mine = spatial.local_w(preds, axis)
+        det = detection_loss(head_conf, targets, mine, sample_mask=sample_valid)
         dep = (depth_loss_fn(labels, depth, sample_mask=sample_valid) if cfg.use_cam
                else torch.zeros((), device=device))
         if parallel.active():
-            det, dep = parallel.all_reduce_sum(torch.stack([det, dep]))
+            det, dep = parallel.all_reduce_sum(torch.stack([det, parallel.once(dep)]))
         viz = {'heatmaps': torch.stack([torch.sigmoid(p['heatmap'][0].amax(-1))
                                         for p in preds])}
         if depth is not None:
@@ -495,6 +522,7 @@ def make_predict_step(cfg: Config, model: BEVDepthLiDAR
     model's device. The model's weights are cast once, here (a bf16 copy
     under ``precision == 'bf16'``); ``use_tta`` runs the flip ensemble, its
     depth oracle made once from the unflipped points."""
+    parallel.check_layout(cfg.model_parallel)
     net = cast_floating(model, torch.bfloat16) if cfg.precision == 'bf16' else model
     net.eval()
 
@@ -512,6 +540,7 @@ def make_state_predict_step(cfg: Config
     :func:`_eval_weights` (the EMA shadow under ``use_ema``), as the JAX
     package's ``make_predict_step`` takes its state; the trainer's
     ``predict`` calls it."""
+    parallel.check_layout(cfg.model_parallel)
 
     @torch.no_grad()     # not inference_mode: BatchNorm's s, t cache reads versions
     def predict_step(state: TrainState, batch: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:

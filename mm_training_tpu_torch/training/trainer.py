@@ -38,16 +38,19 @@ pinned memory and to the card with ``non_blocking=True`` on a side stream
 while step i runs; the step's stream waits on the copy's event, and the
 tensors are marked as used by it.
 
-Data parallelism (``parallel/``, a process group formed before the trainer
-is made, e.g. under ``torchrun``): each rank loads its rows of every global
-batch of ``batch_size`` x world samples, starts from rank 0's weights and
-runs the steps, whose statistics, normalizers and gradients are the global
-batch's (``training/train_step.py``); the learning rate follows the global
-batch. Rank 0 alone logs and writes ``config.json`` and the checkpoints
-(every rank waits for each write and reads it on restore); each rank exports
-the JSONs of its own rows; eval pools the ranks' mAP accumulations on rank
-0 and weights each batch's global losses by its global count of valid
-samples, so every rank sees the same val loss and stops at the same epoch.
+Data and model parallelism (``parallel/``, a process group formed before
+the trainer is made, e.g. under ``torchrun``; the trainer lays the ranks out
+by ``model_parallel`` and ``num_slices``, ``parallel.make_mesh``): each data
+rank loads its rows of every global batch of ``batch_size`` x data-parallel
+size samples (its model peers the same rows), starts from rank 0's weights
+and runs the steps, whose statistics, normalizers and gradients are the
+global batch's (``training/train_step.py``); the learning rate follows the
+global batch. Rank 0 alone logs and writes ``config.json`` and the
+checkpoints (every rank waits for each write and reads it on restore); the
+ranks of model index 0 export the JSONs of their own rows; eval pools the
+data ranks' mAP accumulations on rank 0 and weights each batch's global
+losses by its global count of valid samples, so every rank sees the same
+val loss and stops at the same epoch.
 """
 from __future__ import annotations
 
@@ -130,12 +133,15 @@ def initial_loop_state() -> dict:
 class Trainer:
     """Fit, validate and test one model on one device (default the card;
     ``device='cpu'`` runs the kernels' plain versions), alone or as this
-    process's rank of the process group."""
+    process's rank of the process group, laid out by the config's
+    ``model_parallel`` and ``num_slices`` (``self.mesh``; a world the two do
+    not divide raises, naming them)."""
 
     def __init__(self, cfg: Config, data_root: Optional[str] = None,
                  datasets: Optional[Dict[str, object]] = None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = parallel.make_mesh(cfg.model_parallel, cfg.num_slices)
         self.data_root = data_root or cfg.data_root
         self.map_calculator = MAPCalculator()
         self.state: Optional[TrainState] = None
@@ -164,14 +170,20 @@ class Trainer:
                                                     split=split)
         return self._datasets[split]
 
+    @property
+    def data_parallel_size(self) -> int:
+        """Ranks on the data axis (JAX :121-123)."""
+        return self.mesh.data_parallel
+
     def loader(self, split: str) -> PrefetchLoader:
         """Host loader of this rank's ``cfg.batch_size`` rows of each global
-        batch of ``cfg.batch_size`` x world samples (JAX :125-146). Eval
-        loaders pad the trailing global batch (n_valid marker) so no frame
-        is dropped from the metric."""
+        batch of ``cfg.batch_size`` x :attr:`data_parallel_size` samples
+        (JAX :125-146), by its data index. Eval loaders pad the trailing
+        global batch (n_valid marker) so no frame is dropped from the
+        metric."""
         if split not in self._loaders:
             train = split == 'train'
-            global_bs = self.cfg.batch_size * parallel.process_count()
+            global_bs = self.cfg.batch_size * self.data_parallel_size
             self._loaders[split] = PrefetchLoader(
                 self.dataset(split), global_bs,
                 shuffle=train, num_workers=self.cfg.num_workers,
@@ -235,7 +247,7 @@ class Trainer:
         shadow are made, as JAX :209-224 does: the shadow starts from the
         random init. In a process group every rank starts from rank 0's
         parameters and floating buffers (one broadcast a bucket), and the
-        learning rate is scaled by the world size."""
+        learning rate is scaled by the data-parallel size."""
         if not hasattr(self, '_train_step'):
             raise RuntimeError('call setup() before init_state()')
         cfg = self.cfg
@@ -512,10 +524,12 @@ class Trainer:
             consume(*pending)
         out = {f'{prefix}_{k}': v / max(count, 1) for k, v in agg.items()}
         if parallel.process_count() > 1:
-            # pool the ranks' accumulations on rank 0 (JAX :552-560)
-            pooled = parallel.all_gather_object((self.map_calculator.gts,
-                                                 self.map_calculator.preds,
-                                                 self.map_calculator.img_names))
+            # pool the data ranks' accumulations on rank 0 (JAX :552-560);
+            # model peers hold the same rows, and rank 0 is model index 0
+            pooled = [(self.map_calculator.gts, self.map_calculator.preds,
+                       self.map_calculator.img_names)]
+            if self.data_parallel_size > 1:
+                pooled = parallel.all_gather_object(pooled[0], group=parallel.data_group())
             self.map_calculator.reset()
             if parallel.is_main_process():
                 for gts, preds, names in pooled:
@@ -756,6 +770,8 @@ class Trainer:
         self.map_calculator.update(gts, preds, batch.get('path'))
 
     def _export_results(self, batch, boxes, scores, labels, valid):
+        if parallel.model_index():      # model index 0 writes its rows' files
+            return
         save_dir = self.out_path / 'outputs'
         paths = batch.get('path', [])
         paths = paths[:batch.get('n_valid', len(paths))]

@@ -21,7 +21,8 @@ As in the JAX package (its documented deviations from the reference):
     reference's quirk, kept so the decode matches).
 
 The four forwards run as the JAX package runs them: the camera branch
-computes the same result in each.
+computes the same result in each. On a model axis each member's maps are
+gathered from the model peers' W shards before the un-flip.
 """
 from __future__ import annotations
 
@@ -30,6 +31,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from .. import parallel
+from ..parallel import spatial
 
 __all__ = ['tta_forward']
 
@@ -93,6 +97,8 @@ def tta_forward(model: nn.Module, weights: Optional[Dict[str, torch.Tensor]],
         else:
             out = torch.func.functional_call(model, weights, args, kw)
         preds, dp = out if return_depth else (out, None)
+        # the un-flip reverses W: on a model axis it takes the whole maps
+        preds = spatial.gather_w(preds, parallel.model_axis())
         corrected = [_correct_pred({k: v.float() for k, v in p.items()}, x_flip, y_flip)
                      for p in preds]
         if acc is None:

@@ -17,7 +17,7 @@ from mm_training_tpu_torch.exps.common import build_config, parse_args
 
 # the JAX Config's fields the port has not taken yet, each with the module
 # that will read it; a field added to either Config shows in the diff below.
-# None: model_parallel and num_slices are taken, and refuse any value but 1
+# None: model_parallel and num_slices lay out the ranks (parallel/mesh.py)
 NOT_YET_PORTED = set()
 
 
@@ -72,25 +72,56 @@ def test_variant_and_overrides():
 
 
 @pytest.mark.parametrize('argv', [['--config', 'nope'], ['--config', 'lidar_only', 'oops'],
-                                  ['--config', 'lidar_only', 'model_parallel=2']])
+                                  ['--config', 'lidar_only', 'model_parallel=0']])
 def test_bad_variant_or_override_errors(argv):
     """An unknown variant, an override without '=', and a value the port's
-    Config refuses (``model_parallel`` other than 1: the TPU mesh is not
-    ported) exit."""
+    Config refuses (``model_parallel`` under 1) exit."""
     with pytest.raises(SystemExit):
         build_config(parse_args(argv))
 
 
 @pytest.mark.parametrize('knob', ['model_parallel', 'num_slices'])
 def test_tpu_mesh_knobs_raise_naming_the_knob(knob):
-    """``model_parallel`` and ``num_slices`` take the JAX default 1; any
-    other value raises, naming the knob and saying the TPU mesh is not
-    ported, from the Config and through the CLI."""
+    """``model_parallel`` and ``num_slices`` take the JAX default 1 and any
+    count of at least 1, from the Config and through the CLI; a count under
+    1 raises, naming the knob."""
     assert getattr(tcfg.Config(), knob) == 1
-    with pytest.raises(ValueError, match=f'{knob}=2: the TPU mesh is not ported'):
-        tcfg.lidar_radar(**{knob: 2})
+    assert getattr(tcfg.lidar_radar(**{knob: 2}), knob) == 2
+    assert getattr(build_config(parse_args(['--config', 'lidar_only', f'{knob}=2'])), knob) == 2
+    with pytest.raises(ValueError, match=f'{knob}=0: the rank layout takes a count'):
+        tcfg.lidar_radar(**{knob: 0})
     with pytest.raises(SystemExit, match=knob):
-        build_config(parse_args(['--config', 'lidar_only', f'{knob}=2']))
+        build_config(parse_args(['--config', 'lidar_only', f'{knob}=0']))
+
+
+@pytest.mark.parametrize('knob', ['model_parallel', 'num_slices'])
+def test_mesh_knobs_reach_the_trainer_layout(knob, tmp_path):
+    """A knob of 2 from the CLI reaches the trainer's layout: in a world of
+    4 ranks (rank 1, faked: no subgroup is made) two rows or two slices;
+    in one process, a world the knob does not divide, it raises naming the
+    knob."""
+    from unittest import mock
+
+    import torch
+
+    from mm_training_tpu_torch import parallel
+    from mm_training_tpu_torch.training.trainer import Trainer
+    cfg = build_config(parse_args(['--config', 'tiny_test_config', f'{knob}=2',
+                                   f'out_path={str(tmp_path)!r}']))
+    try:
+        with mock.patch.object(parallel.mesh, 'process_count', lambda: 4), \
+                mock.patch.object(parallel.mesh, 'process_index', lambda: 1), \
+                mock.patch.object(torch.distributed, 'is_initialized', lambda: False):
+            tr = Trainer(cfg, device='cpu')
+            want = (np.arange(4).reshape(2, 2) if knob == 'model_parallel'
+                    else np.arange(4)[None])
+            np.testing.assert_array_equal(tr.mesh.layout, want)
+            assert tr.data_parallel_size == want.shape[1]
+            tr.close()
+        with pytest.raises(ValueError, match=f'{knob}=2'):
+            Trainer(cfg, device='cpu')
+    finally:
+        parallel.reset_mesh()
 
 
 def test_extra_flags_and_device():

@@ -1280,3 +1280,30 @@ def test_sparse_import_model_runs_the_masked_kernels(gen):
     before = affine_act.affine_act_masked_backward.launches
     make_train_step(cfg)(state, batch)
     assert affine_act.affine_act_masked_backward.launches - before == 21
+
+
+def test_halo_pad_and_sharded_affine_act_match_unsharded(gen):
+    """Two gloo ranks on the card at ``model_parallel=2`` (the halo and the
+    BN moments through pinned host buffers): a train-mode 3x3 ConvBN on W
+    shards (kernel A on the whole map's statistics, A' its backward) equals
+    the unsharded one on the card in float32 (TF32 off; the conv's sums in
+    another order: 1e-4), each rank launching A and A' once."""
+    import importlib
+    import os
+
+    from mm_training_tpu_torch.parallel import dryrun
+    # by path: another installed package may be named ``tests``
+    here = os.path.dirname(os.path.abspath(__file__))
+    ranks = dryrun.spawn_ranks(2, 'torch_mp_worker:cuda_shard_case', model_parallel=2,
+                               device='cuda:0', backend='gloo', env={'PYTHONPATH': os.pathsep.join(
+                                   [here, os.path.dirname(here)])})
+    want = importlib.import_module('torch_mp_worker').cuda_shard_case()
+    assert want['launches'] == (1, 1)
+    for key in ('y', 'dx'):
+        got = np.concatenate([r[key] for r in ranks], axis=-1)
+        np.testing.assert_allclose(got, want[key], rtol=1e-4,
+                                   atol=1e-4 * np.abs(want[key]).max(), err_msg=key)
+    for name, w in want['dparams'].items():
+        np.testing.assert_allclose(sum(r['dparams'][name] for r in ranks), w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=name)
+    assert [r['launches'] for r in ranks] == [(1, 1), (1, 1)]

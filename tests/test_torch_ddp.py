@@ -1,8 +1,9 @@
 """Data parallelism of the port (``mm_training_tpu_torch/parallel``): a gloo
 world of 2 CPU processes against one process on the same global batch.
 
-One module fixture starts the world (``tests/torch_ddp_worker.py``, which
-imports the port only), and while its ranks run, this process runs the same
+One module fixture starts the world (``parallel/dryrun.py::spawn_ranks`` on
+``tests/torch_ddp_worker.py``, which imports the port only), and while its
+ranks run, this process runs the same
 cases without a process group on the whole global batch. Each case is a
 test of its own: the BatchNorm statistics, plain and masked (a rank whose
 mask is empty), and their gradients; the loss normalizers with one positive
@@ -20,6 +21,7 @@ summed over two ranks' shares differs from the one-process sum by float32
 rounding: held to 1e-6 relative. Their gradients are elementwise with the
 same normalizers, and the rest of the float64 step is held to 1e-9.
 """
+import concurrent.futures
 from unittest import mock
 
 import numpy as np
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from mm_training_tpu_torch import parallel
+from mm_training_tpu_torch.parallel import dryrun
 from mm_training_tpu_torch.training.loader import PrefetchLoader
 from tests import torch_ddp_worker as cases
 
@@ -36,17 +39,18 @@ RANK_ROWS = [(r * cases.GLOBAL_B // WORLD, (r + 1) * cases.GLOBAL_B // WORLD)
 
 
 @pytest.fixture(scope='module')
-def world(tmp_path_factory):
+def world():
     """(the one-process results, each rank's results)."""
-    tmp = str(tmp_path_factory.mktemp('ddp'))
-    procs = cases.start_world(WORLD, tmp)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        single = cases.run_cases()
-    finally:
-        torch.set_num_threads(threads)
-        ranks = cases.finish_world(procs, tmp)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        future = pool.submit(dryrun.spawn_ranks, WORLD, 'tests.torch_ddp_worker:rank_cases',
+                             device='cpu')
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            single = cases.run_cases()
+        finally:
+            torch.set_num_threads(threads)
+        ranks = future.result()
     assert [(x['rank'], x['world']) for x in ranks] == [(r, WORLD) for r in range(WORLD)]
     return single, ranks
 

@@ -7,18 +7,16 @@ test_dp8_matches_dp1``: the same harness on the JAX side
 (``parallel/dryrun.py::run_one_train_step`` over one CPU device, its
 synthesized initial variables, the global batch of 8 from
 ``make_fake_batch``, the learning rate of the global batch), and its
-tolerances (loss 1e-4, parameters 5e-4). The port's ranks
-(``tests/torch_ddp_worker.py::step_case``) start from those variables
-carried over by ``state_dict_from_flax``, take 4 rows each and, with the
-camera, the JAX step's own flips and dropout masks, recorded through a
+tolerances (loss 1e-4, parameters 5e-4). The port's gloo CPU ranks
+(``mm_training_tpu_torch/parallel/dryrun.py::run_one_train_step``) start
+from those variables carried over by ``state_dict_from_flax``, take 4 rows
+each and, with the camera, the JAX step's own flips and dropout masks, recorded through a
 patched ``jax.random.bernoulli``."""
-import pickle
-
 import jax
 import numpy as np
 import pytest
 
-from tests import torch_ddp_worker as worker
+from mm_training_tpu_torch.parallel import dryrun
 from tests import torch_port_helpers as helpers
 
 GLOBAL_BATCH = 8
@@ -30,7 +28,7 @@ WORLD = 2
     dict(use_cam=True, use_lidar=True, use_radar=True),
 ])
 @pytest.mark.slow
-def test_two_ranks_match_jax_one_device(modalities, tmp_path):
+def test_two_ranks_match_jax_one_device(modalities):
     import mm_training_tpu.configs as jcfg
     from mm_training_tpu.data.fake_batch import make_fake_batch
     from mm_training_tpu.parallel.dryrun import _initial_variables, run_one_train_step
@@ -49,16 +47,15 @@ def test_two_ranks_match_jax_one_device(modalities, tmp_path):
     finally:
         jax.random.bernoulli = bernoulli
     tc = tcfg.tiny_test_config(batch_size=GLOBAL_BATCH, **modalities)
-    spec = {'modalities': modalities, 'batch': batch_np,
-            'state': state_dict_from_flax(params, stats, tc), 'draws': None}
+    state = state_dict_from_flax(params, stats, tc)
+    recorded = None
     if modalities['use_cam']:
         assert sorted(draws) == list(range(1 + tc.num_sweeps)), sorted(draws)
-        spec['draws'] = {'flipped': draws[0], 'dropout': [draws[1 + i].copy()
-                                                          for i in range(tc.num_sweeps)]}
-    with open(tmp_path / 'spec.pkl', 'wb') as f:
-        pickle.dump(spec, f)
-    ranks = worker.finish_world(worker.start_world(WORLD, str(tmp_path), tmp_path / 'spec.pkl'),
-                                str(tmp_path))
+        recorded = {'flipped': draws[0], 'dropout': [draws[1 + i].copy()
+                                                     for i in range(tc.num_sweeps)]}
+    ranks = dryrun.run_one_train_step(WORLD, 1, GLOBAL_BATCH, device='cpu',
+                                      modalities=modalities, batch_np=batch_np, state=state,
+                                      draws=recorded, all_ranks=True)
 
     want = {k: t.numpy() for k, t in state_dict_from_flax(p1, stats, tc).items()}
     for r in ranks:
@@ -68,5 +65,5 @@ def test_two_ranks_match_jax_one_device(modalities, tmp_path):
             r['metrics'], m1)
         max_diff = max(float(np.abs(v - want[n]).max()) for n, v in r['params'].items())
         assert max_diff < 5e-4, f'2 ranks vs JAX dp=1 param max-diff {max_diff}'
-    assert sum(float(np.abs(v - spec['state'][n].numpy()).sum())
+    assert sum(float(np.abs(v - state[n].numpy()).sum())
                for n, v in ranks[0]['params'].items()) > 0

@@ -48,7 +48,8 @@ for name in ('mm_training_tpu_torch.ops.gaussian', 'mm_training_tpu_torch.traini
              'mm_training_tpu_torch.scripts.gen_depth_gt',
              'mm_training_tpu_torch.scripts.gen_info',
              'mm_training_tpu_torch.scripts.export_openpcdet',
-             'mm_training_tpu_torch.data.loader_bench'):
+             'mm_training_tpu_torch.data.loader_bench',
+             'mm_training_tpu_torch.parallel.spatial', 'mm_training_tpu_torch.parallel.dryrun'):
     assert importlib.util.find_spec(name) is not None, name
 for banned in ('jax', 'flax', 'mm_training_tpu', 'cv2', 'PIL', 'nuscenes'):
     sys.modules[banned] = None        # any import of them raises ImportError
@@ -73,6 +74,16 @@ def test_port_and_chip_smoke_import_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the package, the camera, runtime and import slices' included
     assert int(out.stdout.split()[-1]) >= 70
+
+
+def test_every_module_of_the_jax_package_has_its_port():
+    """The two packages' file lists differ only by the port's own extra
+    files: every module of ``mm_training_tpu/`` has its namesake in
+    ``mm_training_tpu_torch/`` (``parallel/dryrun.py`` the last, with the
+    model axis)."""
+    def modules(pkg):
+        return {p.relative_to(ROOT / pkg).as_posix() for p in (ROOT / pkg).rglob('*.py')}
+    assert modules('mm_training_tpu') - modules('mm_training_tpu_torch') == set()
 
 
 _NO_IMAGE_CODEC = '''

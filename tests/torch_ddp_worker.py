@@ -1,18 +1,14 @@
 """The cases of ``tests/test_torch_ddp.py``, run by each rank of a gloo world
-of CPU processes and, in the test process itself, by one process without a
+of CPU processes (``parallel/dryrun.py::spawn_ranks``, whose ranks import
+the port only: jax, flax and the JAX package are barred from their
+interpreters) and, in the test process itself, by one process without a
 group on the same global batches.
-
-    python tests/torch_ddp_worker.py RANK WORLD INIT_FILE OUT_FILE [SPEC_FILE]
 
 Each case takes this rank's rows ``[lo, hi)`` of a global batch made from a
 seed (``parallel.process_batch_bounds``; all of it without a group) and
-returns what the test compares as numpy arrays. The worker imports the port
-only: jax, flax and the JAX package are barred from its interpreter.
+returns what the test compares as numpy arrays.
 """
 import dataclasses
-import os
-import pickle
-import sys
 
 import numpy as np
 import torch
@@ -236,90 +232,7 @@ def run_cases() -> dict:
             'eval_padded': eval_case()}
 
 
-def step_case(spec_file) -> dict:
-    """One train step of this rank on its rows of the pickled global batch
-    of ``tests/test_torch_dp_equivalence.py``: the tiny config of its
-    modalities at this rank's share of the batch, the pickled starting
-    weights, the pickled random draws (flips [B*S*N], ASPP's keep masks
-    [B*N, fH, fW, mid] a sweep) sliced to its rows."""
+def rank_cases() -> dict:
+    """:func:`run_cases` on a rank, with its rank and world."""
     from mm_training_tpu_torch import parallel
-    from mm_training_tpu_torch.configs import tiny_test_config
-    from mm_training_tpu_torch.models import BEVDepthLiDAR
-    from mm_training_tpu_torch.training import create_train_state, make_train_step
-    with open(spec_file, 'rb') as f:
-        spec = pickle.load(f)
-    b = len(spec['batch']['gt_boxes'])
-    cfg = tiny_test_config(batch_size=b // parallel.process_count(), **spec['modalities'])
-    model = BEVDepthLiDAR(cfg, device='cpu')
-    model.load_state_dict(spec['state'])
-    state = create_train_state(cfg, model, steps_per_epoch=10)
-    lo, hi = _bounds(b)
-    draws = None
-    if spec['draws'] is not None:
-        sn = cfg.num_sweeps * cfg.num_cameras
-        draws = {'flipped': torch.from_numpy(spec['draws']['flipped'][lo * sn:hi * sn]),
-                 'dropout': [torch.from_numpy(k[lo * cfg.num_cameras:hi * cfg.num_cameras])
-                             .permute(0, 3, 1, 2) for k in spec['draws']['dropout']]}
-    state, m = make_train_step(cfg)(state, parallel.shard_batch(spec['batch'], 'cpu'), draws)
-    return {'metrics': {k: float(v) for k, v in m.items()},
-            'params': {n: _np(p) for n, p in model.named_parameters()}}
-
-
-def start_world(world: int, tmp, spec_file=None):
-    """Start ``world`` ranks of this script in ``tmp`` (a rendezvous file
-    there, one result file a rank); returns their processes."""
-    import subprocess
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS='1')
-    extra = [] if spec_file is None else [str(spec_file)]
-    return [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(r), str(world),
-         os.path.join(tmp, 'rendezvous'), os.path.join(tmp, f'rank{r}.pkl')] + extra,
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(world)]
-
-
-def finish_world(procs, tmp, timeout=600):
-    """Each rank's results, in rank order, once every rank has exited 0;
-    raises with every rank's output tail otherwise (one rank's failure
-    shows on the others as a collective's error)."""
-    outs = []
-    try:
-        outs = [p.communicate(timeout=timeout)[0].decode() for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(p.returncode for p in procs):
-        raise AssertionError('\n'.join(f'--- rank {i} (rc {p.returncode}) ---\n{o[-3000:]}'
-                                       for i, (p, o) in enumerate(zip(procs, outs))))
-    results = []
-    for r in range(len(procs)):
-        with open(os.path.join(tmp, f'rank{r}.pkl'), 'rb') as f:
-            results.append(pickle.load(f))
-    return results
-
-
-def main(argv):
-    """RANK WORLD INIT_FILE OUT_FILE [SPEC_FILE]: the cases, or with a
-    SPEC_FILE :func:`step_case`."""
-    rank, world, init_file, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
-    for banned in ('jax', 'jaxlib', 'flax', 'mm_training_tpu'):
-        sys.modules[banned] = None          # any import of them raises ImportError
-    torch.set_num_threads(1)
-    from mm_training_tpu_torch import parallel
-    parallel.initialize(device='cpu', init_method=f'file://{init_file}', world_size=world,
-                        rank=rank)
-    try:
-        results = step_case(argv[4]) if len(argv) > 4 else run_cases()
-        results['rank'] = parallel.process_index()
-        results['world'] = parallel.process_count()
-        with open(out, "wb") as f:
-            pickle.dump(results, f)
-    finally:
-        torch.distributed.destroy_process_group()
-
-
-if __name__ == '__main__':
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    main(sys.argv[1:])
+    return dict(run_cases(), rank=parallel.process_index(), world=parallel.process_count())
