@@ -1,0 +1,4 @@
+"""``device_idle_pct`` of a train step (``benchmark/harness/readers.py``)."""
+from benchmark.harness.readers import for_file
+
+read = for_file(__file__)

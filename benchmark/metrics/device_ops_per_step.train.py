@@ -1,0 +1,4 @@
+"""``device_ops_per_step`` of a train step (``benchmark/harness/readers.py``)."""
+from benchmark.harness.readers import for_file
+
+read = for_file(__file__)

@@ -1,0 +1,4 @@
+"""``mfu_pct`` of a predict step (``benchmark/harness/readers.py``)."""
+from benchmark.harness.readers import for_file
+
+read = for_file(__file__)
